@@ -1,0 +1,311 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port (``src/repro_torch``) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (nvcc, one
+process per source, in parallel), then:
+
+  1. handle, fused path — ``prepare`` a 16,384 x 256 fp32 design with
+     ``SolverSpec(method="bakp_fused")`` and serve a cold, a k=8 multi-RHS,
+     a tenant's cold and warm (drifted ``y``) solve, plus ``solve()`` calls
+     for bakp / bakp_gram / lstsq / normal;
+  2. kernel entry, per-sweep path — ``solvebakp_kernel`` on a 262,144 x
+     1,024 fp32 design (1 GiB), k=8, block=256, over the on-chip budget, and
+     the same handle's ``bakp_fused`` falling back to the plain path;
+  3. each kernel against its plain torch version on the same inputs, on the
+     card, and timed with CUDA events beside its roofline bound;
+  4. a ``kernels`` summary line, the card's name and power limit, and the
+     result line ``{"ok": true, "device": {...}}``.
+
+Launch counts are reset just before phase 1 and read just after phase 2, so
+they count the main path only.  Inputs are Gaussian designs with a planted
+``a_true`` and ``y = x @ a_true`` from a fixed seed.  Any failed check, build
+or launch error exits non-zero without the result line; so does a host with
+no CUDA device, or a directory without the repository's ``src/``.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+SEED = 0
+# Accuracy of a solve against the planted coefficients: max |coef - a_true|
+# over max |a_true|.
+COEF_TOL = 1e-4
+# Kernel against its plain version: the sums run in another order (a
+# fixed-order cross-CTA reduction against cuBLAS), so they agree to fp32
+# rounding, not bit for bit.  Errors are max |kernel - plain| over the
+# largest magnitude of the reference quantity.
+KERNEL_TOL = 1e-4
+# Published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and fp32
+# (non-tensor-core) FLOP/s.
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOP_PER_S = 67e12
+
+_failures: list = []
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def check(ok: bool, what: str) -> None:
+    if not ok:
+        _failures.append(what)
+        print(f"CHECK FAILED: {what}", file=sys.stderr, flush=True)
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    src = Path(__file__).resolve().parent / "src"
+    if not (src / "repro_torch").is_dir():
+        print(f"chip_smoke: {src}/repro_torch not found; run from a checkout "
+              f"of the repository", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(src))
+
+    from repro_torch.core import SolverSpec, prepare, solve
+    from repro_torch.kernels import _build, solvebakp_kernel
+    from repro_torch.kernels.cd_sweep import (_bakp_sweep_cuda,
+                                              bakp_sweep_plain)
+    from repro_torch.kernels.fused_solve import (_fused_cuda, fused_fits,
+                                                 fused_solve_plain,
+                                                 solve_init)
+    from repro_torch.core.types import atol_to_sse
+    from repro_torch.obs import (consume_dispatch, fallback_counts,
+                                 reset_counters)
+
+    # fp32 matmuls in full fp32 on the plain paths (PyTorch's default, set
+    # here so the comparison does not depend on the environment).
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    props = torch.cuda.get_device_properties(0)
+    emit({"phase": "device", "name": props.name,
+          "sms": props.multi_processor_count,
+          "l2_bytes": getattr(props, "L2_cache_size", None),
+          "memory_bytes": props.total_memory, "torch": torch.__version__,
+          "cuda": torch.version.cuda})
+
+    t0 = time.perf_counter()
+    logs = _build.build_all()
+    regs = {n: [ln.strip() for ln in log.splitlines() if "Used" in ln]
+            for n, log in logs.items()}
+    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "ptxas": regs})
+
+    def sync():
+        torch.cuda.synchronize()
+
+    def rel(a, b, scale=None) -> float:
+        s = (b if scale is None else scale).abs().max().item() or 1.0
+        return (a - b).abs().max().item() / s
+
+    def request(name, method, fn, truth, want_path):
+        consume_dispatch()
+        sync()
+        t = time.perf_counter()
+        res = fn()
+        sync()
+        ms = (time.perf_counter() - t) * 1e3
+        path = consume_dispatch()
+        err = rel(res.coef, truth)
+        emit({"phase": name, "method": method, "path": path,
+              "n_sweeps": int(res.n_sweeps), "latency_ms": ms,
+              "max_rel_err": err})
+        check(err <= COEF_TOL, f"{name}/{method}: coef error {err}")
+        check(path == want_path, f"{name}/{method}: path {path}, "
+                                 f"want {want_path}")
+        return res
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    # ------------------------------------------------------- main path
+    _build.reset_launch_counts()
+    reset_counters()
+
+    # Phase 1: the handle on the fused path.
+    obs1, vars1, thr1, k = 16_384, 256, 128, 8
+    x1 = randn(obs1, vars1)
+    a1 = randn(vars1)
+    a1k = randn(vars1, k)
+    y1, y1k = x1 @ a1, x1 @ a1k
+    spec1 = SolverSpec(method="bakp_fused", rtol=1e-7, max_iter=100)
+    check(fused_fits(vars1, obs1, k, 4, max_iter=spec1.max_iter),
+          "phase 1 design must fit the fused budget")
+    p1 = prepare(x1, spec1)
+    request("handle", "bakp_fused", lambda: p1.solve(y1), a1, "fused")
+    request("handle_k8", "bakp_fused", lambda: p1.solve(y1k), a1k, "fused")
+    cold = request("handle_tenant_cold", "bakp_fused",
+                   lambda: p1.solve(y1, tenant_id="tenant-0"), a1, "fused")
+    a1d = a1 + 0.01 * randn(vars1)
+    y1d = x1 @ a1d
+    warm = request("handle_tenant_warm", "bakp_fused",
+                   lambda: p1.solve(y1d, tenant_id="tenant-0"), a1d, "fused")
+    check(int(warm.n_sweeps) < int(cold.n_sweeps),
+          f"warm solve took {int(warm.n_sweeps)} sweeps, cold "
+          f"{int(cold.n_sweeps)}")
+    for m in ("bakp", "bakp_gram", "lstsq", "normal"):
+        request("solve_shim", m,
+                lambda m=m: solve(x1, y1, method=m, rtol=1e-7, max_iter=100),
+                a1, "xla")
+
+    # Phase 2: the kernel entry on the per-sweep path, 1 GiB design.
+    obs2, vars2, thr2 = 262_144, 1_024, 256
+    x2 = randn(obs2, vars2)
+    a2k = randn(vars2, k)
+    y2k = x2 @ a2k
+    spec2 = SolverSpec(method="bakp_fused", thr=thr2, rtol=1e-7, max_iter=100)
+    check(not fused_fits(vars2, obs2, k, 4, max_iter=spec2.max_iter),
+          "phase 2 design must be over the fused budget")
+    p2 = prepare(x2, spec2)
+    x2t, inv2 = p2.x_t_for(thr2), p2.inv_cn_for(thr2)
+    request("kernel_entry", "solvebakp_kernel",
+            lambda: solvebakp_kernel(x2t, y2k, inv_cn=inv2, block=thr2,
+                                     max_iter=100, rtol=1e-7),
+            a2k, "persweep")
+    request("handle_over_budget", "bakp_fused", lambda: p2.solve(y2k), a2k,
+            "xla")
+    check(fallback_counts().get(("bakp_fused", "vmem"), 0) >= 1,
+          "bakp_fused over budget must record reason=vmem")
+
+    launches = _build.launch_counts()
+    emit({"phase": "main_path_launches", **launches})
+    for name, n in launches.items():
+        check(n > 0, f"kernel {name} was not launched on the main path")
+
+    # ------------------------------------------ kernels against plain
+    def cuda_ms(fn, iters):
+        for _ in range(2):
+            fn()
+        sync()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        sync()
+        return start.elapsed_time(end) / iters
+
+    def bound(nbytes, flops):
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / FP32_FLOP_PER_S * 1e3
+        return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+    rows = {}
+
+    def sweep_case(label, x_t, inv, nrhs, block, iters):
+        nv, no = x_t.shape
+        e = randn(nrhs, no)
+        da, e_k = _bakp_sweep_cuda(x_t, e, inv, block=block, omega=1.0)
+        da_p, e_p = bakp_sweep_plain(x_t, e, inv, block=block)
+        sync()
+        err_da, err_e = rel(da, da_p), rel(e_k, e_p, scale=e)
+        check(err_da <= KERNEL_TOL and err_e <= KERNEL_TOL,
+              f"bakp_sweep {label}: rel err da {err_da}, e {err_e}")
+        ms = cuda_ms(lambda: _bakp_sweep_cuda(x_t, e, inv, block=block,
+                                              omega=1.0), iters)
+        plain = cuda_ms(lambda: bakp_sweep_plain(x_t, e, inv, block=block),
+                        iters)
+        nbytes = 4 * (nv * no + nv + 2 * nrhs * no + nv * nrhs)
+        b_ms, b_by = bound(nbytes, 4 * nv * no * nrhs)
+        max_abs = max((da - da_p).abs().max().item(),
+                      (e_k - e_p).abs().max().item())
+        row = {"shape": [nv, no, nrhs, block], "max_abs_err": max_abs,
+               "rel_err_da": err_da, "rel_err_e": err_e, "ms": ms,
+               "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by}
+        emit({"phase": "kernel_vs_plain", "kernel": "bakp_sweep",
+              "case": label, **row})
+        return row
+
+    def fused_case(label, x_t, inv, y, block, max_iter, rtol, iters):
+        nv, no = x_t.shape
+        nrhs = y.shape[1] if y.dim() == 2 else 1
+        inv_cn, a0m, e0 = solve_init(x_t, y, inv, None, y.dim() == 2)
+        kw = dict(block=block, max_iter=max_iter,
+                  atol_sse=atol_to_sse(no, nrhs, 0.0), rtol=rtol, omega=1.0)
+        ck, ek, hk, sk, nk, _ = _fused_cuda(x_t, inv_cn, e0, a0m, **kw)
+        cp, ep, hp, sp, np_, _ = fused_solve_plain(x_t, inv_cn, e0, a0m, **kw)
+        sync()
+        nk, np_ = int(nk), int(np_)
+        err_c, err_e = rel(ck, cp), rel(ek, ep, scale=e0)
+        if rtol == 0.0:
+            check(nk == np_ == max_iter,
+                  f"fused {label}: n_sweeps {nk} vs {np_}")
+        else:
+            check(abs(nk - np_) <= 1, f"fused {label}: n_sweeps {nk} vs {np_}")
+        check(err_c <= KERNEL_TOL and err_e <= KERNEL_TOL,
+              f"fused {label}: rel err coef {err_c}, e {err_e}")
+        ms = cuda_ms(lambda: _fused_cuda(x_t, inv_cn, e0, a0m, **kw), iters)
+        plain = cuda_ms(lambda: fused_solve_plain(x_t, inv_cn, e0, a0m, **kw),
+                        iters)
+        nbytes = 4 * (nv * no + nv + 2 * nrhs * no + 2 * nv * nrhs + max_iter)
+        b_ms, b_by = bound(nbytes, 4 * nk * nv * no * nrhs)
+        max_abs = max((ck - cp).abs().max().item(),
+                      (ek - ep).abs().max().item())
+        row = {"shape": [nv, no, nrhs, block], "n_sweeps": nk,
+               "n_sweeps_plain": np_, "max_abs_err": max_abs,
+               "rel_err_coef": err_c, "rel_err_e": err_e, "ms": ms,
+               "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by}
+        emit({"phase": "kernel_vs_plain", "kernel": "fused_solve",
+              "case": label, **row})
+        return row
+
+    x1t, inv1 = p1.x_t_for(thr1), p1.inv_cn_for(thr1)
+    sweep_case("phase1_k8", x1t, inv1, k, thr1, 50)
+    sweep_case("phase1_k1", x1t, inv1, 1, thr1, 50)
+    rows["bakp_sweep"] = sweep_case("phase2_k8", x2t, inv2, k, thr2, 10)
+    fused_case("phase1_k1_fixed20", x1t, inv1, y1 + 0.1 * randn(obs1), thr1,
+               20, 0.0, 10)
+    rows["fused_solve"] = fused_case("phase1_k8_fixed20", x1t, inv1,
+                                     y1k + 0.1 * randn(obs1, k), thr1, 20,
+                                     0.0, 10)
+    fused_case("phase1_k8_rtol", x1t, inv1, y1k, thr1, 100, 1e-7, 5)
+    # Same design and work at half the block width: twice the column
+    # blocks, so 2·nblocks+1 = 9 grid barriers per sweep instead of 5.
+    fused_case("phase1_k1_thr64_fixed20", p1.x_t_for(64), p1.inv_cn_for(64),
+               y1 + 0.1 * randn(obs1), 64, 20, 0.0, 10)
+
+    src_of = {"bakp_sweep": ("src/repro_torch/kernels/csrc/bakp_sweep.cu",
+                             "src/repro/kernels/cd_sweep.py:108"),
+              "fused_solve": ("src/repro_torch/kernels/csrc/fused_solve.cu",
+                              "src/repro/kernels/fused_solve.py:94")}
+    emit({"kernels": [
+        {"name": name, "route": "cuda", "source": src_of[name][0],
+         "replaces": src_of[name][1], "launches": launches[name],
+         "max_abs_err": rows[name]["max_abs_err"], "ms": rows[name]["ms"],
+         "plain_ms": rows[name]["plain_ms"],
+         "bound_ms": rows[name]["bound_ms"],
+         "bound_by": rows[name]["bound_by"], "library_ms": None}
+        for name in ("bakp_sweep", "fused_solve")]})
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    print(smi.stdout.strip().splitlines()[0], flush=True)
+
+    if _failures:
+        print("chip_smoke: FAILED:\n  " + "\n  ".join(_failures),
+              file=sys.stderr)
+        return 1
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

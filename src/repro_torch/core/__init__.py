@@ -1,0 +1,44 @@
+"""repro_torch.core — the BAK solver family's handle API in PyTorch.
+
+A frozen ``SolverSpec`` names the method and its knobs; ``prepare(x, spec)``
+builds a ``PreparedDesign`` owning the reusable per-design state on the GPU;
+``handle.solve(y, a0)`` runs cheap per-RHS solves.  ``solve`` and
+``fit_linear_probe`` are one-shot shims.
+
+Layout (mirrors ``repro.core``):
+  spec.py       SolverSpec + the port's method registry (MethodEntry).
+  prepare.py    prepare()/PreparedDesign, prepared_from_arrays.
+  methods.py    bakp / bakp_gram / bakp_fused / lstsq / normal.
+  solvebakp.py  Algorithm 2 + gram mode, plain torch.
+  types.py      SolveResult, norms, sweep_stop_flags.
+  api.py        solve, fit_linear_probe.
+"""
+from repro_torch.core.api import fit_linear_probe, solve
+from repro_torch.core.prepare import (PreparedDesign, design_fingerprint,
+                                      prepare, prepared_from_arrays)
+from repro_torch.core.solvebakp import block_gram_cholesky, solvebakp
+from repro_torch.core.spec import (PRECISIONS, MethodEntry, SolverSpec,
+                                   UnsupportedSpecError, method_names,
+                                   methods_for_precision, register_method,
+                                   solver_method)
+from repro_torch.core.types import SolveResult
+
+__all__ = [
+    "MethodEntry",
+    "PRECISIONS",
+    "PreparedDesign",
+    "SolveResult",
+    "SolverSpec",
+    "UnsupportedSpecError",
+    "block_gram_cholesky",
+    "design_fingerprint",
+    "fit_linear_probe",
+    "method_names",
+    "methods_for_precision",
+    "prepare",
+    "prepared_from_arrays",
+    "register_method",
+    "solve",
+    "solvebakp",
+    "solver_method",
+]

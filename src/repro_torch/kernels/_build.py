@@ -1,0 +1,130 @@
+"""Build and load the hand-written CUDA kernels (``csrc/*.cu``).
+
+Each ``csrc/<name>.cu`` compiles with ``nvcc`` into its own shared library
+with a plain C interface, loaded through ``ctypes``.  Nothing is built at
+import: the first call that needs a kernel builds it, or ``build_all()``
+builds every source at once, one ``nvcc`` process per source, all started
+together.  Libraries land in ``kernels/build/`` (git-ignored) under a name
+carrying a hash of the sources and flags, so an edited source rebuilds and
+an unchanged one loads as it is.
+
+Launch counts also live here: every wrapper adds one to ``LAUNCHES[name]``
+where it launches its kernel, and nowhere else.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from collections import Counter
+from pathlib import Path
+from typing import Dict, List, Optional
+
+CSRC = Path(__file__).parent / "csrc"
+BUILD_DIR = Path(__file__).parent / "build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+# Launch count per kernel name (the ``csrc`` file stem).
+LAUNCHES: Counter = Counter()
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# C signatures of every entry point, by library.
+SIGNATURES: Dict[str, Dict[str, list]] = {
+    "bakp_sweep": {
+        "bakp_sweep_grid": [_I, _I, _P],
+        "bakp_sweep_launch": [_P] * 7 + [_I] * 4 + [_F, _I, _P],
+    },
+    "fused_solve": {
+        "bakp_fused_grid": [_I, _I, _P],
+        "bakp_fused_launch": [_P] * 13 + [_I] * 5 + [_F] * 3 + [_I, _P],
+    },
+}
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def launch_counts() -> Dict[str, int]:
+    return {name: LAUNCHES[name] for name in SIGNATURES}
+
+
+def reset_launch_counts() -> None:
+    LAUNCHES.clear()
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                       "toolkit (set CUDA_HOME or put nvcc on PATH)")
+
+
+def _lib_path(name: str) -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(CSRC.glob("*.cu*")):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def _start(name: str) -> subprocess.Popen:
+    out = _lib_path(name)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+
+def build_all(names: Optional[List[str]] = None) -> Dict[str, str]:
+    """Compile every (or the named) missing library in parallel; returns the
+    compiler's output (``-Xptxas -v`` register and shared-memory report) per
+    library built.  Raises ``RuntimeError`` if any build fails."""
+    names = list(SIGNATURES) if names is None else names
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with _lock:
+        procs = {n: _start(n) for n in names if not _lib_path(n).exists()}
+        logs, failed = {}, []
+        for n, proc in procs.items():
+            logs[n] = proc.communicate()[0]
+            tmp = _lib_path(n).with_suffix(f".{os.getpid()}.tmp")
+            if proc.returncode != 0:
+                failed.append(n)
+                tmp.unlink(missing_ok=True)
+            else:
+                os.replace(tmp, _lib_path(n))
+                (BUILD_DIR / f"{n}.log").write_text(logs[n])
+    if failed:
+        raise RuntimeError("nvcc failed for " + ", ".join(failed) + ":\n"
+                           + "\n".join(logs[n] for n in failed))
+    return logs
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library ``name``, built first if it is missing."""
+    lib = _libs.get(name)
+    if lib is not None:
+        return lib
+    build_all([name])
+    with _lock:
+        if name not in _libs:
+            lib = ctypes.CDLL(str(_lib_path(name)))
+            for fn, argtypes in SIGNATURES[name].items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = ctypes.c_int
+            _libs[name] = lib
+        return _libs[name]
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a C entry returned a CUDA error code."""
+    if err != 0:
+        raise RuntimeError(f"{what} failed with cudaError_t {err}")

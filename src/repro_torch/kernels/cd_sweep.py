@@ -1,0 +1,146 @@
+"""One SolveBakP sweep: the CUDA kernel ``csrc/bakp_sweep.cu`` and its plain
+torch version.
+
+Counterpart of ``repro.kernels.cd_sweep`` (``bakp_block_update``,
+``bakp_sweep``).  The Algorithm-1 sweep (``cd_sweep``, ``bak_row_update``)
+arrives with its own slice.
+
+``bakp_sweep`` follows the device of the tensors it is given: CPU tensors
+run the plain version (``bakp_sweep_plain``), CUDA tensors launch the
+kernel, and anything else raises.  The kernel splits obs across a
+cooperative grid of CTAs (see ``csrc/bakp_block.cuh``).
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+
+# On-chip budget of the whole-solve kernel's working set, in bytes; replaces
+# the JAX package's TPU figure ``VMEM_BUDGET_BYTES`` (64 MiB of VMEM).  The
+# port's fused kernel reads x through the L2 cache every sweep, so the
+# budget is an L2 figure: 40 MiB, 80% of an H100's 50 MiB L2, leaving the
+# rest to the scratch, the residual traffic and other streams' lines (see
+# PERF.md).  A fixed constant keeps dispatch deterministic on any host;
+# ``fused_fits`` reads it at call time, so tests may patch it.
+ON_CHIP_BUDGET_BYTES = 40 * 1024 * 1024
+
+# Shared memory the kernels may take for one block's increments (block·k
+# fp32); an H100 block can use up to 227 KB.
+SMEM_DA_LIMIT_BYTES = 200 * 1024
+
+# Fewest obs one CTA of the cooperative grid owns.
+MIN_OBS_PER_CTA = 128
+
+_grid_cache: dict = {}
+
+
+def bakp_block_update(xb: torch.Tensor, inv: torch.Tensor, e: torch.Tensor,
+                      omega: float):
+    """One Algorithm-2 block update on loaded values (plain torch).
+
+    Args: xb (CB, obs) block; inv (CB, 1); e (k, obs); omega relaxation.
+    Returns (da, e'): (CB, k) increments and the corrected residual(s).
+    """
+    g = xb @ e.T                                          # (CB, k)
+    da = omega * g * inv
+    return da, e - da.T @ xb
+
+
+def bakp_sweep_plain(x_t, e2, inv_cn, *, block, omega=1.0):
+    """Plain version of the sweep kernel on the (k, obs) layout: returns
+    (da (vars, k), e' (k, obs))."""
+    nvars = x_t.shape[0]
+    inv = inv_cn.reshape(nvars, 1).float()
+    e = e2.float()
+    das = []
+    for b in range(0, nvars, block):
+        da, e = bakp_block_update(x_t[b:b + block].float(), inv[b:b + block],
+                                  e, omega)
+        das.append(da)
+    return torch.cat(das), e
+
+
+def cooperative_grid(lib_fn, obs: int, k: int, block: int) -> int:
+    """CTAs for a cooperative launch: at most what the card holds at once
+    for this kernel, and at least ``MIN_OBS_PER_CTA`` obs per CTA."""
+    key = (lib_fn.__name__, torch.cuda.current_device(), k, block)
+    if key not in _grid_cache:
+        out = ctypes.c_int(0)
+        _build.check(lib_fn(k, block, ctypes.addressof(out)),
+                     lib_fn.__name__)
+        _grid_cache[key] = out.value
+    return max(1, min(_grid_cache[key], -(-obs // MIN_OBS_PER_CTA)))
+
+
+def check_kernel_args(x_t: torch.Tensor, nrhs: int, block: int, *tensors):
+    """What the CUDA kernels take: fp32 contiguous x_t on one device with
+    every other operand, vars a multiple of block, and one block's
+    increments within shared memory."""
+    if x_t.dtype != torch.float32:
+        raise TypeError(f"the CUDA kernels take fp32 x_t, got {x_t.dtype}")
+    if not x_t.is_contiguous():
+        raise ValueError("x_t must be contiguous (vars, obs)")
+    if x_t.shape[0] % block:
+        raise ValueError(
+            f"vars ({x_t.shape[0]}) must be a multiple of block ({block})")
+    for t in tensors:
+        if t is not None and t.device != x_t.device:
+            raise ValueError(f"operands on {t.device} and {x_t.device}")
+    if block * nrhs * 4 > SMEM_DA_LIMIT_BYTES:
+        raise ValueError(
+            f"block·k = {block}·{nrhs} increments exceed the kernels' "
+            f"{SMEM_DA_LIMIT_BYTES} bytes of shared memory; reduce block or "
+            f"split the right-hand sides")
+
+
+def _bakp_sweep_cuda(x_t, e2, inv_cn, *, block, omega):
+    nvars, obs = x_t.shape
+    nrhs = e2.shape[0]
+    check_kernel_args(x_t, nrhs, block, e2, inv_cn)
+    lib = _build.load("bakp_sweep")
+    dev = x_t.device
+    with torch.cuda.device(dev):
+        grid = cooperative_grid(lib.bakp_sweep_grid, obs, nrhs, block)
+        e_in = e2.float().contiguous()
+        inv = inv_cn.float().contiguous()
+        e_out = torch.empty_like(e_in)
+        da = torch.empty((nvars, nrhs), dtype=torch.float32, device=dev)
+        partials = torch.empty((grid, block, nrhs), dtype=torch.float32,
+                               device=dev)
+        da_buf = torch.empty((block, nrhs), dtype=torch.float32, device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _build.LAUNCHES["bakp_sweep"] += 1
+        _build.check(lib.bakp_sweep_launch(
+            x_t.data_ptr(), inv.data_ptr(), e_in.data_ptr(), e_out.data_ptr(),
+            da.data_ptr(), partials.data_ptr(), da_buf.data_ptr(), nvars, obs,
+            nrhs, block, float(omega), grid, stream), "bakp_sweep_launch")
+    return da, e_out
+
+
+def bakp_sweep(x_t, e, inv_cn, *, block=256, omega=1.0):
+    """One SolveBakP (block-Jacobi) sweep over every column block.
+
+    Args:
+      x_t: (vars, obs) transposed design; vars a multiple of ``block``.
+      e: (obs,) residual, or (k, obs) for k right-hand sides.
+      inv_cn: (vars,) inverse squared column norms.
+    Returns:
+      (da, e'): (vars,)/(obs,) for 1-D ``e``, (vars, k)/(k, obs) otherwise.
+    """
+    nvars, obs = x_t.shape
+    if nvars % block:
+        raise ValueError(f"vars ({nvars}) must be a multiple of block ({block})")
+    single = e.dim() == 1
+    e2 = e.reshape(1, obs) if single else e
+    if x_t.device.type == "cpu":
+        da, e_out = bakp_sweep_plain(x_t, e2, inv_cn, block=block, omega=omega)
+    elif x_t.device.type == "cuda":
+        da, e_out = _bakp_sweep_cuda(x_t, e2, inv_cn, block=block, omega=omega)
+    else:
+        raise ValueError(f"bakp_sweep runs on cpu or cuda, not {x_t.device}")
+    if single:
+        return da[:, 0], e_out[0]
+    return da, e_out

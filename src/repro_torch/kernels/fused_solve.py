@@ -1,0 +1,221 @@
+"""Whole-solve SolveBakP: the CUDA kernel ``csrc/fused_solve.cu`` and its
+plain torch version.
+
+Counterpart of ``repro.kernels.fused_solve`` with ``variant="bakp"``: one
+launch runs every sweep of the solve, reduces the per-sweep SSE and
+evaluates ``sweep_stop_flags`` on the card, and exits early without a host
+synchronisation per sweep.  It takes precomputed ``inv_cn``, a warm start
+``a0`` and k ≥ 1 right-hand sides sharing one x.
+
+Fit check: ``fused_fits`` admits a solve whose working set
+(``fused_working_set_bytes``) fits ``cd_sweep.ON_CHIP_BUDGET_BYTES``; the
+callers (``ops.solvebakp_kernel``, the ``bakp_fused`` method) dispatch on it.
+
+``fused_solve`` follows the device of its tensors: CPU tensors run the
+plain version (``fused_solve_plain``, a host loop that reads the stop flag
+once per sweep), CUDA tensors launch the kernel, anything else raises.
+``variant="bak"`` (Algorithm 1) arrives with its own slice.
+"""
+from __future__ import annotations
+
+import importlib
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.core.types import (SolveResult, atol_to_sse,
+                                    column_norms_sq_t, safe_inv,
+                                    sweep_stop_flags)
+from repro_torch.kernels import _build
+
+# The budget and kernel-argument checks live with the per-sweep kernel;
+# read the module at call time so a patched budget takes effect.
+_cd = importlib.import_module("repro_torch.kernels.cd_sweep")
+
+
+def fused_working_set_bytes(nvars: int, obs: int, nrhs: int, itemsize: int,
+                            *, max_iter: int = 1) -> int:
+    """Bytes one fused solve keeps on chip: x (nvars·obs·itemsize), the
+    residual in and out (2·k·obs·4), a0 and coef (2·nvars·k·4), inv_cn
+    (nvars·4) and the history (max_iter·4)."""
+    return (nvars * obs * itemsize
+            + 2 * nrhs * obs * 4
+            + 2 * nvars * nrhs * 4
+            + nvars * 4
+            + max_iter * 4)
+
+
+def fused_fits(nvars: int, obs: int, nrhs: int, itemsize: int,
+               *, max_iter: int = 1) -> bool:
+    """Whether a fused solve fits ``cd_sweep.ON_CHIP_BUDGET_BYTES``."""
+    return fused_working_set_bytes(nvars, obs, nrhs, itemsize,
+                                   max_iter=max_iter) <= _cd.ON_CHIP_BUDGET_BYTES
+
+
+def validate_solver_args(x_t, y, cn, inv_cn, a0):
+    """Shared shape validation and norm resolution for the kernel solver
+    entries.  Returns (multi, nrhs, inv_cn), with ``cn`` folded into
+    ``inv_cn`` when only the raw norms were given."""
+    nvars, obs = x_t.shape
+    if y.dim() not in (1, 2):
+        raise ValueError(f"y must be (obs,) or (obs, k), got {tuple(y.shape)}")
+    multi = y.dim() == 2
+    nrhs = y.shape[1] if multi else 1
+    if a0 is not None and tuple(a0.shape) not in ((nvars,), (nvars, nrhs)):
+        raise ValueError(
+            f"a0 must be ({nvars},) or ({nvars}, {nrhs}) matching x_t rows "
+            f"and y RHS count, got {tuple(a0.shape)}")
+    if inv_cn is None and cn is not None:
+        inv_cn = safe_inv(cn)
+    return multi, nrhs, inv_cn
+
+
+def solve_init(x_t, y, inv_cn, a0, multi):
+    """Shared initialisation of the fused and per-sweep paths: the inverse
+    norms, and the (vars, k) coefficients and (k, obs) residual
+    ``e0 = y2ᵀ − a0mᵀ·x_t`` in fp32; a (vars,) ``a0`` broadcasts over k.
+
+    Returns ``(inv_cn, a0m, e0)``.
+    """
+    nvars, obs = x_t.shape
+    nrhs = y.shape[1] if multi else 1
+    if inv_cn is None:
+        inv_cn = safe_inv(column_norms_sq_t(x_t))
+    y2 = y.reshape(obs, nrhs).float()
+    if a0 is None:
+        a0m = torch.zeros((nvars, nrhs), dtype=torch.float32, device=x_t.device)
+        e0 = y2.T.contiguous()
+    else:
+        a0m = a0.float().reshape(nvars, -1).expand(nvars, nrhs).contiguous()
+        e0 = y2.T - a0m.T @ x_t.float()
+    return inv_cn, a0m, e0
+
+
+def fused_solve_plain(x_t, inv_cn, e0, a0m, *, block, max_iter, atol_sse,
+                      rtol, omega):
+    """Plain version of the fused kernel on its own operands: returns
+    (coef (vars, k), e (k, obs), history, sse, n_sweeps, converged)."""
+    nvars = x_t.shape[0]
+    inv = inv_cn.reshape(nvars, 1).float()
+    e = e0.float()
+    coef = a0m.float().clone()
+    hist = torch.full((max_iter,), math.nan, dtype=torch.float32,
+                      device=x_t.device)
+    sse0 = torch.dot(e.reshape(-1), e.reshape(-1))
+    sse, n, converged = sse0, 0, torch.tensor(False)
+    while n < max_iter:
+        for b in range(0, nvars, block):
+            da, e = _cd.bakp_block_update(x_t[b:b + block].float(),
+                                          inv[b:b + block], e, omega)
+            coef[b:b + block] += da
+        sse_new = torch.dot(e.reshape(-1), e.reshape(-1))
+        hist[n] = sse_new
+        converged, stop = sweep_stop_flags(sse_new, sse, sse0, atol_sse,
+                                           rtol)
+        sse, n = sse_new, n + 1
+        if bool(stop):                       # the one host read per sweep
+            break
+    return (coef, e, hist, sse, torch.tensor(n, dtype=torch.int32),
+            converged)
+
+
+def _fused_cuda(x_t, inv_cn, e0, a0m, *, block, max_iter, atol_sse, rtol,
+                omega):
+    nvars, obs = x_t.shape
+    nrhs = e0.shape[0]
+    _cd.check_kernel_args(x_t, nrhs, block, inv_cn, e0, a0m)
+    lib = _build.load("fused_solve")
+    dev = x_t.device
+    with torch.cuda.device(dev):
+        grid = _cd.cooperative_grid(lib.bakp_fused_grid, obs, nrhs, block)
+        inv = inv_cn.float().contiguous()
+        e0c = e0.float().contiguous()
+        a0c = a0m.float().contiguous()
+        f32 = dict(dtype=torch.float32, device=dev)
+        coef = torch.empty((nvars, nrhs), **f32)
+        e = torch.empty((nrhs, obs), **f32)
+        hist = torch.empty((max_iter,), **f32)
+        sse = torch.empty((1,), **f32)
+        n = torch.empty((1,), dtype=torch.int32, device=dev)
+        conv = torch.empty((1,), dtype=torch.int32, device=dev)
+        partials = torch.empty((grid, block, nrhs), **f32)
+        da_buf = torch.empty((block, nrhs), **f32)
+        sse_part = torch.empty((grid,), **f32)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _build.LAUNCHES["fused_solve"] += 1
+        _build.check(lib.bakp_fused_launch(
+            x_t.data_ptr(), inv.data_ptr(), e0c.data_ptr(), a0c.data_ptr(),
+            coef.data_ptr(), e.data_ptr(), hist.data_ptr(), sse.data_ptr(),
+            n.data_ptr(), conv.data_ptr(), partials.data_ptr(),
+            da_buf.data_ptr(), sse_part.data_ptr(), nvars, obs, nrhs, block,
+            max_iter, float(atol_sse), float(rtol), float(omega), grid,
+            stream), "bakp_fused_launch")
+    return coef, e, hist, sse[0], n[0], conv[0] != 0
+
+
+def fused_solve(
+    x_t: torch.Tensor,
+    y: torch.Tensor,
+    *,
+    inv_cn: Optional[torch.Tensor] = None,
+    cn: Optional[torch.Tensor] = None,
+    a0: Optional[torch.Tensor] = None,
+    block: int = 256,
+    max_iter: int = 50,
+    atol: float = 0.0,
+    rtol: float = 0.0,
+    omega: float = 1.0,
+    variant: str = "bakp",
+) -> SolveResult:
+    """Whole-solve SolveBakP (see module doc).
+
+    Args:
+      x_t: (vars, obs) TRANSPOSED design; vars a multiple of ``block``.
+      y: (obs,) right-hand side, or (obs, k).
+      inv_cn / cn: optional precomputed inverse / raw squared column norms
+        (vars,); ``inv_cn`` wins; neither → computed from ``x_t``.
+      a0: optional (vars,) / (vars, k) warm start.
+      block / max_iter / atol / rtol / omega: as ``solvebakp_kernel``.
+      variant: "bakp" (Algorithm 2); "bak" is not ported yet.
+    Returns:
+      ``SolveResult``; multi-RHS gives (vars, k) coef and (obs, k) residual
+      with total-SSE accounting.
+    """
+    nvars, obs = x_t.shape
+    if variant == "bak":
+        raise NotImplementedError(
+            "variant='bak' (Algorithm 1 in the fused kernel) is not ported "
+            "yet: ROADMAP queue 1 item 6")
+    if variant != "bakp":
+        raise ValueError(f"unknown variant {variant!r}")
+    if nvars % block != 0:
+        raise ValueError(
+            f"vars ({nvars}) must be a multiple of block ({block}); pad "
+            f"columns (PreparedDesign.x_t_for does this)")
+    if max_iter < 1:
+        raise ValueError(f"max_iter must be >= 1, got {max_iter}")
+    multi, nrhs, inv_cn = validate_solver_args(x_t, y, cn, inv_cn, a0)
+    ws = fused_working_set_bytes(nvars, obs, nrhs, x_t.element_size(),
+                                 max_iter=max_iter)
+    if ws > _cd.ON_CHIP_BUDGET_BYTES:
+        raise ValueError(
+            f"fused_solve working set {ws / 2**20:.1f} MiB exceeds the "
+            f"on-chip budget ({_cd.ON_CHIP_BUDGET_BYTES / 2**20:.0f} MiB); "
+            f"use the per-sweep path (solvebakp_persweep_kernel) or reduce "
+            f"obs ({obs}) / vars ({nvars}) / nrhs ({nrhs}).")
+    inv_cn, a0m, e0 = solve_init(x_t, y, inv_cn, a0, multi)
+    kw = dict(block=block, max_iter=max_iter,
+              atol_sse=atol_to_sse(obs, nrhs, atol),
+              rtol=float(rtol),
+              omega=float(omega))
+    if x_t.device.type == "cpu":
+        coef, e, hist, sse, n, conv = fused_solve_plain(x_t, inv_cn, e0, a0m,
+                                                        **kw)
+    elif x_t.device.type == "cuda":
+        coef, e, hist, sse, n, conv = _fused_cuda(x_t, inv_cn, e0, a0m, **kw)
+    else:
+        raise ValueError(f"fused_solve runs on cpu or cuda, not {x_t.device}")
+    if not multi:
+        return SolveResult(coef[:, 0], e[0], sse, n, conv, hist)
+    return SolveResult(coef, e.T, sse, n, conv, hist)

@@ -1,0 +1,120 @@
+"""Solver entries over the CUDA kernels.
+
+Counterpart of ``repro.kernels.ops``.  ``solvebakp_kernel`` is the kernel
+entry for the paper's Algorithm 2: the whole-solve kernel
+(``fused_solve``) when the design fits the on-chip budget (``fused_fits``),
+else the per-sweep loop (``solvebakp_persweep_kernel``), with the same
+``record_dispatch`` labels and reasons as the JAX package.
+
+The per-sweep loop launches one ``bakp_sweep`` per sweep from a host loop;
+the residual goes back to device memory at every sweep boundary and the
+stop is decided off the card, with one host read of the stop flag per
+sweep, as in the JAX design.  Both paths take CPU tensors too (the plain
+versions run then).  The Algorithm-1 variant (``variant="bak"``) and the
+out-of-core, scoring and block-update entries arrive with later slices.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.core.types import SolveResult, atol_to_sse, sweep_stop_flags
+from repro_torch.kernels.cd_sweep import bakp_sweep
+from repro_torch.kernels.fused_solve import (fused_fits, fused_solve,
+                                             solve_init,
+                                             validate_solver_args)
+from repro_torch.obs import record_dispatch
+
+
+def _check_variant(variant: str) -> None:
+    if variant == "bak":
+        raise NotImplementedError(
+            "variant='bak' (Algorithm 1 sweeps) is not ported yet: ROADMAP "
+            "queue 1 item 6")
+    if variant != "bakp":
+        raise ValueError(f"unknown variant {variant!r}")
+
+
+def solvebakp_persweep_kernel(
+    x_t: torch.Tensor,
+    y: torch.Tensor,
+    *,
+    cn: Optional[torch.Tensor] = None,
+    inv_cn: Optional[torch.Tensor] = None,
+    a0: Optional[torch.Tensor] = None,
+    block: int = 256,
+    max_iter: int = 50,
+    atol: float = 0.0,
+    rtol: float = 0.0,
+    omega: float = 1.0,
+    variant: str = "bakp",
+) -> SolveResult:
+    """Per-sweep SolveBakP: one ``bakp_sweep`` launch per sweep from a host
+    loop that reads the stop flag once per sweep.  Arguments as
+    ``solvebakp_kernel``."""
+    _check_variant(variant)
+    multi, nrhs, inv_cn = validate_solver_args(x_t, y, cn, inv_cn, a0)
+    obs = x_t.shape[1]
+    inv_cn, a, e = solve_init(x_t, y, inv_cn, a0, multi)
+    sse0 = torch.dot(e.reshape(-1), e.reshape(-1))
+    history = torch.full((max_iter,), math.nan, dtype=torch.float32,
+                         device=x_t.device)
+    atol_sse = atol_to_sse(obs, nrhs, atol)
+    sse, n, converged = sse0, 0, torch.tensor(False)
+    while n < max_iter:
+        da, e = bakp_sweep(x_t, e, inv_cn, block=block, omega=omega)
+        a = a + da
+        sse_new = torch.dot(e.reshape(-1), e.reshape(-1))
+        history[n] = sse_new
+        converged, stop = sweep_stop_flags(sse_new, sse, sse0, atol_sse, rtol)
+        sse, n = sse_new, n + 1
+        if bool(stop):                       # the one host read per sweep
+            break
+    n_t = torch.tensor(n, dtype=torch.int32)
+    if not multi:
+        return SolveResult(a[:, 0], e[0], sse, n_t, converged, history)
+    return SolveResult(a, e.T, sse, n_t, converged, history)
+
+
+def solvebakp_kernel(
+    x_t: torch.Tensor,
+    y: torch.Tensor,
+    *,
+    cn: Optional[torch.Tensor] = None,
+    inv_cn: Optional[torch.Tensor] = None,
+    a0: Optional[torch.Tensor] = None,
+    block: int = 256,
+    max_iter: int = 50,
+    atol: float = 0.0,
+    rtol: float = 0.0,
+    omega: float = 1.0,
+    variant: str = "bakp",
+) -> SolveResult:
+    """Kernel-path SolveBakP: fused when the design fits, else per-sweep.
+
+    Args:
+      x_t: (vars, obs) TRANSPOSED design; vars a multiple of ``block``.
+      y: (obs,) right-hand side, or (obs, k).
+      cn / inv_cn: optional precomputed (inverse) squared column norms.
+      a0: optional (vars,) / (vars, k) warm start.
+      variant: "bakp" (Algorithm 2).
+    Returns:
+      ``SolveResult``; multi-RHS gives (vars, k) coef and (obs, k) residual.
+    """
+    _check_variant(variant)
+    nvars, obs = x_t.shape
+    _, nrhs, inv_cn = validate_solver_args(x_t, y, cn, inv_cn, a0)
+    if (max_iter >= 1
+            and fused_fits(nvars, obs, nrhs, x_t.element_size(),
+                           max_iter=max_iter)):
+        record_dispatch("fused", method=variant)
+        return fused_solve(x_t, y, inv_cn=inv_cn, a0=a0, block=block,
+                           max_iter=max_iter, atol=atol, rtol=rtol,
+                           omega=omega, variant=variant)
+    reason = "max_iter" if max_iter < 1 else "vmem"
+    record_dispatch("persweep", method=variant, reason=reason)
+    return solvebakp_persweep_kernel(
+        x_t, y, inv_cn=inv_cn, a0=a0, block=block, max_iter=max_iter,
+        atol=atol, rtol=rtol, omega=omega, variant=variant)
