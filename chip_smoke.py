@@ -8,18 +8,24 @@ process per source, in parallel), then:
 
   1. handle, fused path — ``prepare`` a 16,384 x 256 fp32 design with
      ``SolverSpec(method="bakp_fused")`` and serve a cold, a k=8 multi-RHS,
-     a tenant's cold and warm (drifted ``y``) solve, plus ``solve()`` calls
-     for bakp / bakp_gram / lstsq / normal;
-  2. kernel entry, per-sweep path — ``solvebakp_kernel`` on a 262,144 x
-     1,024 fp32 design (1 GiB), k=8, block=256, over the on-chip budget, and
-     the same handle's ``bakp_fused`` falling back to the plain path;
+     a tenant's cold and warm (drifted ``y``) solve, the same four with
+     ``bak_fused`` (Algorithm 1 on its whole-solve kernel), plus ``solve()``
+     calls for bak (cyclic and random order) / bakp / bakp_gram / bakf /
+     lstsq / normal;
+  2. kernel entry, per-sweep path — ``solvebakp_kernel`` for Algorithm 2
+     and Algorithm 1 on a 262,144 x 1,024 fp32 design (1 GiB), k=8,
+     block=256, over the on-chip budget, and the same handle's
+     ``bakp_fused`` / ``bak_fused`` falling back to the plain paths; then
+     the two streamed-obs entries on that design, ``score_features_kernel``
+     and ``block_update_kernel``;
   3. each kernel against its plain torch version on the same inputs, on the
-     card, and timed with CUDA events beside its roofline bound;
+     card, and timed with CUDA events beside its roofline bound (and beside
+     the nearest single PyTorch call, where there is one);
   4. a ``kernels`` summary line, the card's name and power limit, and the
      result line ``{"ok": true, "device": {...}}``.
 
-Launch counts are reset just before phase 1 and read just after phase 2, so
-they count the main path only.  Inputs are Gaussian designs with a planted
+Launch counts are reset just before phase 1 and read just after the
+entries of phase 2, so they count the main path only.  Inputs are Gaussian designs with a planted
 ``a_true`` and ``y = x @ a_true`` from a fixed seed.  Any failed check, build
 or launch error exits non-zero without the result line; so does a host with
 no CUDA device, or a directory without the repository's ``src/``.
@@ -73,13 +79,21 @@ def main() -> int:
     sys.path.insert(0, str(src))
 
     from repro_torch.core import SolverSpec, prepare, solve
-    from repro_torch.kernels import _build, solvebakp_kernel
+    from repro_torch.kernels import (_build, block_update_kernel,
+                                     score_features_kernel, solvebakp_kernel)
+    from repro_torch.kernels.block_update import (_block_update_cuda,
+                                                  _score_features_cuda,
+                                                  block_update_plain,
+                                                  score_features_plain)
     from repro_torch.kernels.cd_sweep import (_bakp_sweep_cuda,
-                                              bakp_sweep_plain)
-    from repro_torch.kernels.fused_solve import (_fused_cuda, fused_fits,
+                                              _cd_sweep_cuda,
+                                              bakp_sweep_plain,
+                                              cd_sweep_plain)
+    from repro_torch.kernels.fused_solve import (fused_cuda, fused_fits,
                                                  fused_solve_plain,
                                                  solve_init)
-    from repro_torch.core.types import atol_to_sse
+    from repro_torch.core.types import (atol_to_sse, column_norms_sq_t,
+                                        safe_inv)
     from repro_torch.obs import (consume_dispatch, fallback_counts,
                                  reset_counters)
 
@@ -161,6 +175,35 @@ def main() -> int:
                 lambda m=m: solve(x1, y1, method=m, rtol=1e-7, max_iter=100),
                 a1, "xla")
 
+    # Phase 1, Algorithm 1 on its whole-solve kernel through the same handle
+    # (same block width, so the cached transposed copy serves both), and
+    # Algorithms 1 and 3 through the solve() shim.
+    spec1b = SolverSpec(method="bak_fused", rtol=1e-7, max_iter=100)
+    request("handle", "bak_fused", lambda: p1.solve(y1, spec=spec1b), a1,
+            "fused")
+    request("handle_k8", "bak_fused", lambda: p1.solve(y1k, spec=spec1b),
+            a1k, "fused")
+    cold_b = request("handle_tenant_cold", "bak_fused",
+                     lambda: p1.solve(y1, spec=spec1b, tenant_id="tenant-1"),
+                     a1, "fused")
+    warm_b = request("handle_tenant_warm", "bak_fused",
+                     lambda: p1.solve(y1d, spec=spec1b, tenant_id="tenant-1"),
+                     a1d, "fused")
+    check(int(warm_b.n_sweeps) < int(cold_b.n_sweeps),
+          f"bak_fused warm solve took {int(warm_b.n_sweeps)} sweeps, cold "
+          f"{int(cold_b.n_sweeps)}")
+    request("solve_shim", "bak",
+            lambda: solve(x1, y1, method="bak", rtol=1e-7, max_iter=100),
+            a1, "xla")
+    request("solve_shim_random", "bak",
+            lambda: solve(x1, y1, method="bak", order="random", rtol=1e-7,
+                          max_iter=100,
+                          generator=torch.Generator(device=dev).manual_seed(
+                              SEED)),
+            a1, "xla")
+    request("solve_shim", "bakf",
+            lambda: solve(x1, y1, method="bakf", max_iter=20), a1, "xla")
+
     # Phase 2: the kernel entry on the per-sweep path, 1 GiB design.
     obs2, vars2, thr2 = 262_144, 1_024, 256
     x2 = randn(obs2, vars2)
@@ -179,6 +222,37 @@ def main() -> int:
             "xla")
     check(fallback_counts().get(("bakp_fused", "vmem"), 0) >= 1,
           "bakp_fused over budget must record reason=vmem")
+    request("kernel_entry", "solvebakp_kernel(bak)",
+            lambda: solvebakp_kernel(x2t, y2k, inv_cn=inv2, block=thr2,
+                                     max_iter=100, rtol=1e-7, variant="bak"),
+            a2k, "persweep")
+    spec2b = SolverSpec(method="bak_fused", thr=thr2, rtol=1e-7,
+                        max_iter=100)
+    request("handle_over_budget", "bak_fused",
+            lambda: p2.solve(y2k, spec=spec2b), a2k, "xla")
+    check(fallback_counts().get(("bak_fused", "vmem"), 0) >= 1,
+          "bak_fused over budget must record reason=vmem")
+
+    # Phase 2, the streamed-obs entries on the same design: SolveBakF
+    # scores of all 1,024 features, and a rank-256 residual correction of
+    # k=8 residuals.  Each is held to its plain version on the same inputs.
+    e_sc = randn(obs2)
+    e8 = randn(k, obs2)
+    da_bu = randn(thr2, k)
+    x2blk = x2t[:thr2]
+    inv2_raw = safe_inv(column_norms_sq_t(x2t))
+    sync()
+    t = time.perf_counter()
+    scores = score_features_kernel(x2t, e_sc)
+    e8_new = block_update_kernel(x2blk, e8, da_bu)
+    sync()
+    entry_ms = (time.perf_counter() - t) * 1e3
+    err_sc = rel(scores, score_features_plain(x2t, e_sc, inv2_raw))
+    err_bu = rel(e8_new, block_update_plain(x2blk, e8, da_bu))
+    emit({"phase": "entries", "score_features_rel_err": err_sc,
+          "block_update_rel_err": err_bu, "latency_ms": entry_ms})
+    check(err_sc <= KERNEL_TOL, f"score_features_kernel: rel err {err_sc}")
+    check(err_bu <= KERNEL_TOL, f"block_update_kernel: rel err {err_bu}")
 
     launches = _build.launch_counts()
     emit({"phase": "main_path_launches", **launches})
@@ -206,51 +280,66 @@ def main() -> int:
 
     rows = {}
 
-    def sweep_case(label, x_t, inv, nrhs, block, iters):
+    def sweep_case(label, x_t, inv, nrhs, block, iters, alg=2, plain_iters=None):
         nv, no = x_t.shape
         e = randn(nrhs, no)
-        da, e_k = _bakp_sweep_cuda(x_t, e, inv, block=block, omega=1.0)
-        da_p, e_p = bakp_sweep_plain(x_t, e, inv, block=block)
+        name = "bak_sweep" if alg == 1 else "bakp_sweep"
+
+        def kernel():
+            if alg == 1:
+                return _cd_sweep_cuda(x_t, e, inv)
+            return _bakp_sweep_cuda(x_t, e, inv, block=block, omega=1.0)
+
+        def plain_fn():
+            if alg == 1:
+                return cd_sweep_plain(x_t, e, inv)
+            return bakp_sweep_plain(x_t, e, inv, block=block)
+
+        da, e_k = kernel()
+        da_p, e_p = plain_fn()
         sync()
         err_da, err_e = rel(da, da_p), rel(e_k, e_p, scale=e)
         check(err_da <= KERNEL_TOL and err_e <= KERNEL_TOL,
-              f"bakp_sweep {label}: rel err da {err_da}, e {err_e}")
-        ms = cuda_ms(lambda: _bakp_sweep_cuda(x_t, e, inv, block=block,
-                                              omega=1.0), iters)
-        plain = cuda_ms(lambda: bakp_sweep_plain(x_t, e, inv, block=block),
-                        iters)
+              f"{name} {label}: rel err da {err_da}, e {err_e}")
+        ms = cuda_ms(kernel, iters)
+        plain = cuda_ms(plain_fn, plain_iters or iters)
         nbytes = 4 * (nv * no + nv + 2 * nrhs * no + nv * nrhs)
         b_ms, b_by = bound(nbytes, 4 * nv * no * nrhs)
         max_abs = max((da - da_p).abs().max().item(),
                       (e_k - e_p).abs().max().item())
         row = {"shape": [nv, no, nrhs, block], "max_abs_err": max_abs,
                "rel_err_da": err_da, "rel_err_e": err_e, "ms": ms,
-               "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by}
-        emit({"phase": "kernel_vs_plain", "kernel": "bakp_sweep",
-              "case": label, **row})
+               "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+               "library_ms": None}
+        emit({"phase": "kernel_vs_plain", "kernel": name, "case": label,
+              **row})
         return row
 
-    def fused_case(label, x_t, inv, y, block, max_iter, rtol, iters):
+    def fused_case(label, x_t, inv, y, block, max_iter, rtol, iters,
+                   variant="bakp", plain_iters=None):
         nv, no = x_t.shape
         nrhs = y.shape[1] if y.dim() == 2 else 1
         inv_cn, a0m, e0 = solve_init(x_t, y, inv, None, y.dim() == 2)
         kw = dict(block=block, max_iter=max_iter,
-                  atol_sse=atol_to_sse(no, nrhs, 0.0), rtol=rtol, omega=1.0)
-        ck, ek, hk, sk, nk, _ = _fused_cuda(x_t, inv_cn, e0, a0m, **kw)
+                  atol_sse=atol_to_sse(no, nrhs, 0.0), rtol=rtol, omega=1.0,
+                  variant=variant)
+        name = "fused_solve" if variant == "bakp" else "bak_fused"
+        ck, ek, hk, sk, nk, _ = fused_cuda(x_t, inv_cn, e0, a0m, **kw)
         cp, ep, hp, sp, np_, _ = fused_solve_plain(x_t, inv_cn, e0, a0m, **kw)
         sync()
         nk, np_ = int(nk), int(np_)
         err_c, err_e = rel(ck, cp), rel(ek, ep, scale=e0)
         if rtol == 0.0:
             check(nk == np_ == max_iter,
-                  f"fused {label}: n_sweeps {nk} vs {np_}")
+                  f"{name} {label}: n_sweeps {nk} vs {np_}")
         else:
-            check(abs(nk - np_) <= 1, f"fused {label}: n_sweeps {nk} vs {np_}")
+            check(abs(nk - np_) <= 1,
+                  f"{name} {label}: n_sweeps {nk} vs {np_}")
         check(err_c <= KERNEL_TOL and err_e <= KERNEL_TOL,
-              f"fused {label}: rel err coef {err_c}, e {err_e}")
-        ms = cuda_ms(lambda: _fused_cuda(x_t, inv_cn, e0, a0m, **kw), iters)
+              f"{name} {label}: rel err coef {err_c}, e {err_e}")
+        ms = cuda_ms(lambda: fused_cuda(x_t, inv_cn, e0, a0m, **kw), iters)
         plain = cuda_ms(lambda: fused_solve_plain(x_t, inv_cn, e0, a0m, **kw),
-                        iters)
+                        plain_iters or iters)
         nbytes = 4 * (nv * no + nv + 2 * nrhs * no + 2 * nv * nrhs + max_iter)
         b_ms, b_by = bound(nbytes, 4 * nk * nv * no * nrhs)
         max_abs = max((ck - cp).abs().max().item(),
@@ -258,9 +347,30 @@ def main() -> int:
         row = {"shape": [nv, no, nrhs, block], "n_sweeps": nk,
                "n_sweeps_plain": np_, "max_abs_err": max_abs,
                "rel_err_coef": err_c, "rel_err_e": err_e, "ms": ms,
-               "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by}
-        emit({"phase": "kernel_vs_plain", "kernel": "fused_solve",
-              "case": label, **row})
+               "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+               "library_ms": None}
+        emit({"phase": "kernel_vs_plain", "kernel": name, "case": label,
+              **row})
+        return row
+
+    def entry_case(name, kernel, plain_fn, library, library_label, nbytes,
+                   flops, iters, shape):
+        """A streamed-obs kernel against its plain version and the nearest
+        single PyTorch call (timed only; the port never calls it)."""
+        out_k, out_p = kernel(), plain_fn()
+        sync()
+        err = rel(out_k, out_p)
+        check(err <= KERNEL_TOL, f"{name}: rel err {err}")
+        ms = cuda_ms(kernel, iters)
+        plain = cuda_ms(plain_fn, iters)
+        lib = cuda_ms(library, iters)
+        b_ms, b_by = bound(nbytes, flops)
+        row = {"shape": shape, "max_abs_err": (out_k - out_p).abs().max()
+               .item(), "rel_err": err, "ms": ms, "plain_ms": plain,
+               "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
+               "library_call": library_label}
+        emit({"phase": "kernel_vs_plain", "kernel": name, "case": "phase2",
+              **row})
         return row
 
     x1t, inv1 = p1.x_t_for(thr1), p1.inv_cn_for(thr1)
@@ -278,18 +388,61 @@ def main() -> int:
     fused_case("phase1_k1_thr64_fixed20", p1.x_t_for(64), p1.inv_cn_for(64),
                y1 + 0.1 * randn(obs1), 64, 20, 0.0, 10)
 
-    src_of = {"bakp_sweep": ("src/repro_torch/kernels/csrc/bakp_sweep.cu",
-                             "src/repro/kernels/cd_sweep.py:108"),
-              "fused_solve": ("src/repro_torch/kernels/csrc/fused_solve.cu",
-                              "src/repro/kernels/fused_solve.py:94")}
+    # Algorithm 1: one sweep at the phase shapes, the whole solve at a
+    # fixed 20 sweeps (n_sweeps must match) and to rtol 1e-7.  The plain
+    # versions loop over columns from the host, so they run few times.
+    sweep_case("phase1_k1", x1t, inv1, 1, thr1, 20, alg=1, plain_iters=3)
+    sweep_case("phase1_k8", x1t, inv1, k, thr1, 20, alg=1, plain_iters=3)
+    rows["bak_sweep"] = sweep_case("phase2_k8", x2t, inv2, k, thr2, 5, alg=1,
+                                   plain_iters=2)
+    fused_case("phase1_k1_fixed20", x1t, inv1, y1 + 0.1 * randn(obs1), thr1,
+               20, 0.0, 5, variant="bak", plain_iters=2)
+    rows["bak_fused"] = fused_case("phase1_k8_fixed20", x1t, inv1,
+                                   y1k + 0.1 * randn(obs1, k), thr1, 20, 0.0,
+                                   5, variant="bak", plain_iters=2)
+    fused_case("phase1_k8_rtol", x1t, inv1, y1k, thr1, 100, 1e-7, 5,
+               variant="bak", plain_iters=2)
+
+    # The streamed-obs entries at the phase 2 shapes, full fp32 throughout
+    # (TF32 is off above, so torch.mv / torch.addmm run in fp32 too).
+    rows["score_features"] = entry_case(
+        "score_features",
+        lambda: _score_features_cuda(x2t, e_sc, inv2_raw),
+        lambda: score_features_plain(x2t, e_sc, inv2_raw),
+        lambda: torch.mv(x2t, e_sc), "torch.mv(x_t, e): the matvec alone, "
+        "without the square-and-scale epilogue",
+        4 * (vars2 * obs2 + obs2 + 2 * vars2), 2 * vars2 * obs2 + 2 * vars2,
+        20, [vars2, obs2])
+    rows["block_update"] = entry_case(
+        "block_update",
+        lambda: _block_update_cuda(x2blk, e8, da_bu),
+        lambda: block_update_plain(x2blk, e8, da_bu),
+        lambda: torch.addmm(e8, da_bu.T, x2blk, alpha=-1),
+        "torch.addmm(e, da.T, x_blk, alpha=-1): the same function",
+        4 * (thr2 * obs2 + 2 * k * obs2 + thr2 * k), 2 * thr2 * obs2 * k,
+        20, [thr2, obs2, k])
+
+    kernel_src = "src/repro_torch/kernels/csrc/"
+    src_of = {
+        "bakp_sweep": ("bakp_sweep.cu", "src/repro/kernels/cd_sweep.py:108"),
+        "fused_solve": ("fused_solve.cu",
+                        "src/repro/kernels/fused_solve.py:94"),
+        "bak_sweep": ("bak_sweep.cu", "src/repro/kernels/cd_sweep.py:75"),
+        "bak_fused": ("bak_fused.cu",
+                      "src/repro/kernels/fused_solve.py:139"),
+        "score_features": ("score_features.cu",
+                           "src/repro/kernels/block_update.py:69"),
+        "block_update": ("block_update.cu",
+                         "src/repro/kernels/block_update.py:24")}
     emit({"kernels": [
-        {"name": name, "route": "cuda", "source": src_of[name][0],
+        {"name": name, "route": "cuda", "source": kernel_src + src_of[name][0],
          "replaces": src_of[name][1], "launches": launches[name],
          "max_abs_err": rows[name]["max_abs_err"], "ms": rows[name]["ms"],
          "plain_ms": rows[name]["plain_ms"],
          "bound_ms": rows[name]["bound_ms"],
-         "bound_by": rows[name]["bound_by"], "library_ms": None}
-        for name in ("bakp_sweep", "fused_solve")]})
+         "bound_by": rows[name]["bound_by"],
+         "library_ms": rows[name]["library_ms"]}
+        for name in src_of]})
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

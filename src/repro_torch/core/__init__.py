@@ -8,25 +8,35 @@ builds a ``PreparedDesign`` owning the reusable per-design state on the GPU;
 Layout (mirrors ``repro.core``):
   spec.py       SolverSpec + the port's method registry (MethodEntry).
   prepare.py    prepare()/PreparedDesign, prepared_from_arrays.
-  methods.py    bakp / bakp_gram / bakp_fused / lstsq / normal.
+  methods.py    bak / bakp / bakp_gram / bakp_fused / bak_fused / lstsq /
+                normal / bakf.
+  solvebak.py   Algorithm 1, plain torch (cyclic or random order).
   solvebakp.py  Algorithm 2 + gram mode, plain torch.
-  types.py      SolveResult, norms, sweep_stop_flags.
+  solvebakf.py  Algorithm 3 (greedy selection) + the stepwise baseline.
+  precondition.py  column normalisation.
+  types.py      SolveResult, SelectResult, norms, sweep_stop_flags.
   api.py        solve, fit_linear_probe.
 """
 from repro_torch.core.api import fit_linear_probe, solve
 from repro_torch.core.prepare import (PreparedDesign, design_fingerprint,
                                       prepare, prepared_from_arrays)
+from repro_torch.core.precondition import (ColumnScaling, normalize_columns,
+                                           unscale_coef)
+from repro_torch.core.solvebak import solvebak, solvebak_onesweep
+from repro_torch.core.solvebakf import solvebakf, stepwise_regression_baseline
 from repro_torch.core.solvebakp import block_gram_cholesky, solvebakp
 from repro_torch.core.spec import (PRECISIONS, MethodEntry, SolverSpec,
                                    UnsupportedSpecError, method_names,
                                    methods_for_precision, register_method,
                                    solver_method)
-from repro_torch.core.types import SolveResult
+from repro_torch.core.types import SelectResult, SolveResult
 
 __all__ = [
+    "ColumnScaling",
     "MethodEntry",
     "PRECISIONS",
     "PreparedDesign",
+    "SelectResult",
     "SolveResult",
     "SolverSpec",
     "UnsupportedSpecError",
@@ -35,10 +45,16 @@ __all__ = [
     "fit_linear_probe",
     "method_names",
     "methods_for_precision",
+    "normalize_columns",
     "prepare",
     "prepared_from_arrays",
     "register_method",
     "solve",
+    "solvebak",
+    "solvebak_onesweep",
+    "solvebakf",
     "solvebakp",
     "solver_method",
+    "stepwise_regression_baseline",
+    "unscale_coef",
 ]

@@ -31,10 +31,12 @@ def solve(
     ridge: float = 1e-6,
     order: str = "cyclic",
     a0=None,
+    generator: Optional[torch.Generator] = None,
     spec: Optional[SolverSpec] = None,
     device=None,
 ) -> SolveResult:
-    """One-shot solve: ``prepare(x, spec, device=device).solve(y, a0)``.
+    """One-shot solve: ``prepare(x, spec, device=device).solve(y, a0,
+    generator=generator)``; ``generator`` drives ``order="random"``.
 
     ``spec`` overrides every loose knob when given.  Repeated solves against
     one ``x`` should hold a ``prepare`` handle instead.
@@ -43,7 +45,7 @@ def solve(
         spec = SolverSpec(method=method, max_iter=max_iter, atol=atol,
                           rtol=rtol, thr=thr, omega=omega, ridge=ridge,
                           order=order)
-    return prepare(x, spec, device=device).solve(y, a0)
+    return prepare(x, spec, device=device).solve(y, a0, generator=generator)
 
 
 def fit_linear_probe(

@@ -1,6 +1,8 @@
 """Built-in solver methods of the PyTorch port, registered against
 ``repro_torch.core.spec``.
 
+  * "bak"        — Algorithm 1, serial CD (plain torch), cyclic or random
+                   order (``order="random"`` takes ``generator=``).
   * "bakp"       — Algorithm 2, block-Jacobi CD (plain torch).
   * "bakp_gram"  — exact block CD through cached block-Gram Cholesky.
   * "bakp_fused" — Algorithm 2 on the whole-solve CUDA kernel
@@ -8,14 +10,19 @@
                    the on-chip budget; larger ones fall back to "bakp"'s
                    plain path, recorded ``xla``/``vmem`` as in the JAX
                    package.
+  * "bak_fused"  — Algorithm 1 on the whole-solve kernel's ``variant="bak"``
+                   body; over the budget, "bak"'s plain path (cyclic).
+  * "bakf"       — Algorithm 3 run to full selection: greedy forward CD over
+                   every column with a refit per step.  Single-RHS; ignores
+                   warm starts.
   * "lstsq"      — least-squares baseline (``torch.linalg.lstsq``).
   * "normal"     — normal-equation Cholesky with ``SolverSpec.ridge``.
 
 Dispatch labels are the JAX package's: the plain torch family records
 ``xla`` (the route the JAX package leaves to XLA), the kernel routes
-``fused`` / ``persweep``.  "bak", "bak_fused", "bakf" and "bakp_stream",
-bf16 precisions, multi-GPU placements and cross-design batching arrive
-with later slices, so no entry here claims them.
+``fused`` / ``persweep``.  "bakp_stream", bf16 precisions, multi-GPU
+placements and cross-design batching arrive with later slices, so no entry
+here claims them.
 """
 from __future__ import annotations
 
@@ -23,6 +30,8 @@ import math
 
 import torch
 
+from repro_torch.core.solvebak import solvebak
+from repro_torch.core.solvebakf import solvebakf
 from repro_torch.core.solvebakp import solvebakp
 from repro_torch.core.spec import (_ITER_FIELDS, MethodEntry, SolverSpec,
                                    register_method)
@@ -31,10 +40,21 @@ from repro_torch.obs import record_dispatch
 
 
 # --------------------------------------------------------------- BAK family
+def _bak_solve(p, y, spec: SolverSpec, *, a0=None, generator=None):
+    record_dispatch("xla", method="bak")
+    return solvebak(p.x_pad, y, max_iter=spec.max_iter, atol=spec.atol,
+                    rtol=spec.rtol, a0=a0, order=spec.order,
+                    generator=generator, cn=p.cn)
+
+
+def _prep_bak(p, spec: SolverSpec):
+    p.cn  # property access builds the lazy column norms
+
+
 def _bakp_solve(mode: str):
     method_name = "bakp" if mode == "jacobi" else "bakp_gram"
 
-    def kernel(p, y, spec: SolverSpec, *, a0=None):
+    def kernel(p, y, spec: SolverSpec, *, a0=None, generator=None):
         record_dispatch("xla", method=method_name)
         return solvebakp(
             p.x_pad, y, thr=spec.thr, max_iter=spec.max_iter, atol=spec.atol,
@@ -56,41 +76,73 @@ def _prep_bakp_gram(p, spec: SolverSpec):
 
 
 # ------------------------------------------------------ whole-solve kernel
-def _fused_solve(p, y, spec: SolverSpec, *, a0=None):
-    """Algorithm 2 on the whole-solve kernel, over the handle's cached
-    transposed padded design and inverse norms.  Over the on-chip budget
-    (or with ``max_iter < 1``) it runs the plain "bakp" path instead."""
-    # Imported at call time: the kernels import repro_torch.core.types, so
-    # a module-level import here would tie the two packages' import order.
-    from repro_torch.kernels.fused_solve import fused_fits, fused_solve
+def _fused_method(variant: str):
+    """Algorithm 2 (``variant="bakp"``) or 1 (``"bak"``) on the whole-solve
+    kernel, over the handle's cached transposed padded design and inverse
+    norms.  Over the on-chip budget (or with ``max_iter < 1``) it runs the
+    plain path of the same algorithm, "bakp" or "bak", instead."""
+    method = f"{variant}_fused"
 
-    block = spec.thr
-    obs_p, vars_p = p.shape
-    nrhs = y.shape[1] if y.dim() == 2 else 1
-    vars_pb = -(-vars_p // block) * block
-    if spec.max_iter < 1 or not fused_fits(vars_pb, obs_p, nrhs,
-                                           p.x_pad.element_size(),
-                                           max_iter=spec.max_iter):
-        record_dispatch("xla", method="bakp_fused",
-                        reason="max_iter" if spec.max_iter < 1 else "vmem")
-        return solvebakp(p.x_pad, y, thr=block, max_iter=spec.max_iter,
-                         atol=spec.atol, rtol=spec.rtol, omega=spec.omega,
-                         mode="jacobi", cn=p.cn_for_thr(block), a0=a0)
-    if a0 is not None and vars_pb != vars_p:
-        a0 = torch.nn.functional.pad(
-            a0, (0, 0) * (a0.dim() - 1) + (0, vars_pb - vars_p))
-    record_dispatch("fused", method="bakp_fused")
-    res = fused_solve(p.x_t_for(block), y, inv_cn=p.inv_cn_for(block), a0=a0,
-                      block=block, max_iter=spec.max_iter, atol=spec.atol,
-                      rtol=spec.rtol, omega=spec.omega, variant="bakp")
-    if vars_pb != vars_p:
-        res = res._replace(coef=res.coef[:vars_p])
-    return res
+    def kernel(p, y, spec: SolverSpec, *, a0=None, generator=None):
+        # Imported at call time: the kernels import repro_torch.core.types,
+        # so a module-level import here would tie the two packages' import
+        # order.
+        from repro_torch.kernels.fused_solve import fused_fits, fused_solve
+
+        block = spec.thr
+        obs_p, vars_p = p.shape
+        nrhs = y.shape[1] if y.dim() == 2 else 1
+        vars_pb = -(-vars_p // block) * block
+        if spec.max_iter < 1 or not fused_fits(vars_pb, obs_p, nrhs,
+                                               p.x_pad.element_size(),
+                                               max_iter=spec.max_iter):
+            record_dispatch("xla", method=method,
+                            reason="max_iter" if spec.max_iter < 1 else "vmem")
+            if variant == "bak":
+                return solvebak(p.x_pad, y, max_iter=spec.max_iter,
+                                atol=spec.atol, rtol=spec.rtol, a0=a0,
+                                cn=p.cn)
+            return solvebakp(p.x_pad, y, thr=block, max_iter=spec.max_iter,
+                             atol=spec.atol, rtol=spec.rtol, omega=spec.omega,
+                             mode="jacobi", cn=p.cn_for_thr(block), a0=a0)
+        if a0 is not None and vars_pb != vars_p:
+            a0 = torch.nn.functional.pad(
+                a0, (0, 0) * (a0.dim() - 1) + (0, vars_pb - vars_p))
+        record_dispatch("fused", method=method)
+        res = fused_solve(p.x_t_for(block), y, inv_cn=p.inv_cn_for(block),
+                          a0=a0, block=block, max_iter=spec.max_iter,
+                          atol=spec.atol, rtol=spec.rtol,
+                          omega=spec.omega if variant == "bakp" else 1.0,
+                          variant=variant)
+        if vars_pb != vars_p:
+            res = res._replace(coef=res.coef[:vars_p])
+        return res
+    return kernel
 
 
 def _prep_fused(p, spec: SolverSpec):
     p.x_t_for(spec.thr)
     p.inv_cn_for(spec.thr)
+
+
+# ---------------------------------------------------- greedy selection (A3)
+def _bakf_solve(p, y, spec: SolverSpec, *, a0=None, generator=None):
+    """Algorithm 3 run to full selection as a solver: greedily order every
+    column by SSE reduction, refitting after each pick; the final refit
+    over all columns is an exact-block CD solve."""
+    record_dispatch("xla", method="bakf")
+    nvars = p.shape[1]
+    sel = solvebakf(p.x_pad, y, max_feat=nvars, refit_sweeps=spec.max_iter,
+                    refit_thr=min(spec.thr, nvars))
+    coef = torch.zeros((nvars,), dtype=torch.float32, device=p.device)
+    coef[sel.selected.long()] = sel.coef
+    e = sel.residual
+    sse = torch.dot(e, e)
+    hist = torch.full((spec.max_iter,), math.nan, dtype=torch.float32,
+                      device=p.device)
+    hist[0] = sse
+    return SolveResult(coef, e, sse, torch.tensor(nvars, dtype=torch.int32),
+                       torch.tensor(True), hist)
 
 
 # ----------------------------------------------------------- direct methods
@@ -104,7 +156,7 @@ def _direct_result(x, y, coef, max_iter: int) -> SolveResult:
                        torch.tensor(True), hist)
 
 
-def _lstsq_solve(p, y, spec: SolverSpec, *, a0=None):
+def _lstsq_solve(p, y, spec: SolverSpec, *, a0=None, generator=None):
     record_dispatch("xla", method="lstsq")
     rhs = y if y.dim() == 2 else y[:, None]
     coef = torch.linalg.lstsq(p.x_pad, rhs).solution
@@ -112,7 +164,7 @@ def _lstsq_solve(p, y, spec: SolverSpec, *, a0=None):
                           spec.max_iter)
 
 
-def _normal_solve(p, y, spec: SolverSpec, *, a0=None):
+def _normal_solve(p, y, spec: SolverSpec, *, a0=None, generator=None):
     record_dispatch("xla", method="normal")
     x = p.x_pad
     g = x.T @ x + spec.ridge * torch.eye(x.shape[1], dtype=torch.float32,
@@ -124,6 +176,11 @@ def _normal_solve(p, y, spec: SolverSpec, *, a0=None):
 
 
 # ------------------------------------------------------------- registration
+register_method(MethodEntry(
+    name="bak", solve=_bak_solve, consumes=_ITER_FIELDS + ("order",),
+    iterative=True, multi_rhs=True, blocked=False, prepare=_prep_bak,
+    fallback="lstsq",
+    summary="Algorithm 1: serial cyclic coordinate descent"))
 register_method(MethodEntry(
     name="bakp", solve=_bakp_solve("jacobi"),
     consumes=_ITER_FIELDS + ("thr", "omega"),
@@ -137,12 +194,19 @@ register_method(MethodEntry(
     prepare=_prep_bakp_gram, fallback="bakp",
     summary="exact block CD via cached block-Gram Cholesky (beyond-paper)"))
 register_method(MethodEntry(
-    name="bakp_fused", solve=_fused_solve,
+    name="bakp_fused", solve=_fused_method("bakp"),
     consumes=_ITER_FIELDS + ("thr", "omega", "precision", "refine_sweeps"),
     iterative=True, multi_rhs=True, blocked=True, lane="fused",
     prepare=_prep_fused, fallback="bakp",
     summary="Algorithm 2 on the whole-solve CUDA kernel (sweeps, SSE and "
             "stop on the card; plain bakp path over the on-chip budget)"))
+register_method(MethodEntry(
+    name="bak_fused", solve=_fused_method("bak"),
+    consumes=_ITER_FIELDS + ("thr", "precision", "refine_sweeps"),
+    iterative=True, multi_rhs=True, blocked=True, lane="fused",
+    prepare=_prep_fused, fallback="bak",
+    summary="Algorithm 1 on the whole-solve CUDA kernel (sequential column "
+            "order; plain bak path over the on-chip budget)"))
 register_method(MethodEntry(
     name="lstsq", solve=_lstsq_solve, consumes=(),
     iterative=False, multi_rhs=True,
@@ -151,3 +215,7 @@ register_method(MethodEntry(
     name="normal", solve=_normal_solve, consumes=("ridge",),
     iterative=False, multi_rhs=True, fallback="lstsq",
     summary="normal-equation Cholesky with SolverSpec.ridge diagonal"))
+register_method(MethodEntry(
+    name="bakf", solve=_bakf_solve, consumes=("max_iter", "thr"),
+    iterative=False, multi_rhs=False,
+    summary="Algorithm 3 to full selection: greedy forward CD + refit"))

@@ -199,6 +199,7 @@ class PreparedDesign:
         a0=None,
         *,
         spec: Optional[SolverSpec] = None,
+        generator: Optional[torch.Generator] = None,
         tenant_id: Optional[str] = None,
         placement=None,
     ) -> SolveResult:
@@ -209,6 +210,8 @@ class PreparedDesign:
             to the design's device as fp32.
           a0: optional (vars,)/(vars, k) warm start; direct methods ignore it.
           spec: overrides the spec bound at ``prepare`` time.
+          generator: ``torch.Generator`` on the design's device for
+            ``order="random"`` (where the JAX handle takes a PRNG ``key``).
           tenant_id: when set and ``a0`` is None, warm-start from the
             tenant's last stored coefficients and store the new solution
             back afterwards (unless the solve diverged).
@@ -245,7 +248,7 @@ class PreparedDesign:
             a0 = None
         if a0 is not None:
             a0 = as_f32(a0, self.device)
-        res = entry.solve(self, y, spec, a0=a0)
+        res = entry.solve(self, y, spec, a0=a0, generator=generator)
         if store_tenant is not None and warm_retention_ok(res):
             self.store_coef(store_tenant, res.coef)
         return res

@@ -11,6 +11,8 @@ Shared semantics:
   * ``a0`` warm starts are a solve-time argument; direct methods ignore it.
   * ``ridge`` — Tikhonov diagonal for "normal" and the ``mode="gram"``
     block factorisations.
+  * ``order="random"`` takes a ``torch.Generator`` at solve time
+    (``generator=``), where the JAX package takes a PRNG ``key``.
   * fields a method does not consume (``MethodEntry.consumes``) are reset to
     defaults by ``canonical()``.
   * ``precision`` — names the storage precision of the X stream.  Every
@@ -50,7 +52,7 @@ class SolverSpec:
       rtol:     relative per-sweep improvement tolerance (0 disables).
       thr:      block width for the SolveBakP family (paper thread count).
       omega:    block-update relaxation factor (1.0 = paper-faithful).
-      order:    column order for Algorithm 1 (its slice consumes it).
+      order:    column order for Algorithm 1: "cyclic" or "random".
       ridge:    Tikhonov diagonal for "normal" and ``mode="gram"``.
       precision: storage precision of the X stream.
       refine_sweeps: fp32 polish budget for "bf16_fp32acc".
@@ -108,7 +110,7 @@ class MethodEntry:
 
     Attributes:
       name:      registry key (``SolverSpec.method``).
-      solve:     ``(prepared, y, spec, *, a0) -> SolveResult``.
+      solve:     ``(prepared, y, spec, *, a0, generator) -> SolveResult``.
       consumes:  SolverSpec fields that change this method's result.
       iterative: consumes ``max_iter``/``atol``/``rtol`` and honours ``a0``.
       multi_rhs: accepts ``y`` of shape (obs, k).

@@ -3,8 +3,7 @@
 PyTorch counterpart of ``repro.core.types``.  The JAX module's
 ``donate_default`` has no counterpart: buffer donation is a ``jax.jit``
 argument-aliasing contract, and PyTorch runs eagerly with caller-owned
-tensors, so there is nothing to donate.  ``SelectResult`` arrives with the
-Algorithm-3 slice.
+tensors, so there is nothing to donate.
 """
 from __future__ import annotations
 
@@ -37,6 +36,24 @@ class SolveResult(NamedTuple):
     n_sweeps: torch.Tensor
     converged: torch.Tensor
     history: torch.Tensor
+
+
+class SelectResult(NamedTuple):
+    """Result of SolveBakF greedy feature selection.
+
+    Attributes:
+      selected:  (max_feat,) int32 indices of selected columns, in selection
+                 order.
+      coef:      (max_feat,) fp32 coefficients of the refit on the selected
+                 columns (aligned with ``selected``).
+      sse_path:  (max_feat,) fp32 SSE after each selection + refit step.
+      residual:  (obs,) fp32 final residual.
+    """
+
+    selected: torch.Tensor
+    coef: torch.Tensor
+    sse_path: torch.Tensor
+    residual: torch.Tensor
 
 
 def column_norms_sq(x: torch.Tensor) -> torch.Tensor:

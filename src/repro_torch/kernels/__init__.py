@@ -1,13 +1,19 @@
 """repro_torch.kernels — hand-written CUDA kernels for the solver hot path.
 
-  fused_solve.py  whole-solve SolveBakP: one cooperative launch runs every
-                  sweep, the SSE and the stopping rule on the card, with a
-                  true early exit (csrc/fused_solve.cu).
-  cd_sweep.py     one SolveBakP sweep (csrc/bakp_sweep.cu) and the on-chip
-                  budget; the block step both kernels share is
-                  csrc/bakp_block.cuh.
+  fused_solve.py  whole-solve SolveBakP / SolveBak: one cooperative launch
+                  runs every sweep, the SSE and the stopping rule on the
+                  card, with a true early exit (csrc/fused_solve.cu,
+                  csrc/bak_fused.cu).
+  cd_sweep.py     one SolveBakP sweep (csrc/bakp_sweep.cu), one SolveBak
+                  sweep (csrc/bak_sweep.cu) and the on-chip budget; the
+                  steps the sweep and whole-solve kernels share are
+                  csrc/bakp_block.cuh and csrc/bak_column.cuh.
+  block_update.py the streamed-obs kernels: rank-CB residual correction
+                  (csrc/block_update.cu) and SolveBakF feature scores
+                  (csrc/score_features.cu).
   ops.py          solver entries: solvebakp_kernel (fused when the design
-                  fits, per-sweep loop otherwise).
+                  fits, per-sweep loop otherwise), score_features_kernel,
+                  block_update_kernel.
   ref.py          plain-torch oracles.
   _build.py       nvcc build into kernels/build/, ctypes loading, launch
                   counts.
@@ -20,19 +26,26 @@ use ``torch.matmul``, which on the card stays in full fp32 only with
 which ``chip_smoke.py`` sets before comparing).
 """
 from repro_torch.kernels._build import launch_counts, reset_launch_counts
-from repro_torch.kernels.cd_sweep import bakp_sweep
+from repro_torch.kernels.block_update import block_update, score_features
+from repro_torch.kernels.cd_sweep import bakp_sweep, cd_sweep
 from repro_torch.kernels.fused_solve import (fused_fits, fused_solve,
                                              fused_working_set_bytes)
-from repro_torch.kernels.ops import (solvebakp_kernel,
+from repro_torch.kernels.ops import (block_update_kernel,
+                                     score_features_kernel, solvebakp_kernel,
                                      solvebakp_persweep_kernel)
 
 __all__ = [
     "bakp_sweep",
+    "block_update",
+    "block_update_kernel",
+    "cd_sweep",
     "fused_fits",
     "fused_solve",
     "fused_working_set_bytes",
     "launch_counts",
     "reset_launch_counts",
+    "score_features",
+    "score_features_kernel",
     "solvebakp_kernel",
     "solvebakp_persweep_kernel",
 ]

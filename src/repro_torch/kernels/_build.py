@@ -5,8 +5,9 @@ with a plain C interface, loaded through ``ctypes``.  Nothing is built at
 import: the first call that needs a kernel builds it, or ``build_all()``
 builds every source at once, one ``nvcc`` process per source, all started
 together.  Libraries land in ``kernels/build/`` (git-ignored) under a name
-carrying a hash of the sources and flags, so an edited source rebuilds and
-an unchanged one loads as it is.
+carrying a hash of the flags, the library's ``.cu`` and the ``csrc``
+headers it includes (followed transitively), so editing a source rebuilds
+exactly the libraries that compile it and the rest load as they are.
 
 Launch counts also live here: every wrapper adds one to ``LAUNCHES[name]``
 where it launches its kernel, and nowhere else.
@@ -16,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -44,6 +46,20 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "bakp_fused_grid": [_I, _I, _P],
         "bakp_fused_launch": [_P] * 13 + [_I] * 5 + [_F] * 3 + [_I, _P],
     },
+    "bak_sweep": {
+        "bak_sweep_grid": [_I, _I, _I, _P, _P],
+        "bak_sweep_launch": [_P] * 6 + [_I] * 5 + [_P],
+    },
+    "bak_fused": {
+        "bak_fused_grid": [_I, _I, _I, _P, _P],
+        "bak_fused_launch": [_P] * 12 + [_I] * 4 + [_F] * 2 + [_I] * 2 + [_P],
+    },
+    "score_features": {
+        "score_features_launch": [_P] * 5 + [_I] * 4 + [_P],
+    },
+    "block_update": {
+        "block_update_launch": [_P] * 4 + [_I] * 3 + [_P],
+    },
 }
 
 _lock = threading.Lock()
@@ -68,9 +84,25 @@ def _nvcc() -> str:
                        "toolkit (set CUDA_HOME or put nvcc on PATH)")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def _sources(name: str) -> List[Path]:
+    """``csrc/<name>.cu`` and every ``csrc`` header it includes, directly or
+    through another header, in a fixed order."""
+    seen, todo = {}, [CSRC / f"{name}.cu"]
+    while todo:
+        src = todo.pop()
+        if src.name in seen or not src.exists():
+            continue
+        seen[src.name] = src
+        todo.extend(CSRC / inc.decode() for inc in _INCLUDE.findall(src.read_bytes()))
+    return [seen[n] for n in sorted(seen)]
+
+
 def _lib_path(name: str) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sorted(CSRC.glob("*.cu*")):
+    for src in _sources(name):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"

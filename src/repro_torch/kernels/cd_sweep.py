@@ -1,14 +1,18 @@
-"""One SolveBakP sweep: the CUDA kernel ``csrc/bakp_sweep.cu`` and its plain
-torch version.
+"""One sweep of either solver: the CUDA kernels ``csrc/bak_sweep.cu``
+(Algorithm 1) and ``csrc/bakp_sweep.cu`` (Algorithm 2), with their plain
+torch versions.
 
-Counterpart of ``repro.kernels.cd_sweep`` (``bakp_block_update``,
-``bakp_sweep``).  The Algorithm-1 sweep (``cd_sweep``, ``bak_row_update``)
-arrives with its own slice.
+Counterpart of ``repro.kernels.cd_sweep`` (``bak_row_update``,
+``cd_sweep``, ``bakp_block_update``, ``bakp_sweep``).
 
-``bakp_sweep`` follows the device of the tensors it is given: CPU tensors
-run the plain version (``bakp_sweep_plain``), CUDA tensors launch the
-kernel, and anything else raises.  The kernel splits obs across a
-cooperative grid of CTAs (see ``csrc/bakp_block.cuh``).
+``cd_sweep`` and ``bakp_sweep`` follow the device of the tensors they are
+given: CPU tensors run the plain versions (``cd_sweep_plain``,
+``bakp_sweep_plain``), CUDA tensors launch the kernels, and anything else
+raises.  Both kernels split obs across a cooperative grid of CTAs (see
+``csrc/bakp_block.cuh`` and ``csrc/bak_column.cuh``).  The JAX ``cd_sweep``
+stages ``block`` rows per grid step and checks a VMEM budget; here
+``block`` only has to divide vars (as in JAX), since the Algorithm-1 kernel
+walks the columns one at a time whatever the block.
 """
 from __future__ import annotations
 
@@ -35,6 +39,30 @@ SMEM_DA_LIMIT_BYTES = 200 * 1024
 MIN_OBS_PER_CTA = 128
 
 _grid_cache: dict = {}
+
+
+def bak_row_update(xj: torch.Tensor, inv_j, e: torch.Tensor):
+    """One Algorithm-1 column update on loaded values (plain torch).
+
+    Args: xj (1, obs) column; inv_j its inverse squared norm; e (k, obs).
+    Returns (da, e'): (1, k) increment and the corrected residual(s).
+    """
+    da = (xj @ e.T) * inv_j                               # <x_j, e>, (1, k)
+    return da, e - da.T @ xj
+
+
+def cd_sweep_plain(x_t, e2, inv_cn):
+    """Plain version of the Algorithm-1 sweep kernel on the (k, obs)
+    layout: returns (da (vars, k), e' (k, obs))."""
+    nvars = x_t.shape[0]
+    inv = inv_cn.reshape(nvars).float()
+    e = e2.float()
+    da = torch.empty((nvars, e.shape[0]), dtype=torch.float32,
+                     device=x_t.device)
+    for j in range(nvars):
+        d, e = bak_row_update(x_t[j:j + 1].float(), inv[j], e)
+        da[j] = d[0]
+    return da, e
 
 
 def bakp_block_update(xb: torch.Tensor, inv: torch.Tensor, e: torch.Tensor,
@@ -75,10 +103,25 @@ def cooperative_grid(lib_fn, obs: int, k: int, block: int) -> int:
     return max(1, min(_grid_cache[key], -(-obs // MIN_OBS_PER_CTA)))
 
 
+def bak_grid(lib_fn, obs: int, k: int):
+    """Launch plan of the Algorithm-1 kernels: ``(grid, e_smem)``, at most
+    one CTA per SM and at least ``MIN_OBS_PER_CTA`` obs per CTA, with the
+    residual slices in shared memory when they fit (``bak_plan`` in
+    ``csrc/bak_column.cuh``)."""
+    key = (lib_fn.__name__, torch.cuda.current_device(), obs, k)
+    if key not in _grid_cache:
+        grid, e_smem = ctypes.c_int(0), ctypes.c_int(0)
+        _build.check(lib_fn(obs, k, MIN_OBS_PER_CTA, ctypes.addressof(grid),
+                            ctypes.addressof(e_smem)), lib_fn.__name__)
+        _grid_cache[key] = (grid.value, e_smem.value)
+    return _grid_cache[key]
+
+
 def check_kernel_args(x_t: torch.Tensor, nrhs: int, block: int, *tensors):
     """What the CUDA kernels take: fp32 contiguous x_t on one device with
     every other operand, vars a multiple of block, and one block's
-    increments within shared memory."""
+    increments within shared memory (``block=1`` for the Algorithm-1
+    kernels, which hold one column's k increments)."""
     if x_t.dtype != torch.float32:
         raise TypeError(f"the CUDA kernels take fp32 x_t, got {x_t.dtype}")
     if not x_t.is_contiguous():
@@ -120,6 +163,63 @@ def _bakp_sweep_cuda(x_t, e2, inv_cn, *, block, omega):
     return da, e_out
 
 
+def _cd_sweep_cuda(x_t, e2, inv_cn):
+    nvars, obs = x_t.shape
+    nrhs = e2.shape[0]
+    check_kernel_args(x_t, nrhs, 1, e2, inv_cn)
+    lib = _build.load("bak_sweep")
+    dev = x_t.device
+    with torch.cuda.device(dev):
+        grid, e_smem = bak_grid(lib.bak_sweep_grid, obs, nrhs)
+        e_in = e2.float().contiguous()
+        inv = inv_cn.float().contiguous()
+        e_out = torch.empty_like(e_in)
+        da = torch.empty((nvars, nrhs), dtype=torch.float32, device=dev)
+        partials = torch.empty((2, grid, nrhs), dtype=torch.float32,
+                               device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _build.LAUNCHES["bak_sweep"] += 1
+        _build.check(lib.bak_sweep_launch(
+            x_t.data_ptr(), inv.data_ptr(), e_in.data_ptr(), e_out.data_ptr(),
+            da.data_ptr(), partials.data_ptr(), nvars, obs, nrhs, grid,
+            e_smem, stream), "bak_sweep_launch")
+    return da, e_out
+
+
+def _sweep(name, plain, cuda, x_t, e, inv_cn, block_of, **kw):
+    """Shared wrapper of the two sweeps: shape checks (vars a multiple of
+    ``block_of``), the 1-D ``e`` form and the device rule."""
+    nvars, obs = x_t.shape
+    if nvars % block_of:
+        raise ValueError(
+            f"vars ({nvars}) must be a multiple of block ({block_of})")
+    single = e.dim() == 1
+    e2 = e.reshape(1, obs) if single else e
+    if x_t.device.type == "cpu":
+        da, e_out = plain(x_t, e2, inv_cn, **kw)
+    elif x_t.device.type == "cuda":
+        da, e_out = cuda(x_t, e2, inv_cn, **kw)
+    else:
+        raise ValueError(f"{name} runs on cpu or cuda, not {x_t.device}")
+    if single:
+        return da[:, 0], e_out[0]
+    return da, e_out
+
+
+def cd_sweep(x_t, e, inv_cn, *, block=256):
+    """One paper-faithful Algorithm-1 sweep, strictly in column order.
+
+    Args:
+      x_t: (vars, obs) transposed design; vars a multiple of ``block``.
+      e: (obs,) residual, or (k, obs) for k right-hand sides.
+      inv_cn: (vars,) inverse squared column norms.
+    Returns:
+      (da, e'): (vars,)/(obs,) for 1-D ``e``, (vars, k)/(k, obs) otherwise.
+    """
+    return _sweep("cd_sweep", cd_sweep_plain, _cd_sweep_cuda, x_t, e, inv_cn,
+                  block)
+
+
 def bakp_sweep(x_t, e, inv_cn, *, block=256, omega=1.0):
     """One SolveBakP (block-Jacobi) sweep over every column block.
 
@@ -130,17 +230,5 @@ def bakp_sweep(x_t, e, inv_cn, *, block=256, omega=1.0):
     Returns:
       (da, e'): (vars,)/(obs,) for 1-D ``e``, (vars, k)/(k, obs) otherwise.
     """
-    nvars, obs = x_t.shape
-    if nvars % block:
-        raise ValueError(f"vars ({nvars}) must be a multiple of block ({block})")
-    single = e.dim() == 1
-    e2 = e.reshape(1, obs) if single else e
-    if x_t.device.type == "cpu":
-        da, e_out = bakp_sweep_plain(x_t, e2, inv_cn, block=block, omega=omega)
-    elif x_t.device.type == "cuda":
-        da, e_out = _bakp_sweep_cuda(x_t, e2, inv_cn, block=block, omega=omega)
-    else:
-        raise ValueError(f"bakp_sweep runs on cpu or cuda, not {x_t.device}")
-    if single:
-        return da[:, 0], e_out[0]
-    return da, e_out
+    return _sweep("bakp_sweep", bakp_sweep_plain, _bakp_sweep_cuda, x_t, e,
+                  inv_cn, block, block=block, omega=omega)

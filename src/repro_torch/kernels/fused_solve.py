@@ -1,11 +1,14 @@
-"""Whole-solve SolveBakP: the CUDA kernel ``csrc/fused_solve.cu`` and its
-plain torch version.
+"""Whole-solve SolveBak / SolveBakP: the CUDA kernels ``csrc/bak_fused.cu``
+(``variant="bak"``, Algorithm 1) and ``csrc/fused_solve.cu``
+(``variant="bakp"``, Algorithm 2), with their plain torch version.
 
-Counterpart of ``repro.kernels.fused_solve`` with ``variant="bakp"``: one
-launch runs every sweep of the solve, reduces the per-sweep SSE and
-evaluates ``sweep_stop_flags`` on the card, and exits early without a host
-synchronisation per sweep.  It takes precomputed ``inv_cn``, a warm start
-``a0`` and k ≥ 1 right-hand sides sharing one x.
+Counterpart of ``repro.kernels.fused_solve``: one launch runs every sweep
+of the solve, reduces the per-sweep SSE and evaluates ``sweep_stop_flags``
+on the card, and exits early without a host synchronisation per sweep.  It
+takes precomputed ``inv_cn``, a warm start ``a0`` and k ≥ 1 right-hand
+sides sharing one x.  ``variant="bak"`` walks the columns strictly in order
+and updates ``coef`` row by row; it has no relaxation, so ``omega`` is
+ignored there, as in the JAX kernel.
 
 Fit check: ``fused_fits`` admits a solve whose working set
 (``fused_working_set_bytes``) fits ``cd_sweep.ON_CHIP_BUDGET_BYTES``; the
@@ -14,7 +17,6 @@ callers (``ops.solvebakp_kernel``, the ``bakp_fused`` method) dispatch on it.
 ``fused_solve`` follows the device of its tensors: CPU tensors run the
 plain version (``fused_solve_plain``, a host loop that reads the stop flag
 once per sweep), CUDA tensors launch the kernel, anything else raises.
-``variant="bak"`` (Algorithm 1) arrives with its own slice.
 """
 from __future__ import annotations
 
@@ -92,10 +94,14 @@ def solve_init(x_t, y, inv_cn, a0, multi):
     return inv_cn, a0m, e0
 
 
+VARIANTS = ("bakp", "bak")
+
+
 def fused_solve_plain(x_t, inv_cn, e0, a0m, *, block, max_iter, atol_sse,
-                      rtol, omega):
-    """Plain version of the fused kernel on its own operands: returns
-    (coef (vars, k), e (k, obs), history, sse, n_sweeps, converged)."""
+                      rtol, omega, variant="bakp"):
+    """Plain version of the fused kernels on their own operands: returns
+    (coef (vars, k), e (k, obs), history, sse, n_sweeps, converged).
+    ``variant="bak"`` updates one column at a time (``omega`` unused)."""
     nvars = x_t.shape[0]
     inv = inv_cn.reshape(nvars, 1).float()
     e = e0.float()
@@ -105,10 +111,15 @@ def fused_solve_plain(x_t, inv_cn, e0, a0m, *, block, max_iter, atol_sse,
     sse0 = torch.dot(e.reshape(-1), e.reshape(-1))
     sse, n, converged = sse0, 0, torch.tensor(False)
     while n < max_iter:
-        for b in range(0, nvars, block):
-            da, e = _cd.bakp_block_update(x_t[b:b + block].float(),
-                                          inv[b:b + block], e, omega)
-            coef[b:b + block] += da
+        if variant == "bak":
+            for j in range(nvars):
+                da, e = _cd.bak_row_update(x_t[j:j + 1].float(), inv[j, 0], e)
+                coef[j] += da[0]
+        else:
+            for b in range(0, nvars, block):
+                da, e = _cd.bakp_block_update(x_t[b:b + block].float(),
+                                              inv[b:b + block], e, omega)
+                coef[b:b + block] += da
         sse_new = torch.dot(e.reshape(-1), e.reshape(-1))
         hist[n] = sse_new
         converged, stop = sweep_stop_flags(sse_new, sse, sse0, atol_sse,
@@ -118,6 +129,48 @@ def fused_solve_plain(x_t, inv_cn, e0, a0m, *, block, max_iter, atol_sse,
             break
     return (coef, e, hist, sse, torch.tensor(n, dtype=torch.int32),
             converged)
+
+
+def _bak_fused_cuda(x_t, inv_cn, e0, a0m, *, max_iter, atol_sse, rtol):
+    nvars, obs = x_t.shape
+    nrhs = e0.shape[0]
+    _cd.check_kernel_args(x_t, nrhs, 1, inv_cn, e0, a0m)
+    lib = _build.load("bak_fused")
+    dev = x_t.device
+    with torch.cuda.device(dev):
+        grid, e_smem = _cd.bak_grid(lib.bak_fused_grid, obs, nrhs)
+        inv = inv_cn.float().contiguous()
+        e0c = e0.float().contiguous()
+        a0c = a0m.float().contiguous()
+        f32 = dict(dtype=torch.float32, device=dev)
+        coef = torch.empty((nvars, nrhs), **f32)
+        e = torch.empty((nrhs, obs), **f32)
+        hist = torch.empty((max_iter,), **f32)
+        sse = torch.empty((1,), **f32)
+        n = torch.empty((1,), dtype=torch.int32, device=dev)
+        conv = torch.empty((1,), dtype=torch.int32, device=dev)
+        partials = torch.empty((2, grid, nrhs), **f32)
+        sse_part = torch.empty((grid,), **f32)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _build.LAUNCHES["bak_fused"] += 1
+        _build.check(lib.bak_fused_launch(
+            x_t.data_ptr(), inv.data_ptr(), e0c.data_ptr(), a0c.data_ptr(),
+            coef.data_ptr(), e.data_ptr(), hist.data_ptr(), sse.data_ptr(),
+            n.data_ptr(), conv.data_ptr(), partials.data_ptr(),
+            sse_part.data_ptr(), nvars, obs, nrhs, max_iter, float(atol_sse),
+            float(rtol), grid, e_smem, stream), "bak_fused_launch")
+    return coef, e, hist, sse[0], n[0], conv[0] != 0
+
+
+def fused_cuda(x_t, inv_cn, e0, a0m, *, block, max_iter, atol_sse, rtol,
+               omega, variant="bakp"):
+    """The CUDA kernel of ``variant`` on the plain version's operands and
+    outputs (``fused_solve_plain``'s signature)."""
+    if variant == "bak":
+        return _bak_fused_cuda(x_t, inv_cn, e0, a0m, max_iter=max_iter,
+                               atol_sse=atol_sse, rtol=rtol)
+    return _fused_cuda(x_t, inv_cn, e0, a0m, block=block, max_iter=max_iter,
+                       atol_sse=atol_sse, rtol=rtol, omega=omega)
 
 
 def _fused_cuda(x_t, inv_cn, e0, a0m, *, block, max_iter, atol_sse, rtol,
@@ -177,17 +230,14 @@ def fused_solve(
         (vars,); ``inv_cn`` wins; neither → computed from ``x_t``.
       a0: optional (vars,) / (vars, k) warm start.
       block / max_iter / atol / rtol / omega: as ``solvebakp_kernel``.
-      variant: "bakp" (Algorithm 2); "bak" is not ported yet.
+      variant: "bakp" (Algorithm 2) or "bak" (Algorithm 1, sequential
+        column order; ``omega`` is ignored).
     Returns:
       ``SolveResult``; multi-RHS gives (vars, k) coef and (obs, k) residual
       with total-SSE accounting.
     """
     nvars, obs = x_t.shape
-    if variant == "bak":
-        raise NotImplementedError(
-            "variant='bak' (Algorithm 1 in the fused kernel) is not ported "
-            "yet: ROADMAP queue 1 item 6")
-    if variant != "bakp":
+    if variant not in VARIANTS:
         raise ValueError(f"unknown variant {variant!r}")
     if nvars % block != 0:
         raise ValueError(
@@ -208,12 +258,12 @@ def fused_solve(
     kw = dict(block=block, max_iter=max_iter,
               atol_sse=atol_to_sse(obs, nrhs, atol),
               rtol=float(rtol),
-              omega=float(omega))
+              omega=float(omega), variant=variant)
     if x_t.device.type == "cpu":
         coef, e, hist, sse, n, conv = fused_solve_plain(x_t, inv_cn, e0, a0m,
                                                         **kw)
     elif x_t.device.type == "cuda":
-        coef, e, hist, sse, n, conv = _fused_cuda(x_t, inv_cn, e0, a0m, **kw)
+        coef, e, hist, sse, n, conv = fused_cuda(x_t, inv_cn, e0, a0m, **kw)
     else:
         raise ValueError(f"fused_solve runs on cpu or cuda, not {x_t.device}")
     if not multi:

@@ -1,17 +1,20 @@
 """Solver entries over the CUDA kernels.
 
 Counterpart of ``repro.kernels.ops``.  ``solvebakp_kernel`` is the kernel
-entry for the paper's Algorithm 2: the whole-solve kernel
-(``fused_solve``) when the design fits the on-chip budget (``fused_fits``),
-else the per-sweep loop (``solvebakp_persweep_kernel``), with the same
-``record_dispatch`` labels and reasons as the JAX package.
+entry for the paper's Algorithm 2 (``variant="bakp"``) and Algorithm 1
+(``variant="bak"``): the whole-solve kernel (``fused_solve``) when the
+design fits the on-chip budget (``fused_fits``), else the per-sweep loop
+(``solvebakp_persweep_kernel``), with the same ``record_dispatch`` labels
+and reasons as the JAX package.
 
-The per-sweep loop launches one ``bakp_sweep`` per sweep from a host loop;
-the residual goes back to device memory at every sweep boundary and the
-stop is decided off the card, with one host read of the stop flag per
-sweep, as in the JAX design.  Both paths take CPU tensors too (the plain
-versions run then).  The Algorithm-1 variant (``variant="bak"``) and the
-out-of-core, scoring and block-update entries arrive with later slices.
+The per-sweep loop launches one sweep kernel per sweep (``bakp_sweep``, or
+``cd_sweep`` for Algorithm 1) from a host loop; the residual goes back to
+device memory at every sweep boundary and the stop is decided off the
+card, with one host read of the stop flag per sweep, as in the JAX design.
+Both paths take CPU tensors too (the plain versions run then).
+``score_features_kernel`` and ``block_update_kernel`` are the entries of
+the two streamed-obs kernels.  The out-of-core entry arrives with its
+slice.
 """
 from __future__ import annotations
 
@@ -20,20 +23,19 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.types import SolveResult, atol_to_sse, sweep_stop_flags
-from repro_torch.kernels.cd_sweep import bakp_sweep
-from repro_torch.kernels.fused_solve import (fused_fits, fused_solve,
-                                             solve_init,
+from repro_torch.core.types import (SolveResult, atol_to_sse,
+                                    column_norms_sq_t, safe_inv,
+                                    sweep_stop_flags)
+from repro_torch.kernels.block_update import block_update, score_features
+from repro_torch.kernels.cd_sweep import bakp_sweep, cd_sweep
+from repro_torch.kernels.fused_solve import (VARIANTS, fused_fits,
+                                             fused_solve, solve_init,
                                              validate_solver_args)
 from repro_torch.obs import record_dispatch
 
 
 def _check_variant(variant: str) -> None:
-    if variant == "bak":
-        raise NotImplementedError(
-            "variant='bak' (Algorithm 1 sweeps) is not ported yet: ROADMAP "
-            "queue 1 item 6")
-    if variant != "bakp":
+    if variant not in VARIANTS:
         raise ValueError(f"unknown variant {variant!r}")
 
 
@@ -51,7 +53,7 @@ def solvebakp_persweep_kernel(
     omega: float = 1.0,
     variant: str = "bakp",
 ) -> SolveResult:
-    """Per-sweep SolveBakP: one ``bakp_sweep`` launch per sweep from a host
+    """Per-sweep SolveBak/SolveBakP: one sweep launch per sweep from a host
     loop that reads the stop flag once per sweep.  Arguments as
     ``solvebakp_kernel``."""
     _check_variant(variant)
@@ -64,7 +66,10 @@ def solvebakp_persweep_kernel(
     atol_sse = atol_to_sse(obs, nrhs, atol)
     sse, n, converged = sse0, 0, torch.tensor(False)
     while n < max_iter:
-        da, e = bakp_sweep(x_t, e, inv_cn, block=block, omega=omega)
+        if variant == "bak":
+            da, e = cd_sweep(x_t, e, inv_cn, block=block)
+        else:
+            da, e = bakp_sweep(x_t, e, inv_cn, block=block, omega=omega)
         a = a + da
         sse_new = torch.dot(e.reshape(-1), e.reshape(-1))
         history[n] = sse_new
@@ -92,14 +97,16 @@ def solvebakp_kernel(
     omega: float = 1.0,
     variant: str = "bakp",
 ) -> SolveResult:
-    """Kernel-path SolveBakP: fused when the design fits, else per-sweep.
+    """Kernel-path SolveBak/SolveBakP: fused when the design fits, else
+    per-sweep.
 
     Args:
       x_t: (vars, obs) TRANSPOSED design; vars a multiple of ``block``.
       y: (obs,) right-hand side, or (obs, k).
       cn / inv_cn: optional precomputed (inverse) squared column norms.
       a0: optional (vars,) / (vars, k) warm start.
-      variant: "bakp" (Algorithm 2).
+      variant: "bakp" (Algorithm 2 sweeps) or "bak" (Algorithm 1,
+        sequential column order; ``omega`` is ignored).
     Returns:
       ``SolveResult``; multi-RHS gives (vars, k) coef and (obs, k) residual.
     """
@@ -118,3 +125,17 @@ def solvebakp_kernel(
     return solvebakp_persweep_kernel(
         x_t, y, inv_cn=inv_cn, a0=a0, block=block, max_iter=max_iter,
         atol=atol, rtol=rtol, omega=omega, variant=variant)
+
+
+def score_features_kernel(x_t: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
+    """SolveBakF feature scores ``⟨x_j, e⟩²/⟨x_j, x_j⟩`` for every row of
+    ``x_t`` (vars, obs) against the residual ``e`` (obs,)."""
+    inv_cn = safe_inv(column_norms_sq_t(x_t))
+    return score_features(x_t, e, inv_cn)
+
+
+def block_update_kernel(x_t_blk: torch.Tensor, e: torch.Tensor,
+                        da: torch.Tensor) -> torch.Tensor:
+    """Rank-CB residual correction ``e − x_blkᵀ·da`` (paper Algorithm 2,
+    line 9); shapes as ``block_update``."""
+    return block_update(x_t_blk, e, da)

@@ -3,12 +3,37 @@
 Counterpart of ``repro.kernels.ref``: same update order, fp32 accumulation.
 Layout convention as the JAX package: the kernels consume ``x_t``, the
 TRANSPOSED design of shape (vars, obs), so each paper-"column" is a
-contiguous row.  ``ref_cd_sweep``, ``ref_block_update`` and
-``ref_score_features`` arrive with the slices that port their kernels.
+contiguous row.
 """
 from __future__ import annotations
 
 import torch
+
+
+def ref_cd_sweep(x_t: torch.Tensor, e: torch.Tensor, inv_cn: torch.Tensor):
+    """Sequential (Gauss–Seidel) CD sweep over all rows of ``x_t``.
+
+    Args:
+      x_t: (vars, obs) transposed design.
+      e: (obs,) residual, or (k, obs) multi-RHS residuals.
+      inv_cn: (vars,) inverse squared column norms (0 for zero columns).
+    Returns:
+      (da, e'): (vars,)/(obs,) for 1-D ``e``, (vars, k)/(k, obs) otherwise.
+    """
+    nvars, obs = x_t.shape
+    single = e.dim() == 1
+    e2 = (e.reshape(1, obs) if single else e).float()
+    inv = inv_cn.float()
+    da = torch.zeros((nvars, e2.shape[0]), dtype=torch.float32,
+                     device=x_t.device)
+    for j in range(nvars):
+        xj = x_t[j].float()
+        d = (e2 @ xj) * inv[j]                            # (k,)
+        e2 = e2 - d[:, None] * xj[None, :]
+        da[j] = d
+    if single:
+        return da[:, 0], e2[0]
+    return da, e2
 
 
 def ref_bakp_sweep(x_t: torch.Tensor, e: torch.Tensor, inv_cn: torch.Tensor,
@@ -42,3 +67,22 @@ def ref_bakp_sweep(x_t: torch.Tensor, e: torch.Tensor, inv_cn: torch.Tensor,
     if single:
         return da[:, 0], e2[0]
     return da, e2
+
+
+def ref_block_update(x_t: torch.Tensor, e: torch.Tensor, da: torch.Tensor):
+    """Residual correction ``e' = e − x_blkᵀ·da`` (paper Alg. 2 line 9).
+
+    x_t: (block, obs); e: (obs,) or (k, obs); da: (block,) or (block, k).
+    """
+    ef, daf, xf = e.float(), da.float(), x_t.float()
+    if ef.dim() == 1:
+        return ef - daf @ xf
+    return ef - daf.T @ xf
+
+
+def ref_score_features(x_t: torch.Tensor, e: torch.Tensor,
+                       inv_cn: torch.Tensor):
+    """SolveBakF scoring: SSE reduction of a single CD step per feature,
+    ``⟨x_j, e⟩² / ⟨x_j, x_j⟩`` (vars,)."""
+    g = x_t.float() @ e.float()
+    return g * g * inv_cn

@@ -1,13 +1,14 @@
 """The port's handle API against the JAX handle: ``prepare(...).solve(y,
-a0)`` for the five methods x single/multi-RHS x warm/cold, the recorded
+a0)`` for every method x single/multi-RHS x warm/cold, the recorded
 dispatch paths, the tenant warm LRU, ``solve()`` / ``fit_linear_probe``,
 fingerprints, state carried over with ``prepared_from_arrays``, the device
 rule and the import boundary.
 
-JAX's ``bakp_fused`` raises on this tree's jax (its Pallas kernel), so the
-reference for the port's ``bakp_fused`` is JAX's ``bakp`` handle.  Coef
-agrees to 1e-5 of its largest magnitude (at least 1), the residual to 1e-5
-of the largest |y|: ``e = y - x @ coef`` carries the rounding of ``y``.
+JAX's ``bakp_fused`` and ``bak_fused`` raise on this tree's jax (their
+Pallas kernel), so the references for the port's are JAX's ``bakp`` and
+``bak`` handles, which share their semantics.  Coef agrees to 1e-5 of its
+largest magnitude (at least 1), the residual to 1e-5 of the largest |y|:
+``e = y - x @ coef`` carries the rounding of ``y``.
 """
 import subprocess
 import sys
@@ -24,8 +25,13 @@ from repro_torch.core import spec as tspec
 from repro_torch.obs import consume_dispatch, fallback_counts
 
 TOL = 1e-5
-METHODS = ("bakp", "bakp_gram", "bakp_fused", "lstsq", "normal")
-ITERATIVE = ("bakp", "bakp_gram", "bakp_fused")
+# Every registered method; bakf is single-RHS and ignores a0, so the
+# handle grid below runs the others and bakf has tests of its own.
+METHODS = ("bak", "bakp", "bakp_gram", "bakp_fused", "bak_fused", "lstsq",
+           "normal", "bakf")
+HANDLE_METHODS = tuple(m for m in METHODS if m != "bakf")
+ITERATIVE = ("bak", "bakp", "bakp_gram", "bakp_fused", "bak_fused")
+FUSED = ("bakp_fused", "bak_fused")
 
 
 def _spec(mod, method, **kw):
@@ -35,7 +41,7 @@ def _spec(mod, method, **kw):
 
 
 def _jax_method(method):
-    return "bakp" if method == "bakp_fused" else method
+    return method[:-len("_fused")] if method in FUSED else method
 
 
 def _np(t):
@@ -58,7 +64,7 @@ def _system(seed, obs=300, nvars=24, k=None, noise=0.05):
     return x, a, y
 
 
-@pytest.mark.parametrize("method", METHODS)
+@pytest.mark.parametrize("method", HANDLE_METHODS)
 @pytest.mark.parametrize("k", [None, 3])
 @pytest.mark.parametrize("warm", [False, True])
 def test_handle_matches_jax(method, k, warm):
@@ -72,7 +78,7 @@ def test_handle_matches_jax(method, k, warm):
     _close(r.coef, jr.coef)
     _close(r.residual, jr.residual, scale=y)
     assert r.coef.device.type == "cpu"
-    if method == "bakp_fused":
+    if method in FUSED:
         assert path == "fused"
     else:
         assert path == jpath == "xla"
@@ -234,7 +240,7 @@ def test_spec_and_registry_match_jax():
         assert not te.batchable and not te.shardable
     assert set(T.method_names()) == set(METHODS)
     with pytest.raises(ValueError, match="method must be one of"):
-        T.SolverSpec(method="bak")
+        T.SolverSpec(method="bakp_stream")
 
 
 def test_unsupported_specs_raise():
@@ -265,10 +271,90 @@ def test_default_device_is_cuda_and_never_falls_back():
         T.solve(x, y, method="bakp")
 
 
+# ------------------------------------------------ Algorithms 1 and 3
+def test_jax_bak_fused_records_the_same_path():
+    x, _, y = _system(112)
+    jobs.consume_dispatch()
+    try:
+        J.prepare(x, _spec(J, "bak_fused")).solve(y)
+    except Exception:  # noqa: BLE001 — the JAX Pallas kernel may raise
+        pass
+    assert jobs.consume_dispatch() == "fused"
+    T.prepare(x, _spec(T, "bak_fused"), device="cpu").solve(y)
+    assert consume_dispatch() == "fused"
+
+
+@pytest.mark.parametrize("k", [None, 2])
+def test_bak_fused_over_budget_falls_back_like_jax(monkeypatch, k):
+    import importlib
+    cd = importlib.import_module("repro_torch.kernels.cd_sweep")
+    jcd = importlib.import_module("repro.kernels.cd_sweep")
+    monkeypatch.setattr(cd, "ON_CHIP_BUDGET_BYTES", 1024)
+    monkeypatch.setattr(jcd, "VMEM_BUDGET_BYTES", 1024)
+    x, a, y = _system(113, nvars=21, k=k)
+    a0 = (0.5 * a).astype(np.float32)
+    before = fallback_counts().get(("bak_fused", "vmem"), 0)
+    r = T.prepare(x, _spec(T, "bak_fused"), device="cpu").solve(y, a0)
+    assert consume_dispatch() == "xla"
+    assert fallback_counts()[("bak_fused", "vmem")] == before + 1
+    jr = J.prepare(x, _spec(J, "bak_fused")).solve(y, a0)
+    assert jobs.consume_dispatch() == "xla"
+    _close(r.coef, jr.coef)
+    _close(r.residual, jr.residual, scale=y)
+
+
+@pytest.mark.parametrize("k", [None, 3])
+def test_bak_random_order_converges_to_jax(k):
+    """The two random streams differ, so the solutions are compared at
+    convergence (rtol 0, a fixed budget well past the fp32 floor)."""
+    import jax
+    x, a, y = _system(114, k=k, noise=0.0)
+    spec_kw = dict(max_iter=80, order="random")
+    g = torch.Generator().manual_seed(3)
+    p = T.prepare(x, T.SolverSpec(method="bak", **spec_kw), device="cpu")
+    r = p.solve(y, generator=g)
+    assert consume_dispatch() == "xla"
+    jr = J.prepare(x, J.SolverSpec(method="bak", **spec_kw)).solve(
+        y, key=jax.random.PRNGKey(3))
+    _close(r.coef, jr.coef)
+    _close(r.coef, a)
+    shim = T.solve(x, y, method="bak", order="random", max_iter=80,
+                   generator=torch.Generator().manual_seed(3), device="cpu")
+    _close(shim.coef, r.coef, tol=0.0)
+    with pytest.raises(ValueError, match="Generator"):
+        p.solve(y)
+
+
+def test_bakf_handle_matches_jax():
+    x, a, y = _system(115, nvars=20)
+    spec_kw = dict(method="bakf", max_iter=12, thr=8)
+    r = T.prepare(x, T.SolverSpec(**spec_kw), device="cpu").solve(
+        y, a0=np.ones(20, np.float32))            # ignored: not iterative
+    assert consume_dispatch() == "xla"
+    jr = J.prepare(x, J.SolverSpec(**spec_kw)).solve(y)
+    assert jobs.consume_dispatch() == "xla"
+    _close(r.coef, jr.coef)
+    _close(r.residual, jr.residual, scale=y)
+    _close(r.sse, jr.sse, scale=jr.sse)
+    assert int(r.n_sweeps) == int(jr.n_sweeps) == 20 and bool(r.converged)
+    assert tuple(r.history.shape) == (12,) and np.isnan(_np(r.history)[1:]).all()
+
+
+def test_bakf_rejects_multi_rhs():
+    x, _, y = _system(116, k=2)
+    p = T.prepare(x, T.SolverSpec(method="bakf", thr=8), device="cpu")
+    with pytest.raises(ValueError, match="multi-RHS"):
+        p.solve(y)
+    with pytest.raises(ValueError, match="multi-RHS"):
+        J.prepare(x, J.SolverSpec(method="bakf", thr=8)).solve(y)
+
+
 def test_import_pulls_in_no_jax_and_no_repro():
     code = (
         "import sys, repro_torch, repro_torch.core, repro_torch.kernels, "
-        "repro_torch.obs\n"
+        "repro_torch.obs, repro_torch.core.solvebak, "
+        "repro_torch.core.solvebakf, repro_torch.core.precondition, "
+        "repro_torch.kernels.block_update, repro_torch.kernels.ref\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'jaxlib', 'repro.')) or m == 'repro')\n"
         "print(bad)\n"

@@ -15,8 +15,12 @@ import pytest
 import torch
 
 from repro_torch.core import SolverSpec, prepare
-from repro_torch.kernels import _build, bakp_sweep, fused_solve, solvebakp_kernel
-from repro_torch.kernels.cd_sweep import bakp_sweep_plain
+from repro_torch.kernels import (_build, bakp_sweep, block_update, cd_sweep,
+                                 fused_solve, score_features,
+                                 score_features_kernel, solvebakp_kernel)
+from repro_torch.kernels.block_update import (block_update_plain,
+                                              score_features_plain)
+from repro_torch.kernels.cd_sweep import bakp_sweep_plain, cd_sweep_plain
 from repro_torch.kernels.fused_solve import fused_solve_plain, solve_init
 from repro_torch.obs import consume_dispatch
 
@@ -119,3 +123,109 @@ def test_handle_on_card(cuda):
     assert r.coef.shape == (200,) and _within(r.coef, a)
     w = p.solve(y + 0.01 * x.sum(1), tenant_id="t")
     assert int(w.n_sweeps) <= int(r.n_sweeps)
+
+
+# ------------------------------------------------- Algorithm 1 and entries
+@pytest.mark.parametrize("k,obs", [(1, 4096), (3, 4096), (8, 200000),
+                                   (8, 1000003)])
+def test_cd_sweep_kernel_matches_plain(cuda, k, obs):
+    """obs 1,000,003 at k 8 leaves the residual slices in device memory
+    (they do not fit shared memory); the others keep them on chip.  The
+    two larger shapes give each thread several positions of its slice
+    (the batched loads), the two small ones one."""
+    from repro_torch.kernels.cd_sweep import bak_grid
+    _, e_smem = bak_grid(_build.load("bak_sweep").bak_sweep_grid, obs, k)
+    assert e_smem == (obs < 1000000)
+    rng = np.random.default_rng(45)
+    nvars = 32 if obs > 100000 else 128
+    x_t = torch.tensor(rng.normal(size=(nvars, obs)).astype(np.float32),
+                       device=cuda)
+    inv = 1.0 / (x_t * x_t).sum(1)
+    inv[-1] = 0.0
+    e = torch.tensor(rng.normal(size=(k, obs)).astype(np.float32),
+                     device=cuda)
+    n0 = _build.launch_counts()["bak_sweep"]
+    da, e2 = cd_sweep(x_t, e, inv, block=8)
+    assert _build.launch_counts()["bak_sweep"] == n0 + 1
+    pda, pe2 = cd_sweep_plain(x_t, e, inv)
+    assert _within(da, pda) and _within(e2, pe2, scale=e)
+    assert float(da[-1].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("k,obs,nvars", [(None, 4096, 128), (8, 4096, 128),
+                                         (2, 100000, 64)])
+def test_bak_fused_kernel_matches_plain(cuda, k, obs, nvars):
+    x, _, y = _system(46, obs, nvars, k, cuda)
+    y = y + 0.1 * torch.randn(y.shape, device=cuda)
+    x_t = x.T.contiguous()
+    multi = y.dim() == 2
+    inv, a0m, e0 = solve_init(x_t, y, None, None, multi)
+    n0 = _build.launch_counts()["bak_fused"]
+    r = fused_solve(x_t, y, block=32, max_iter=6, variant="bak")
+    assert _build.launch_counts()["bak_fused"] == n0 + 1
+    pc, pe, ph, _, pn, _ = fused_solve_plain(
+        x_t, inv, e0, a0m, block=32, max_iter=6, atol_sse=0.0, rtol=0.0,
+        omega=1.0, variant="bak")
+    assert int(r.n_sweeps) == int(pn) == 6
+    coef = r.coef if multi else r.coef[:, None]
+    res = r.residual.T if multi else r.residual[None]
+    assert _within(coef, pc) and _within(res, pe, scale=e0)
+    assert _within(r.history, ph)
+
+
+def test_bak_kernel_entry_stops_and_solves(cuda):
+    x, a, y = _system(47, 8192, 128, 2, cuda)
+    consume_dispatch()
+    r = solvebakp_kernel(x.T.contiguous(), y, block=128, max_iter=100,
+                         rtol=1e-7, variant="bak")
+    assert consume_dispatch() == "fused"
+    assert int(r.n_sweeps) < 100 and bool(r.converged)
+    assert _within(r.coef, a)
+
+
+def test_score_features_kernel_matches_plain(cuda):
+    rng = np.random.default_rng(48)
+    for nvars, obs in [(1024, 65536), (7, 1001), (300, 4099)]:
+        x_t = torch.tensor(rng.normal(size=(nvars, obs)).astype(np.float32),
+                           device=cuda)
+        e = torch.tensor(rng.normal(size=obs).astype(np.float32),
+                         device=cuda)
+        inv = 1.0 / (x_t * x_t).sum(1)
+        n0 = _build.launch_counts()["score_features"]
+        s = score_features(x_t, e, inv)
+        assert _build.launch_counts()["score_features"] == n0 + 1
+        assert _within(s, score_features_plain(x_t, e, inv))
+    assert _within(score_features_kernel(x_t, e),
+                   score_features_plain(x_t, e, inv))
+
+
+@pytest.mark.parametrize("k,obs", [(None, 65536), (8, 65536), (3, 1001)])
+def test_block_update_kernel_matches_plain(cuda, k, obs):
+    rng = np.random.default_rng(49)
+    x_blk = torch.tensor(rng.normal(size=(64, obs)).astype(np.float32),
+                         device=cuda)
+    shape_e = (obs,) if k is None else (k, obs)
+    e = torch.tensor(rng.normal(size=shape_e).astype(np.float32),
+                     device=cuda)
+    da = torch.tensor(rng.normal(size=(64,) if k is None else (64, k))
+                      .astype(np.float32), device=cuda)
+    n0 = _build.launch_counts()["block_update"]
+    out = block_update(x_blk, e, da)
+    assert _build.launch_counts()["block_update"] == n0 + 1
+    want = block_update_plain(x_blk, e.reshape(-1, obs), da.reshape(64, -1))
+    assert out.shape == e.shape
+    assert _within(out.reshape(-1, obs), want, scale=want)
+
+
+def test_bak_handle_on_card(cuda):
+    x, a, y = _system(50, 8192, 200, None, cuda)   # 200 % 128: padded
+    p = prepare(x, SolverSpec(method="bak_fused", rtol=1e-7, max_iter=100))
+    r = p.solve(y, tenant_id="t")
+    assert consume_dispatch() == "fused"
+    assert r.coef.shape == (200,) and _within(r.coef, a)
+    w = p.solve(y + 0.01 * x.sum(1), tenant_id="t")
+    assert int(w.n_sweeps) <= int(r.n_sweeps)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    rr = p.solve(y, spec=SolverSpec(method="bak", order="random", rtol=1e-7,
+                                    max_iter=100), generator=g)
+    assert consume_dispatch() == "xla" and _within(rr.coef, a)

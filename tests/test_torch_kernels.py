@@ -2,10 +2,13 @@
 against their plain versions are in test_torch_cuda.py).
 
 JAX's ``fused_solve`` raises on this tree's jax (Pallas ``CostEstimate``
-drift), so the port's whole-solve path is held against JAX's
-``solvebakp(mode="jacobi")`` and ``solvebakp_persweep_kernel``, which share
-its semantics.  Tolerance: coef and residual to 1e-5; n_sweeps exactly only
-for rtol=0 and atol-only runs.
+drift), and so does its ``cd_sweep`` (``pl.store`` is gone), so the port's
+whole-solve path is held against JAX's ``solvebakp(mode="jacobi")`` and
+``solvebakp_persweep_kernel`` (Algorithm 2) and ``solvebak`` (Algorithm 1),
+and its Algorithm-1 sweep against ``ref_cd_sweep``, which share their
+semantics.  ``score_features`` and ``block_update`` run in interpret mode
+and are compared directly.  Tolerance: coef and residual to 1e-5; n_sweeps
+exactly only for rtol=0 and atol-only runs.
 """
 import importlib
 
@@ -14,18 +17,34 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core import solvebak as j_solvebak
 from repro.core import solvebakp as j_solvebakp
 from repro.kernels import bakp_sweep as j_bakp_sweep
+from repro.kernels import block_update as j_block_update_k
+from repro.kernels import block_update_kernel as j_block_update_kernel
+from repro.kernels import score_features as j_score_features
+from repro.kernels import score_features_kernel as j_score_features_kernel
 from repro.kernels import solvebakp_persweep_kernel as j_persweep
+from repro.kernels.cd_sweep import bak_row_update as j_bak_row_update
 from repro.kernels.cd_sweep import bakp_block_update as j_block_update
 from repro.kernels.fused_solve import fused_vmem_bytes as j_fused_bytes
 from repro.kernels.ref import ref_bakp_sweep as j_ref_sweep
-from repro_torch.kernels import (_build, bakp_sweep, fused_fits, fused_solve,
-                                 fused_working_set_bytes, solvebakp_kernel,
-                                 solvebakp_persweep_kernel)
-from repro_torch.kernels.cd_sweep import bakp_block_update, bakp_sweep_plain
+from repro.kernels.ref import ref_block_update as j_ref_block_update
+from repro.kernels.ref import ref_cd_sweep as j_ref_cd_sweep
+from repro.kernels.ref import ref_score_features as j_ref_score_features
+from repro_torch.kernels import (_build, bakp_sweep, block_update,
+                                 block_update_kernel, cd_sweep, fused_fits,
+                                 fused_solve, fused_working_set_bytes,
+                                 score_features, score_features_kernel,
+                                 solvebakp_kernel, solvebakp_persweep_kernel)
+from repro_torch.kernels.block_update import (block_update_plain,
+                                              score_chunks,
+                                              score_features_plain)
+from repro_torch.kernels.cd_sweep import (bak_row_update, bakp_block_update,
+                                          bakp_sweep_plain, cd_sweep_plain)
 from repro_torch.kernels.fused_solve import fused_solve_plain, solve_init
-from repro_torch.kernels.ref import ref_bakp_sweep
+from repro_torch.kernels.ref import (ref_bakp_sweep, ref_block_update,
+                                     ref_cd_sweep, ref_score_features)
 from repro_torch.obs import (consume_dispatch, dispatch_counts,
                              fallback_counts)
 
@@ -184,10 +203,12 @@ def test_solve_init_broadcasts_a0_over_rhs():
 def test_fused_validation():
     x, _, y = _system(26, obs=128, nvars=16)
     x_t, yt = torch.tensor(x.T.copy()), torch.tensor(y)
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        fused_solve(x_t, yt, block=8, variant="bak")
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        solvebakp_kernel(x_t, yt, block=8, variant="bak")
+    with pytest.raises(ValueError, match="unknown variant"):
+        fused_solve(x_t, yt, block=8, variant="bakq")
+    with pytest.raises(ValueError, match="unknown variant"):
+        solvebakp_kernel(x_t, yt, block=8, variant="bakq")
+    with pytest.raises(ValueError, match="unknown variant"):
+        solvebakp_persweep_kernel(x_t, yt, block=8, variant="bakq")
     with pytest.raises(ValueError, match="multiple of block"):
         fused_solve(x_t, yt, block=7)
     with pytest.raises(ValueError, match="max_iter"):
@@ -274,5 +295,192 @@ def test_launch_counts_track_kernels_only():
     x, _, y = _system(30, obs=64, nvars=8)
     solvebakp_kernel(torch.tensor(x.T.copy()), torch.tensor(y), block=8,
                      max_iter=3)
+    solvebakp_kernel(torch.tensor(x.T.copy()), torch.tensor(y), block=8,
+                     max_iter=3, variant="bak")
+    score_features_kernel(torch.tensor(x.T.copy()), torch.tensor(y))
+    block_update_kernel(torch.tensor(x.T.copy()), torch.tensor(y),
+                        torch.ones(8))
     # CPU tensors run the plain versions: nothing was launched.
-    assert _build.launch_counts() == {"bakp_sweep": 0, "fused_solve": 0}
+    assert _build.launch_counts() == {
+        "bakp_sweep": 0, "fused_solve": 0, "bak_sweep": 0, "bak_fused": 0,
+        "score_features": 0, "block_update": 0}
+
+
+
+# --------------------------------------------------- Algorithm-1 sweep
+@pytest.mark.parametrize("k", [None, 1, 4])
+def test_cd_sweep_matches_jax_ref(k):
+    x_t, inv, e = _sweep_inputs(31, 256, 32, k)
+    args = (torch.tensor(x_t), torch.tensor(e), torch.tensor(inv))
+    jda, je2 = j_ref_cd_sweep(jnp.asarray(x_t), jnp.asarray(e),
+                              jnp.asarray(inv))
+    for da, e2 in (cd_sweep(*args, block=8), ref_cd_sweep(*args)):
+        assert tuple(da.shape) == jda.shape and tuple(e2.shape) == je2.shape
+        _close(da, jda)
+        _close(e2, je2)
+    assert float(np.abs(_np(da)[-1]).max()) == 0.0   # zero-norm column
+    e2d = args[1] if k is not None else args[1][None]
+    pda, pe2 = cd_sweep_plain(args[0], e2d, args[2])
+    _close(pda.reshape(jda.shape), jda)
+    _close(pe2.reshape(je2.shape), je2)
+
+
+def test_bak_row_update_matches_jax():
+    x_t, inv, e = _sweep_inputs(32, 128, 4, 3)
+    da, e2 = bak_row_update(torch.tensor(x_t[1:2]), float(inv[1]),
+                            torch.tensor(e))
+    jda, je2 = j_bak_row_update(jnp.asarray(x_t[1:2]), jnp.float32(inv[1]),
+                                jnp.asarray(e))
+    _close(da, jda)
+    _close(e2, je2)
+
+
+def test_cd_sweep_rejects_ragged_block_and_other_devices():
+    x_t, inv, e = _sweep_inputs(33, 64, 12, None)
+    with pytest.raises(ValueError, match="multiple of block"):
+        cd_sweep(torch.tensor(x_t), torch.tensor(e), torch.tensor(inv),
+                 block=8)
+    meta = torch.empty((16, 64), device="meta")
+    with pytest.raises(ValueError, match="cd_sweep runs on cpu or cuda"):
+        cd_sweep(meta, torch.empty(64, device="meta"),
+                 torch.empty(16, device="meta"), block=8)
+
+
+# --------------------------------------------- Algorithm-1 whole solve
+@pytest.mark.parametrize("k", [None, 4])
+@pytest.mark.parametrize("warm", [False, True])
+def test_fused_bak_matches_jax_solvebak(k, warm):
+    x, a, y = _system(34, k=k)
+    a0 = (0.8 * a).astype(np.float32) if warm else None
+    r = fused_solve(torch.tensor(x.T.copy()), torch.tensor(y),
+                    a0=None if a0 is None else torch.tensor(a0), block=8,
+                    max_iter=25, omega=0.5, variant="bak")   # omega unused
+    jr = j_solvebak(jnp.asarray(x), jnp.asarray(y), max_iter=25,
+                    a0=None if a0 is None else jnp.asarray(a0))
+    _close(r.coef, jr.coef)
+    _close(r.residual, jr.residual)
+    assert int(r.n_sweeps) == int(jr.n_sweeps) == 25
+    _close(r.history, jr.history, rtol=1e-4, atol=1e-4)
+
+
+def test_fused_bak_atol_only_stops_on_the_same_sweep():
+    x, _, y = _system(35, noise=0.0)
+    r = fused_solve(torch.tensor(x.T.copy()), torch.tensor(y), block=8,
+                    max_iter=200, atol=1e-3, variant="bak")
+    jr = j_solvebak(jnp.asarray(x), jnp.asarray(y), max_iter=200, atol=1e-3)
+    assert int(r.n_sweeps) == int(jr.n_sweeps) < 200
+    assert bool(r.converged) and bool(jr.converged)
+    _close(r.coef, jr.coef)
+
+
+@pytest.mark.parametrize("budget,max_iter,path,reason", [
+    (None, 20, "fused", None),
+    (6 * 1024, 20, "persweep", "vmem"),
+    (None, 0, "persweep", "max_iter"),
+])
+def test_solvebakp_kernel_bak_dispatch(monkeypatch, budget, max_iter, path,
+                                       reason):
+    x, _, y = _system(36, obs=128, nvars=16, k=2)
+    if budget is not None:
+        monkeypatch.setattr(_CD, "ON_CHIP_BUDGET_BYTES", budget)
+    before = fallback_counts().get(("bak", reason), 0)
+    runs = dispatch_counts().get((path, "bak"), 0)
+    consume_dispatch()
+    r = solvebakp_kernel(torch.tensor(x.T.copy()), torch.tensor(y), block=8,
+                         max_iter=max_iter, variant="bak")
+    assert consume_dispatch() == path
+    assert dispatch_counts()[(path, "bak")] == runs + 1
+    if reason:
+        assert fallback_counts()[("bak", reason)] == before + 1
+    if max_iter == 0:
+        assert int(r.n_sweeps) == 0 and not bool(r.converged)
+        _close(r.residual, y)
+        return
+    jr = j_solvebak(jnp.asarray(x), jnp.asarray(y), max_iter=max_iter)
+    _close(r.coef, jr.coef)
+    _close(r.residual, jr.residual)
+    assert int(r.n_sweeps) == int(jr.n_sweeps) == max_iter
+
+
+@pytest.mark.parametrize("k", [None, 2])
+def test_persweep_bak_matches_jax_solvebak(k):
+    x, a, y = _system(37, k=k)
+    a0 = (0.5 * a).astype(np.float32)
+    r = solvebakp_persweep_kernel(torch.tensor(x.T.copy()), torch.tensor(y),
+                                  a0=torch.tensor(a0), block=8, max_iter=15,
+                                  variant="bak")
+    jr = j_solvebak(jnp.asarray(x), jnp.asarray(y), a0=jnp.asarray(a0),
+                    max_iter=15)
+    _close(r.coef, jr.coef)
+    _close(r.residual, jr.residual)
+    _close(r.history, jr.history, rtol=1e-4, atol=1e-4)
+    assert int(r.n_sweeps) == int(jr.n_sweeps) == 15
+
+
+# ------------------------------------------------------ feature scores
+@pytest.mark.parametrize("nvars,obs", [(16, 256), (24, 1000)])
+def test_score_features_matches_jax(nvars, obs):
+    rng = np.random.default_rng(38)
+    x_t = rng.normal(size=(nvars, obs)).astype(np.float32)
+    e = rng.normal(size=obs).astype(np.float32)
+    inv = (1.0 / np.einsum("vo,vo->v", x_t, x_t)).astype(np.float32)
+    js = j_score_features(jnp.asarray(x_t), jnp.asarray(e), jnp.asarray(inv))
+    args = (torch.tensor(x_t), torch.tensor(e), torch.tensor(inv))
+    scale = float(np.abs(np.asarray(js)).max())
+    for s in (score_features(*args), score_features_plain(*args),
+              ref_score_features(*args)):
+        _close(s, js, rtol=1e-5, atol=1e-5 * scale)
+    _close(ref_score_features(*args),
+           j_ref_score_features(*map(jnp.asarray, (x_t, e, inv))),
+           rtol=1e-5, atol=1e-5 * scale)
+    jk = j_score_features_kernel(jnp.asarray(x_t), jnp.asarray(e))
+    _close(score_features_kernel(args[0], args[1]), jk, rtol=1e-5,
+           atol=1e-5 * scale)
+
+
+def test_score_features_validation_and_chunks():
+    x_t = torch.zeros((4, 64))
+    with pytest.raises(ValueError, match="takes e"):
+        score_features(x_t, torch.zeros((2, 64)), torch.zeros(4))
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        score_features(x_t.to("meta"), torch.zeros(64, device="meta"),
+                       torch.zeros(4, device="meta"))
+    # Chunks tile obs in 128-multiples; few rows get more chunks.
+    for nvars, obs in [(1024, 262144), (7, 1001), (5000, 300), (1, 5)]:
+        chunk, n = score_chunks(nvars, obs)
+        assert chunk % 128 == 0 and (n - 1) * chunk < obs <= n * chunk
+    assert score_chunks(1024, 262144)[1] == 5
+    assert score_chunks(5000, 300)[1] == 1
+
+
+# ---------------------------------------------------------- block update
+@pytest.mark.parametrize("k", [None, 1, 3])
+def test_block_update_matches_jax(k):
+    rng = np.random.default_rng(39)
+    x_blk = rng.normal(size=(8, 512)).astype(np.float32)
+    e = rng.normal(size=(512,) if k is None else (k, 512)).astype(np.float32)
+    da = rng.normal(size=(8,) if k is None else (8, k)).astype(np.float32)
+    jb = j_block_update_k(jnp.asarray(x_blk), jnp.asarray(e),
+                          jnp.asarray(da))
+    args = (torch.tensor(x_blk), torch.tensor(e), torch.tensor(da))
+    for out in (block_update(*args), block_update_kernel(*args),
+                ref_block_update(*args)):
+        assert tuple(out.shape) == jb.shape
+        _close(out, jb)
+    _close(ref_block_update(*args),
+           j_ref_block_update(*map(jnp.asarray, (x_blk, e, da))))
+    _close(block_update_kernel(*args),
+           j_block_update_kernel(*map(jnp.asarray, (x_blk, e, da))))
+    e2 = args[1].reshape(-1, 512)
+    _close(block_update_plain(args[0], e2, args[2].reshape(8, -1)),
+           np.asarray(jb).reshape(-1, 512))
+
+
+def test_block_update_validation():
+    with pytest.raises(ValueError, match="do not match"):
+        block_update(torch.zeros((8, 64)), torch.zeros((2, 64)),
+                     torch.zeros(8))
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        block_update(torch.zeros((8, 64), device="meta"),
+                     torch.zeros(64, device="meta"),
+                     torch.zeros(8, device="meta"))
