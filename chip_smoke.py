@@ -18,17 +18,30 @@ process per source, in parallel), then:
      ``bakp_fused`` / ``bak_fused`` falling back to the plain paths; then
      the two streamed-obs entries on that design, ``score_features_kernel``
      and ``block_update_kernel``;
-  3. each kernel against its plain torch version on the same inputs, on the
+  3. the streaming path — ``prepare`` a 16,384 x 4,096 fp32 design (256 MiB,
+     a linear probe of 16k examples on 4,096-wide activations, 6.4x the
+     fused budget) with ``SolverSpec(method="bakp_stream")`` and serve a
+     cold, a k=8, a tenant's cold and warm solve on the streaming kernel,
+     plus ``bakp_fused`` on the same handle falling back to the plain
+     path; ``solvebakp_stream_kernel`` on the phase 2 design (its tile ring
+     does not fit a CTA: the per-sweep loop); and a non-resident handle over
+     the design's pinned host copy (the host-block loop, cold and warm),
+     beside the rate of one plain pinned host-to-device copy of the design;
+  4. each kernel against its plain torch version on the same inputs, on the
      card, and timed with CUDA events beside its roofline bound (and beside
-     the nearest single PyTorch call, where there is one);
-  4. a ``kernels`` summary line, the card's name and power limit, and the
+     the nearest single PyTorch call, where there is one); for the streaming
+     kernel also the whole-solve kernel and the per-sweep loop on the same
+     design, as findings;
+  5. a ``kernels`` summary line, the card's name and power limit, and the
      result line ``{"ok": true, "device": {...}}``.
 
-Launch counts are reset just before phase 1 and read just after the
-entries of phase 2, so they count the main path only.  Inputs are Gaussian designs with a planted
-``a_true`` and ``y = x @ a_true`` from a fixed seed.  Any failed check, build
-or launch error exits non-zero without the result line; so does a host with
-no CUDA device, or a directory without the repository's ``src/``.
+Launch counts are reset just before each path (phases 1-2, the earlier
+slices' path; phase 3, the streaming path) and read just after it, so they
+count that path only; each kernel must have launched on its path.  Inputs
+are Gaussian designs with a planted ``a_true`` and ``y = x @ a_true`` from
+a fixed seed.  Any failed check, build or launch error exits non-zero
+without the result line; so does a host with no CUDA device, or a
+directory without the repository's ``src/``.
 """
 from __future__ import annotations
 
@@ -78,9 +91,12 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(src))
 
-    from repro_torch.core import SolverSpec, prepare, solve
+    from repro_torch.core import (SolverSpec, UnsupportedSpecError, prepare,
+                                  prepared_from_arrays, solve)
     from repro_torch.kernels import (_build, block_update_kernel,
-                                     score_features_kernel, solvebakp_kernel)
+                                     score_features_kernel, solvebakp_kernel,
+                                     solvebakp_persweep_kernel,
+                                     solvebakp_stream_kernel)
     from repro_torch.kernels.block_update import (_block_update_cuda,
                                                   _score_features_cuda,
                                                   block_update_plain,
@@ -92,6 +108,8 @@ def main() -> int:
     from repro_torch.kernels.fused_solve import (fused_cuda, fused_fits,
                                                  fused_solve_plain,
                                                  solve_init)
+    from repro_torch.kernels.stream_solve import (stream_cuda, stream_fits,
+                                                  stream_solve_plain)
     from repro_torch.core.types import (atol_to_sse, column_norms_sq_t,
                                         safe_inv)
     from repro_torch.obs import (consume_dispatch, fallback_counts,
@@ -123,6 +141,8 @@ def main() -> int:
         s = (b if scale is None else scale).abs().max().item() or 1.0
         return (a - b).abs().max().item() / s
 
+    latency_ms = {}
+
     def request(name, method, fn, truth, want_path):
         consume_dispatch()
         sync()
@@ -130,6 +150,7 @@ def main() -> int:
         res = fn()
         sync()
         ms = (time.perf_counter() - t) * 1e3
+        latency_ms[name, method] = ms
         path = consume_dispatch()
         err = rel(res.coef, truth)
         emit({"phase": name, "method": method, "path": path,
@@ -145,7 +166,7 @@ def main() -> int:
     def randn(*shape):
         return torch.randn(*shape, generator=gen, device=dev)
 
-    # ------------------------------------------------------- main path
+    # ------------------------------- main path of the earlier slices
     _build.reset_launch_counts()
     reset_counters()
 
@@ -254,10 +275,120 @@ def main() -> int:
     check(err_sc <= KERNEL_TOL, f"score_features_kernel: rel err {err_sc}")
     check(err_bu <= KERNEL_TOL, f"block_update_kernel: rel err {err_bu}")
 
-    launches = _build.launch_counts()
-    emit({"phase": "main_path_launches", **launches})
-    for name, n in launches.items():
-        check(n > 0, f"kernel {name} was not launched on the main path")
+    path_kernels = {
+        "phases_1_2": ("bakp_sweep", "fused_solve", "bak_sweep", "bak_fused",
+                       "score_features", "block_update"),
+        "phase_3_stream": ("stream_solve",)}
+    launches = {}
+
+    def read_launches(path):
+        counts = _build.launch_counts()
+        emit({"phase": "main_path_launches", "path": path, **counts})
+        for name in path_kernels[path]:
+            launches[name] = counts[name]
+            check(counts[name] > 0,
+                  f"kernel {name} was not launched on its path {path}")
+
+    read_launches("phases_1_2")
+
+    # ------------------------------------------- the streaming path
+    _build.reset_launch_counts()
+
+    # Phase 3: the handle on the streaming kernel, a design 6.4x the fused
+    # budget (obs / vars = 4 keeps it well conditioned for COEF_TOL).
+    obs3, vars3, thr3 = 16_384, 4_096, 128
+    x3 = randn(obs3, vars3)
+    a3 = randn(vars3)
+    a3k = randn(vars3, k)
+    y3, y3k = x3 @ a3, x3 @ a3k
+    spec3 = SolverSpec(method="bakp_stream", thr=thr3, rtol=1e-7,
+                       max_iter=100)
+    check(not fused_fits(vars3, obs3, k, 4, max_iter=spec3.max_iter),
+          "phase 3 design must be over the fused budget")
+    check(stream_fits(vars3, obs3, k, 4, block=thr3),
+          "phase 3 design must fit the streaming kernel")
+    p3 = prepare(x3, spec3)
+    request("stream_handle", "bakp_stream", lambda: p3.solve(y3), a3,
+            "stream")
+    request("stream_handle_k8", "bakp_stream", lambda: p3.solve(y3k), a3k,
+            "stream")
+    cold3 = request("stream_tenant_cold", "bakp_stream",
+                    lambda: p3.solve(y3, tenant_id="tenant-2"), a3, "stream")
+    a3d = a3 + 0.01 * randn(vars3)
+    y3d = x3 @ a3d
+    warm3 = request("stream_tenant_warm", "bakp_stream",
+                    lambda: p3.solve(y3d, tenant_id="tenant-2"), a3d,
+                    "stream")
+    check(int(warm3.n_sweeps) < int(cold3.n_sweeps),
+          f"bakp_stream warm solve took {int(warm3.n_sweeps)} sweeps, cold "
+          f"{int(cold3.n_sweeps)}")
+    vmem_before = fallback_counts().get(("bakp_fused", "vmem"), 0)
+    request("stream_handle_over_budget", "bakp_fused",
+            lambda: p3.solve(y3, spec=spec3.replace(method="bakp_fused")),
+            a3, "xla")
+    check(fallback_counts().get(("bakp_fused", "vmem"), 0) == vmem_before + 1,
+          "bakp_fused over budget on the phase 3 handle must record "
+          "reason=vmem")
+
+    # Phase 3, the streaming entry on the phase 2 design: L = 2,016 obs per
+    # CTA makes a thr 256 tile ring 4 MB, over a CTA's shared memory.
+    check(not stream_fits(vars2, obs2, k, 4, block=thr2),
+          "phase 2 design must be over the streaming kernel's ring")
+    vmem_before = fallback_counts().get(("bakp", "vmem"), 0)
+    request("stream_entry", "solvebakp_stream_kernel",
+            lambda: solvebakp_stream_kernel(x2t, y2k, inv_cn=inv2,
+                                            block=thr2, max_iter=100,
+                                            rtol=1e-7),
+            a2k, "persweep")
+    check(fallback_counts().get(("bakp", "vmem"), 0) == vmem_before + 1,
+          "solvebakp_stream_kernel over the ring must record reason=vmem")
+
+    # Phase 3, a non-resident handle: x3 stays in pinned host memory and
+    # the host-block loop copies one tile at a time on a side stream.
+    h3 = prepared_from_arrays(x3, resident=False, spec=spec3,
+                              fingerprint="phase3-host")
+    check(not h3.resident and h3.blocks.host.x_t.is_pinned(),
+          "the non-resident handle must hold a pinned host copy")
+    cold_h = request("stream_host_tenant_cold", "bakp_stream",
+                     lambda: h3.solve(y3, tenant_id="tenant-3"), a3,
+                     "stream_host")
+    warm_h = request("stream_host_tenant_warm", "bakp_stream",
+                     lambda: h3.solve(y3d, tenant_id="tenant-3"), a3d,
+                     "stream_host")
+    check(int(warm_h.n_sweeps) < int(cold_h.n_sweeps),
+          f"stream_host warm solve took {int(warm_h.n_sweeps)} sweeps, cold "
+          f"{int(cold_h.n_sweeps)}")
+    try:
+        h3.solve(y3, spec=spec3.replace(method="bakp_fused"))
+        check(False, "bakp_fused on a non-resident handle must raise")
+    except UnsupportedSpecError:
+        pass
+    read_launches("phase_3_stream")
+
+    # One plain pinned host-to-device copy of the whole design, the rate
+    # the host-block loop is held to.
+    x3_host = h3.blocks.host.x_t
+    x3_dev = torch.empty_like(x3_host, device=dev)
+    h2d = []
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        x3_dev.copy_(x3_host, non_blocking=True)
+        end.record()
+        sync()
+        h2d.append(start.elapsed_time(end))
+    nbytes3 = x3_host.numel() * 4
+    emit({"phase": "stream_host_rate", "bytes": nbytes3,
+          "s_per_sweep_cold": latency_ms["stream_host_tenant_cold",
+                                         "bakp_stream"]
+          / 1e3 / int(cold_h.n_sweeps),
+          "s_per_sweep_warm": latency_ms["stream_host_tenant_warm",
+                                         "bakp_stream"]
+          / 1e3 / int(warm_h.n_sweeps),
+          "h2d_pinned_ms": h2d, "h2d_pinned_gb_per_s":
+          nbytes3 / (min(h2d) / 1e3) / 1e9})
+    del x3_dev
 
     # ------------------------------------------ kernels against plain
     def cuda_ms(fn, iters):
@@ -317,15 +448,23 @@ def main() -> int:
 
     def fused_case(label, x_t, inv, y, block, max_iter, rtol, iters,
                    variant="bakp", plain_iters=None):
+        """A whole-solve kernel against its plain version: ``variant``
+        "bakp" / "bak" (fused_solve.cu / bak_fused.cu) or "stream"
+        (stream_solve.cu, which reads x once per sweep)."""
         nv, no = x_t.shape
         nrhs = y.shape[1] if y.dim() == 2 else 1
         inv_cn, a0m, e0 = solve_init(x_t, y, inv, None, y.dim() == 2)
         kw = dict(block=block, max_iter=max_iter,
-                  atol_sse=atol_to_sse(no, nrhs, 0.0), rtol=rtol, omega=1.0,
-                  variant=variant)
-        name = "fused_solve" if variant == "bakp" else "bak_fused"
-        ck, ek, hk, sk, nk, _ = fused_cuda(x_t, inv_cn, e0, a0m, **kw)
-        cp, ep, hp, sp, np_, _ = fused_solve_plain(x_t, inv_cn, e0, a0m, **kw)
+                  atol_sse=atol_to_sse(no, nrhs, 0.0), rtol=rtol, omega=1.0)
+        if variant == "stream":
+            name, kernel_fn, plain_fn = ("stream_solve", stream_cuda,
+                                         stream_solve_plain)
+        else:
+            kw["variant"] = variant
+            name = "fused_solve" if variant == "bakp" else "bak_fused"
+            kernel_fn, plain_fn = fused_cuda, fused_solve_plain
+        ck, ek, hk, sk, nk, _ = kernel_fn(x_t, inv_cn, e0, a0m, **kw)
+        cp, ep, hp, sp, np_, _ = plain_fn(x_t, inv_cn, e0, a0m, **kw)
         sync()
         nk, np_ = int(nk), int(np_)
         err_c, err_e = rel(ck, cp), rel(ek, ep, scale=e0)
@@ -337,10 +476,12 @@ def main() -> int:
                   f"{name} {label}: n_sweeps {nk} vs {np_}")
         check(err_c <= KERNEL_TOL and err_e <= KERNEL_TOL,
               f"{name} {label}: rel err coef {err_c}, e {err_e}")
-        ms = cuda_ms(lambda: fused_cuda(x_t, inv_cn, e0, a0m, **kw), iters)
-        plain = cuda_ms(lambda: fused_solve_plain(x_t, inv_cn, e0, a0m, **kw),
+        ms = cuda_ms(lambda: kernel_fn(x_t, inv_cn, e0, a0m, **kw), iters)
+        plain = cuda_ms(lambda: plain_fn(x_t, inv_cn, e0, a0m, **kw),
                         plain_iters or iters)
-        nbytes = 4 * (nv * no + nv + 2 * nrhs * no + 2 * nv * nrhs + max_iter)
+        x_reads = nk if variant == "stream" else 1
+        nbytes = 4 * (x_reads * nv * no + nv + 2 * nrhs * no + 2 * nv * nrhs
+                      + max_iter)
         b_ms, b_by = bound(nbytes, 4 * nk * nv * no * nrhs)
         max_abs = max((ck - cp).abs().max().item(),
                       (ek - ep).abs().max().item())
@@ -422,6 +563,34 @@ def main() -> int:
         4 * (thr2 * obs2 + 2 * k * obs2 + thr2 * k), 2 * thr2 * obs2 * k,
         20, [thr2, obs2, k])
 
+    # The streaming kernel on the phase 3 design: 20 fixed sweeps at k 1 and
+    # k 8, and to rtol 1e-7.  Beside it, as findings, the whole-solve kernel
+    # launched directly on the same design (x read twice a block, from a
+    # 256 MiB design that misses the L2) and the per-sweep loop.
+    x3t, inv3 = p3.x_t_for(thr3), p3.inv_cn_for(thr3)
+    y3n = y3 + 0.1 * randn(obs3)
+    y3kn = y3k + 0.1 * randn(obs3, k)
+    stream_rows = {
+        1: fused_case("phase3_k1_fixed20", x3t, inv3, y3n, thr3, 20, 0.0, 10,
+                      variant="stream", plain_iters=3),
+        k: fused_case("phase3_k8_fixed20", x3t, inv3, y3kn, thr3, 20, 0.0,
+                      10, variant="stream", plain_iters=3)}
+    rows["stream_solve"] = stream_rows[k]
+    fused_case("phase3_k8_rtol", x3t, inv3, y3k, thr3, 100, 1e-7, 3,
+               variant="stream", plain_iters=2)
+    for label, yy in (("phase3_k1_fixed20", y3n), ("phase3_k8_fixed20", y3kn)):
+        nrhs = yy.shape[1] if yy.dim() == 2 else 1
+        inv_cn, a0m, e0 = solve_init(x3t, yy, inv3, None, yy.dim() == 2)
+        fused_ms = cuda_ms(lambda: fused_cuda(
+            x3t, inv_cn, e0, a0m, block=thr3, max_iter=20, atol_sse=0.0,
+            rtol=0.0, omega=1.0), 10)
+        persweep_ms = cuda_ms(lambda: solvebakp_persweep_kernel(
+            x3t, yy, inv_cn=inv3, block=thr3, max_iter=20), 3)
+        emit({"phase": "stream_findings", "case": label, "k": nrhs,
+              "fused_solve_direct_ms": fused_ms,
+              "persweep_loop_ms": persweep_ms,
+              "stream_solve_ms": stream_rows[nrhs]["ms"]})
+
     kernel_src = "src/repro_torch/kernels/csrc/"
     src_of = {
         "bakp_sweep": ("bakp_sweep.cu", "src/repro/kernels/cd_sweep.py:108"),
@@ -433,7 +602,9 @@ def main() -> int:
         "score_features": ("score_features.cu",
                            "src/repro/kernels/block_update.py:69"),
         "block_update": ("block_update.cu",
-                         "src/repro/kernels/block_update.py:24")}
+                         "src/repro/kernels/block_update.py:24"),
+        "stream_solve": ("stream_solve.cu",
+                         "src/repro/kernels/stream_solve.py:87")}
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": kernel_src + src_of[name][0],
          "replaces": src_of[name][1], "launches": launches[name],

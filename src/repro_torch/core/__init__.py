@@ -8,8 +8,8 @@ builds a ``PreparedDesign`` owning the reusable per-design state on the GPU;
 Layout (mirrors ``repro.core``):
   spec.py       SolverSpec + the port's method registry (MethodEntry).
   prepare.py    prepare()/PreparedDesign, prepared_from_arrays.
-  methods.py    bak / bakp / bakp_gram / bakp_fused / bak_fused / lstsq /
-                normal / bakf.
+  methods.py    bak / bakp / bakp_gram / bakp_fused / bak_fused /
+                bakp_stream / lstsq / normal / bakf.
   solvebak.py   Algorithm 1, plain torch (cyclic or random order).
   solvebakp.py  Algorithm 2 + gram mode, plain torch.
   solvebakf.py  Algorithm 3 (greedy selection) + the stepwise baseline.
@@ -28,7 +28,7 @@ from repro_torch.core.solvebakp import block_gram_cholesky, solvebakp
 from repro_torch.core.spec import (PRECISIONS, MethodEntry, SolverSpec,
                                    UnsupportedSpecError, method_names,
                                    methods_for_precision, register_method,
-                                   solver_method)
+                                   solver_method, streaming_methods)
 from repro_torch.core.types import SelectResult, SolveResult
 
 __all__ = [
@@ -56,5 +56,6 @@ __all__ = [
     "solvebakp",
     "solver_method",
     "stepwise_regression_baseline",
+    "streaming_methods",
     "unscale_coef",
 ]

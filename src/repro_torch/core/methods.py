@@ -12,6 +12,12 @@
                    package.
   * "bak_fused"  — Algorithm 1 on the whole-solve kernel's ``variant="bak"``
                    body; over the budget, "bak"'s plain path (cyclic).
+  * "bakp_stream" — Algorithm 2 with x streamed: resident designs run the
+                   streaming whole-solve CUDA kernel
+                   (``repro_torch.kernels.stream_solve``) while a CTA's
+                   tile ring fits, else the per-sweep kernel loop;
+                   non-resident handles run the host-block loop
+                   (``stream_solve_blocks``).
   * "bakf"       — Algorithm 3 run to full selection: greedy forward CD over
                    every column with a refit per step.  Single-RHS; ignores
                    warm starts.
@@ -20,9 +26,9 @@
 
 Dispatch labels are the JAX package's: the plain torch family records
 ``xla`` (the route the JAX package leaves to XLA), the kernel routes
-``fused`` / ``persweep``.  "bakp_stream", bf16 precisions, multi-GPU
-placements and cross-design batching arrive with later slices, so no entry
-here claims them.
+``fused`` / ``stream`` / ``persweep``, the host-block loop
+``stream_host``.  bf16 precisions, multi-GPU placements and cross-design
+batching arrive with later slices, so no entry here claims them.
 """
 from __future__ import annotations
 
@@ -125,6 +131,61 @@ def _prep_fused(p, spec: SolverSpec):
     p.inv_cn_for(spec.thr)
 
 
+# ------------------------------------------------- streaming out-of-core
+def _stream_solve_method(p, y, spec: SolverSpec, *, a0=None, generator=None):
+    """Algorithm 2 with x streamed rather than held on chip.
+
+    Resident designs run the streaming kernel: x stays in device memory
+    and each CTA copies its slice of every tile through a two-stage
+    shared-memory ring while the residual and coefficients stay on chip.
+    When even the ring does not fit a CTA, the per-sweep kernel loop
+    (``persweep``/``vmem``).  Non-resident handles take the host-block loop
+    (``stream_host``), fetching tiles from host memory per block.  Same
+    block-Jacobi math and stopping rule as "bakp"/"bakp_fused" either way.
+    """
+    from repro_torch.kernels.ops import solvebakp_persweep_kernel
+    from repro_torch.kernels.stream_solve import (stream_fits, stream_solve,
+                                                  stream_solve_blocks)
+
+    block = spec.thr
+    obs_p, vars_p = p.shape
+    nrhs = y.shape[1] if y.dim() == 2 else 1
+    vars_pb = -(-vars_p // block) * block
+    if spec.max_iter < 1 and p.resident:
+        record_dispatch("xla", method="bakp_stream", reason="max_iter")
+        return solvebakp(p.x_pad, y, thr=block, max_iter=spec.max_iter,
+                         atol=spec.atol, rtol=spec.rtol, omega=spec.omega,
+                         mode="jacobi", cn=p.cn_for_thr(block), a0=a0)
+    if a0 is not None and vars_pb != vars_p:
+        a0 = torch.nn.functional.pad(
+            a0, (0, 0) * (a0.dim() - 1) + (0, vars_pb - vars_p))
+    kw = dict(inv_cn=p.inv_cn_for(block), a0=a0, block=block,
+              max_iter=spec.max_iter, atol=spec.atol, rtol=spec.rtol,
+              omega=spec.omega)
+    if not p.resident:
+        record_dispatch("stream_host", method="bakp_stream")
+        res = stream_solve_blocks(p.blocks, y, **kw)
+    elif stream_fits(vars_pb, obs_p, nrhs, p.x_pad.element_size(),
+                     block=block, max_iter=spec.max_iter):
+        record_dispatch("stream", method="bakp_stream")
+        res = stream_solve(p.x_t_for(block), y, **kw)
+    else:
+        # Even one CTA's ring is over its shared memory (very large obs):
+        # the per-sweep loop also holds one block at a time.
+        record_dispatch("persweep", method="bakp_stream", reason="vmem")
+        res = solvebakp_persweep_kernel(p.x_t_for(block), y, variant="bakp",
+                                        **kw)
+    if vars_pb != vars_p:
+        res = res._replace(coef=res.coef[:vars_p])
+    return res
+
+
+def _prep_stream(p, spec: SolverSpec):
+    p.inv_cn_for(spec.thr)
+    if p.resident:
+        p.x_t_for(spec.thr)
+
+
 # ---------------------------------------------------- greedy selection (A3)
 def _bakf_solve(p, y, spec: SolverSpec, *, a0=None, generator=None):
     """Algorithm 3 run to full selection as a solver: greedily order every
@@ -207,6 +268,14 @@ register_method(MethodEntry(
     prepare=_prep_fused, fallback="bak",
     summary="Algorithm 1 on the whole-solve CUDA kernel (sequential column "
             "order; plain bak path over the on-chip budget)"))
+register_method(MethodEntry(
+    name="bakp_stream", solve=_stream_solve_method,
+    consumes=_ITER_FIELDS + ("thr", "omega", "precision"),
+    iterative=True, multi_rhs=True, blocked=True, streams=True,
+    lane="stream", prepare=_prep_stream, fallback="lstsq",
+    summary="Algorithm 2 streaming out-of-core: x tiles double-buffered "
+            "from device memory through each CTA's shared memory, or "
+            "fetched per block from host memory for non-resident designs"))
 register_method(MethodEntry(
     name="lstsq", solve=_lstsq_solve, consumes=(),
     iterative=False, multi_rhs=True,

@@ -13,8 +13,14 @@ thr-padded layouts and inverses (``cn_for_thr``, ``inv_cn_for``); the
 transposed padded copy per block width (``x_t_for``, the CUDA kernels'
 layout); block-Gram Cholesky factors per ``(thr, ridge)``; and an LRU of
 per-tenant warm-start coefficients.  All of it is built lazily under a
-per-design lock.  The bf16 tier, mesh copies, lane residency and
-non-resident (store-backed) handles arrive with their slices.
+per-design lock.  The bf16 tier, mesh copies and lane residency arrive
+with their slices.
+
+A NON-RESIDENT handle has ``x_pad=None``: its x stays in host memory and
+reaches the device block by block through ``blocks`` (a
+``repro_torch.store.StoreBlockSource``), with an explicit ``device`` for
+the solve.  Only methods registered ``streams=True`` (``bakp_stream``)
+solve it; every accessor that needs x raises ``UnsupportedSpecError``.
 
 Device rule: ``prepare`` puts the design on ``device``, which defaults to
 ``"cuda"``; with no GPU present it raises unless the caller passes
@@ -22,8 +28,9 @@ Device rule: ``prepare`` puts the design on ``device``, which defaults to
 
 ``prepared_from_arrays`` builds a handle from a JAX ``PreparedDesign``'s
 state exported as numpy arrays (``x_pad``, Cholesky factors, warm
-coefficients), so both packages can be shown to compute the same thing
-from the same state.
+coefficients; for a non-resident handle the host ``x_pad`` and the column
+norms), so both packages can be shown to compute the same thing from the
+same state.
 """
 from __future__ import annotations
 
@@ -37,7 +44,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.spec import (SolverSpec, UnsupportedSpecError,
-                                   ensure_precision_supported, solver_method)
+                                   ensure_precision_supported, solver_method,
+                                   streaming_methods)
 from repro_torch.core.types import (SolveResult, column_norms_sq, safe_inv,
                                     warm_retention_ok)
 
@@ -78,11 +86,15 @@ def design_fingerprint(x, *, _prefix: str = "d") -> str:
 class PreparedDesign:
     """Per-design solver state + the ``solve`` handle (see module doc)."""
 
-    x_pad: torch.Tensor                   # (obs, vars) fp32 on the device
+    x_pad: Optional[torch.Tensor]         # (obs, vars) fp32 on the device;
+    # None for a non-resident handle, whose x is fetched through ``blocks``
     spec: Optional[SolverSpec] = None     # default spec bound by prepare()
     fingerprint: Optional[str] = None
     chol: Dict[Tuple[int, float], torch.Tensor] = field(default_factory=dict)
     max_tenants: int = 64
+    blocks: Optional[object] = None       # StoreBlockSource of a
+    # non-resident handle (shape / num_blocks(thr) / block_t(thr, j))
+    _device: Optional[torch.device] = field(default=None, repr=False)
     _cn: Optional[torch.Tensor] = field(default=None, repr=False)
     _cn_thr: Dict[int, torch.Tensor] = field(default_factory=dict, repr=False)
     _inv_cn: Dict[int, torch.Tensor] = field(default_factory=dict, repr=False)
@@ -95,18 +107,38 @@ class PreparedDesign:
     # ------------------------------------------------------------ identity
     @property
     def shape(self) -> Tuple[int, int]:
-        return tuple(self.x_pad.shape)
+        if self.x_pad is not None:
+            return tuple(self.x_pad.shape)
+        return tuple(self.blocks.shape)
 
     @property
     def device(self) -> torch.device:
-        return self.x_pad.device
+        """Where solves run: the resident design's device, or the one a
+        non-resident handle was built for."""
+        return self.x_pad.device if self.x_pad is not None else self._device
+
+    @property
+    def resident(self) -> bool:
+        """Whether x is on the device (vs fetched block by block)."""
+        return self.x_pad is not None
+
+    def _require_x(self, what: str) -> torch.Tensor:
+        """The resident design, or a clear error on a non-resident one."""
+        if self.x_pad is None:
+            raise UnsupportedSpecError(
+                f"{what} needs the device-resident design, but this "
+                f"PreparedDesign is non-resident (x blocks stream from host "
+                f"memory); solve with a streaming method "
+                f"{streaming_methods()}")
+        return self.x_pad
 
     def design_key(self) -> str:
         """The fingerprint handed to ``prepare``, or (lazily) the content
         hash of the design's bytes."""
         with self._lock:
             if self.fingerprint is None:
-                self.fingerprint = design_fingerprint(self.x_pad)
+                self.fingerprint = design_fingerprint(
+                    self._require_x("design_key"))
             return self.fingerprint
 
     # --------------------------------------------- per-tenant warm starts
@@ -137,7 +169,7 @@ class PreparedDesign:
         """Squared column norms (vars,), computed on first use."""
         with self._lock:
             if self._cn is None:
-                self._cn = column_norms_sq(self.x_pad)
+                self._cn = column_norms_sq(self._require_x("column norms"))
             return self._cn
 
     def cn_for_thr(self, thr: int) -> torch.Tensor:
@@ -165,9 +197,9 @@ class PreparedDesign:
         multiple of ``thr``: the CUDA kernels' layout, built once."""
         with self._lock:
             if thr not in self._x_t:
-                vars_p = self.shape[1]
+                x_t = self._require_x("x_t_for").T
+                vars_p = x_t.shape[0]
                 pad = -(-vars_p // thr) * thr - vars_p
-                x_t = self.x_pad.T
                 if pad:
                     x_t = torch.nn.functional.pad(x_t, (0, 0, 0, pad))
                 self._x_t[thr] = x_t.contiguous()
@@ -180,7 +212,8 @@ class PreparedDesign:
         key = (int(thr), float(ridge))
         with self._lock:
             if key not in self.chol:
-                x, _, nblocks = _pad_cols(self.x_pad, thr)
+                x, _, nblocks = _pad_cols(self._require_x("chol_for"),
+                                          thr)
                 self.chol[key] = block_gram_cholesky(
                     x.reshape(self.shape[0], nblocks, thr), ridge)
             return self.chol[key]
@@ -223,6 +256,11 @@ class PreparedDesign:
             raise ValueError(
                 "no SolverSpec bound to this PreparedDesign; pass spec=")
         entry = ensure_precision_supported(spec)
+        if self.x_pad is None and not entry.streams:
+            raise UnsupportedSpecError(
+                f"method {spec.method!r} cannot solve a non-resident design "
+                f"(x blocks stay in host memory, not on the device); use a "
+                f"streaming method {streaming_methods()}")
         if placement is not None and getattr(placement, "sharded", False):
             raise UnsupportedSpecError(
                 f"placement {getattr(placement, 'kind', placement)!r} is "
@@ -297,18 +335,39 @@ def prepared_from_arrays(
     spec: Optional[SolverSpec] = None,
     device=None,
     max_tenants: int = 64,
+    resident: bool = True,
+    cn=None,
 ) -> PreparedDesign:
     """Build the port's handle from another handle's state as arrays.
 
     Args:
-      x_pad: (obs, vars) design exactly as the source handle holds it.
+      x_pad: (obs, vars) design exactly as the source handle holds it (for
+        a non-resident source, the host copy its store keeps).
       fingerprint: the source handle's ``design_key()``.
       chol: block-Gram Cholesky factors keyed by ``(thr, ridge)``.
       warm: per-tenant warm-start coefficients, least recently used first.
       spec / device / max_tenants: as ``prepare``.
+      resident: False builds a NON-RESIDENT handle: ``x_pad`` is copied to
+        host memory (pinned when ``device`` is a GPU) in the transposed
+        layout, and solves fetch it block by block (``bakp_stream``).
+      cn: the source's squared column norms (vars,); computed from the
+        host copy when omitted.
     """
-    p = prepare(x_pad, None, device=device, fingerprint=fingerprint,
-                max_tenants=max_tenants)
+    if resident:
+        p = prepare(x_pad, None, device=device, fingerprint=fingerprint,
+                    max_tenants=max_tenants)
+    else:
+        from repro_torch.store.store import HostDesign, StoreBlockSource
+
+        dev = resolve_device(device)
+        host = HostDesign.from_design(x_pad, key=fingerprint or "",
+                                      pin=dev.type == "cuda")
+        if cn is not None:
+            host.cn = as_f32(cn, "cpu")
+        p = PreparedDesign(x_pad=None, fingerprint=fingerprint,
+                           max_tenants=max_tenants,
+                           blocks=StoreBlockSource(host), _device=dev,
+                           _cn=host.cn.to(dev))
     p.spec = spec
     for (thr, ridge), factors in (chol or {}).items():
         p.chol[(int(thr), float(ridge))] = as_f32(factors, p.device)

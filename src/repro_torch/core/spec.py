@@ -118,9 +118,12 @@ class MethodEntry:
       shardable: has multi-GPU backends (the multi-GPU slice adds them).
       blocked:   consumes ``thr`` (SolveBakP family).
       needs_chol: wants block-Gram Cholesky factors (``chol_for``).
+      streams:   can solve a non-resident handle (x in host memory,
+                 fetched block by block through ``PreparedDesign.blocks``).
       precisions: ``SolverSpec.precision`` values this method runs.
       lane:      single-device execution-lane kind ("xla" for the plain
-                 torch family, "fused" for the whole-solve CUDA kernel).
+                 torch family, "fused" for the whole-solve CUDA kernel,
+                 "stream" for the streaming one).
       prepare:   optional ``(prepared, spec) -> None`` warming the
                  per-design state this method reuses.
       fallback:  the method a failed solve degrades to (as in the JAX
@@ -138,6 +141,7 @@ class MethodEntry:
     shardable: bool = False
     blocked: bool = False
     needs_chol: bool = False
+    streams: bool = False
     precisions: Tuple[str, ...] = ("fp32",)
     lane: str = "xla"
     prepare: Optional[Callable] = None
@@ -168,6 +172,11 @@ def solver_method(name: str) -> MethodEntry:
 def method_names() -> Tuple[str, ...]:
     """Registered method names, in registration order."""
     return tuple(_REGISTRY)
+
+
+def streaming_methods() -> Tuple[str, ...]:
+    """Methods that can solve non-resident designs."""
+    return tuple(n for n, e in _REGISTRY.items() if e.streams)
 
 
 def methods_for_precision(precision: str) -> Tuple[str, ...]:

@@ -8,12 +8,17 @@
                   sweep (csrc/bak_sweep.cu) and the on-chip budget; the
                   steps the sweep and whole-solve kernels share are
                   csrc/bakp_block.cuh and csrc/bak_column.cuh.
+  stream_solve.py whole-solve SolveBakP with x left in device memory and
+                  streamed through a shared-memory ring
+                  (csrc/stream_solve.cu), and the out-of-core host-block
+                  loop stream_solve_blocks.
   block_update.py the streamed-obs kernels: rank-CB residual correction
                   (csrc/block_update.cu) and SolveBakF feature scores
                   (csrc/score_features.cu).
   ops.py          solver entries: solvebakp_kernel (fused when the design
-                  fits, per-sweep loop otherwise), score_features_kernel,
-                  block_update_kernel.
+                  fits, per-sweep loop otherwise), solvebakp_stream_kernel
+                  (streaming when a CTA's ring fits, per-sweep loop
+                  otherwise), score_features_kernel, block_update_kernel.
   ref.py          plain-torch oracles.
   _build.py       nvcc build into kernels/build/, ctypes loading, launch
                   counts.
@@ -32,7 +37,11 @@ from repro_torch.kernels.fused_solve import (fused_fits, fused_solve,
                                              fused_working_set_bytes)
 from repro_torch.kernels.ops import (block_update_kernel,
                                      score_features_kernel, solvebakp_kernel,
-                                     solvebakp_persweep_kernel)
+                                     solvebakp_persweep_kernel,
+                                     solvebakp_stream_kernel)
+from repro_torch.kernels.stream_solve import (stream_fits, stream_solve,
+                                              stream_solve_blocks,
+                                              stream_x_resident_bytes)
 
 __all__ = [
     "bakp_sweep",
@@ -48,4 +57,9 @@ __all__ = [
     "score_features_kernel",
     "solvebakp_kernel",
     "solvebakp_persweep_kernel",
+    "solvebakp_stream_kernel",
+    "stream_fits",
+    "stream_solve",
+    "stream_solve_blocks",
+    "stream_x_resident_bytes",
 ]

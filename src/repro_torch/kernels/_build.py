@@ -60,6 +60,10 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     "block_update": {
         "block_update_launch": [_P] * 4 + [_I] * 3 + [_P],
     },
+    "stream_solve": {
+        "stream_solve_grid": [_I, _I, _P],
+        "stream_solve_launch": [_P] * 13 + [_I] * 5 + [_F] * 3 + [_I] * 2 + [_P],
+    },
 }
 
 _lock = threading.Lock()

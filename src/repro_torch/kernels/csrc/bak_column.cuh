@@ -185,12 +185,6 @@ __device__ float bak_grid_sse(cg::grid_group& grid, const BakCta& c, int k,
   return out;
 }
 
-// Slice length of bakp_slice for a grid of G CTAs.
-__host__ __device__ inline int bak_slice_len(int obs, int G) {
-  int L = (obs + G - 1) / G;
-  return (L + BAKP_SLICE_ALIGN - 1) / BAKP_SLICE_ALIGN * BAKP_SLICE_ALIGN;
-}
-
 // XB of the launch: batched loads pay where a thread owns several
 // positions of a slice of length L, and cost a little where it owns one
 // (measured both ways at the two chip_smoke.py shapes, see PERF.md).
@@ -211,7 +205,7 @@ __device__ __forceinline__ BakCta bak_cta(float* smem, float* e, int obs,
   c.s_g = smem;
   const int kp = (k + 3) / 4 * 4;
   if (e_smem) {
-    const int L = bak_slice_len(obs, gridDim.x);
+    const int L = bakp_slice_len(obs, gridDim.x);
     c.eb = smem + kp;
     c.es = L;
     c.xs = smem + kp + (size_t)k * L;
@@ -259,7 +253,7 @@ static cudaError_t bak_plan(F fn, int obs, int k, int min_obs, int* grid,
   if (err != cudaSuccess) return err;
   int G = (obs + min_obs - 1) / min_obs;
   G = G < 1 ? 1 : (G > sms ? sms : G);
-  const int L = bak_slice_len(obs, G);
+  const int L = bakp_slice_len(obs, G);
   for (int mode = 1; mode >= 0; --mode) {
     const size_t smem = bak_smem_bytes(L, k, mode == 1);
     if (smem > (size_t)optin) continue;

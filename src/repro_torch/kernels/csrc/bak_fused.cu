@@ -89,7 +89,7 @@ static cudaError_t fused_plan(int obs, int k, int min_obs, int* grid, int* e_sme
 
 template <int KC>
 static cudaError_t fused_launch(const BakFusedParams& p, int grid, void* stream) {
-  const int L = bak_slice_len(p.obs, grid);
+  const int L = bakp_slice_len(p.obs, grid);
   const size_t smem = bak_smem_bytes(L, p.k, p.e_smem != 0);
   if (bak_x_batched(L))
     return bakp_launch_coop(bak_fused_kernel<KC, BAK_X_BATCH>, p, grid, smem, stream);

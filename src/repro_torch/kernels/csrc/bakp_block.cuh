@@ -21,6 +21,12 @@
 //      stores or accumulates it into the coefficients;       grid.sync()
 //   3. update:   every CTA copies da into shared memory and updates its own
 //      slice, e[:, slice] -= daᵀ · x_b[:, slice].
+// The three phases and the SSE take their operands as (base, row stride)
+// and a range [ob, oe) of positions: the per-sweep and whole-solve kernels
+// pass x and e in device memory with stride obs and the CTA's slice
+// [o0, o1); the streaming kernel (stream_solve.cu) passes its shared-memory
+// tile and residual slice with stride L and [0, o1 - o0).  The loops, and so
+// each thread's accumulation order, are the same in all three kernels.
 // fp32 FMAs throughout; no tensor cores (no TF32).
 #pragma once
 
@@ -39,10 +45,14 @@ struct BakpSlice {
   int o0, o1;
 };
 
+// Obs positions each CTA of a G-CTA grid owns (the last may own fewer).
+__host__ __device__ __forceinline__ int bakp_slice_len(int obs, int G) {
+  const int L = (obs + G - 1) / G;
+  return (L + BAKP_SLICE_ALIGN - 1) / BAKP_SLICE_ALIGN * BAKP_SLICE_ALIGN;
+}
+
 __device__ __forceinline__ BakpSlice bakp_slice(int obs) {
-  const int G = gridDim.x;
-  int L = (obs + G - 1) / G;
-  L = (L + BAKP_SLICE_ALIGN - 1) / BAKP_SLICE_ALIGN * BAKP_SLICE_ALIGN;
+  const int L = bakp_slice_len(obs, gridDim.x);
   const long long start = (long long)blockIdx.x * L;
   const int o0 = start < obs ? (int)start : obs;
   const int o1 = o0 + L < obs ? o0 + L : obs;
@@ -55,13 +65,22 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// Phase 1: this CTA's partial inner products g_q[c][r] for the block whose
-// first row is xb.  Warp w carries BAKP_COLS_PER_WARP columns through the
-// slice, KC right-hand sides at a time, lanes on consecutive obs.
-template <int KC>
-__device__ void bakp_partials(const float* __restrict__ xb, const float* e,
-                              int obs, int k, int CB, BakpSlice s,
-                              float* part) {
+// A load of x: through the read-only cache from device memory, or a plain
+// load from a shared-memory tile.
+template <bool X_GLOBAL>
+__device__ __forceinline__ float bakp_ld_x(const float* p) {
+  if constexpr (X_GLOBAL) return __ldg(p);
+  else return *p;
+}
+
+// Phase 1: this CTA's partial inner products g_q[c][r] over positions
+// [ob, oe) of xb (row stride x_ld) and e (row stride e_ld).  Warp w carries
+// BAKP_COLS_PER_WARP columns through the slice, KC right-hand sides at a
+// time, lanes on consecutive positions.
+template <int KC, bool X_GLOBAL>
+__device__ void bakp_partials(const float* __restrict__ xb, int x_ld,
+                              const float* e, int e_ld, int ob, int oe, int k,
+                              int CB, float* part) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int nwarps = blockDim.x >> 5;
@@ -74,15 +93,15 @@ __device__ void bakp_partials(const float* __restrict__ xb, const float* e,
       for (int t = 0; t < CT; ++t)
 #pragma unroll
         for (int r = 0; r < KC; ++r) acc[t][r] = 0.f;
-      for (int o = s.o0 + lane; o < s.o1; o += 32) {
+      for (int o = ob + lane; o < oe; o += 32) {
         float ev[KC];
 #pragma unroll
         for (int r = 0; r < KC; ++r)
-          ev[r] = r < kc ? e[(size_t)(r0 + r) * obs + o] : 0.f;
+          ev[r] = r < kc ? e[(size_t)(r0 + r) * e_ld + o] : 0.f;
 #pragma unroll
         for (int t = 0; t < CT; ++t) {
-          const float xv =
-              c0 + t < CB ? __ldg(xb + (size_t)(c0 + t) * obs + o) : 0.f;
+          const float xv = c0 + t < CB
+              ? bakp_ld_x<X_GLOBAL>(xb + (size_t)(c0 + t) * x_ld + o) : 0.f;
 #pragma unroll
           for (int r = 0; r < KC; ++r) acc[t][r] = fmaf(xv, ev[r], acc[t][r]);
         }
@@ -115,27 +134,28 @@ __device__ void bakp_reduce(const float* partials, float* da_buf,
   }
 }
 
-// Phase 3: e[:, slice] -= daᵀ · x_b[:, slice], one thread per obs position.
-template <int KC>
-__device__ void bakp_update(const float* __restrict__ xb, float* e,
-                            const float* s_da, int obs, int k, int CB,
-                            BakpSlice s) {
-  for (int o = s.o0 + threadIdx.x; o < s.o1; o += blockDim.x) {
+// Phase 3: e[:, slice] -= daᵀ · x_b[:, slice], one thread per position;
+// operands as bakp_partials.
+template <int KC, bool X_GLOBAL>
+__device__ void bakp_update(const float* __restrict__ xb, int x_ld, float* e,
+                            int e_ld, const float* s_da, int ob, int oe, int k,
+                            int CB) {
+  for (int o = ob + threadIdx.x; o < oe; o += blockDim.x) {
     for (int r0 = 0; r0 < k; r0 += KC) {
       const int kc = k - r0 < KC ? k - r0 : KC;
       float ev[KC];
 #pragma unroll
       for (int r = 0; r < KC; ++r)
-        ev[r] = r < kc ? e[(size_t)(r0 + r) * obs + o] : 0.f;
+        ev[r] = r < kc ? e[(size_t)(r0 + r) * e_ld + o] : 0.f;
       for (int c = 0; c < CB; ++c) {
-        const float xv = __ldg(xb + (size_t)c * obs + o);
+        const float xv = bakp_ld_x<X_GLOBAL>(xb + (size_t)c * x_ld + o);
 #pragma unroll
         for (int r = 0; r < KC; ++r)
           if (r < kc) ev[r] = fmaf(-s_da[c * k + r0 + r], xv, ev[r]);
       }
 #pragma unroll
       for (int r = 0; r < KC; ++r)
-        if (r < kc) e[(size_t)(r0 + r) * obs + o] = ev[r];
+        if (r < kc) e[(size_t)(r0 + r) * e_ld + o] = ev[r];
     }
   }
 }
@@ -151,29 +171,30 @@ __device__ void bakp_block_step(cg::grid_group& grid,
                                 int CB, int b, float omega, BakpSlice s) {
   const float* xb = x_t + (size_t)b * CB * obs;
   const size_t n = (size_t)CB * k;
-  bakp_partials<KC>(xb, e, obs, k, CB, s, partials + blockIdx.x * n);
+  bakp_partials<KC, true>(xb, obs, e, obs, s.o0, s.o1, k, CB,
+                          partials + blockIdx.x * n);
   grid.sync();
   bakp_reduce(partials, da_buf, coef + (size_t)b * n, accumulate,
               inv_cn + (size_t)b * CB, CB, k, omega);
   grid.sync();
   for (int i = threadIdx.x; i < (int)n; i += blockDim.x) s_da[i] = __ldcg(da_buf + i);
   __syncthreads();
-  bakp_update<KC>(xb, e, s_da, obs, k, CB, s);
+  bakp_update<KC, true>(xb, obs, e, obs, s_da, s.o0, s.o1, k, CB);
   __syncthreads();
 }
 
-// Grid-wide SSE of e (k, obs): per-CTA partial in a fixed thread order, then
-// every CTA sums the G partials in index order, so all CTAs hold the same
-// bits and take the same stop decision (one CTA leaving the sweep loop
-// while another waits at grid.sync would hang the solve).  s_red holds 33
-// floats.
-__device__ float bakp_grid_sse(cg::grid_group& grid, const float* e, int obs,
-                               int k, BakpSlice s, float* sse_part,
+// Grid-wide SSE of e (k rows of stride e_ld): per-CTA partial over the
+// CTA's positions [ob, oe) in a fixed thread order, then every CTA sums the
+// G partials in index order, so all CTAs hold the same bits and take the
+// same stop decision (one CTA leaving the sweep loop while another waits
+// at grid.sync would hang the solve).  s_red holds 33 floats.
+__device__ float bakp_grid_sse(cg::grid_group& grid, const float* e, int e_ld,
+                               int ob, int oe, int k, float* sse_part,
                                float* s_red) {
   float acc = 0.f;
   for (int r = 0; r < k; ++r)
-    for (int o = s.o0 + threadIdx.x; o < s.o1; o += blockDim.x) {
-      const float v = e[(size_t)r * obs + o];
+    for (int o = ob + threadIdx.x; o < oe; o += blockDim.x) {
+      const float v = e[(size_t)r * e_ld + o];
       acc = fmaf(v, v, acc);
     }
   acc = warp_sum(acc);

@@ -59,7 +59,8 @@ __global__ void __launch_bounds__(BAKP_THREADS) bakp_fused_kernel(FusedParams p)
   for (int i = gt; i < p.max_iter; i += gs) p.hist[i] = nanf("");
   __syncthreads();
 
-  const float sse0 = bakp_grid_sse(grid, p.e, p.obs, p.k, s, p.sse_part, s_red);
+  const float sse0 = bakp_grid_sse(grid, p.e, p.obs, s.o0, s.o1, p.k,
+                                   p.sse_part, s_red);
   float sse = sse0;
   bool converged = false, stop = false;
   int n = 0;
@@ -70,7 +71,7 @@ __global__ void __launch_bounds__(BAKP_THREADS) bakp_fused_kernel(FusedParams p)
                           p.partials, p.da_buf, s_da, p.obs, p.k, p.block, b,
                           p.omega, s);
     const float sse_new =
-        bakp_grid_sse(grid, p.e, p.obs, p.k, s, p.sse_part, s_red);
+        bakp_grid_sse(grid, p.e, p.obs, s.o0, s.o1, p.k, p.sse_part, s_red);
     if (gt == 0) p.hist[n] = sse_new;
     sweep_stop_flags(sse_new, sse, sse0, p.atol_sse, p.rtol, &converged, &stop);
     sse = sse_new;

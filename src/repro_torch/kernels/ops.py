@@ -12,9 +12,11 @@ The per-sweep loop launches one sweep kernel per sweep (``bakp_sweep``, or
 device memory at every sweep boundary and the stop is decided off the
 card, with one host read of the stop flag per sweep, as in the JAX design.
 Both paths take CPU tensors too (the plain versions run then).
+``solvebakp_stream_kernel`` is the out-of-core entry: the streaming
+whole-solve kernel (``stream_solve``) when a CTA's tile ring fits
+(``stream_fits``), else the same per-sweep loop.
 ``score_features_kernel`` and ``block_update_kernel`` are the entries of
-the two streamed-obs kernels.  The out-of-core entry arrives with its
-slice.
+the two streamed-obs kernels.
 """
 from __future__ import annotations
 
@@ -31,6 +33,7 @@ from repro_torch.kernels.cd_sweep import bakp_sweep, cd_sweep
 from repro_torch.kernels.fused_solve import (VARIANTS, fused_fits,
                                              fused_solve, solve_init,
                                              validate_solver_args)
+from repro_torch.kernels.stream_solve import stream_fits, stream_solve
 from repro_torch.obs import record_dispatch
 
 
@@ -125,6 +128,43 @@ def solvebakp_kernel(
     return solvebakp_persweep_kernel(
         x_t, y, inv_cn=inv_cn, a0=a0, block=block, max_iter=max_iter,
         atol=atol, rtol=rtol, omega=omega, variant=variant)
+
+
+def solvebakp_stream_kernel(
+    x_t: torch.Tensor,
+    y: torch.Tensor,
+    *,
+    cn: Optional[torch.Tensor] = None,
+    inv_cn: Optional[torch.Tensor] = None,
+    a0: Optional[torch.Tensor] = None,
+    block: int = 256,
+    max_iter: int = 50,
+    atol: float = 0.0,
+    rtol: float = 0.0,
+    omega: float = 1.0,
+) -> SolveResult:
+    """Streaming SolveBakP: x stays in device memory and its tiles stream
+    through each CTA's shared-memory ring while the residual, coefficients
+    and stop state stay on chip (``stream_solve``).  A CTA's shared memory
+    does not grow with vars, so designs far over the whole-solve budget
+    keep the single-launch, early-exit solve.  Arguments as
+    ``solvebakp_kernel`` (Algorithm 2 only); falls back to the per-sweep
+    loop when even the ring does not fit or ``max_iter < 1``.
+    """
+    nvars, obs = x_t.shape
+    _, nrhs, inv_cn = validate_solver_args(x_t, y, cn, inv_cn, a0)
+    if (max_iter >= 1
+            and stream_fits(nvars, obs, nrhs, x_t.element_size(),
+                            block=block, max_iter=max_iter)):
+        record_dispatch("stream", method="bakp")
+        return stream_solve(x_t, y, inv_cn=inv_cn, a0=a0, block=block,
+                            max_iter=max_iter, atol=atol, rtol=rtol,
+                            omega=omega)
+    reason = "max_iter" if max_iter < 1 else "vmem"
+    record_dispatch("persweep", method="bakp", reason=reason)
+    return solvebakp_persweep_kernel(
+        x_t, y, inv_cn=inv_cn, a0=a0, block=block, max_iter=max_iter,
+        atol=atol, rtol=rtol, omega=omega, variant="bakp")
 
 
 def score_features_kernel(x_t: torch.Tensor, e: torch.Tensor) -> torch.Tensor:

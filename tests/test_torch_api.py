@@ -4,9 +4,9 @@ dispatch paths, the tenant warm LRU, ``solve()`` / ``fit_linear_probe``,
 fingerprints, state carried over with ``prepared_from_arrays``, the device
 rule and the import boundary.
 
-JAX's ``bakp_fused`` and ``bak_fused`` raise on this tree's jax (their
-Pallas kernel), so the references for the port's are JAX's ``bakp`` and
-``bak`` handles, which share their semantics.  Coef agrees to 1e-5 of its
+JAX's ``bakp_fused``, ``bak_fused`` and resident ``bakp_stream`` raise on
+this tree's jax (their Pallas kernel), so the references for the port's
+are JAX's ``bakp`` and ``bak`` handles, which share their semantics.  Coef agrees to 1e-5 of its
 largest magnitude (at least 1), the residual to 1e-5 of the largest |y|:
 ``e = y - x @ coef`` carries the rounding of ``y``.
 """
@@ -27,11 +27,16 @@ from repro_torch.obs import consume_dispatch, fallback_counts
 TOL = 1e-5
 # Every registered method; bakf is single-RHS and ignores a0, so the
 # handle grid below runs the others and bakf has tests of its own.
-METHODS = ("bak", "bakp", "bakp_gram", "bakp_fused", "bak_fused", "lstsq",
-           "normal", "bakf")
+METHODS = ("bak", "bakp", "bakp_gram", "bakp_fused", "bak_fused",
+           "bakp_stream", "lstsq", "normal", "bakf")
 HANDLE_METHODS = tuple(m for m in METHODS if m != "bakf")
-ITERATIVE = ("bak", "bakp", "bakp_gram", "bakp_fused", "bak_fused")
+ITERATIVE = ("bak", "bakp", "bakp_gram", "bakp_fused", "bak_fused",
+             "bakp_stream")
 FUSED = ("bakp_fused", "bak_fused")
+# The path each kernel method records on the port's CPU path (its kernel's
+# plain version); the others record "xla", as JAX's do.
+KERNEL_PATH = {"bakp_fused": "fused", "bak_fused": "fused",
+               "bakp_stream": "stream"}
 
 
 def _spec(mod, method, **kw):
@@ -41,6 +46,8 @@ def _spec(mod, method, **kw):
 
 
 def _jax_method(method):
+    if method == "bakp_stream":
+        return "bakp"
     return method[:-len("_fused")] if method in FUSED else method
 
 
@@ -78,8 +85,8 @@ def test_handle_matches_jax(method, k, warm):
     _close(r.coef, jr.coef)
     _close(r.residual, jr.residual, scale=y)
     assert r.coef.device.type == "cpu"
-    if method in FUSED:
-        assert path == "fused"
+    if method in KERNEL_PATH:
+        assert path == KERNEL_PATH[method]
     else:
         assert path == jpath == "xla"
     if method in ("lstsq", "normal"):
@@ -234,13 +241,31 @@ def test_spec_and_registry_match_jax():
                 == J.spec.dataclasses.asdict(js.canonical()))
         te, je = T.solver_method(m), J.solver_method(m)
         for f in ("consumes", "iterative", "multi_rhs", "blocked",
-                  "needs_chol", "lane", "fallback"):
+                  "needs_chol", "streams", "lane", "fallback"):
             assert getattr(te, f) == getattr(je, f), (m, f)
         assert te.precisions == ("fp32",)
         assert not te.batchable and not te.shardable
     assert set(T.method_names()) == set(METHODS)
+    assert T.streaming_methods() == J.spec.streaming_methods()
     with pytest.raises(ValueError, match="method must be one of"):
-        T.SolverSpec(method="bakp_stream")
+        T.SolverSpec(method="bakp_unregistered")
+
+
+def test_every_fallback_resolves():
+    """Each registered fallback names a registered method, and the
+    degradation chains end at a direct method, as in the JAX registry."""
+    for m in T.method_names():
+        seen, cur = [m], T.solver_method(m).fallback
+        while cur is not None:
+            assert cur in T.method_names(), (m, cur)
+            assert cur not in seen, seen
+            seen.append(cur)
+            cur = T.solver_method(cur).fallback
+    chain, cur = ["bakp"], "bakp"
+    while T.solver_method(cur).fallback is not None:
+        cur = T.solver_method(cur).fallback
+        chain.append(cur)
+    assert chain == ["bakp", "bakp_stream", "lstsq"]
 
 
 def test_unsupported_specs_raise():
@@ -354,7 +379,8 @@ def test_import_pulls_in_no_jax_and_no_repro():
         "import sys, repro_torch, repro_torch.core, repro_torch.kernels, "
         "repro_torch.obs, repro_torch.core.solvebak, "
         "repro_torch.core.solvebakf, repro_torch.core.precondition, "
-        "repro_torch.kernels.block_update, repro_torch.kernels.ref\n"
+        "repro_torch.kernels.block_update, repro_torch.kernels.ref, "
+        "repro_torch.kernels.stream_solve, repro_torch.store\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'jaxlib', 'repro.')) or m == 'repro')\n"
         "print(bad)\n"

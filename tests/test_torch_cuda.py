@@ -17,7 +17,8 @@ import torch
 from repro_torch.core import SolverSpec, prepare
 from repro_torch.kernels import (_build, bakp_sweep, block_update, cd_sweep,
                                  fused_solve, score_features,
-                                 score_features_kernel, solvebakp_kernel)
+                                 score_features_kernel, solvebakp_kernel,
+                                 stream_solve)
 from repro_torch.kernels.block_update import (block_update_plain,
                                               score_features_plain)
 from repro_torch.kernels.cd_sweep import bakp_sweep_plain, cd_sweep_plain
@@ -229,3 +230,87 @@ def test_bak_handle_on_card(cuda):
     rr = p.solve(y, spec=SolverSpec(method="bak", order="random", rtol=1e-7,
                                     max_iter=100), generator=g)
     assert consume_dispatch() == "xla" and _within(rr.coef, a)
+
+
+# ----------------------------------------------------- streaming kernel
+@pytest.mark.parametrize("k,obs,nvars,block,warm", [
+    (None, 4096, 256, 32, False),   # 8 blocks: the ring wraps every sweep
+    (8, 4096, 224, 32, True),       # 7 blocks: the stage parity flips
+    (3, 4099, 96, 16, False),       # obs % 4 != 0: the 4-byte copies
+    (8, 16384, 512, 128, True),
+])
+def test_stream_kernel_matches_plain(cuda, k, obs, nvars, block, warm):
+    from repro_torch.kernels.stream_solve import stream_solve_plain
+    x, a, y = _system(51, obs, nvars, k, cuda)
+    y = y + 0.1 * torch.randn(y.shape, device=cuda)
+    x_t = x.T.contiguous()
+    multi = y.dim() == 2
+    a0 = 0.5 * a if warm else None
+    inv, a0m, e0 = solve_init(x_t, y, None, a0, multi)
+    n0 = _build.launch_counts()["stream_solve"]
+    r = stream_solve(x_t, y, a0=a0, block=block, max_iter=12)
+    assert _build.launch_counts()["stream_solve"] == n0 + 1
+    pc, pe, ph, _, pn, _ = stream_solve_plain(
+        x_t, inv, e0, a0m, block=block, max_iter=12, atol_sse=0.0, rtol=0.0,
+        omega=1.0)
+    assert int(r.n_sweeps) == int(pn) == 12
+    coef = r.coef if multi else r.coef[:, None]
+    res = r.residual.T if multi else r.residual[None]
+    assert _within(coef, pc) and _within(res, pe, scale=e0)
+    assert _within(r.history, ph)
+
+
+@pytest.mark.parametrize("k", [None, 8])
+def test_stream_kernel_stops_like_plain(cuda, k):
+    from repro_torch.kernels.stream_solve import stream_solve_plain
+    x, a, y = _system(52, 8192, 256, k, cuda)
+    x_t = x.T.contiguous()
+    r = stream_solve(x_t, y, block=64, max_iter=200, rtol=1e-7)
+    inv, a0m, e0 = solve_init(x_t, y, None, None, y.dim() == 2)
+    _, _, _, _, pn, pconv = stream_solve_plain(
+        x_t, inv, e0, a0m, block=64, max_iter=200, atol_sse=0.0, rtol=1e-7,
+        omega=1.0)
+    assert abs(int(r.n_sweeps) - int(pn)) <= 1 and int(r.n_sweeps) < 200
+    assert bool(r.converged) == bool(pconv)
+    assert _within(r.coef, a)
+
+
+@pytest.mark.parametrize("smem,path", [(None, "stream"), (4096, "persweep")])
+def test_stream_entry_dispatch_on_card(cuda, monkeypatch, smem, path):
+    import importlib
+    from repro_torch.kernels import solvebakp_stream_kernel
+    if smem is not None:
+        monkeypatch.setattr(importlib.import_module(
+            "repro_torch.kernels.stream_solve"), "SMEM_PER_CTA_BYTES", smem)
+    x, a, y = _system(53, 8192, 256, 2, cuda)
+    _build.reset_launch_counts()
+    consume_dispatch()
+    r = solvebakp_stream_kernel(x.T.contiguous(), y, block=128, max_iter=100,
+                                rtol=1e-7)
+    assert consume_dispatch() == path
+    kernel = "stream_solve" if path == "stream" else "bakp_sweep"
+    assert _build.launch_counts()[kernel] >= 1
+    assert _within(r.coef, a)
+
+
+def test_stream_handles_on_card(cuda):
+    from repro_torch.core import UnsupportedSpecError, prepared_from_arrays
+    x, a, y = _system(54, 8192, 200, None, cuda)   # 200 % 64: padded
+    spec = SolverSpec(method="bakp_stream", thr=64, rtol=1e-7, max_iter=100)
+    p = prepare(x, spec)
+    r = p.solve(y, tenant_id="t")
+    assert consume_dispatch() == "stream"
+    assert r.coef.shape == (200,) and _within(r.coef, a)
+    h = prepared_from_arrays(x, resident=False, spec=spec)
+    assert h.device.type == "cuda" and not h.resident
+    assert h.blocks.host.x_t.is_pinned()
+    rh = h.solve(y, tenant_id="t")
+    assert consume_dispatch() == "stream_host"
+    assert rh.coef.device.type == "cuda"
+    assert int(rh.n_sweeps) == int(r.n_sweeps) and _within(rh.coef, r.coef)
+    y2 = y + 0.01 * x.sum(1)
+    w = h.solve(y2, tenant_id="t")
+    assert int(w.n_sweeps) < int(rh.n_sweeps)
+    assert _within(w.coef, p.solve(y2, a0=rh.coef).coef)
+    with pytest.raises(UnsupportedSpecError, match="bakp_stream"):
+        h.solve(y, spec=SolverSpec(method="bakp_fused"))

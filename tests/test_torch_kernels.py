@@ -36,7 +36,8 @@ from repro_torch.kernels import (_build, bakp_sweep, block_update,
                                  block_update_kernel, cd_sweep, fused_fits,
                                  fused_solve, fused_working_set_bytes,
                                  score_features, score_features_kernel,
-                                 solvebakp_kernel, solvebakp_persweep_kernel)
+                                 solvebakp_kernel, solvebakp_persweep_kernel,
+                                 solvebakp_stream_kernel)
 from repro_torch.kernels.block_update import (block_update_plain,
                                               score_chunks,
                                               score_features_plain)
@@ -300,10 +301,12 @@ def test_launch_counts_track_kernels_only():
     score_features_kernel(torch.tensor(x.T.copy()), torch.tensor(y))
     block_update_kernel(torch.tensor(x.T.copy()), torch.tensor(y),
                         torch.ones(8))
+    solvebakp_stream_kernel(torch.tensor(x.T.copy()), torch.tensor(y),
+                            block=8, max_iter=3)
     # CPU tensors run the plain versions: nothing was launched.
     assert _build.launch_counts() == {
         "bakp_sweep": 0, "fused_solve": 0, "bak_sweep": 0, "bak_fused": 0,
-        "score_features": 0, "block_update": 0}
+        "score_features": 0, "block_update": 0, "stream_solve": 0}
 
 
 
