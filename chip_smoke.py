@@ -31,7 +31,11 @@ process per source, in parallel), then:
      card, and timed with CUDA events beside its roofline bound (and beside
      the nearest single PyTorch call, where there is one); for the streaming
      kernel also the whole-solve kernel and the per-sweep loop on the same
-     design, as findings;
+     design, as findings.  The Algorithm-1 rows carry their launch plan
+     (regime, CTAs, cluster size, clusters, where e lives) and the time of a
+     column step; phase 1 must run on one thread-block cluster and phase 2
+     on several.  Then the Algorithm-1 kernels at each cluster size of
+     2, 4, 8 and 16, each launch held to its plain version;
   5. a ``kernels`` summary line, the card's name and power limit, and the
      result line ``{"ok": true, "device": {...}}``.
 
@@ -45,6 +49,7 @@ directory without the repository's ``src/``.
 """
 from __future__ import annotations
 
+import importlib
 import json
 import subprocess
 import sys
@@ -283,13 +288,21 @@ def main() -> int:
 
     def read_launches(path):
         counts = _build.launch_counts()
-        emit({"phase": "main_path_launches", "path": path, **counts})
+        emit({"phase": "main_path_launches", "path": path, **counts,
+              "plans": {n: p._asdict() for n, p in _build.PLANS.items()}})
         for name in path_kernels[path]:
             launches[name] = counts[name]
             check(counts[name] > 0,
                   f"kernel {name} was not launched on its path {path}")
 
     read_launches("phases_1_2")
+    # The handle's bak_fused solves ran on one cluster, the per-sweep loop's
+    # bak_sweep launches at phase 2 on several.
+    for name, want in (("bak_fused", "single_cluster"),
+                       ("bak_sweep", "multi_cluster")):
+        check(_build.PLANS[name].regime == want,
+              f"main path {name}: regime {_build.PLANS[name].regime}, "
+              f"want {want}")
 
     # ------------------------------------------- the streaming path
     _build.reset_launch_counts()
@@ -442,6 +455,9 @@ def main() -> int:
                "rel_err_da": err_da, "rel_err_e": err_e, "ms": ms,
                "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
                "library_ms": None}
+        if alg == 1:
+            row["plan"] = _build.PLANS[name]._asdict()
+            row["us_per_column"] = ms * 1e3 / nv
         emit({"phase": "kernel_vs_plain", "kernel": name, "case": label,
               **row})
         return row
@@ -490,6 +506,10 @@ def main() -> int:
                "rel_err_coef": err_c, "rel_err_e": err_e, "ms": ms,
                "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
                "library_ms": None}
+        if variant == "bak":
+            # A column step's time; the per-sweep SSE step is included.
+            row["plan"] = _build.PLANS[name]._asdict()
+            row["us_per_column"] = ms * 1e3 / (nk * nv)
         emit({"phase": "kernel_vs_plain", "kernel": name, "case": label,
               **row})
         return row
@@ -532,17 +552,75 @@ def main() -> int:
     # Algorithm 1: one sweep at the phase shapes, the whole solve at a
     # fixed 20 sweeps (n_sweeps must match) and to rtol 1e-7.  The plain
     # versions loop over columns from the host, so they run few times.
-    sweep_case("phase1_k1", x1t, inv1, 1, thr1, 20, alg=1, plain_iters=3)
-    sweep_case("phase1_k8", x1t, inv1, k, thr1, 20, alg=1, plain_iters=3)
-    rows["bak_sweep"] = sweep_case("phase2_k8", x2t, inv2, k, thr2, 5, alg=1,
-                                   plain_iters=2)
-    fused_case("phase1_k1_fixed20", x1t, inv1, y1 + 0.1 * randn(obs1), thr1,
-               20, 0.0, 5, variant="bak", plain_iters=2)
-    rows["bak_fused"] = fused_case("phase1_k8_fixed20", x1t, inv1,
-                                   y1k + 0.1 * randn(obs1, k), thr1, 20, 0.0,
-                                   5, variant="bak", plain_iters=2)
-    fused_case("phase1_k8_rtol", x1t, inv1, y1k, thr1, 100, 1e-7, 5,
-               variant="bak", plain_iters=2)
+    # Phase 1 must run in the single-cluster regime and phase 2 in the
+    # multi-cluster one, so this run times each.
+    y1n, y1kn = y1 + 0.1 * randn(obs1), y1k + 0.1 * randn(obs1, k)
+    a1_rows = {
+        "bak_sweep phase1_k1": sweep_case("phase1_k1", x1t, inv1, 1, thr1,
+                                          20, alg=1, plain_iters=3),
+        "bak_sweep phase1_k8": sweep_case("phase1_k8", x1t, inv1, k, thr1,
+                                          20, alg=1, plain_iters=3),
+        "bak_sweep phase2_k8": sweep_case("phase2_k8", x2t, inv2, k, thr2, 5,
+                                          alg=1, plain_iters=2),
+        "bak_fused phase1_k1_fixed20": fused_case(
+            "phase1_k1_fixed20", x1t, inv1, y1n, thr1, 20, 0.0, 5,
+            variant="bak", plain_iters=2),
+        "bak_fused phase1_k8_fixed20": fused_case(
+            "phase1_k8_fixed20", x1t, inv1, y1kn, thr1, 20, 0.0, 5,
+            variant="bak", plain_iters=2),
+        "bak_fused phase1_k8_rtol": fused_case(
+            "phase1_k8_rtol", x1t, inv1, y1k, thr1, 100, 1e-7, 5,
+            variant="bak", plain_iters=2)}
+    rows["bak_sweep"] = a1_rows["bak_sweep phase2_k8"]
+    rows["bak_fused"] = a1_rows["bak_fused phase1_k8_fixed20"]
+    for label, row in a1_rows.items():
+        want = "multi_cluster" if "phase2" in label else "single_cluster"
+        check(row["plan"]["regime"] == want,
+              f"{label}: regime {row['plan']['regime']}, want {want}")
+
+    # The cluster size of the Algorithm-1 kernels: each of 2, 4, 8, 16 at
+    # the phase 1 shapes (one cluster) and at phase 2 k 8 (several), every
+    # launch held to its plain version.  cd_sweep.BAK_CLUSTER is the rule.
+    cd_mod = importlib.import_module("repro_torch.kernels.cd_sweep")
+    rule = cd_mod.BAK_CLUSTER
+    e1k, e2k = randn(k, obs1), randn(k, obs2)
+    sweep_in = {"bak_sweep phase1_k8": (x1t, e1k, inv1),
+                "bak_sweep phase2_k8": (x2t, e2k, inv2)}
+    fused_in = {"bak_fused phase1_k1_fixed20": y1n,
+                "bak_fused phase1_k8_fixed20": y1kn}
+    plain_out = {lab: cd_sweep_plain(*args) for lab, args in sweep_in.items()}
+    fused_ops = {}
+    for lab, yy in fused_in.items():
+        inv_cn, a0m, e0 = solve_init(x1t, yy, inv1, None, yy.dim() == 2)
+        fused_ops[lab] = (inv_cn, e0, a0m)
+        plain_out[lab] = fused_solve_plain(
+            x1t, *fused_ops[lab], block=thr1, max_iter=20, atol_sse=0.0,
+            rtol=0.0, omega=1.0, variant="bak")[:2]
+    for csize in (2, 4, 8, 16):
+        cd_mod.BAK_CLUSTER = csize
+        for lab in (*sweep_in, *fused_in):
+            if lab in sweep_in:
+                x_t, e_in, inv = sweep_in[lab]
+                fn = (lambda x_t=x_t, inv=inv, e_in=e_in:
+                      _cd_sweep_cuda(x_t, e_in, inv))
+                name, cols, scale = "bak_sweep", x_t.shape[0], e_in
+            else:
+                ops = fused_ops[lab]
+                fn = (lambda ops=ops: fused_cuda(
+                    x1t, *ops, block=thr1, max_iter=20, atol_sse=0.0,
+                    rtol=0.0, omega=1.0, variant="bak"))
+                name, cols, scale = "bak_fused", 20 * vars1, ops[1]
+            out = fn()
+            sync()
+            err = max(rel(out[0], plain_out[lab][0]),
+                      rel(out[1], plain_out[lab][1], scale=scale))
+            check(err <= KERNEL_TOL,
+                  f"{lab} cluster {csize}: rel err {err}")
+            ms = cuda_ms(fn, 5 if "phase2" in lab else 10)
+            emit({"phase": "bak_cluster_sweep", "case": lab,
+                  "cluster": csize, "plan": _build.PLANS[name]._asdict(),
+                  "rel_err": err, "ms": ms, "us_per_column": ms * 1e3 / cols})
+    cd_mod.BAK_CLUSTER = rule
 
     # The streamed-obs entries at the phase 2 shapes, full fp32 throughout
     # (TF32 is off above, so torch.mv / torch.addmm run in fp32 too).

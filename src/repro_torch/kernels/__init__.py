@@ -1,13 +1,13 @@
 """repro_torch.kernels — hand-written CUDA kernels for the solver hot path.
 
-  fused_solve.py  whole-solve SolveBakP / SolveBak: one cooperative launch
-                  runs every sweep, the SSE and the stopping rule on the
-                  card, with a true early exit (csrc/fused_solve.cu,
-                  csrc/bak_fused.cu).
+  fused_solve.py  whole-solve SolveBakP / SolveBak: one launch runs every
+                  sweep, the SSE and the stopping rule on the card, with a
+                  true early exit (csrc/fused_solve.cu, csrc/bak_fused.cu).
   cd_sweep.py     one SolveBakP sweep (csrc/bakp_sweep.cu), one SolveBak
-                  sweep (csrc/bak_sweep.cu) and the on-chip budget; the
-                  steps the sweep and whole-solve kernels share are
-                  csrc/bakp_block.cuh and csrc/bak_column.cuh.
+                  sweep (csrc/bak_sweep.cu), the Algorithm-1 launch plan
+                  (bak_grid) and the on-chip budget; the steps the sweep
+                  and whole-solve kernels share are csrc/bakp_block.cuh and
+                  csrc/bak_column.cuh.
   stream_solve.py whole-solve SolveBakP with x left in device memory and
                   streamed through a shared-memory ring
                   (csrc/stream_solve.cu), and the out-of-core host-block

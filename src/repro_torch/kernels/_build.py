@@ -10,7 +10,9 @@ headers it includes (followed transitively), so editing a source rebuilds
 exactly the libraries that compile it and the rest load as they are.
 
 Launch counts also live here: every wrapper adds one to ``LAUNCHES[name]``
-where it launches its kernel, and nowhere else.
+where it launches its kernel, and nowhere else.  A kernel whose launch plan
+varies with the shape (the Algorithm-1 regimes) records the plan of its
+last launch in ``PLANS[name]``.
 """
 from __future__ import annotations
 
@@ -32,6 +34,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # Launch count per kernel name (the ``csrc`` file stem).
 LAUNCHES: Counter = Counter()
+# Plan of the last launch per kernel name, where the plan varies.
+PLANS: Dict[str, tuple] = {}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -47,12 +51,12 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "bakp_fused_launch": [_P] * 13 + [_I] * 5 + [_F] * 3 + [_I, _P],
     },
     "bak_sweep": {
-        "bak_sweep_grid": [_I, _I, _I, _P, _P],
-        "bak_sweep_launch": [_P] * 6 + [_I] * 5 + [_P],
+        "bak_sweep_grid": [_I, _I, _I, _I, _P],
+        "bak_sweep_launch": [_P] * 6 + [_I] * 6 + [_P],
     },
     "bak_fused": {
-        "bak_fused_grid": [_I, _I, _I, _P, _P],
-        "bak_fused_launch": [_P] * 12 + [_I] * 4 + [_F] * 2 + [_I] * 2 + [_P],
+        "bak_fused_grid": [_I, _I, _I, _I, _P],
+        "bak_fused_launch": [_P] * 11 + [_I] * 4 + [_F] * 2 + [_I] * 3 + [_P],
     },
     "score_features": {
         "score_features_launch": [_P] * 5 + [_I] * 4 + [_P],

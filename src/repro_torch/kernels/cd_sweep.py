@@ -8,8 +8,10 @@ Counterpart of ``repro.kernels.cd_sweep`` (``bak_row_update``,
 ``cd_sweep`` and ``bakp_sweep`` follow the device of the tensors they are
 given: CPU tensors run the plain versions (``cd_sweep_plain``,
 ``bakp_sweep_plain``), CUDA tensors launch the kernels, and anything else
-raises.  Both kernels split obs across a cooperative grid of CTAs (see
-``csrc/bakp_block.cuh`` and ``csrc/bak_column.cuh``).  The JAX ``cd_sweep``
+raises.  Both kernels split obs across CTAs: the Algorithm-2 kernel over a
+cooperative grid (``csrc/bakp_block.cuh``), the Algorithm-1 kernels over
+thread-block clusters in one of three regimes (``bak_grid``,
+``csrc/bak_column.cuh``).  The JAX ``cd_sweep``
 stages ``block`` rows per grid step and checks a VMEM budget; here
 ``block`` only has to divide vars (as in JAX), since the Algorithm-1 kernel
 walks the columns one at a time whatever the block.
@@ -17,6 +19,7 @@ walks the columns one at a time whatever the block.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -37,6 +40,16 @@ SMEM_DA_LIMIT_BYTES = 200 * 1024
 
 # Fewest obs one CTA of the cooperative grid owns.
 MIN_OBS_PER_CTA = 128
+
+# CTAs in a thread-block cluster of the Algorithm-1 kernels, from the sweep
+# over {2, 4, 8, 16} at the phase 1 shapes (PERF.md); ``bak_grid`` reads it
+# at call time.
+BAK_CLUSTER = 16
+
+# ``bak_plan``'s regimes and residual placements, by the codes it returns
+# (csrc/bak_column.cuh).
+BAK_REGIMES = ("single_cluster", "multi_cluster", "e_device", "x_device")
+BAK_E_PLACES = ("device", "shared", "registers")
 
 _grid_cache: dict = {}
 
@@ -103,18 +116,43 @@ def cooperative_grid(lib_fn, obs: int, k: int, block: int) -> int:
     return max(1, min(_grid_cache[key], -(-obs // MIN_OBS_PER_CTA)))
 
 
-def bak_grid(lib_fn, obs: int, k: int):
-    """Launch plan of the Algorithm-1 kernels: ``(grid, e_smem)``, at most
-    one CTA per SM and at least ``MIN_OBS_PER_CTA`` obs per CTA, with the
-    residual slices in shared memory when they fit (``bak_plan`` in
-    ``csrc/bak_column.cuh``)."""
-    key = (lib_fn.__name__, torch.cuda.current_device(), obs, k)
+class BakPlan(NamedTuple):
+    """Launch plan of the Algorithm-1 kernels (``bak_plan``)."""
+    regime: str         # one of BAK_REGIMES
+    ctas: int
+    cluster: int        # CTAs per cluster
+    clusters: int
+    e_in: str           # where the residual slices live: BAK_E_PLACES
+    xchg_words: int     # int32 words of the cross-cluster exchange
+
+
+def bak_grid(lib_fn, obs: int, k: int) -> BakPlan:
+    """Launch plan of the Algorithm-1 kernels: one cluster of
+    ``BAK_CLUSTER`` CTAs (fewer for small obs) when the residual slices and
+    the x ring fit it, else clusters of ``BAK_CLUSTER`` CTAs, one CTA per SM
+    and at least ``MIN_OBS_PER_CTA`` obs each, with the residual slices on
+    chip when they fit and in device memory otherwise (``e_device``), and x
+    read from device memory too where even the x ring does not fit a CTA
+    (``x_device``).  On chip means registers for k <= 8 and at most 12
+    positions a thread, else shared memory."""
+    cluster = BAK_CLUSTER
+    key = (lib_fn.__name__, torch.cuda.current_device(), obs, k, cluster)
     if key not in _grid_cache:
-        grid, e_smem = ctypes.c_int(0), ctypes.c_int(0)
-        _build.check(lib_fn(obs, k, MIN_OBS_PER_CTA, ctypes.addressof(grid),
-                            ctypes.addressof(e_smem)), lib_fn.__name__)
-        _grid_cache[key] = (grid.value, e_smem.value)
+        out = (ctypes.c_int * 6)()
+        _build.check(lib_fn(obs, k, MIN_OBS_PER_CTA, cluster,
+                            ctypes.addressof(out)), lib_fn.__name__)
+        _grid_cache[key] = BakPlan(BAK_REGIMES[out[0]], out[1], out[2],
+                                   out[3], BAK_E_PLACES[out[4]], out[5])
     return _grid_cache[key]
+
+
+def bak_exchange(plan: BakPlan, device) -> "torch.Tensor | None":
+    """Zeroed cross-cluster exchange slots for one launch (None for one
+    cluster): a sequence number left from an earlier launch would pass the
+    kernel's wait."""
+    if plan.xchg_words == 0:
+        return None
+    return torch.zeros((plan.xchg_words,), dtype=torch.int32, device=device)
 
 
 def check_kernel_args(x_t: torch.Tensor, nrhs: int, block: int, *tensors):
@@ -170,19 +208,20 @@ def _cd_sweep_cuda(x_t, e2, inv_cn):
     lib = _build.load("bak_sweep")
     dev = x_t.device
     with torch.cuda.device(dev):
-        grid, e_smem = bak_grid(lib.bak_sweep_grid, obs, nrhs)
+        plan = bak_grid(lib.bak_sweep_grid, obs, nrhs)
         e_in = e2.float().contiguous()
         inv = inv_cn.float().contiguous()
         e_out = torch.empty_like(e_in)
         da = torch.empty((nvars, nrhs), dtype=torch.float32, device=dev)
-        partials = torch.empty((2, grid, nrhs), dtype=torch.float32,
-                               device=dev)
+        xchg = bak_exchange(plan, dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         _build.LAUNCHES["bak_sweep"] += 1
+        _build.PLANS["bak_sweep"] = plan
         _build.check(lib.bak_sweep_launch(
             x_t.data_ptr(), inv.data_ptr(), e_in.data_ptr(), e_out.data_ptr(),
-            da.data_ptr(), partials.data_ptr(), nvars, obs, nrhs, grid,
-            e_smem, stream), "bak_sweep_launch")
+            da.data_ptr(), None if xchg is None else xchg.data_ptr(), nvars,
+            obs, nrhs, BAK_REGIMES.index(plan.regime), plan.ctas,
+            plan.cluster, stream), "bak_sweep_launch")
     return da, e_out
 
 

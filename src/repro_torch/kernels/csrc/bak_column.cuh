@@ -1,62 +1,247 @@
-// SolveBak (paper Algorithm 1) column step, shared by the per-sweep kernel
-// (bak_sweep.cu) and the whole-solve kernel (bak_fused.cu), as
-// repro/kernels/cd_sweep.py::bak_row_update is shared by the two Pallas
-// bodies it replaces.  One definition keeps the two execution models
-// numerically in lockstep.
+// SolveBak (paper Algorithm 1) column step on thread-block clusters, shared
+// by the per-sweep kernel (bak_sweep.cu) and the whole-solve kernel
+// (bak_fused.cu), as repro/kernels/cd_sweep.py::bak_row_update is shared by
+// the two Pallas bodies it replaces.  One definition keeps the two
+// execution models numerically in lockstep.
 //
 // Layout as bakp_block.cuh: x_t (vars, obs) row-major fp32, residuals
 // e (k, obs), increments and coefficients (vars, k), inv_cn (vars,).
 //
-// Decomposition.  A cooperative grid of G CTAs (at most one per SM), CTA q
-// owning the obs slice [o0, o1) of e and of every row of x_t (bakp_slice).
-// Algorithm 1 needs a full reduction over obs before each column's update,
-// so every column costs one grid-wide barrier, and no more:
-//   1. CTA q sums its k partial dots <x_j, e>[slice] in a fixed thread order
-//      and writes them to partials[step & 1][q];                 grid.sync()
-//   2. EVERY CTA sums the G partials of column j in the same fixed order, so
-//      all CTAs hold the same bits of da_j = g_j * inv_j with no owner-thread
-//      pass and no second barrier;
-//   3. each CTA updates its own slice, e[:, slice] -= da_j x_j[slice].
-// The two alternating partial buffers make one barrier safe: a CTA writes
-// column j+2's partials (into the buffer of column j) only after barrier
-// j+1, and every CTA finished reading column j's partials before it reached
-// that barrier.  `step` counts columns across sweeps so the parity
-// alternates across sweep boundaries too.
+// Decomposition.  G CTAs launched as clusters of C (cudaLaunchKernelEx with
+// a cluster dimension), CTA q owning the obs slice [o0, o0 + L) of e and of
+// every row of x_t (bakp_slice).  Thread t owns the positions 4t + 4Ti + u
+// (u < 4) of the slice in every loop, so it reads only shared memory it
+// wrote itself, and needs no barrier for that.  Algorithm 1 needs a full
+// reduction over obs before each column's update.  Per column j:
+//   1. x_j's slice is already in shared memory: step j-1 issued its
+//      cp.async copy into a two-stage ring, and step j issues j+1's;
+//   2. the CTA sums its k partial dots <x_j, e>[slice] in a fixed thread
+//      order (warp butterfly, then warps in order; one __syncthreads);
+//   3. warp 0 pushes them into every CTA of the cluster: lane q writes
+//      them into CTA q's receive slot for this rank through distributed
+//      shared memory with st.async, which counts its bytes on CTA q's
+//      mbarrier for the step's parity (complete_tx); lane 0 has told its
+//      own mbarrier to expect the C slots' bytes (arrive.expect_tx);
+//   4. every thread waits on its own CTA's mbarrier (try_wait.parity) for
+//      those bytes, and each warp sums the C received partials in rank
+//      order from local shared memory, so every CTA holds the same bits
+//      with no cluster-wide barrier.  With several
+//      clusters, rank 0 of each publishes its cluster's sums in device
+//      memory, each value a 64-bit word tagged with the step's sequence
+//      number (one single-copy-atomic store, so a reader that sees the tag
+//      sees the value); warp 0 of every CTA polls until every cluster's
+//      words carry this step's tag and sums them in cluster order;
+//   5. each CTA updates its own slice, e[:, slice] -= (g_j inv_j) x_j[slice].
+// Two parity slots (receive slots, mbarriers, device words) keep steps
+// apart: a CTA writes slot s for step t+2 only after its own wait of step
+// t+1, which needs every CTA's slot of step t+1, which each CTA sends only
+// after all its threads passed the __syncthreads of step t+1, after their
+// reads of step t.  bak_fused's SSE is a step of its own on the same path.
+// `step` counts steps across sweeps, so the parity alternates across sweep
+// boundaries too.  Sums run in a fixed order everywhere (within the CTA,
+// then in rank order, then in cluster order; no atomics), so a launch gives
+// the same bits every time.  fp32 FMAs throughout; no tensor cores.
 //
-// Where e lives.  When k·L + L floats fit a CTA's shared memory (L the
-// slice length), the slice of e stays in shared memory for the whole launch
-// and x_j's slice is staged there between the dot and the update, so x is
-// read from device memory once per column.  Otherwise e stays in device
-// memory (its slice is L2-resident) and x_j is read twice.  The launch
-// plan (bak_plan) picks one; the math is the same.
-// fp32 FMAs throughout; no tensor cores.
+// Where e lives (the template parameter EG of the kernels): with k <= 8 and
+// a slice of at most 12 positions a thread, each thread keeps its
+// positions of e in registers (EG = 1 or 3 float4 groups a thread), so the
+// dot and the update touch shared memory only for x_j; otherwise the slice
+// is in shared memory (EG = 0) or, where it does not fit, in device memory
+// (EG = -1).  Where even the ring does not fit (a slice of more than about
+// 28,800 positions), x_j is read from device memory as well (EG = -2).
+//
+// Launch regimes (bak_plan, from shared-memory arithmetic):
+//   single cluster  G = C, the residual slices (in registers or shared
+//                   memory) and the ring fit the CTAs.  No grid-wide
+//                   barrier at all, and a cluster is co-scheduled by the
+//                   hardware, so the launch is not cooperative.
+//   multi cluster   G = clusters·C, one CTA per SM, residual slices on
+//                   chip, the cross-cluster exchange of step 4.
+//                   The launch is cooperative as well as clustered: the
+//                   exchange's wait needs every CTA resident.
+//   e device        as multi cluster, the residual slices in device memory
+//                   (L2-resident) where they do not fit shared memory.
+//   x device        as e device, x_j read from device memory in the dot and
+//                   the update where the ring does not fit either.
 #pragma once
 
+#include <stdint.h>
+
 #include "bakp_block.cuh"
+#include "cp_async.cuh"
 
-// Positions of x_j one thread loads at once in the partial-dot pass when
-// it owns more than one (bak_x_batch).
-#define BAK_X_BATCH 8
+#define BAK_SINGLE_CLUSTER 0
+#define BAK_MULTI_CLUSTER 1
+#define BAK_E_DEVICE 2
+#define BAK_X_DEVICE 3
+// Ints bak_plan writes: regime, CTAs, cluster size, clusters, where e lives
+// (0 device memory, 1 shared memory, 2 registers), int32 words of the
+// device exchange.
+#define BAK_PLAN_FIELDS 6
+#define BAK_MAX_CLUSTER 16
+// Loads an ordered sum issues before adding any (bak_ordered_sum).
+#define BAK_LOAD_BATCH 16
 
-// Where a CTA keeps its slice of the residual(s) and the staged column.
+// Phase clocks of the column step, built only with -DBAK_PHASE_CLOCKS
+// (tools/bak_phase_split.py): thread 0 of CTA 0 adds the clock64 ticks of
+// each phase to bak_clocks[phase] and counts the steps in
+// bak_clocks[BAK_PHASES].  Phases: ring wait and dot, CTA reduction, push
+// and mbarrier wait, cross-cluster exchange, rank-order sum and update.
+#define BAK_PHASES 5
+#ifdef BAK_PHASE_CLOCKS
+__device__ unsigned long long bak_clocks[BAK_PHASES + 1];
+#define BAK_CLOCK_START long long bak_t0_ = clock64()
+#define BAK_CLOCK(i)                                                        \
+  do {                                                                      \
+    if (blockIdx.x == 0 && threadIdx.x == 0) {                              \
+      const long long t_ = clock64();                                       \
+      atomicAdd(&bak_clocks[i], (unsigned long long)(t_ - bak_t0_));        \
+      bak_t0_ = t_;                                                         \
+    }                                                                       \
+  } while (0)
+extern "C" int bak_phase_clocks(unsigned long long* out, int reset) {
+  if (reset) {
+    const unsigned long long z[BAK_PHASES + 1] = {};
+    return (int)cudaMemcpyToSymbol(bak_clocks, z, sizeof(z));
+  }
+  return (int)cudaMemcpyFromSymbol(out, bak_clocks, sizeof(bak_clocks));
+}
+#else
+#define BAK_CLOCK_START
+#define BAK_CLOCK(i)
+#endif
+
+// Positions a thread keeps in registers at most, and the rule for EG.
+#define BAK_REG_GROUPS 3
+__host__ __device__ __forceinline__ int bak_e_groups(int L, int k) {
+  if (k > 8) return 0;
+  if (L <= 4 * BAKP_THREADS) return 1;
+  return L <= 4 * BAKP_THREADS * BAK_REG_GROUPS ? BAK_REG_GROUPS : 0;
+}
+
+// k padded to a multiple of 4: the stride of a receive slot.
+__host__ __device__ __forceinline__ int bak_kp(int k) { return (k + 3) / 4 * 4; }
+
+// int32 words of the device exchange: 2 parities x clusters x kp 64-bit
+// tagged words.
+static inline int bak_xchg_words(int clusters, int k) {
+  return 2 * clusters * bak_kp(k) * 2;
+}
+
+// Dynamic shared memory of a CTA: two mbarriers (4 floats), part (kp),
+// the receive slots (2·C·kp), s_g (kp), the ring (2·L, unless EG = -2)
+// and, when EG = 0, the residual slice (k·L).
+static inline size_t bak_smem_bytes(int L, int k, int cluster, int eg) {
+  return sizeof(float) * (4 + (size_t)bak_kp(k) * (2 * cluster + 2) +
+                          (eg == -2 ? 0 : 2 * (size_t)L) +
+                          (eg == 0 ? (size_t)k * L : 0));
+}
+
 struct BakCta {
-  BakpSlice s;   // obs slice [o0, o1)
-  float* eb;     // e slice: shared memory, or e + o0 in device memory
-  int es;        // stride between right-hand sides of eb (L or obs)
-  float* xs;     // staged x_j slice in shared memory, or nullptr
-  float* s_g;    // k floats of shared memory: partial or full inner products
+  int o0, n;         // obs slice [o0, o0 + n)
+  int L, kp;         // ring stage stride; receive slot stride
+  float* ring;       // two stages of L floats
+  float* eb;         // e slice: shared memory, or e + o0 in device memory
+  int es;            // row stride of eb (L or obs)
+  float* part;       // kp floats: this CTA's partials of the step
+  float* rx;         // receive slots [parity][rank][kp], written by the cluster
+  float* s_g;        // kp floats: the step's full sums
+  unsigned mbar;     // shared address of the two mbarriers (by parity)
+  int rank, csize;   // rank in the cluster, cluster size
+  int cid, ncl;      // cluster index, clusters
+  unsigned long long* xchg;  // device exchange words, or nullptr (one cluster)
 };
 
+__device__ __forceinline__ unsigned bak_mapa(unsigned addr, int rank) {
+  unsigned r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+
+__device__ __forceinline__ void bak_cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n"
+               "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// Carve the dynamic shared memory, point the CTA at its slice and
+// initialise its two mbarriers (one arrival a phase, the expect_tx of
+// bak_push) before any CTA of the cluster writes to them.
+__device__ __forceinline__ BakCta bak_cta(float* smem, float* e, int obs,
+                                          int k, bool e_smem, void* xchg) {
+  cg::cluster_group cl = cg::this_cluster();
+  BakCta c;
+  const BakpSlice s = bakp_slice(obs);
+  c.o0 = s.o0;
+  c.n = s.o1 - s.o0;
+  c.L = bakp_slice_len(obs, gridDim.x);
+  c.kp = bak_kp(k);
+  c.rank = (int)cl.block_rank();
+  c.csize = (int)cl.num_blocks();
+  c.cid = blockIdx.x / c.csize;
+  c.ncl = gridDim.x / c.csize;
+  c.xchg = static_cast<unsigned long long*>(xchg);
+  c.mbar = (unsigned)__cvta_generic_to_shared(smem);
+  c.part = smem + 4;
+  c.rx = c.part + c.kp;
+  c.s_g = c.rx + 2 * (size_t)c.csize * c.kp;
+  c.ring = c.s_g + c.kp;
+  if (e_smem) {
+    c.eb = c.ring + 2 * (size_t)c.L;
+    c.es = c.L;
+  } else {
+    c.eb = e + c.o0;
+    c.es = obs;
+  }
+  if (threadIdx.x == 0) {
+    for (int b = 0; b < 2; ++b)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(c.mbar + 8 * b));
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  bak_cluster_sync();
+  return c;
+}
+
+// Issue this thread's copies of its positions of x row `xrow` (already
+// offset to the slice) into `stage`, as one commit group.
+__device__ __forceinline__ void bak_fetch(const BakCta& c, float* stage,
+                                          const float* xrow, bool vec16) {
+  for (int b = 4 * threadIdx.x; b < c.n; b += 4 * blockDim.x) {
+    if (vec16) {
+      cp_async16(stage + b, xrow + b);   // n % 4 == 0 when vec16
+    } else {
+      for (int u = 0; u < 4 && b + u < c.n; ++u)
+        cp_async4(stage + b + u, xrow + b + u);
+    }
+  }
+  cp_async_commit();
+}
+
+// Four consecutive residual values: one 16-byte access in shared memory,
+// four in device memory (rows there need not be 16-byte aligned).
+template <bool E_SMEM>
+__device__ __forceinline__ float4 bak_ld4(const float* p) {
+  if constexpr (E_SMEM) return *reinterpret_cast<const float4*>(p);
+  else return make_float4(p[0], p[1], p[2], p[3]);
+}
+
+template <bool E_SMEM>
+__device__ __forceinline__ void bak_st4(float* p, float4 v) {
+  if constexpr (E_SMEM) {
+    *reinterpret_cast<float4*>(p) = v;
+  } else {
+    p[0] = v.x; p[1] = v.y; p[2] = v.z; p[3] = v.w;
+  }
+}
+
 // Per-thread values v[0..kc) summed over the CTA in a fixed order (warp
-// butterfly, then warps in index order); the sums land in out[0..kc).
-// s_red holds (blockDim.x / 32)·KC floats.  Ends with a __syncthreads, so
-// out is visible to every thread on return.
+// butterfly, then warps in index order) by threads < kc into out[0..kc).
+// s_red holds (blockDim.x / 32)·KC floats.  The caller's next barrier makes
+// out visible and frees s_red.
 template <int KC>
-__device__ __forceinline__ void bak_block_sum(float (&v)[KC], int kc,
-                                              float* s_red, float* out) {
+__device__ __forceinline__ void bak_cta_sum(float (&v)[KC], int kc,
+                                            float* s_red, float* out) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
 #pragma unroll
   for (int r = 0; r < KC; ++r) v[r] = warp_sum(v[r]);
   if (lane == 0)
@@ -65,207 +250,605 @@ __device__ __forceinline__ void bak_block_sum(float (&v)[KC], int kc,
   __syncthreads();
   if ((int)threadIdx.x < kc) {
     float t = 0.f;
-    for (int w = 0; w < nwarps; ++w) t += s_red[w * KC + threadIdx.x];
+#pragma unroll
+    for (int w = 0; w < BAKP_THREADS / 32; ++w) t += s_red[w * KC + threadIdx.x];
     out[threadIdx.x] = t;
   }
-  __syncthreads();
 }
 
-// One Algorithm-1 column j (see top).  xj is row j of x_t; partials the
-// (2, G, k) scratch; step the running column count.  On return c.s_g holds
-// g_j (k floats, the same bits in every CTA); da_j = g_j * inv_j.  XB is
-// bak_x_batch's choice for this launch.
-template <int KC, int XB>
-__device__ void bak_column_step(cg::grid_group& grid,
-                                const float* __restrict__ xj, float inv_j,
-                                const BakCta& c, int k, float* partials,
-                                int step, float* s_red) {
-  const int n = c.s.o1 - c.s.o0;
-  const int G = gridDim.x;
-  float* part = partials + (size_t)(step & 1) * G * k;
-  const float* xrow = xj + c.s.o0;
-
-  // 1. this CTA's partial inner products, staging x_j's slice.  With XB > 1
-  // a thread issues the loads of up to XB of its positions before using
-  // any, so their device-memory latencies overlap instead of adding up.
-  for (int r0 = 0; r0 < k; r0 += KC) {
-    const int kc = k - r0 < KC ? k - r0 : KC;
-    float acc[KC];
+// ld(0) + ld(1) + ... + ld(n - 1), added in index order.  Each batch of
+// BAK_LOAD_BATCH loads is issued before any is added, so their latencies
+// (distributed shared memory, L2) overlap instead of adding up.
+template <typename T, typename Ld>
+__device__ __forceinline__ T bak_ordered_sum(int n, Ld ld) {
+  T t = T(0);
+  for (int q0 = 0; q0 < n; q0 += BAK_LOAD_BATCH) {
+    T v[BAK_LOAD_BATCH];
 #pragma unroll
-    for (int r = 0; r < KC; ++r) acc[r] = 0.f;
-    if constexpr (XB == 1) {
-      for (int i = threadIdx.x; i < n; i += blockDim.x) {
-        float xv;
-        if (c.xs == nullptr) {
-          xv = __ldg(xrow + i);
-        } else if (r0 == 0) {
-          xv = __ldg(xrow + i);
-          c.xs[i] = xv;          // read back by this same thread only
-        } else {
-          xv = c.xs[i];
+    for (int u = 0; u < BAK_LOAD_BATCH; ++u) v[u] = q0 + u < n ? ld(q0 + u) : T(0);
+#pragma unroll
+    for (int u = 0; u < BAK_LOAD_BATCH; ++u)
+      if (q0 + u < n) t += v[u];
+  }
+  return t;
+}
+
+// Warp 0, once threads < k wrote this CTA's partials to part: lane 0 has
+// this CTA's mbarrier of the step's parity expect the C slots' bytes, and
+// lane q writes the kp floats of part into CTA q's receive slot for this
+// rank with st.async, which completes their bytes on CTA q's mbarrier.
+__device__ __forceinline__ void bak_push(const BakCta& c, int step) {
+  __syncwarp();
+  const unsigned bar = c.mbar + 8 * (step & 1);
+  if (threadIdx.x == 0)
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                 ::"r"(bar), "r"(c.csize * c.kp * 4) : "memory");
+  const unsigned slot = (unsigned)__cvta_generic_to_shared(
+      c.rx + ((size_t)(step & 1) * c.csize + c.rank) * c.kp);
+  for (int q = threadIdx.x; q < c.csize; q += 32) {
+    const unsigned dst = bak_mapa(slot, q), rbar = bak_mapa(bar, q);
+    for (int r = 0; r < c.kp; r += 4) {
+      const float4 v = *reinterpret_cast<const float4*>(c.part + r);
+      asm volatile(
+          "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32"
+          " [%0], {%1, %2, %3, %4}, [%5];\n"
+          ::"r"(dst + 4 * r), "r"(__float_as_uint(v.x)), "r"(__float_as_uint(v.y)),
+          "r"(__float_as_uint(v.z)), "r"(__float_as_uint(v.w)), "r"(rbar)
+          : "memory");
+    }
+  }
+}
+
+// Wait for the C slots of `step` on this CTA's mbarrier.  Barrier
+// step & 1 serves every other step, so its (step >> 1)-th phase is this
+// step's.  The slots' bytes complete on this CTA's own mbarrier, so the
+// default CTA-scope acquire makes them visible (a cluster-scope one would
+// also invalidate the L1 every column).
+__device__ __forceinline__ void bak_wait_step(const BakCta& c, int step) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "BAK_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra BAK_WAIT;\n"
+      "}\n" ::"r"(c.mbar + 8 * (step & 1)), "r"((step >> 1) & 1) : "memory");
+}
+
+// Sum over the cluster, in rank order, of the received value r of `step`.
+__device__ __forceinline__ float bak_cluster_sum(const BakCta& c, int step, int r) {
+  const float* src = c.rx + (step & 1) * c.csize * c.kp + r;
+  return bak_ordered_sum<float>(c.csize, [&](int q) { return src[q * c.kp]; });
+}
+
+// A 64-bit exchange word: the step's tag above the value's 32 bits.
+__device__ __forceinline__ void bak_publish(unsigned long long* p, int seq, unsigned bits) {
+  const unsigned long long w = ((unsigned long long)(unsigned)seq << 32) | bits;
+  asm volatile("st.relaxed.gpu.global.b64 [%0], %1;\n" ::"l"(p), "l"(w) : "memory");
+}
+
+__device__ __forceinline__ unsigned long long bak_ld_word(const unsigned long long* p) {
+  unsigned long long w;
+  asm volatile("ld.relaxed.gpu.global.b64 %0, [%1];\n" : "=l"(w) : "l"(p) : "memory");
+  return w;
+}
+
+// The value bits of the exchange word at p once it carries tag seq.
+__device__ __forceinline__ unsigned bak_poll(const unsigned long long* p, int seq) {
+  unsigned long long w = bak_ld_word(p);
+  while ((unsigned)(w >> 32) != (unsigned)seq) w = bak_ld_word(p);
+  return (unsigned)w;
+}
+
+// Exchange word r of cluster q for the step's parity.
+__device__ __forceinline__ unsigned long long* bak_word(const BakCta& c, int step,
+                                                       int q, int r) {
+  return c.xchg + ((size_t)(step & 1) * c.ncl + q) * c.kp + r;
+}
+
+// Warp 0, several clusters, after the wait of `step`: rank 0 publishes its
+// cluster's k sums; then every CTA sums the clusters' sums in cluster
+// order into s_g.  Each round loads every word of a batch not yet tagged
+// before testing any, so the loads' latencies overlap.
+__device__ __forceinline__ void bak_exchange(const BakCta& c, int k, int step) {
+  const int seq = step + 1;
+  const int lane = threadIdx.x;
+  if (c.rank == 0)
+    for (int r = lane; r < k; r += 32)
+      bak_publish(bak_word(c, step, c.cid, r), seq,
+                  __float_as_uint(bak_cluster_sum(c, step, r)));
+  for (int r = lane; r < k; r += 32) {
+    float g = 0.f;
+    for (int q0 = 0; q0 < c.ncl; q0 += BAK_LOAD_BATCH) {
+      const int nb = c.ncl - q0 < BAK_LOAD_BATCH ? c.ncl - q0 : BAK_LOAD_BATCH;
+      unsigned v[BAK_LOAD_BATCH];
+      unsigned todo = (1u << nb) - 1;  // words of the batch not yet tagged
+      while (todo) {                   // one round of loads at a time
+        unsigned long long w[BAK_LOAD_BATCH];
+#pragma unroll
+        for (int u = 0; u < BAK_LOAD_BATCH; ++u)
+          if (todo >> u & 1) w[u] = bak_ld_word(bak_word(c, step, q0 + u, r));
+#pragma unroll
+        for (int u = 0; u < BAK_LOAD_BATCH; ++u)
+          if ((todo >> u & 1) && (unsigned)(w[u] >> 32) == (unsigned)seq) {
+            v[u] = (unsigned)w[u];
+            todo &= ~(1u << u);
+          }
+      }
+#pragma unroll
+      for (int u = 0; u < BAK_LOAD_BATCH; ++u)
+        if (u < nb) g += __uint_as_float(v[u]);
+    }
+    c.s_g[r] = g;
+  }
+}
+
+// This thread's partial dots <x_j, e[r0 + r]> over its positions; xs is
+// the ring stage (X_SMEM) or x_j's slice in device memory.
+template <int KC, bool E_SMEM, bool X_SMEM>
+__device__ __forceinline__ void bak_dot(const BakCta& c, const float* xs,
+                                        int r0, int kc, float (&acc)[KC]) {
+  for (int b = 4 * threadIdx.x; b < c.n; b += 4 * blockDim.x) {
+    if (b + 4 <= c.n) {
+      const float4 xv = bak_ld4<X_SMEM>(xs + b);
+#pragma unroll
+      for (int r = 0; r < KC; ++r)
+        if (r < kc) {
+          const float4 ev = bak_ld4<E_SMEM>(c.eb + (size_t)(r0 + r) * c.es + b);
+          acc[r] = fmaf(xv.x, ev.x, acc[r]);
+          acc[r] = fmaf(xv.y, ev.y, acc[r]);
+          acc[r] = fmaf(xv.z, ev.z, acc[r]);
+          acc[r] = fmaf(xv.w, ev.w, acc[r]);
         }
+    } else {
+      for (int i = b; i < c.n; ++i) {
+        const float xv = xs[i];
 #pragma unroll
         for (int r = 0; r < KC; ++r)
           if (r < kc) acc[r] = fmaf(xv, c.eb[(size_t)(r0 + r) * c.es + i], acc[r]);
       }
+    }
+  }
+}
+
+// This thread's positions of e[r0 + r] -= da[r] x_j; every load of a group
+// is issued before its stores.
+template <int KC, bool E_SMEM, bool X_SMEM>
+__device__ __forceinline__ void bak_update(const BakCta& c, const float* xs,
+                                           int r0, int kc,
+                                           const float (&da)[KC]) {
+  for (int b = 4 * threadIdx.x; b < c.n; b += 4 * blockDim.x) {
+    if (b + 4 <= c.n) {
+      const float4 xv = bak_ld4<X_SMEM>(xs + b);
+      float4 ev[KC];
+#pragma unroll
+      for (int r = 0; r < KC; ++r)
+        if (r < kc) ev[r] = bak_ld4<E_SMEM>(c.eb + (size_t)(r0 + r) * c.es + b);
+#pragma unroll
+      for (int r = 0; r < KC; ++r)
+        if (r < kc) {
+          ev[r].x = fmaf(-da[r], xv.x, ev[r].x);
+          ev[r].y = fmaf(-da[r], xv.y, ev[r].y);
+          ev[r].z = fmaf(-da[r], xv.z, ev[r].z);
+          ev[r].w = fmaf(-da[r], xv.w, ev[r].w);
+          bak_st4<E_SMEM>(c.eb + (size_t)(r0 + r) * c.es + b, ev[r]);
+        }
     } else {
-      for (int base = threadIdx.x; base < n; base += XB * blockDim.x) {
-        float xv[XB];
+      for (int i = b; i < c.n; ++i) {
+        const float xv = xs[i];
 #pragma unroll
-        for (int u = 0; u < XB; ++u) {
-          const int i = base + u * blockDim.x;
-          xv[u] = i >= n ? 0.f
-                  : (c.xs != nullptr && r0 > 0) ? c.xs[i] : __ldg(xrow + i);
-        }
-#pragma unroll
-        for (int u = 0; u < XB; ++u) {
-          const int i = base + u * blockDim.x;
-          if (i >= n) break;
-          if (c.xs != nullptr && r0 == 0) c.xs[i] = xv[u];  // read back by this thread only
-#pragma unroll
-          for (int r = 0; r < KC; ++r)
-            if (r < kc)
-              acc[r] = fmaf(xv[u], c.eb[(size_t)(r0 + r) * c.es + i], acc[r]);
-        }
+        for (int r = 0; r < KC; ++r)
+          if (r < kc) {
+            float* ep = c.eb + (size_t)(r0 + r) * c.es + i;
+            *ep = fmaf(-da[r], xv, *ep);
+          }
       }
     }
-    bak_block_sum<KC>(acc, kc, s_red, c.s_g + r0);
-    if ((int)threadIdx.x < kc)
-      part[(size_t)blockIdx.x * k + r0 + threadIdx.x] = c.s_g[r0 + threadIdx.x];
   }
-  grid.sync();
+}
 
-  // 2. every CTA reduces the G partials in the same fixed order.
+// x_j at positions b..b+3 of the ring stage, zero past the slice's end.
+__device__ __forceinline__ float4 bak_x4(const float* xs, int b, int n) {
+  if (b + 4 <= n) return *reinterpret_cast<const float4*>(xs + b);
+  return make_float4(xs[b], b + 1 < n ? xs[b + 1] : 0.f, b + 2 < n ? xs[b + 2] : 0.f, 0.f);
+}
+
+// The register forms (EG > 0): group g of this thread starts at position
+// 4·(threadIdx.x + g·BAKP_THREADS); positions past the slice's end hold 0
+// in er and take x = 0, so they neither add to a sum nor change.  The
+// arithmetic and its order are bak_dot's and bak_update's.
+template <int KC, int EG>
+__device__ __forceinline__ void bak_dot_reg(const BakCta& c, const float* xs, int kc,
+                                            const float4 (&er)[EG][KC],
+                                            float (&acc)[KC]) {
+#pragma unroll
+  for (int g = 0; g < EG; ++g) {
+    const int b = 4 * (threadIdx.x + g * BAKP_THREADS);
+    if (b < c.n) {
+      const float4 xv = bak_x4(xs, b, c.n);
+#pragma unroll
+      for (int r = 0; r < KC; ++r)
+        if (r < kc) {
+          acc[r] = fmaf(xv.x, er[g][r].x, acc[r]);
+          acc[r] = fmaf(xv.y, er[g][r].y, acc[r]);
+          acc[r] = fmaf(xv.z, er[g][r].z, acc[r]);
+          acc[r] = fmaf(xv.w, er[g][r].w, acc[r]);
+        }
+    }
+  }
+}
+
+template <int KC, int EG>
+__device__ __forceinline__ void bak_update_reg(const BakCta& c, const float* xs, int kc,
+                                               const float (&da)[KC],
+                                               float4 (&er)[EG][KC]) {
+#pragma unroll
+  for (int g = 0; g < EG; ++g) {
+    const int b = 4 * (threadIdx.x + g * BAKP_THREADS);
+    if (b < c.n) {
+      const float4 xv = bak_x4(xs, b, c.n);
+#pragma unroll
+      for (int r = 0; r < KC; ++r)
+        if (r < kc) {
+          er[g][r].x = fmaf(-da[r], xv.x, er[g][r].x);
+          er[g][r].y = fmaf(-da[r], xv.y, er[g][r].y);
+          er[g][r].z = fmaf(-da[r], xv.z, er[g][r].z);
+          er[g][r].w = fmaf(-da[r], xv.w, er[g][r].w);
+        }
+    }
+  }
+}
+
+// Load this thread's positions of a device residual (k, obs) into er, and
+// store them back.
+template <int KC, int EG>
+__device__ __forceinline__ void bak_load_regs(const BakCta& c, const float* src,
+                                              int obs, int k, float4 (&er)[EG][KC]) {
+#pragma unroll
+  for (int g = 0; g < EG; ++g) {
+    const int b = 4 * (threadIdx.x + g * BAKP_THREADS);
+#pragma unroll
+    for (int r = 0; r < KC; ++r) {
+      const float* p = src + (size_t)r * obs + c.o0 + b;
+      const bool row = r < k;
+      er[g][r] = make_float4(row && b < c.n ? p[0] : 0.f, row && b + 1 < c.n ? p[1] : 0.f,
+                             row && b + 2 < c.n ? p[2] : 0.f,
+                             row && b + 3 < c.n ? p[3] : 0.f);
+    }
+  }
+}
+
+template <int KC, int EG>
+__device__ __forceinline__ void bak_store_regs(const BakCta& c, float* dst, int obs,
+                                               int k, const float4 (&er)[EG][KC]) {
+#pragma unroll
+  for (int g = 0; g < EG; ++g) {
+    const int b = 4 * (threadIdx.x + g * BAKP_THREADS);
+#pragma unroll
+    for (int r = 0; r < KC; ++r) {
+      if (r >= k) continue;
+      float* p = dst + (size_t)r * obs + c.o0 + b;
+      if (b < c.n) p[0] = er[g][r].x;
+      if (b + 1 < c.n) p[1] = er[g][r].y;
+      if (b + 2 < c.n) p[2] = er[g][r].z;
+      if (b + 3 < c.n) p[3] = er[g][r].w;
+    }
+  }
+}
+
+// This thread's e: EG register groups, or a placeholder where e lives in
+// shared or device memory (EG <= 0).
+template <int KC, int EG>
+using BakRegs = float4[EG > 0 ? EG : 1][KC];
+
+// One Algorithm-1 column (see top).  x_j sits in ring stage col & 1, or
+// at xj (its slice in device memory) when EG = -2; jn is the next column
+// to prefetch (-1: none).  On return thread t holds in
+// c.s_g[r] the full sum g_j[r] for every r = t mod blockDim.x it owns (it
+// wrote or, with several clusters, was barrier-synchronised with them), so
+// a CTA's own loop over r = threadIdx.x, + blockDim.x... reads them with no
+// further barrier; da_j = g_j * inv_j.
+template <int KC, int EG>
+__device__ __forceinline__ void bak_column_step(const BakCta& c, BakRegs<KC, EG>& er,
+                                                const float* __restrict__ x_t, int obs,
+                                                const float* xj, int jn, int col,
+                                                int step, float inv_j, int k,
+                                                bool vec16, float* s_red) {
+  BAK_CLOCK_START;
+  constexpr bool RING = EG != -2;
+  const float* xs = RING ? c.ring + (size_t)(col & 1) * c.L : xj;
+  if constexpr (RING) {
+    if (jn >= 0)
+      bak_fetch(c, c.ring + (size_t)((col + 1) & 1) * c.L,
+                x_t + (size_t)jn * obs + c.o0, vec16);
+    else
+      cp_async_commit();
+    cp_async_wait<1>();               // this thread's copies of x_j landed
+  }
   for (int r0 = 0; r0 < k; r0 += KC) {
     const int kc = k - r0 < KC ? k - r0 : KC;
     float acc[KC];
 #pragma unroll
     for (int r = 0; r < KC; ++r) acc[r] = 0.f;
-    for (int q = threadIdx.x; q < G; q += blockDim.x)
-#pragma unroll
-      for (int r = 0; r < KC; ++r)
-        if (r < kc) acc[r] += __ldcg(part + (size_t)q * k + r0 + r);
-    bak_block_sum<KC>(acc, kc, s_red, c.s_g + r0);
+    if constexpr (EG > 0) bak_dot_reg<KC, EG>(c, xs, kc, er, acc);
+    else bak_dot<KC, EG == 0, RING>(c, xs, r0, kc, acc);
+    BAK_CLOCK(0);
+    if (r0 > 0) __syncthreads();      // the last chunk's s_red reads
+    bak_cta_sum<KC>(acc, kc, s_red, c.part + r0);
+    BAK_CLOCK(1);
   }
-
-  // 3. the update of this CTA's slice (the same positions each thread
-  // owned in step 1, so the staged x_j needs no barrier).
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const float xv = c.xs == nullptr ? __ldg(xrow + i) : c.xs[i];
-    for (int r = 0; r < k; ++r) {
-      float* ep = c.eb + (size_t)r * c.es + i;
-      *ep = fmaf(-(c.s_g[r] * inv_j), xv, *ep);
+  if (threadIdx.x < 32) bak_push(c, step);
+  bak_wait_step(c, step);
+  BAK_CLOCK(2);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const bool one = c.xchg == nullptr;
+  if (!one) {
+    if (threadIdx.x < 32) bak_exchange(c, k, step);
+    __syncthreads();
+  }
+  BAK_CLOCK(3);
+  float gl = 0.f;                     // one cluster: g[r32 + lane]
+  for (int r0 = 0; r0 < k; r0 += KC) {
+    const int kc = k - r0 < KC ? k - r0 : KC;
+    if (one && (r0 & 31) == 0) {      // a new block of 32 sums, per warp
+      const int r = r0 + lane;
+      gl = r < k ? bak_cluster_sum(c, step, r) : 0.f;
+      if (r < k && ((r0 >> 5) & (BAKP_THREADS / 32 - 1)) == warp) c.s_g[r] = gl;
     }
+    float da[KC];
+#pragma unroll
+    for (int r = 0; r < KC; ++r) {
+      const float g = one ? __shfl_sync(0xffffffffu, gl, (r0 & 31) + r) : c.s_g[r0 + r];
+      da[r] = r < kc ? g * inv_j : 0.f;
+    }
+    if constexpr (EG > 0) bak_update_reg<KC, EG>(c, xs, kc, da, er);
+    else bak_update<KC, EG == 0, RING>(c, xs, r0, kc, da);
   }
+  BAK_CLOCK(4);
+#ifdef BAK_PHASE_CLOCKS
+  if (blockIdx.x == 0 && threadIdx.x == 0) atomicAdd(&bak_clocks[BAK_PHASES], 1ull);
+#endif
 }
 
-// Grid-wide SSE of the residual slices: per-CTA partial in a fixed thread
-// order, then every CTA sums the G partials in index order (as
-// bakp_grid_sse), so every CTA takes the same stop decision.
-__device__ float bak_grid_sse(cg::grid_group& grid, const BakCta& c, int k,
-                              float* sse_part, float* s_red) {
-  const int n = c.s.o1 - c.s.o0;
+// SSE of the residual slices, as a step of its own: a float per CTA in a
+// fixed thread order, then in double in rank order and in cluster order
+// (two tagged words carry a cluster's double), so every CTA holds the same
+// bits and takes the same stop decision.
+template <int KC, int EG>
+__device__ __forceinline__ float bak_sse(const BakCta& c, const BakRegs<KC, EG>& er,
+                                         int k, int step, float* s_red) {
   float acc[1] = {0.f};
-  for (int r = 0; r < k; ++r)
-    for (int i = threadIdx.x; i < n; i += blockDim.x) {
-      const float v = c.eb[(size_t)r * c.es + i];
-      acc[0] = fmaf(v, v, acc[0]);
+  if constexpr (EG > 0) {             // k <= KC here
+#pragma unroll
+    for (int r = 0; r < KC; ++r)
+      if (r < k)
+#pragma unroll
+        for (int g = 0; g < EG; ++g) {
+          const float4 v = er[g][r];
+          acc[0] = fmaf(v.x, v.x, acc[0]);
+          acc[0] = fmaf(v.y, v.y, acc[0]);
+          acc[0] = fmaf(v.z, v.z, acc[0]);
+          acc[0] = fmaf(v.w, v.w, acc[0]);
+        }
+  }
+  for (int r = 0; r < (EG > 0 ? 0 : k); ++r) {
+    const float* e_r = c.eb + (size_t)r * c.es;
+    for (int b = 4 * threadIdx.x; b < c.n; b += 4 * blockDim.x) {
+      if (b + 4 <= c.n) {
+        const float4 v = bak_ld4<EG == 0>(e_r + b);
+        acc[0] = fmaf(v.x, v.x, acc[0]);
+        acc[0] = fmaf(v.y, v.y, acc[0]);
+        acc[0] = fmaf(v.z, v.z, acc[0]);
+        acc[0] = fmaf(v.w, v.w, acc[0]);
+      } else {
+        for (int i = b; i < c.n; ++i) acc[0] = fmaf(e_r[i], e_r[i], acc[0]);
+      }
     }
-  bak_block_sum<1>(acc, 1, s_red, c.s_g);
-  if (threadIdx.x == 0) sse_part[blockIdx.x] = c.s_g[0];
-  grid.sync();
+  }
+  bak_cta_sum<1>(acc, 1, s_red, c.part);
+  if (threadIdx.x < 32) bak_push(c, step);
+  bak_wait_step(c, step);
   if (threadIdx.x == 0) {
-    double t = 0.0;
-    for (int q = 0; q < (int)gridDim.x; ++q) t += (double)__ldcg(sse_part + q);
+    const float* src = c.rx + (size_t)(step & 1) * c.csize * c.kp;
+    double t = bak_ordered_sum<double>(
+        c.csize, [&](int q) { return (double)src[(size_t)q * c.kp]; });
+    if (c.xchg != nullptr) {
+      const int seq = step + 1;
+      if (c.rank == 0) {
+        bak_publish(bak_word(c, step, c.cid, 0), seq, (unsigned)__double2loint(t));
+        bak_publish(bak_word(c, step, c.cid, 1), seq, (unsigned)__double2hiint(t));
+      }
+      t = 0.0;
+      for (int q = 0; q < c.ncl; ++q) {
+        const unsigned lo = bak_poll(bak_word(c, step, q, 0), seq);
+        const unsigned hi = bak_poll(bak_word(c, step, q, 1), seq);
+        t += __hiloint2double((int)hi, (int)lo);
+      }
+    }
     c.s_g[0] = (float)t;
   }
   __syncthreads();
-  const float out = c.s_g[0];
-  __syncthreads();
-  return out;
-}
-
-// XB of the launch: batched loads pay where a thread owns several
-// positions of a slice of length L, and cost a little where it owns one
-// (measured both ways at the two chip_smoke.py shapes, see PERF.md).
-static inline bool bak_x_batched(int L) { return L > BAKP_THREADS; }
-
-// Dynamic shared memory of a CTA: g (k, padded to 4), then with e_smem the
-// e slice (k·L) and the staged column (L).
-static inline size_t bak_smem_bytes(int L, int k, bool e_smem) {
-  const size_t kp = ((size_t)k + 3) / 4 * 4;
-  return sizeof(float) * (kp + (e_smem ? (size_t)(k + 1) * L : 0));
-}
-
-// Carve the dynamic shared memory and point the CTA at its slice.
-__device__ __forceinline__ BakCta bak_cta(float* smem, float* e, int obs,
-                                          int k, bool e_smem) {
-  BakCta c;
-  c.s = bakp_slice(obs);
-  c.s_g = smem;
-  const int kp = (k + 3) / 4 * 4;
-  if (e_smem) {
-    const int L = bakp_slice_len(obs, gridDim.x);
-    c.eb = smem + kp;
-    c.es = L;
-    c.xs = smem + kp + (size_t)k * L;
-  } else {
-    c.eb = e + c.s.o0;
-    c.es = obs;
-    c.xs = nullptr;
-  }
-  return c;
+  return c.s_g[0];
 }
 
 // Copy the CTA's slice of a device residual into its own slice (shared
 // memory, or the output residual in device memory), and back out.
 __device__ __forceinline__ void bak_load_slice(const BakCta& c, const float* src,
                                                int obs, int k) {
-  const int n = c.s.o1 - c.s.o0;
   for (int r = 0; r < k; ++r)
-    for (int i = threadIdx.x; i < n; i += blockDim.x)
-      c.eb[(size_t)r * c.es + i] = src[(size_t)r * obs + c.s.o0 + i];
+    for (int i = threadIdx.x; i < c.n; i += blockDim.x)
+      c.eb[(size_t)r * c.es + i] = src[(size_t)r * obs + c.o0 + i];
   __syncthreads();
 }
 
+template <bool E_SMEM>
 __device__ __forceinline__ void bak_store_slice(const BakCta& c, float* dst,
                                                 int obs, int k) {
-  if (c.xs == nullptr) return;   // e already lives in dst
-  const int n = c.s.o1 - c.s.o0;
+  if constexpr (!E_SMEM) return;      // e already lives in dst
+  __syncthreads();
   for (int r = 0; r < k; ++r)
-    for (int i = threadIdx.x; i < n; i += blockDim.x)
-      dst[(size_t)r * obs + c.s.o0 + i] = c.eb[(size_t)r * c.es + i];
+    for (int i = threadIdx.x; i < c.n; i += blockDim.x)
+      dst[(size_t)r * obs + c.o0 + i] = c.eb[(size_t)r * c.es + i];
 }
 
-// Launch plan: G = min(SMs, ceil(obs / min_obs)) CTAs, one per SM at most
-// (every CTA reads all G partials per column, so more CTAs cost more L2
-// traffic and a longer reduction).  e_smem when the slice and the staged
-// column fit one CTA's shared memory at one CTA per SM.
+// ------------------------------------------------------------- host side
+// Shared memory a CTA asks for: at least half an SM's, so that one CTA
+// runs on each SM and the clusters spread over the card.
+static inline cudaError_t bak_launch_smem(size_t need, size_t* out) {
+  int dev = 0, sm_smem = 0;
+  cudaError_t err;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sm_smem, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
+  if (err != cudaSuccess) return err;
+  *out = need > (size_t)sm_smem / 2 ? need : (size_t)sm_smem / 2;
+  return cudaSuccess;
+}
+
 template <typename F>
-static cudaError_t bak_plan(F fn, int obs, int k, int min_obs, int* grid,
-                            int* e_smem) {
-  int dev = 0, sms = 0, optin = 0, per_sm = 0;
+static cudaError_t bak_func_attrs(F fn, size_t smem, int cluster) {
+  cudaError_t err = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess || cluster <= 8) return err;
+  return cudaFuncSetAttribute(fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+}
+
+// Clusters of `cluster` CTAs the card holds at once at `smem` bytes a CTA.
+template <typename F>
+static cudaError_t bak_max_clusters(F fn, int cluster, size_t smem, int* out) {
+  cudaError_t err = bak_func_attrs(fn, smem, cluster);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster);
+  cfg.blockDim = dim3(BAKP_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = cluster;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return cudaOccupancyMaxActiveClusters(out, fn, &cfg);
+}
+
+// Where e lives in a regime for a slice of L positions (EG, see the top),
+// and its code in the plan: 0 device memory, 1 shared memory, 2 registers.
+static inline int bak_eg(int L, int k, int regime) {
+  return regime == BAK_X_DEVICE ? -2 : regime == BAK_E_DEVICE ? -1 : bak_e_groups(L, k);
+}
+static inline int bak_e_code(int eg) { return eg < 0 ? 0 : eg == 0 ? 1 : 2; }
+
+// A kernel's five instantiations of one KC, by EG.
+template <typename F>
+struct BakKernels {
+  F xdev, dev, smem, reg1, reg3;
+  F pick(int eg) const {
+    return eg == -2 ? xdev : eg < 0 ? dev : eg == 0 ? smem : eg == 1 ? reg1 : reg3;
+  }
+};
+
+// Launch plan (see the regimes at the top).  Single cluster when C CTAs
+// (halved while a CTA would own fewer than min_obs positions) hold the
+// residual slices (in registers or shared memory) and the ring; else
+// clusters·C CTAs, at most one per SM, at most as many clusters as the
+// card holds at once and at least min_obs positions a CTA: e on chip when
+// its slices fit, else in device memory with the ring, else without it.
+// Fails when the card cannot place a cluster of C.
+template <typename F>
+static cudaError_t bak_plan(const BakKernels<F>& fns, int obs, int k, int min_obs,
+                            int cluster, int* out) {
+  if (cluster < 1 || cluster > BAK_MAX_CLUSTER || obs < 1 || k < 1)
+    return cudaErrorInvalidValue;
+  int dev = 0, sms = 0, optin = 0, fit = 0;
   cudaError_t err;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
   err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return err;
-  int G = (obs + min_obs - 1) / min_obs;
-  G = G < 1 ? 1 : (G > sms ? sms : G);
-  const int L = bakp_slice_len(obs, G);
-  for (int mode = 1; mode >= 0; --mode) {
-    const size_t smem = bak_smem_bytes(L, k, mode == 1);
-    if (smem > (size_t)optin) continue;
-    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, BAKP_THREADS, smem);
-    if (err != cudaSuccess) return err;
-    if (per_sm >= 1) {
-      *grid = G;
-      *e_smem = mode;
+  cudaFuncAttributes fa;
+  if ((err = cudaFuncGetAttributes(&fa, fns.smem)) != cudaSuccess) return err;
+  const size_t dyn_max = (size_t)optin - fa.sharedSizeBytes;   // less s_red
+
+  int c1 = cluster;
+  while (c1 > 1 && (long long)c1 * min_obs > obs) c1 >>= 1;
+  int L = bakp_slice_len(obs, c1), eg = bak_eg(L, k, BAK_SINGLE_CLUSTER);
+  size_t need = bak_smem_bytes(L, k, c1, eg), smem = 0;
+  if (need <= dyn_max) {
+    if ((err = bak_launch_smem(need, &smem)) != cudaSuccess) return err;
+    if ((err = bak_max_clusters(fns.pick(eg), c1, smem, &fit)) != cudaSuccess) return err;
+    if (fit >= 1) {
+      const int plan[BAK_PLAN_FIELDS] = {BAK_SINGLE_CLUSTER, c1, c1, 1, bak_e_code(eg), 0};
+      for (int i = 0; i < BAK_PLAN_FIELDS; ++i) out[i] = plan[i];
       return cudaSuccess;
     }
   }
-  return cudaErrorCooperativeLaunchTooLarge;
+  const long long want = ((long long)obs + min_obs - 1) / min_obs;
+  const int G = want < sms ? (int)want : sms;
+  for (int regime = BAK_MULTI_CLUSTER; regime <= BAK_X_DEVICE; ++regime) {
+    int n = G / cluster > 1 ? G / cluster : 1;
+    L = bakp_slice_len(obs, n * cluster);
+    eg = bak_eg(L, k, regime);
+    need = bak_smem_bytes(L, k, cluster, eg);
+    if (need > dyn_max) continue;
+    // One CTA per SM at any launch size, so the clusters the card holds at
+    // once do not depend on the slice length.
+    if ((err = bak_launch_smem(need, &smem)) != cudaSuccess) return err;
+    if ((err = bak_max_clusters(fns.pick(eg), cluster, smem, &fit)) != cudaSuccess)
+      return err;
+    if (fit < 1) return cudaErrorInvalidConfiguration;
+    if (n > fit) {
+      n = fit;
+      L = bakp_slice_len(obs, n * cluster);
+      eg = bak_eg(L, k, regime);
+      need = bak_smem_bytes(L, k, cluster, eg);
+      if (need > dyn_max) continue;
+    }
+    const int plan[BAK_PLAN_FIELDS] = {regime, n * cluster, cluster, n,
+                                       bak_e_code(eg), bak_xchg_words(n, k)};
+    for (int i = 0; i < BAK_PLAN_FIELDS; ++i) out[i] = plan[i];
+    return cudaSuccess;
+  }
+  return cudaErrorInvalidConfiguration;
+}
+
+// Launch fn as clusters of `cluster` CTAs, cooperatively when `coop`.  A
+// refused launch returns the driver's error; nothing falls back.
+template <typename F, typename P>
+static cudaError_t bak_launch(F fn, const P& params, int ctas, int cluster,
+                              bool coop, size_t smem, void* stream) {
+  cudaError_t err = bak_func_attrs(fn, smem, cluster);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(ctas);
+  cfg.blockDim = dim3(BAKP_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[2];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  attr[1].id = cudaLaunchAttributeCooperative;
+  attr[1].val.cooperative = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = coop ? 2 : 1;
+  err = cudaLaunchKernelEx(&cfg, fn, params);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// Checks a launch's plan arguments and derives where e lives and the
+// shared memory a CTA asks for; returns cudaErrorInvalidValue for a plan
+// bak_plan cannot have made.
+static inline cudaError_t bak_launch_check(int obs, int k, int regime, int ctas,
+                                           int cluster, const void* xchg, int* eg,
+                                           size_t* smem) {
+  if (regime < BAK_SINGLE_CLUSTER || regime > BAK_X_DEVICE || cluster < 1 ||
+      cluster > BAK_MAX_CLUSTER || ctas < cluster || ctas % cluster != 0 ||
+      (regime == BAK_SINGLE_CLUSTER && ctas != cluster) ||
+      (regime != BAK_SINGLE_CLUSTER && xchg == nullptr))
+    return cudaErrorInvalidValue;
+  const int L = bakp_slice_len(obs, ctas);
+  *eg = bak_eg(L, k, regime);
+  return bak_launch_smem(bak_smem_bytes(L, k, cluster, *eg), smem);
 }

@@ -8,19 +8,21 @@
 //
 // What bounds it on an H100.  4·n_sweeps·vars·obs·k FLOP against x read
 // once per solve, so the roofline bound is the FLOP one.  In fact each
-// column is a grid-wide barrier (bak_column.cuh: one per column, plus one
-// per sweep for the SSE), so n_sweeps·vars barrier latencies set its time.
-// Each CTA's residual slice stays in shared memory for the whole solve when
-// it fits; x is read through the L2 every sweep, as in fused_solve.cu, and
-// dispatch admits the solve only within the same L2 budget (fused_fits).
+// column is a dependent reduction-then-update step (bak_column.cuh: one
+// exchange through the cluster's shared memory per column, plus one step
+// per sweep for the SSE), so n_sweeps·vars step latencies set its time.
+// Each CTA's residual slice stays on chip (registers or shared memory) for
+// the whole solve when it fits; x streams through the L2 every sweep into
+// a cp.async ring one column ahead, and dispatch admits the solve only
+// within the L2 budget (fused_fits).
 //
 // The column step is bak_column.cuh's, shared with bak_sweep.cu.  Every CTA
-// computes the same SSE bits and so the same stop decision; CTA 0 owns the
-// coefficients, the history and the scalar outputs.
+// computes the same SSE bits and so the same stop decision; CTA 0 (rank 0
+// of cluster 0) owns the coefficients, the history and the scalar outputs.
 //
 // C interface (ctypes; pointers and stream void*-sized; cudaError_t return):
-//   bak_fused_grid(obs, k, min_obs, &grid, &e_smem)  launch plan
-//   bak_fused_launch(...)                             one whole solve
+//   bak_fused_grid(obs, k, min_obs, cluster, plan)  launch plan, 6 ints
+//   bak_fused_launch(...)                            one whole solve
 #include <math.h>
 
 #include "bak_column.cuh"
@@ -36,89 +38,106 @@ struct BakFusedParams {
   float* sse_out;       // (1,)
   int* n_out;           // (1,)
   int* conv_out;        // (1,)
-  float* partials;      // (2, grid, k) scratch
-  float* sse_part;      // (grid,) scratch
-  int nvars, obs, k, max_iter, e_smem;
+  float* xchg;          // device exchange slots, or nullptr (one cluster)
+  int nvars, obs, k, max_iter, vec16;
   float atol_sse, rtol;
 };
 
-template <int KC, int XB>
+template <int KC, int EG>
 __global__ void __launch_bounds__(BAKP_THREADS) bak_fused_kernel(BakFusedParams p) {
-  cg::grid_group grid = cg::this_grid();
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   __shared__ float s_red[(BAKP_THREADS / 32) * 8];
-  const BakCta c = bak_cta(smem, p.e, p.obs, p.k, p.e_smem != 0);
+  const BakCta c = bak_cta(smem, p.e, p.obs, p.k, EG == 0, p.xchg);
   const bool owner = blockIdx.x == 0;
+  const bool vec16 = p.vec16 != 0;
+  BakRegs<KC, EG> er;
+  if constexpr (EG != -2) bak_fetch(c, c.ring, p.x_t + c.o0, vec16);  // x_0
   if (owner) {
     for (int i = threadIdx.x; i < p.nvars * p.k; i += blockDim.x) p.coef[i] = p.a0[i];
     for (int i = threadIdx.x; i < p.max_iter; i += blockDim.x) p.hist[i] = nanf("");
   }
-  bak_load_slice(c, p.e0, p.obs, p.k);
+  if constexpr (EG > 0) bak_load_regs<KC, EG>(c, p.e0, p.obs, p.k, er);
+  bak_load_slice(c, p.e0, p.obs, EG > 0 ? 0 : p.k);  // its barrier orders coef too
 
-  const float sse0 = bak_grid_sse(grid, c, p.k, p.sse_part, s_red);
+  int step = 0, col = 0;              // steps (columns and SSEs); columns
+  const float sse0 = bak_sse<KC, EG>(c, er, p.k, step++, s_red);
   float sse = sse0;
   bool converged = false, stop = false;
-  int n = 0, step = 0;
+  int n = 0;
   while (n < p.max_iter && !stop) {
-    for (int j = 0; j < p.nvars; ++j, ++step) {
+    for (int j = 0; j < p.nvars; ++j, ++col, ++step) {
       const float inv_j = __ldg(p.inv_cn + j);
-      bak_column_step<KC, XB>(grid, p.x_t + (size_t)j * p.obs, inv_j, c,
-                              p.k, p.partials, step, s_red);
+      float* coef_j = p.coef + (size_t)j * p.k;
+      // CTA 0 reads coef_j before the step, whose latency hides the read.
+      const float cj = owner && (int)threadIdx.x < p.k ? coef_j[threadIdx.x] : 0.f;
+      // The last column prefetches column 0 of a next sweep that may not
+      // run; that copy is waited for below.
+      bak_column_step<KC, EG>(c, er, p.x_t, p.obs, p.x_t + (size_t)j * p.obs + c.o0,
+                              j + 1 < p.nvars ? j + 1 : 0, col, step, inv_j, p.k,
+                              vec16, s_red);
       if (owner)
         for (int r = threadIdx.x; r < p.k; r += blockDim.x)
-          p.coef[(size_t)j * p.k + r] += c.s_g[r] * inv_j;
+          coef_j[r] = (r == (int)threadIdx.x ? cj : coef_j[r]) + c.s_g[r] * inv_j;
     }
-    const float sse_new = bak_grid_sse(grid, c, p.k, p.sse_part, s_red);
+    const float sse_new = bak_sse<KC, EG>(c, er, p.k, step++, s_red);
     if (owner && threadIdx.x == 0) p.hist[n] = sse_new;
     sweep_stop_flags(sse_new, sse, sse0, p.atol_sse, p.rtol, &converged, &stop);
     sse = sse_new;
     ++n;
   }
-  bak_store_slice(c, p.e, p.obs, p.k);
+  cp_async_wait<0>();
+  if constexpr (EG > 0) bak_store_regs<KC, EG>(c, p.e, p.obs, p.k, er);
+  else bak_store_slice<EG == 0>(c, p.e, p.obs, p.k);
   if (owner && threadIdx.x == 0) {
     *p.sse_out = sse;
     *p.n_out = n;
     *p.conv_out = converged ? 1 : 0;
   }
+  bak_cluster_sync();                 // no CTA leaves while the cluster reads it
 }
 
 template <int KC>
-static cudaError_t fused_plan(int obs, int k, int min_obs, int* grid, int* e_smem) {
-  return bak_plan(bak_fused_kernel<KC, BAK_X_BATCH>, obs, k, min_obs, grid, e_smem);
+static BakKernels<void (*)(BakFusedParams)> fused_kernels() {
+  return {bak_fused_kernel<KC, -2>, bak_fused_kernel<KC, -1>, bak_fused_kernel<KC, 0>, bak_fused_kernel<KC, 1>,
+          bak_fused_kernel<KC, BAK_REG_GROUPS>};
 }
 
 template <int KC>
-static cudaError_t fused_launch(const BakFusedParams& p, int grid, void* stream) {
-  const int L = bakp_slice_len(p.obs, grid);
-  const size_t smem = bak_smem_bytes(L, p.k, p.e_smem != 0);
-  if (bak_x_batched(L))
-    return bakp_launch_coop(bak_fused_kernel<KC, BAK_X_BATCH>, p, grid, smem, stream);
-  return bakp_launch_coop(bak_fused_kernel<KC, 1>, p, grid, smem, stream);
+static cudaError_t fused_launch(const BakFusedParams& p, int regime, int ctas,
+                                int cluster, void* stream) {
+  int eg = 0;
+  size_t smem = 0;
+  cudaError_t err = bak_launch_check(p.obs, p.k, regime, ctas, cluster, p.xchg, &eg, &smem);
+  if (err != cudaSuccess) return err;
+  return bak_launch(fused_kernels<KC>().pick(eg), p, ctas, cluster,
+                    regime != BAK_SINGLE_CLUSTER, smem, stream);
 }
 
-extern "C" int bak_fused_grid(int obs, int k, int min_obs, int* grid, int* e_smem) {
+extern "C" int bak_fused_grid(int obs, int k, int min_obs, int cluster, int* plan) {
   switch (bakp_pick_kc(k)) {
-    case 1: return fused_plan<1>(obs, k, min_obs, grid, e_smem);
-    case 2: return fused_plan<2>(obs, k, min_obs, grid, e_smem);
-    case 4: return fused_plan<4>(obs, k, min_obs, grid, e_smem);
-    default: return fused_plan<8>(obs, k, min_obs, grid, e_smem);
+    case 1: return bak_plan(fused_kernels<1>(), obs, k, min_obs, cluster, plan);
+    case 2: return bak_plan(fused_kernels<2>(), obs, k, min_obs, cluster, plan);
+    case 4: return bak_plan(fused_kernels<4>(), obs, k, min_obs, cluster, plan);
+    default: return bak_plan(fused_kernels<8>(), obs, k, min_obs, cluster, plan);
   }
 }
 
 extern "C" int bak_fused_launch(const float* x_t, const float* inv_cn,
                                 const float* e0, const float* a0, float* coef,
                                 float* e, float* hist, float* sse_out,
-                                int* n_out, int* conv_out, float* partials,
-                                float* sse_part, int nvars, int obs, int k,
-                                int max_iter, float atol_sse, float rtol,
-                                int grid, int e_smem, void* stream) {
+                                int* n_out, int* conv_out, float* xchg,
+                                int nvars, int obs, int k, int max_iter,
+                                float atol_sse, float rtol, int regime,
+                                int ctas, int cluster, void* stream) {
+  if (regime != BAK_SINGLE_CLUSTER && xchg == nullptr) return cudaErrorInvalidValue;
+  const int vec16 = obs % 4 == 0 && ((uintptr_t)x_t & 15) == 0;
   BakFusedParams p{x_t, inv_cn, e0, a0, coef, e, hist, sse_out, n_out,
-                   conv_out, partials, sse_part, nvars, obs, k, max_iter,
-                   e_smem, atol_sse, rtol};
+                   conv_out, regime == BAK_SINGLE_CLUSTER ? nullptr : xchg,
+                   nvars, obs, k, max_iter, vec16, atol_sse, rtol};
   switch (bakp_pick_kc(k)) {
-    case 1: return fused_launch<1>(p, grid, stream);
-    case 2: return fused_launch<2>(p, grid, stream);
-    case 4: return fused_launch<4>(p, grid, stream);
-    default: return fused_launch<8>(p, grid, stream);
+    case 1: return fused_launch<1>(p, regime, ctas, cluster, stream);
+    case 2: return fused_launch<2>(p, regime, ctas, cluster, stream);
+    case 4: return fused_launch<4>(p, regime, ctas, cluster, stream);
+    default: return fused_launch<8>(p, regime, ctas, cluster, stream);
   }
 }

@@ -45,6 +45,7 @@
 #include <stdint.h>
 
 #include "bakp_block.cuh"
+#include "cp_async.cuh"
 
 // Floats of the SSE reduction scratch at the end of the dynamic memory.
 #define STREAM_RED_FLOATS 33
@@ -67,26 +68,6 @@ struct StreamParams {
   float atol_sse, rtol, omega;
   int vec16;            // rows and base 16-byte aligned: 16-byte copies
 };
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-// Wait until at most N of this thread's commit groups are in flight.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 
 // Issue the copies of this CTA's slice (n positions from o0) of rows
 // [row0, row0 + CB) of x_t into `stage` (row stride L), as one commit group.

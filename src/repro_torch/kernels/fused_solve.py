@@ -138,7 +138,7 @@ def _bak_fused_cuda(x_t, inv_cn, e0, a0m, *, max_iter, atol_sse, rtol):
     lib = _build.load("bak_fused")
     dev = x_t.device
     with torch.cuda.device(dev):
-        grid, e_smem = _cd.bak_grid(lib.bak_fused_grid, obs, nrhs)
+        plan = _cd.bak_grid(lib.bak_fused_grid, obs, nrhs)
         inv = inv_cn.float().contiguous()
         e0c = e0.float().contiguous()
         a0c = a0m.float().contiguous()
@@ -149,16 +149,18 @@ def _bak_fused_cuda(x_t, inv_cn, e0, a0m, *, max_iter, atol_sse, rtol):
         sse = torch.empty((1,), **f32)
         n = torch.empty((1,), dtype=torch.int32, device=dev)
         conv = torch.empty((1,), dtype=torch.int32, device=dev)
-        partials = torch.empty((2, grid, nrhs), **f32)
-        sse_part = torch.empty((grid,), **f32)
+        xchg = _cd.bak_exchange(plan, dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         _build.LAUNCHES["bak_fused"] += 1
+        _build.PLANS["bak_fused"] = plan
         _build.check(lib.bak_fused_launch(
             x_t.data_ptr(), inv.data_ptr(), e0c.data_ptr(), a0c.data_ptr(),
             coef.data_ptr(), e.data_ptr(), hist.data_ptr(), sse.data_ptr(),
-            n.data_ptr(), conv.data_ptr(), partials.data_ptr(),
-            sse_part.data_ptr(), nvars, obs, nrhs, max_iter, float(atol_sse),
-            float(rtol), grid, e_smem, stream), "bak_fused_launch")
+            n.data_ptr(), conv.data_ptr(),
+            None if xchg is None else xchg.data_ptr(), nvars, obs, nrhs,
+            max_iter, float(atol_sse), float(rtol),
+            _cd.BAK_REGIMES.index(plan.regime), plan.ctas, plan.cluster,
+            stream), "bak_fused_launch")
     return coef, e, hist, sse[0], n[0], conv[0] != 0
 
 

@@ -127,16 +127,24 @@ def test_handle_on_card(cuda):
 
 
 # ------------------------------------------------- Algorithm 1 and entries
-@pytest.mark.parametrize("k,obs", [(1, 4096), (3, 4096), (8, 200000),
-                                   (8, 1000003)])
-def test_cd_sweep_kernel_matches_plain(cuda, k, obs):
-    """obs 1,000,003 at k 8 leaves the residual slices in device memory
-    (they do not fit shared memory); the others keep them on chip.  The
-    two larger shapes give each thread several positions of its slice
-    (the batched loads), the two small ones one."""
+@pytest.mark.parametrize("k,obs,regime,e_in", [
+    (1, 4096, "single_cluster", "registers"),
+    (3, 4096, "single_cluster", "registers"),
+    (9, 5003, "single_cluster", "shared"),   # two KC chunks, a ragged slice
+    (8, 200000, "multi_cluster", "registers"),
+    (8, 1000003, "e_device", "device"),
+    (8, 3600003, "x_device", "device")])
+def test_cd_sweep_kernel_matches_plain(cuda, k, obs, regime, e_in):
+    """The plan's regime at each shape: one cluster holding the residual
+    slices and the x ring; several clusters with the slices on chip;
+    several with the slices in device memory (they do not fit shared
+    memory), and with x read from device memory too (not even the ring
+    fits).  Odd obs takes the ring's 4-byte copies."""
     from repro_torch.kernels.cd_sweep import bak_grid
-    _, e_smem = bak_grid(_build.load("bak_sweep").bak_sweep_grid, obs, k)
-    assert e_smem == (obs < 1000000)
+    plan = bak_grid(_build.load("bak_sweep").bak_sweep_grid, obs, k)
+    assert plan.regime == regime and plan.e_in == e_in
+    assert plan.ctas == plan.cluster * plan.clusters
+    assert (plan.clusters == 1) == (regime == "single_cluster")
     rng = np.random.default_rng(45)
     nvars = 32 if obs > 100000 else 128
     x_t = torch.tensor(rng.normal(size=(nvars, obs)).astype(np.float32),
@@ -148,30 +156,61 @@ def test_cd_sweep_kernel_matches_plain(cuda, k, obs):
     n0 = _build.launch_counts()["bak_sweep"]
     da, e2 = cd_sweep(x_t, e, inv, block=8)
     assert _build.launch_counts()["bak_sweep"] == n0 + 1
+    assert _build.PLANS["bak_sweep"] == plan
     pda, pe2 = cd_sweep_plain(x_t, e, inv)
     assert _within(da, pda) and _within(e2, pe2, scale=e)
     assert float(da[-1].abs().max()) == 0.0
 
 
-@pytest.mark.parametrize("k,obs,nvars", [(None, 4096, 128), (8, 4096, 128),
-                                         (2, 100000, 64)])
-def test_bak_fused_kernel_matches_plain(cuda, k, obs, nvars):
+@pytest.mark.parametrize("k,obs,nvars,max_iter,regime,e_in", [
+    (None, 4096, 128, 6, "single_cluster", "registers"),
+    (8, 4096, 128, 6, "single_cluster", "registers"),
+    (2, 100000, 64, 6, "single_cluster", "shared"),
+    (8, 200000, 32, 6, "multi_cluster", "registers"),
+    (8, 1000003, 16, 6, "e_device", "device"),
+    (2, 3600003, 16, 3, "x_device", "device")])
+def test_bak_fused_kernel_matches_plain(cuda, monkeypatch, k, obs, nvars,
+                                        max_iter, regime, e_in):
+    import importlib
+    # The e_device design is over the on-chip budget, which fused_solve
+    # enforces; the kernel itself takes it.
+    monkeypatch.setattr(importlib.import_module(
+        "repro_torch.kernels.cd_sweep"), "ON_CHIP_BUDGET_BYTES", 1 << 40)
     x, _, y = _system(46, obs, nvars, k, cuda)
     y = y + 0.1 * torch.randn(y.shape, device=cuda)
     x_t = x.T.contiguous()
     multi = y.dim() == 2
     inv, a0m, e0 = solve_init(x_t, y, None, None, multi)
     n0 = _build.launch_counts()["bak_fused"]
-    r = fused_solve(x_t, y, block=32, max_iter=6, variant="bak")
+    r = fused_solve(x_t, y, block=16, max_iter=max_iter, variant="bak")
     assert _build.launch_counts()["bak_fused"] == n0 + 1
+    plan = _build.PLANS["bak_fused"]
+    assert (plan.regime, plan.e_in) == (regime, e_in)
     pc, pe, ph, _, pn, _ = fused_solve_plain(
-        x_t, inv, e0, a0m, block=32, max_iter=6, atol_sse=0.0, rtol=0.0,
-        omega=1.0, variant="bak")
-    assert int(r.n_sweeps) == int(pn) == 6
+        x_t, inv, e0, a0m, block=16, max_iter=max_iter, atol_sse=0.0,
+        rtol=0.0, omega=1.0, variant="bak")
+    assert int(r.n_sweeps) == int(pn) == max_iter
     coef = r.coef if multi else r.coef[:, None]
     res = r.residual.T if multi else r.residual[None]
     assert _within(coef, pc) and _within(res, pe, scale=e0)
     assert _within(r.history, ph)
+
+
+def test_bak_fused_kernel_stops_like_plain_across_clusters(cuda):
+    """The stop decision with several clusters: every CTA must take the
+    same one from the exchanged SSE, or the solve hangs."""
+    x, _, y = _system(55, 200000, 32, 8, cuda)
+    y = y + 0.1 * torch.randn(y.shape, device=cuda)
+    x_t = x.T.contiguous()
+    r = fused_solve(x_t, y, block=16, max_iter=200, rtol=1e-7,
+                    variant="bak")
+    assert _build.PLANS["bak_fused"].regime == "multi_cluster"
+    inv, a0m, e0 = solve_init(x_t, y, None, None, True)
+    _, _, _, _, pn, pconv = fused_solve_plain(
+        x_t, inv, e0, a0m, block=16, max_iter=200, atol_sse=0.0, rtol=1e-7,
+        omega=1.0, variant="bak")
+    assert abs(int(r.n_sweeps) - int(pn)) <= 1 and int(r.n_sweeps) < 200
+    assert bool(r.converged) and bool(pconv)
 
 
 def test_bak_kernel_entry_stops_and_solves(cuda):
