@@ -34,8 +34,13 @@ process per source, in parallel), then:
      design, as findings.  The Algorithm-1 rows carry their launch plan
      (regime, CTAs, cluster size, clusters, where e lives) and the time of a
      column step; phase 1 must run on one thread-block cluster and phase 2
-     on several.  Then the Algorithm-1 kernels at each cluster size of
-     2, 4, 8 and 16, each launch held to its plain version;
+     on several.  The Algorithm-2 cluster kernels' rows (``bakp_sweep`` at
+     phases 1-3, ``stream_solve`` at phase 3) carry their plan (regime,
+     CTAs, cluster size, clusters, L) and the time of a block step; phase 3's
+     streaming solves and phase 2's per-sweep loop must run on several
+     clusters.  Then the Algorithm-1 kernels at each cluster size of 2, 4,
+     8 and 16, and the Algorithm-2 cluster kernels at 4, 8 and 16, each
+     launch held to its plain version;
   5. a ``kernels`` summary line, the card's name and power limit, and the
      result line ``{"ok": true, "device": {...}}``.
 
@@ -299,7 +304,8 @@ def main() -> int:
     # The handle's bak_fused solves ran on one cluster, the per-sweep loop's
     # bak_sweep launches at phase 2 on several.
     for name, want in (("bak_fused", "single_cluster"),
-                       ("bak_sweep", "multi_cluster")):
+                       ("bak_sweep", "multi_cluster"),
+                       ("bakp_sweep", "multi_cluster")):
         check(_build.PLANS[name].regime == want,
               f"main path {name}: regime {_build.PLANS[name].regime}, "
               f"want {want}")
@@ -377,6 +383,9 @@ def main() -> int:
     except UnsupportedSpecError:
         pass
     read_launches("phase_3_stream")
+    plan3 = _build.PLANS["stream_solve"]
+    check(plan3.regime == "multi_cluster" and plan3.clusters > 1,
+          f"phase 3 stream_solve must run on several clusters, ran {plan3}")
 
     # One plain pinned host-to-device copy of the whole design, the rate
     # the host-block loop is held to.
@@ -455,9 +464,11 @@ def main() -> int:
                "rel_err_da": err_da, "rel_err_e": err_e, "ms": ms,
                "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
                "library_ms": None}
+        row["plan"] = _build.PLANS[name]._asdict()
         if alg == 1:
-            row["plan"] = _build.PLANS[name]._asdict()
             row["us_per_column"] = ms * 1e3 / nv
+        else:
+            row["us_per_step"] = ms * 1e3 / (nv // block)
         emit({"phase": "kernel_vs_plain", "kernel": name, "case": label,
               **row})
         return row
@@ -510,6 +521,10 @@ def main() -> int:
             # A column step's time; the per-sweep SSE step is included.
             row["plan"] = _build.PLANS[name]._asdict()
             row["us_per_column"] = ms * 1e3 / (nk * nv)
+        elif variant == "stream":
+            # A block step's time; the per-sweep SSE is included.
+            row["plan"] = _build.PLANS[name]._asdict()
+            row["us_per_step"] = ms * 1e3 / (nk * (nv // block))
         emit({"phase": "kernel_vs_plain", "kernel": name, "case": label,
               **row})
         return row
@@ -535,8 +550,8 @@ def main() -> int:
         return row
 
     x1t, inv1 = p1.x_t_for(thr1), p1.inv_cn_for(thr1)
-    sweep_case("phase1_k8", x1t, inv1, k, thr1, 50)
-    sweep_case("phase1_k1", x1t, inv1, 1, thr1, 50)
+    sweep_case("phase1_k8", x1t, inv1, k, thr1, 20)
+    sweep_case("phase1_k1", x1t, inv1, 1, thr1, 20)
     rows["bakp_sweep"] = sweep_case("phase2_k8", x2t, inv2, k, thr2, 10)
     fused_case("phase1_k1_fixed20", x1t, inv1, y1 + 0.1 * randn(obs1), thr1,
                20, 0.0, 10)
@@ -656,6 +671,58 @@ def main() -> int:
     rows["stream_solve"] = stream_rows[k]
     fused_case("phase3_k8_rtol", x3t, inv3, y3k, thr3, 100, 1e-7, 3,
                variant="stream", plain_iters=2)
+    # k 1 to rtol 1e-7 on the noise-free system: the stop falls where the
+    # SSE reaches the residual's fp32 floor (tools/stop_witness.py).
+    fused_case("phase3_k1_rtol", x3t, inv3, y3, thr3, 100, 1e-7, 3,
+               variant="stream", plain_iters=2)
+    # The per-sweep kernel at the phase 3 shape, the per-sweep loop's
+    # launch on phase 3's path.
+    sweep_case("phase3_k8", x3t, inv3, k, thr3, 10, plain_iters=3)
+    for label, row in stream_rows.items():
+        check(row["plan"]["regime"] == "multi_cluster",
+              f"stream_solve phase3 k {label}: regime {row['plan']['regime']}")
+
+    # The cluster size of the Algorithm-2 cluster kernels: 4, 8 and 16 at
+    # the phase 2 and 3 shapes, every launch held to its plain version;
+    # cd_sweep.BAKP_CLUSTER holds each kernel's rule.
+    rule2 = dict(cd_mod.BAKP_CLUSTER)
+    a2_in = {"bakp_sweep phase2_k8": (x2t, e2k, inv2, thr2),
+             "bakp_sweep phase3_k8": (x3t, randn(k, obs3), inv3, thr3)}
+    a2_plain = {lab: bakp_sweep_plain(x_t, e_in, inv, block=blk)
+                for lab, (x_t, e_in, inv, blk) in a2_in.items()}
+    s_ops = {}
+    for lab, yy in (("stream_solve phase3_k1_fixed20", y3n),
+                    ("stream_solve phase3_k8_fixed20", y3kn)):
+        inv_cn, a0m, e0 = solve_init(x3t, yy, inv3, None, yy.dim() == 2)
+        s_ops[lab] = (inv_cn, e0, a0m)
+        a2_plain[lab] = stream_solve_plain(
+            x3t, *s_ops[lab], block=thr3, max_iter=20, atol_sse=0.0,
+            rtol=0.0, omega=1.0)[:2]
+    for csize in (4, 8, 16):
+        cd_mod.BAKP_CLUSTER.update(stream=csize, sweep=csize)
+        for lab in (*a2_in, *s_ops):
+            if lab in a2_in:
+                x_t, e_in, inv, blk = a2_in[lab]
+                fn = (lambda x_t=x_t, e_in=e_in, inv=inv, blk=blk:
+                      _bakp_sweep_cuda(x_t, e_in, inv, block=blk, omega=1.0))
+                name, steps, scale = "bakp_sweep", x_t.shape[0] // blk, e_in
+            else:
+                ops = s_ops[lab]
+                fn = (lambda ops=ops: stream_cuda(
+                    x3t, *ops, block=thr3, max_iter=20, atol_sse=0.0,
+                    rtol=0.0, omega=1.0))
+                name, steps, scale = ("stream_solve", 20 * (vars3 // thr3),
+                                      ops[1])
+            out = fn()
+            sync()
+            err = max(rel(out[0], a2_plain[lab][0]),
+                      rel(out[1], a2_plain[lab][1], scale=scale))
+            check(err <= KERNEL_TOL, f"{lab} cluster {csize}: rel err {err}")
+            ms = cuda_ms(fn, 3)
+            emit({"phase": "bakp_cluster_sweep", "case": lab,
+                  "cluster": csize, "plan": _build.PLANS[name]._asdict(),
+                  "rel_err": err, "ms": ms, "us_per_step": ms * 1e3 / steps})
+    cd_mod.BAKP_CLUSTER.update(rule2)
     for label, yy in (("phase3_k1_fixed20", y3n), ("phase3_k8_fixed20", y3kn)):
         nrhs = yy.shape[1] if yy.dim() == 2 else 1
         inv_cn, a0m, e0 = solve_init(x3t, yy, inv3, None, yy.dim() == 2)

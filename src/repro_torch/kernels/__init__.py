@@ -4,10 +4,12 @@
                   sweep, the SSE and the stopping rule on the card, with a
                   true early exit (csrc/fused_solve.cu, csrc/bak_fused.cu).
   cd_sweep.py     one SolveBakP sweep (csrc/bakp_sweep.cu), one SolveBak
-                  sweep (csrc/bak_sweep.cu), the Algorithm-1 launch plan
-                  (bak_grid) and the on-chip budget; the steps the sweep
-                  and whole-solve kernels share are csrc/bakp_block.cuh and
-                  csrc/bak_column.cuh.
+                  sweep (csrc/bak_sweep.cu), the launch plans of the
+                  cluster kernels (bakp_plan / bakp_grid for Algorithm 2,
+                  bak_grid for Algorithm 1) and the on-chip budget; the
+                  steps the kernels share are csrc/bakp_cluster.cuh
+                  (bakp_sweep, stream_solve), csrc/bakp_block.cuh
+                  (fused_solve) and csrc/bak_column.cuh.
   stream_solve.py whole-solve SolveBakP with x left in device memory and
                   streamed through a shared-memory ring
                   (csrc/stream_solve.cu), and the out-of-core host-block

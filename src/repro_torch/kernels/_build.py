@@ -11,8 +11,8 @@ exactly the libraries that compile it and the rest load as they are.
 
 Launch counts also live here: every wrapper adds one to ``LAUNCHES[name]``
 where it launches its kernel, and nowhere else.  A kernel whose launch plan
-varies with the shape (the Algorithm-1 regimes) records the plan of its
-last launch in ``PLANS[name]``.
+varies with the shape (the cluster kernels' regimes) records the plan of
+its last launch in ``PLANS[name]``.
 """
 from __future__ import annotations
 
@@ -40,11 +40,12 @@ PLANS: Dict[str, tuple] = {}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_U = ctypes.c_uint
 # C signatures of every entry point, by library.
 SIGNATURES: Dict[str, Dict[str, list]] = {
     "bakp_sweep": {
-        "bakp_sweep_grid": [_I, _I, _P],
-        "bakp_sweep_launch": [_P] * 7 + [_I] * 4 + [_F, _I, _P],
+        "bakp_sweep_clusters": [_I, _I, _I, _P],
+        "bakp_sweep_launch": [_P] * 6 + [_U] + [_I] * 4 + [_F] + [_I] * 6 + [_P],
     },
     "fused_solve": {
         "bakp_fused_grid": [_I, _I, _P],
@@ -65,8 +66,9 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "block_update_launch": [_P] * 4 + [_I] * 3 + [_P],
     },
     "stream_solve": {
-        "stream_solve_grid": [_I, _I, _P],
-        "stream_solve_launch": [_P] * 13 + [_I] * 5 + [_F] * 3 + [_I] * 2 + [_P],
+        "stream_solve_clusters": [_I, _I, _I, _P],
+        "stream_solve_launch": [_P] * 11 + [_U] + [_I] * 5 + [_F] * 3 + [_I] * 4
+        + [_P],
     },
 }
 

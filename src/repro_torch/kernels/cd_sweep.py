@@ -8,10 +8,11 @@ Counterpart of ``repro.kernels.cd_sweep`` (``bak_row_update``,
 ``cd_sweep`` and ``bakp_sweep`` follow the device of the tensors they are
 given: CPU tensors run the plain versions (``cd_sweep_plain``,
 ``bakp_sweep_plain``), CUDA tensors launch the kernels, and anything else
-raises.  Both kernels split obs across CTAs: the Algorithm-2 kernel over a
-cooperative grid (``csrc/bakp_block.cuh``), the Algorithm-1 kernels over
-thread-block clusters in one of three regimes (``bak_grid``,
-``csrc/bak_column.cuh``).  The JAX ``cd_sweep``
+raises.  Both kernels split obs across CTAs on thread-block clusters: the
+Algorithm-2 kernel in one of two regimes (``bakp_grid``,
+``csrc/bakp_cluster.cuh``, whose plan the streaming kernel shares), the
+Algorithm-1 kernel in one of four (``bak_grid``, ``csrc/bak_column.cuh``).
+The JAX ``cd_sweep``
 stages ``block`` rows per grid step and checks a VMEM budget; here
 ``block`` only has to divide vars (as in JAX), since the Algorithm-1 kernel
 walks the columns one at a time whatever the block.
@@ -38,7 +39,7 @@ ON_CHIP_BUDGET_BYTES = 40 * 1024 * 1024
 # fp32); an H100 block can use up to 227 KB.
 SMEM_DA_LIMIT_BYTES = 200 * 1024
 
-# Fewest obs one CTA of the cooperative grid owns.
+# Fewest obs one CTA of a multi-CTA launch owns.
 MIN_OBS_PER_CTA = 128
 
 # CTAs in a thread-block cluster of the Algorithm-1 kernels, from the sweep
@@ -51,7 +52,39 @@ BAK_CLUSTER = 16
 BAK_REGIMES = ("single_cluster", "multi_cluster", "e_device", "x_device")
 BAK_E_PLACES = ("device", "shared", "registers")
 
+# CTAs in a thread-block cluster of each Algorithm-2 kernel, from the sweep
+# over {4, 8, 16} at the phase shapes (PERF.md): the streaming solve
+# is fastest on 7 clusters of 16, the per-sweep kernel on 15 of 8 (120
+# CTAs pull x from device memory, not 112); read at call time.
+BAKP_CLUSTER = {"stream": 16, "sweep": 8}
+
+# Clusters of C CTAs an H100 SXM holds at once at one CTA per SM (measured,
+# PERF.md): the plan's arithmetic where no card is asked (the fit
+# predicates); on the card the wrapper asks the CUDA runtime.
+CARD_CLUSTERS = {1: 132, 2: 66, 4: 30, 8: 15, 16: 7}
+
+# CTAs of an Algorithm-2 grid at most: one per SM of an H100 SXM.
+MAX_CTAS = 132
+
+# Dynamic shared memory one CTA may use on an H100 (227 KB, opt-in).
+SMEM_PER_CTA_BYTES = 232_448
+
+# The Algorithm-2 plan's regimes, by the codes the kernels take
+# (csrc/bakp_cluster.cuh).
+BAKP_REGIMES = ("single_cluster", "multi_cluster")
+
+# Floats of a CTA's dynamic shared memory besides the exchange arrays
+# (BAKP_HDR_FIXED), and the per-sweep kernel's ring: 3 to 8 stages of 32
+# rows x at most 256 positions (SWEEP_* in csrc/bakp_sweep.cu).
+_HDR_FIXED = 60
+_SWEEP_ROWS, _SWEEP_POS, _SWEEP_STAGES = 32, 256, (3, 8)
+_SLICE_ALIGN = 32
+
 _grid_cache: dict = {}
+# Exchange words of the Algorithm-2 kernels by (device, stream): (words,
+# the next launch's first tag).  Tags are 32 bits.
+_xchg: dict = {}
+_TAG_LIMIT = 1 << 32
 
 
 def bak_row_update(xj: torch.Tensor, inv_j, e: torch.Tensor):
@@ -105,8 +138,9 @@ def bakp_sweep_plain(x_t, e2, inv_cn, *, block, omega=1.0):
 
 
 def cooperative_grid(lib_fn, obs: int, k: int, block: int) -> int:
-    """CTAs for a cooperative launch: at most what the card holds at once
-    for this kernel, and at least ``MIN_OBS_PER_CTA`` obs per CTA."""
+    """CTAs for a cooperative launch of the grid-barrier kernel
+    (``fused_solve``): at most what the card holds at once for this kernel,
+    and at least ``MIN_OBS_PER_CTA`` obs per CTA."""
     key = (lib_fn.__name__, torch.cuda.current_device(), k, block)
     if key not in _grid_cache:
         out = ctypes.c_int(0)
@@ -114,6 +148,151 @@ def cooperative_grid(lib_fn, obs: int, k: int, block: int) -> int:
                      lib_fn.__name__)
         _grid_cache[key] = out.value
     return max(1, min(_grid_cache[key], -(-obs // MIN_OBS_PER_CTA)))
+
+
+class BakpPlan(NamedTuple):
+    """Launch plan of the Algorithm-2 cluster kernels (``bakp_plan``)."""
+    regime: str         # one of BAKP_REGIMES
+    ctas: int
+    cluster: int        # CTAs per cluster
+    clusters: int
+    L: int              # obs positions a CTA owns (a multiple of 32)
+    xchg_words: int     # int32 words of the cross-cluster exchange
+    smem: int           # dynamic shared memory bytes a CTA carves
+    e_in: str           # where the residual slices live: "shared"/"device"
+    stages: int         # depth of the x ring
+
+
+def slice_len(obs: int, ctas: int) -> int:
+    """Obs positions each of ``ctas`` CTAs owns (``bakp_slice_len``)."""
+    length = -(-obs // ctas)
+    return -(-length // _SLICE_ALIGN) * _SLICE_ALIGN
+
+
+def bakp_kp(k: int) -> int:
+    """k padded to 1, 2 or a multiple of 4: the row stride of a block's
+    partials and increments in the kernels."""
+    return k if k <= 2 else -(-k // 4) * 4
+
+
+def bakp_own(block: int, k: int, cluster: int) -> int:
+    """Floats of a block's partials each CTA of a cluster owns (a multiple
+    of 4; ``bakp_own`` in the source)."""
+    own = -(-block * bakp_kp(k) // cluster)
+    return -(-own // 4) * 4
+
+
+def bakp_exchange_bytes(block: int, k: int, cluster: int) -> int:
+    """Shared memory of a CTA's exchange arrays (``bakp_hdr_floats``): the
+    partials, their receive slots and the gathered increments (each C·S
+    floats, S a CTA's owned slice), the owned slice, the mbarriers and the
+    reduction scratch."""
+    own = bakp_own(block, k, cluster)
+    return 4 * (_HDR_FIXED + 3 * cluster * own + own)
+
+
+def bakp_layout(obs: int, *, cluster: int, max_ctas: "int | None" = None,
+                max_clusters: "int | None" = None):
+    """``(regime, ctas, cluster, clusters, L)`` of an Algorithm-2 launch.
+
+    One cluster of ``cluster`` CTAs (halved while a CTA would own
+    fewer than ``MIN_OBS_PER_CTA`` obs) when obs needs no more CTAs; else
+    as many clusters as obs wants at ``MIN_OBS_PER_CTA`` a CTA, at most
+    ``max_ctas`` CTAs (default ``MAX_CTAS``) and at most ``max_clusters``
+    clusters (default ``CARD_CLUSTERS``, what an H100 holds at once).  The
+    cluster shrinks to fit ``max_ctas``.  A launch of one cluster is the
+    single-cluster regime; the last CTAs may own empty slices."""
+    size = cluster
+    cap = MAX_CTAS if max_ctas is None else max_ctas
+    while size > 1 and size > cap:
+        size >>= 1
+    if obs <= size * MIN_OBS_PER_CTA:
+        while size > 1 and size * MIN_OBS_PER_CTA > obs:
+            size >>= 1
+        n = 1
+    else:
+        fit = (CARD_CLUSTERS.get(size, MAX_CTAS // size)
+               if max_clusters is None else max_clusters)
+        want = -(-obs // MIN_OBS_PER_CTA)
+        n = max(1, min(fit, min(want, cap) // size))
+    regime = BAKP_REGIMES[0] if n == 1 else BAKP_REGIMES[1]
+    return regime, n * size, size, n, slice_len(obs, n * size)
+
+
+def bakp_plan(kind: str, obs: int, k: int, block: int, **layout) -> BakpPlan:
+    """The launch plan of ``kind`` ("stream" or "sweep") on ``bakp_layout``
+    (its keywords; the cluster defaults to ``BAKP_CLUSTER[kind]``), with
+    the shared memory a CTA carves: the exchange
+    arrays, then for "stream" the two-stage tile ring and the residual
+    slice; for "sweep" the residual slice when it fits
+    ``SMEM_PER_CTA_BYTES`` beside a ring of three chunks, and a ring of as
+    many chunks as then fit, three to eight."""
+    layout.setdefault("cluster", BAKP_CLUSTER[kind])
+    regime, ctas, size, n, length = bakp_layout(obs, **layout)
+    smem = bakp_exchange_bytes(block, k, size)
+    e_bytes = 4 * k * length
+    if kind == "stream":
+        smem += 4 * 2 * block * length + e_bytes
+        e_in, stages = "shared", 2
+    else:
+        lo, hi = _SWEEP_STAGES
+        stage = 4 * _SWEEP_ROWS * min(length, _SWEEP_POS)
+        room = SMEM_PER_CTA_BYTES - smem
+        e_in = "shared" if room - e_bytes >= lo * stage else "device"
+        if e_in == "shared":
+            room -= e_bytes
+            smem += e_bytes
+        stages = max(lo, min(hi, room // stage))
+        smem += stages * stage
+    # Two parities x clusters x (C·S step words + 2 SSE words), 64 bits each.
+    words = 0 if n == 1 else 4 * n * (size * bakp_own(block, k, size) + 2)
+    return BakpPlan(regime, ctas, size, n, length, words, smem, e_in, stages)
+
+
+def bakp_grid(lib_fn, kind: str, obs: int, k: int, block: int) -> BakpPlan:
+    """``bakp_plan`` on the current card: the clusters it holds at once
+    come from the CUDA runtime (``lib_fn``, a ``*_clusters`` entry), its
+    SM count caps the CTAs.  Raises if the card cannot place one cluster."""
+    dev = torch.cuda.current_device()
+    size = BAKP_CLUSTER[kind]
+    key = (lib_fn.__name__, dev, obs, k, block, size, SMEM_PER_CTA_BYTES)
+    if key not in _grid_cache:
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        plan = bakp_plan(kind, obs, k, block, cluster=size, max_ctas=sms)
+        out = ctypes.c_int(0)
+        _build.check(lib_fn(k, plan.cluster, plan.smem,
+                            ctypes.addressof(out)), lib_fn.__name__)
+        if out.value < 1:
+            raise RuntimeError(
+                f"{lib_fn.__name__}: the card holds no cluster of "
+                f"{plan.cluster} CTAs with {plan.smem} bytes of shared "
+                f"memory each")
+        _grid_cache[key] = bakp_plan(kind, obs, k, block, cluster=size,
+                                     max_ctas=sms, max_clusters=out.value)
+    return _grid_cache[key]
+
+
+def bakp_exchange(plan: BakpPlan, device, tags: int):
+    """Cross-cluster exchange words for one launch of ``plan`` on the
+    current stream, and the tag its steps count from: ``(None, 0)`` for
+    one cluster.  A launch may use ``tags`` tags.  Launches on one stream
+    share its words, each launch's tags past every earlier one's, so no
+    word left from an earlier launch passes a wait; the words are zeroed
+    only when they are made, grow, or the 32-bit tags would wrap."""
+    if plan.xchg_words == 0:
+        return None, 0
+    if tags >= _TAG_LIMIT:
+        raise ValueError(f"a launch of {tags} exchange steps overflows the "
+                         f"kernels' 32-bit tags")
+    key = (device, torch.cuda.current_stream(device).cuda_stream)
+    words, tag0 = _xchg.get(key, (None, 0))
+    if (words is None or words.numel() < plan.xchg_words
+            or tag0 + tags >= _TAG_LIMIT):
+        size = max(plan.xchg_words, 0 if words is None else words.numel())
+        words, tag0 = torch.zeros((size,), dtype=torch.int32,
+                                  device=device), 0
+    _xchg[key] = (words, tag0 + tags)
+    return words, tag0
 
 
 class BakPlan(NamedTuple):
@@ -178,26 +357,52 @@ def check_kernel_args(x_t: torch.Tensor, nrhs: int, block: int, *tensors):
 
 
 def _bakp_sweep_cuda(x_t, e2, inv_cn, *, block, omega):
+    """The per-sweep kernel; where a CTA's shared memory cannot hold every
+    right-hand side's exchange arrays (large block·k), one launch per group
+    of right-hand sides: Algorithm 2 updates each column of e on its own,
+    so the groups compute what one launch would."""
     nvars, obs = x_t.shape
     nrhs = e2.shape[0]
     check_kernel_args(x_t, nrhs, block, e2, inv_cn)
+    group = nrhs
+    while group > 1 and (bakp_plan("sweep", obs, group, block).smem
+                         > SMEM_PER_CTA_BYTES):
+        group = -(-group // 2)
+    e_in = e2.float().contiguous()
+    inv = inv_cn.float().contiguous()
+    if group == nrhs:
+        return _bakp_sweep_launch(x_t, e_in, inv, block, omega)
+    parts = [_bakp_sweep_launch(x_t, e_in[r:r + group].contiguous(), inv,
+                                block, omega)
+             for r in range(0, nrhs, group)]
+    return (torch.cat([d for d, _ in parts], 1),
+            torch.cat([e for _, e in parts], 0))
+
+
+def _bakp_sweep_launch(x_t, e_in, inv, block, omega):
+    nvars, obs = x_t.shape
+    nrhs = e_in.shape[0]
     lib = _build.load("bakp_sweep")
     dev = x_t.device
     with torch.cuda.device(dev):
-        grid = cooperative_grid(lib.bakp_sweep_grid, obs, nrhs, block)
-        e_in = e2.float().contiguous()
-        inv = inv_cn.float().contiguous()
+        plan = bakp_grid(lib.bakp_sweep_clusters, "sweep", obs, nrhs, block)
+        if plan.smem > SMEM_PER_CTA_BYTES:
+            raise ValueError(
+                f"bakp_sweep: block·k = {block}·{nrhs} needs {plan.smem} "
+                f"bytes of shared memory a CTA, over {SMEM_PER_CTA_BYTES}")
         e_out = torch.empty_like(e_in)
         da = torch.empty((nvars, nrhs), dtype=torch.float32, device=dev)
-        partials = torch.empty((grid, block, nrhs), dtype=torch.float32,
-                               device=dev)
-        da_buf = torch.empty((block, nrhs), dtype=torch.float32, device=dev)
+        xchg, tag0 = bakp_exchange(plan, dev, nvars // block)
         stream = torch.cuda.current_stream(dev).cuda_stream
         _build.LAUNCHES["bakp_sweep"] += 1
+        _build.PLANS["bakp_sweep"] = plan
         _build.check(lib.bakp_sweep_launch(
             x_t.data_ptr(), inv.data_ptr(), e_in.data_ptr(), e_out.data_ptr(),
-            da.data_ptr(), partials.data_ptr(), da_buf.data_ptr(), nvars, obs,
-            nrhs, block, float(omega), grid, stream), "bakp_sweep_launch")
+            da.data_ptr(), None if xchg is None else xchg.data_ptr(), tag0,
+            nvars, obs, nrhs, block, float(omega),
+            BAKP_REGIMES.index(plan.regime), plan.ctas, plan.cluster,
+            int(plan.e_in == "shared"), plan.stages, plan.smem, stream),
+        "bakp_sweep_launch")
     return da, e_out
 
 

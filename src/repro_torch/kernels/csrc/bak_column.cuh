@@ -50,6 +50,10 @@
 // (EG = -1).  Where even the ring does not fit (a slice of more than about
 // 28,800 positions), x_j is read from device memory as well (EG = -2).
 //
+// The cluster primitives (DSMEM addresses, the cluster barrier, mbarriers,
+// st.async, tagged words, the clustered launch) are cluster.cuh's, shared
+// with the Algorithm-2 step (bakp_cluster.cuh).
+//
 // Launch regimes (bak_plan, from shared-memory arithmetic):
 //   single cluster  G = C, the residual slices (in registers or shared
 //                   memory) and the ring fit the CTAs.  No grid-wide
@@ -68,6 +72,7 @@
 #include <stdint.h>
 
 #include "bakp_block.cuh"
+#include "cluster.cuh"
 #include "cp_async.cuh"
 
 #define BAK_SINGLE_CLUSTER 0
@@ -152,17 +157,6 @@ struct BakCta {
   unsigned long long* xchg;  // device exchange words, or nullptr (one cluster)
 };
 
-__device__ __forceinline__ unsigned bak_mapa(unsigned addr, int rank) {
-  unsigned r;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
-  return r;
-}
-
-__device__ __forceinline__ void bak_cluster_sync() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n"
-               "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-
 // Carve the dynamic shared memory, point the CTA at its slice and
 // initialise its two mbarriers (one arrival a phase, the expect_tx of
 // bak_push) before any CTA of the cluster writes to them.
@@ -192,12 +186,8 @@ __device__ __forceinline__ BakCta bak_cta(float* smem, float* e, int obs,
     c.eb = e + c.o0;
     c.es = obs;
   }
-  if (threadIdx.x == 0) {
-    for (int b = 0; b < 2; ++b)
-      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(c.mbar + 8 * b));
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  bak_cluster_sync();
+  if (threadIdx.x == 0) cl_mbar_init(c.mbar, 2);
+  cl_cluster_sync();
   return c;
 }
 
@@ -214,14 +204,6 @@ __device__ __forceinline__ void bak_fetch(const BakCta& c, float* stage,
     }
   }
   cp_async_commit();
-}
-
-// Four consecutive residual values: one 16-byte access in shared memory,
-// four in device memory (rows there need not be 16-byte aligned).
-template <bool E_SMEM>
-__device__ __forceinline__ float4 bak_ld4(const float* p) {
-  if constexpr (E_SMEM) return *reinterpret_cast<const float4*>(p);
-  else return make_float4(p[0], p[1], p[2], p[3]);
 }
 
 template <bool E_SMEM>
@@ -280,22 +262,13 @@ __device__ __forceinline__ T bak_ordered_sum(int n, Ld ld) {
 __device__ __forceinline__ void bak_push(const BakCta& c, int step) {
   __syncwarp();
   const unsigned bar = c.mbar + 8 * (step & 1);
-  if (threadIdx.x == 0)
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-                 ::"r"(bar), "r"(c.csize * c.kp * 4) : "memory");
+  if (threadIdx.x == 0) cl_mbar_expect(bar, c.csize * c.kp * 4);
   const unsigned slot = (unsigned)__cvta_generic_to_shared(
       c.rx + ((size_t)(step & 1) * c.csize + c.rank) * c.kp);
   for (int q = threadIdx.x; q < c.csize; q += 32) {
-    const unsigned dst = bak_mapa(slot, q), rbar = bak_mapa(bar, q);
-    for (int r = 0; r < c.kp; r += 4) {
-      const float4 v = *reinterpret_cast<const float4*>(c.part + r);
-      asm volatile(
-          "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32"
-          " [%0], {%1, %2, %3, %4}, [%5];\n"
-          ::"r"(dst + 4 * r), "r"(__float_as_uint(v.x)), "r"(__float_as_uint(v.y)),
-          "r"(__float_as_uint(v.z)), "r"(__float_as_uint(v.w)), "r"(rbar)
-          : "memory");
-    }
+    const unsigned dst = cl_mapa(slot, q), rbar = cl_mapa(bar, q);
+    for (int r = 0; r < c.kp; r += 4)
+      cl_push4(dst + 4 * r, *reinterpret_cast<const float4*>(c.part + r), rbar);
   }
 }
 
@@ -305,38 +278,13 @@ __device__ __forceinline__ void bak_push(const BakCta& c, int step) {
 // default CTA-scope acquire makes them visible (a cluster-scope one would
 // also invalidate the L1 every column).
 __device__ __forceinline__ void bak_wait_step(const BakCta& c, int step) {
-  asm volatile(
-      "{\n"
-      ".reg .pred done;\n"
-      "BAK_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
-      "@!done bra BAK_WAIT;\n"
-      "}\n" ::"r"(c.mbar + 8 * (step & 1)), "r"((step >> 1) & 1) : "memory");
+  cl_mbar_wait(c.mbar + 8 * (step & 1), step >> 1);
 }
 
 // Sum over the cluster, in rank order, of the received value r of `step`.
 __device__ __forceinline__ float bak_cluster_sum(const BakCta& c, int step, int r) {
   const float* src = c.rx + (step & 1) * c.csize * c.kp + r;
   return bak_ordered_sum<float>(c.csize, [&](int q) { return src[q * c.kp]; });
-}
-
-// A 64-bit exchange word: the step's tag above the value's 32 bits.
-__device__ __forceinline__ void bak_publish(unsigned long long* p, int seq, unsigned bits) {
-  const unsigned long long w = ((unsigned long long)(unsigned)seq << 32) | bits;
-  asm volatile("st.relaxed.gpu.global.b64 [%0], %1;\n" ::"l"(p), "l"(w) : "memory");
-}
-
-__device__ __forceinline__ unsigned long long bak_ld_word(const unsigned long long* p) {
-  unsigned long long w;
-  asm volatile("ld.relaxed.gpu.global.b64 %0, [%1];\n" : "=l"(w) : "l"(p) : "memory");
-  return w;
-}
-
-// The value bits of the exchange word at p once it carries tag seq.
-__device__ __forceinline__ unsigned bak_poll(const unsigned long long* p, int seq) {
-  unsigned long long w = bak_ld_word(p);
-  while ((unsigned)(w >> 32) != (unsigned)seq) w = bak_ld_word(p);
-  return (unsigned)w;
 }
 
 // Exchange word r of cluster q for the step's parity.
@@ -354,8 +302,8 @@ __device__ __forceinline__ void bak_exchange(const BakCta& c, int k, int step) {
   const int lane = threadIdx.x;
   if (c.rank == 0)
     for (int r = lane; r < k; r += 32)
-      bak_publish(bak_word(c, step, c.cid, r), seq,
-                  __float_as_uint(bak_cluster_sum(c, step, r)));
+      cl_publish(bak_word(c, step, c.cid, r), seq,
+                 __float_as_uint(bak_cluster_sum(c, step, r)));
   for (int r = lane; r < k; r += 32) {
     float g = 0.f;
     for (int q0 = 0; q0 < c.ncl; q0 += BAK_LOAD_BATCH) {
@@ -366,7 +314,7 @@ __device__ __forceinline__ void bak_exchange(const BakCta& c, int k, int step) {
         unsigned long long w[BAK_LOAD_BATCH];
 #pragma unroll
         for (int u = 0; u < BAK_LOAD_BATCH; ++u)
-          if (todo >> u & 1) w[u] = bak_ld_word(bak_word(c, step, q0 + u, r));
+          if (todo >> u & 1) w[u] = cl_ld_word(bak_word(c, step, q0 + u, r));
 #pragma unroll
         for (int u = 0; u < BAK_LOAD_BATCH; ++u)
           if ((todo >> u & 1) && (unsigned)(w[u] >> 32) == (unsigned)seq) {
@@ -389,11 +337,11 @@ __device__ __forceinline__ void bak_dot(const BakCta& c, const float* xs,
                                         int r0, int kc, float (&acc)[KC]) {
   for (int b = 4 * threadIdx.x; b < c.n; b += 4 * blockDim.x) {
     if (b + 4 <= c.n) {
-      const float4 xv = bak_ld4<X_SMEM>(xs + b);
+      const float4 xv = bakp_ld4<X_SMEM>(xs + b);
 #pragma unroll
       for (int r = 0; r < KC; ++r)
         if (r < kc) {
-          const float4 ev = bak_ld4<E_SMEM>(c.eb + (size_t)(r0 + r) * c.es + b);
+          const float4 ev = bakp_ld4<E_SMEM>(c.eb + (size_t)(r0 + r) * c.es + b);
           acc[r] = fmaf(xv.x, ev.x, acc[r]);
           acc[r] = fmaf(xv.y, ev.y, acc[r]);
           acc[r] = fmaf(xv.z, ev.z, acc[r]);
@@ -418,11 +366,11 @@ __device__ __forceinline__ void bak_update(const BakCta& c, const float* xs,
                                            const float (&da)[KC]) {
   for (int b = 4 * threadIdx.x; b < c.n; b += 4 * blockDim.x) {
     if (b + 4 <= c.n) {
-      const float4 xv = bak_ld4<X_SMEM>(xs + b);
+      const float4 xv = bakp_ld4<X_SMEM>(xs + b);
       float4 ev[KC];
 #pragma unroll
       for (int r = 0; r < KC; ++r)
-        if (r < kc) ev[r] = bak_ld4<E_SMEM>(c.eb + (size_t)(r0 + r) * c.es + b);
+        if (r < kc) ev[r] = bakp_ld4<E_SMEM>(c.eb + (size_t)(r0 + r) * c.es + b);
 #pragma unroll
       for (int r = 0; r < KC; ++r)
         if (r < kc) {
@@ -634,7 +582,7 @@ __device__ __forceinline__ float bak_sse(const BakCta& c, const BakRegs<KC, EG>&
     const float* e_r = c.eb + (size_t)r * c.es;
     for (int b = 4 * threadIdx.x; b < c.n; b += 4 * blockDim.x) {
       if (b + 4 <= c.n) {
-        const float4 v = bak_ld4<EG == 0>(e_r + b);
+        const float4 v = bakp_ld4<EG == 0>(e_r + b);
         acc[0] = fmaf(v.x, v.x, acc[0]);
         acc[0] = fmaf(v.y, v.y, acc[0]);
         acc[0] = fmaf(v.z, v.z, acc[0]);
@@ -654,13 +602,13 @@ __device__ __forceinline__ float bak_sse(const BakCta& c, const BakRegs<KC, EG>&
     if (c.xchg != nullptr) {
       const int seq = step + 1;
       if (c.rank == 0) {
-        bak_publish(bak_word(c, step, c.cid, 0), seq, (unsigned)__double2loint(t));
-        bak_publish(bak_word(c, step, c.cid, 1), seq, (unsigned)__double2hiint(t));
+        cl_publish(bak_word(c, step, c.cid, 0), seq, (unsigned)__double2loint(t));
+        cl_publish(bak_word(c, step, c.cid, 1), seq, (unsigned)__double2hiint(t));
       }
       t = 0.0;
       for (int q = 0; q < c.ncl; ++q) {
-        const unsigned lo = bak_poll(bak_word(c, step, q, 0), seq);
-        const unsigned hi = bak_poll(bak_word(c, step, q, 1), seq);
+        const unsigned lo = cl_poll(bak_word(c, step, q, 0), seq);
+        const unsigned hi = cl_poll(bak_word(c, step, q, 1), seq);
         t += __hiloint2double((int)hi, (int)lo);
       }
     }
@@ -691,45 +639,6 @@ __device__ __forceinline__ void bak_store_slice(const BakCta& c, float* dst,
 }
 
 // ------------------------------------------------------------- host side
-// Shared memory a CTA asks for: at least half an SM's, so that one CTA
-// runs on each SM and the clusters spread over the card.
-static inline cudaError_t bak_launch_smem(size_t need, size_t* out) {
-  int dev = 0, sm_smem = 0;
-  cudaError_t err;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&sm_smem, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
-  if (err != cudaSuccess) return err;
-  *out = need > (size_t)sm_smem / 2 ? need : (size_t)sm_smem / 2;
-  return cudaSuccess;
-}
-
-template <typename F>
-static cudaError_t bak_func_attrs(F fn, size_t smem, int cluster) {
-  cudaError_t err = cudaFuncSetAttribute(
-      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess || cluster <= 8) return err;
-  return cudaFuncSetAttribute(fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-}
-
-// Clusters of `cluster` CTAs the card holds at once at `smem` bytes a CTA.
-template <typename F>
-static cudaError_t bak_max_clusters(F fn, int cluster, size_t smem, int* out) {
-  cudaError_t err = bak_func_attrs(fn, smem, cluster);
-  if (err != cudaSuccess) return err;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cluster);
-  cfg.blockDim = dim3(BAKP_THREADS);
-  cfg.dynamicSmemBytes = smem;
-  cudaLaunchAttribute attr;
-  attr.id = cudaLaunchAttributeClusterDimension;
-  attr.val.clusterDim.x = cluster;
-  attr.val.clusterDim.y = 1;
-  attr.val.clusterDim.z = 1;
-  cfg.attrs = &attr;
-  cfg.numAttrs = 1;
-  return cudaOccupancyMaxActiveClusters(out, fn, &cfg);
-}
-
 // Where e lives in a regime for a slice of L positions (EG, see the top),
 // and its code in the plan: 0 device memory, 1 shared memory, 2 registers.
 static inline int bak_eg(int L, int k, int regime) {
@@ -774,8 +683,8 @@ static cudaError_t bak_plan(const BakKernels<F>& fns, int obs, int k, int min_ob
   int L = bakp_slice_len(obs, c1), eg = bak_eg(L, k, BAK_SINGLE_CLUSTER);
   size_t need = bak_smem_bytes(L, k, c1, eg), smem = 0;
   if (need <= dyn_max) {
-    if ((err = bak_launch_smem(need, &smem)) != cudaSuccess) return err;
-    if ((err = bak_max_clusters(fns.pick(eg), c1, smem, &fit)) != cudaSuccess) return err;
+    if ((err = cl_launch_smem(need, &smem)) != cudaSuccess) return err;
+    if ((err = cl_max_clusters(fns.pick(eg), c1, smem, &fit)) != cudaSuccess) return err;
     if (fit >= 1) {
       const int plan[BAK_PLAN_FIELDS] = {BAK_SINGLE_CLUSTER, c1, c1, 1, bak_e_code(eg), 0};
       for (int i = 0; i < BAK_PLAN_FIELDS; ++i) out[i] = plan[i];
@@ -792,8 +701,8 @@ static cudaError_t bak_plan(const BakKernels<F>& fns, int obs, int k, int min_ob
     if (need > dyn_max) continue;
     // One CTA per SM at any launch size, so the clusters the card holds at
     // once do not depend on the slice length.
-    if ((err = bak_launch_smem(need, &smem)) != cudaSuccess) return err;
-    if ((err = bak_max_clusters(fns.pick(eg), cluster, smem, &fit)) != cudaSuccess)
+    if ((err = cl_launch_smem(need, &smem)) != cudaSuccess) return err;
+    if ((err = cl_max_clusters(fns.pick(eg), cluster, smem, &fit)) != cudaSuccess)
       return err;
     if (fit < 1) return cudaErrorInvalidConfiguration;
     if (n > fit) {
@@ -811,32 +720,6 @@ static cudaError_t bak_plan(const BakKernels<F>& fns, int obs, int k, int min_ob
   return cudaErrorInvalidConfiguration;
 }
 
-// Launch fn as clusters of `cluster` CTAs, cooperatively when `coop`.  A
-// refused launch returns the driver's error; nothing falls back.
-template <typename F, typename P>
-static cudaError_t bak_launch(F fn, const P& params, int ctas, int cluster,
-                              bool coop, size_t smem, void* stream) {
-  cudaError_t err = bak_func_attrs(fn, smem, cluster);
-  if (err != cudaSuccess) return err;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(ctas);
-  cfg.blockDim = dim3(BAKP_THREADS);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = (cudaStream_t)stream;
-  cudaLaunchAttribute attr[2];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  attr[1].id = cudaLaunchAttributeCooperative;
-  attr[1].val.cooperative = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = coop ? 2 : 1;
-  err = cudaLaunchKernelEx(&cfg, fn, params);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
-}
-
 // Checks a launch's plan arguments and derives where e lives and the
 // shared memory a CTA asks for; returns cudaErrorInvalidValue for a plan
 // bak_plan cannot have made.
@@ -850,5 +733,5 @@ static inline cudaError_t bak_launch_check(int obs, int k, int regime, int ctas,
     return cudaErrorInvalidValue;
   const int L = bakp_slice_len(obs, ctas);
   *eg = bak_eg(L, k, regime);
-  return bak_launch_smem(bak_smem_bytes(L, k, cluster, *eg), smem);
+  return cl_launch_smem(bak_smem_bytes(L, k, cluster, *eg), smem);
 }

@@ -93,7 +93,7 @@ __global__ void __launch_bounds__(BAKP_THREADS) bak_fused_kernel(BakFusedParams 
     *p.n_out = n;
     *p.conv_out = converged ? 1 : 0;
   }
-  bak_cluster_sync();                 // no CTA leaves while the cluster reads it
+  cl_cluster_sync();                  // no CTA leaves while the cluster reads it
 }
 
 template <int KC>
@@ -109,7 +109,7 @@ static cudaError_t fused_launch(const BakFusedParams& p, int regime, int ctas,
   size_t smem = 0;
   cudaError_t err = bak_launch_check(p.obs, p.k, regime, ctas, cluster, p.xchg, &eg, &smem);
   if (err != cudaSuccess) return err;
-  return bak_launch(fused_kernels<KC>().pick(eg), p, ctas, cluster,
+  return cl_launch(fused_kernels<KC>().pick(eg), p, ctas, cluster,
                     regime != BAK_SINGLE_CLUSTER, smem, stream);
 }
 

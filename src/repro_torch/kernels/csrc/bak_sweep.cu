@@ -53,7 +53,7 @@ __global__ void __launch_bounds__(BAKP_THREADS) bak_sweep_kernel(BakSweepParams 
   cp_async_wait<0>();
   if constexpr (EG > 0) bak_store_regs<KC, EG>(c, p.e_out, p.obs, p.k, er);
   else bak_store_slice<EG == 0>(c, p.e_out, p.obs, p.k);
-  bak_cluster_sync();                 // no CTA leaves while the cluster reads it
+  cl_cluster_sync();                  // no CTA leaves while the cluster reads it
 }
 
 template <int KC>
@@ -69,7 +69,7 @@ static cudaError_t sweep_launch(const BakSweepParams& p, int regime, int ctas,
   size_t smem = 0;
   cudaError_t err = bak_launch_check(p.obs, p.k, regime, ctas, cluster, p.xchg, &eg, &smem);
   if (err != cudaSuccess) return err;
-  return bak_launch(sweep_kernels<KC>().pick(eg), p, ctas, cluster,
+  return cl_launch(sweep_kernels<KC>().pick(eg), p, ctas, cluster,
                     regime != BAK_SINGLE_CLUSTER, smem, stream);
 }
 

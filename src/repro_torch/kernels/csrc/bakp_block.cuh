@@ -1,8 +1,10 @@
-// SolveBakP (paper Algorithm 2) block step, shared by the per-sweep kernel
-// (bakp_sweep.cu) and the whole-solve kernel (fused_solve.cu), as
-// repro/kernels/cd_sweep.py::bakp_block_update is shared by the two Pallas
-// kernels it replaces.  One definition keeps the two execution models
-// numerically in lockstep.
+// SolveBakP (paper Algorithm 2) block step on a cooperative grid, run by
+// the whole-solve kernel (fused_solve.cu).  The per-sweep and streaming
+// kernels (bakp_sweep.cu, stream_solve.cu) run bakp_cluster.cuh's step on
+// thread-block clusters instead, which sums in another fixed order, so the
+// three agree to fp32 rounding, not bit for bit.  The small shared pieces
+// (slices, warp_sum, bakp_ld4, sweep_stop_flags, bakp_pick_kc) stay here
+// for all of them and for bak_column.cuh.
 //
 // Layout (the JAX package's kernel layout): x_t (vars, obs) row-major fp32,
 // a paper-"column" is a contiguous row; residuals e (k, obs); coefficients
@@ -22,12 +24,9 @@
 //   3. update:   every CTA copies da into shared memory and updates its own
 //      slice, e[:, slice] -= daᵀ · x_b[:, slice].
 // The three phases and the SSE take their operands as (base, row stride)
-// and a range [ob, oe) of positions: the per-sweep and whole-solve kernels
-// pass x and e in device memory with stride obs and the CTA's slice
-// [o0, o1); the streaming kernel (stream_solve.cu) passes its shared-memory
-// tile and residual slice with stride L and [0, o1 - o0).  The loops, and so
-// each thread's accumulation order, are the same in all three kernels.
-// fp32 FMAs throughout; no tensor cores (no TF32).
+// and a range [ob, oe) of positions: the whole-solve kernel passes x and e
+// in device memory with stride obs and the CTA's slice [o0, o1).  fp32
+// FMAs throughout; no tensor cores (no TF32).
 #pragma once
 
 #include <cooperative_groups.h>
@@ -63,6 +62,14 @@ __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
   return v;
+}
+
+// Four consecutive floats: one 16-byte access where the address is
+// 16-byte aligned (shared memory), four otherwise (device memory rows).
+template <bool A16>
+__device__ __forceinline__ float4 bakp_ld4(const float* p) {
+  if constexpr (A16) return *reinterpret_cast<const float4*>(p);
+  else return make_float4(p[0], p[1], p[2], p[3]);
 }
 
 // A load of x: through the read-only cache from device memory, or a plain

@@ -10,14 +10,38 @@
 // budget, so x does not stay on chip between sweeps; within a sweep each
 // block is read twice (once for the inner products, once for the residual
 // update), because a whole (block, obs) tile cannot stay on chip across the
-// grid-wide reduction between them.  The block math lives in
-// bakp_block.cuh; a cooperative grid splits obs across CTAs (see there).
+// reduction between them: at best two reads of x a sweep.  The block step
+// is bakp_cluster.cuh's, on thread-block clusters with no grid-wide
+// barrier.
+//
+// x reaches the step through a shared-memory ring of NS chunks (3 to
+// SWEEP_MAX_STAGES, as many as fit beside the rest), each SWEEP_ROWS rows
+// of the block × P positions of the CTA's slice (P = min(L, SWEEP_POS)),
+// copied with 16-byte cp.async (4-byte where rows are not 16-byte
+// aligned), one commit group a chunk, NS - 1 chunks ahead of the one in
+// use: 64-224 KB a CTA in flight, across the exchanges too, since the
+// update's chunks do not depend on da.  A block's chunks, in
+// order: the partials pass (for each KC chunk of the right-hand sides, each
+// row group, each position chunk; warp w carries rows 4w..4w+3 of the
+// group, its accumulators kept across the group's position chunks), then
+// the update pass (each row group, each position chunk).  A chunk's stage
+// is refilled only after the __syncthreads at the top of the next chunk,
+// which every reader of the stage has passed.  The residual slice lives in
+// shared memory for the whole sweep when it fits beside the ring (read once
+// from e_in, written once to e_out), else in e_out in device memory.
 //
 // C interface (loaded with ctypes; every pointer and the stream are
 // void*-sized; each entry returns a cudaError_t, 0 on success):
-//   bakp_sweep_grid(k, block, &grid_max)  largest cooperative grid
-//   bakp_sweep_launch(...)                 one sweep on `stream`
-#include "bakp_block.cuh"
+//   bakp_sweep_clusters(k, cluster, smem, &n)  clusters the card holds
+//   bakp_sweep_launch(...)                      one sweep on `stream`
+#include <stdint.h>
+
+#include "bakp_cluster.cuh"
+
+#define SWEEP_ROWS 32
+#define SWEEP_POS 256
+#define SWEEP_MIN_STAGES 3
+#define SWEEP_MAX_STAGES 8
 
 struct SweepParams {
   const float* x_t;     // (vars, obs)
@@ -25,59 +49,194 @@ struct SweepParams {
   const float* e_in;    // (k, obs)
   float* e_out;         // (k, obs)
   float* da;            // (vars, k)
-  float* partials;      // (grid, block, k) scratch
-  float* da_buf;        // (block, k) scratch
+  void* xchg;           // device exchange words (several clusters)
+  unsigned tag0;        // the launch's exchange tags count from here
   int nvars, obs, k, block;
   float omega;
+  int vec16;            // rows and base 16-byte aligned: 16-byte copies
+  int stages;           // ring depth NS
 };
 
-template <int KC>
+// Floats of a CTA's dynamic shared memory: the exchange arrays, the ring
+// of `stages` chunks and, when e_smem, the residual slice.
+static inline size_t sweep_smem_floats(int obs, int ctas, int cluster, int k, int CB,
+                                       bool e_smem, int stages) {
+  const int L = bakp_slice_len(obs, ctas);
+  const int P = L < SWEEP_POS ? L : SWEEP_POS;
+  return (size_t)bakp_hdr_floats(CB, k, cluster) + (size_t)stages * SWEEP_ROWS * P +
+         (e_smem ? (size_t)k * L : 0);
+}
+
+template <int KC, bool E_SMEM>
 __global__ void __launch_bounds__(BAKP_THREADS) bakp_sweep_kernel(SweepParams p) {
-  cg::grid_group grid = cg::this_grid();
-  extern __shared__ float s_da[];
-  const BakpSlice s = bakp_slice(p.obs);
-  for (int r = 0; r < p.k; ++r)
-    for (int o = s.o0 + threadIdx.x; o < s.o1; o += blockDim.x)
-      p.e_out[(size_t)r * p.obs + o] = p.e_in[(size_t)r * p.obs + o];
-  __syncthreads();
-  const int nblocks = p.nvars / p.block;
-  for (int b = 0; b < nblocks; ++b)
-    bakp_block_step<KC>(grid, p.x_t, p.inv_cn, p.e_out, p.da, false,
-                        p.partials, p.da_buf, s_da, p.obs, p.k, p.block, b,
-                        p.omega, s);
-}
-
-template <int KC>
-static cudaError_t sweep_grid(int k, int block, int* out) {
-  return bakp_max_grid(bakp_sweep_kernel<KC>, (size_t)block * k * sizeof(float), out);
-}
-
-template <int KC>
-static cudaError_t sweep_launch(const SweepParams& p, int grid, void* stream) {
-  return bakp_launch_coop(bakp_sweep_kernel<KC>, p, grid,
-                          (size_t)p.block * p.k * sizeof(float), stream);
-}
-
-extern "C" int bakp_sweep_grid(int k, int block, int* grid_max) {
-  switch (bakp_pick_kc(k)) {
-    case 1: return sweep_grid<1>(k, block, grid_max);
-    case 2: return sweep_grid<2>(k, block, grid_max);
-    case 4: return sweep_grid<4>(k, block, grid_max);
-    default: return sweep_grid<8>(k, block, grid_max);
+  extern __shared__ __align__(16) float smem[];
+  const int CB = p.block, k = p.k, obs = p.obs;
+  const BakpCta c = bakp_cta(smem, obs, CB, k, p.xchg, p.tag0);
+  const int L = c.L, n = c.n;
+  const int P = L < SWEEP_POS ? L : SWEEP_POS;
+  const int NS = p.stages;
+  float* ring = c.rest;
+  float* eb;                           // the residual slice, row stride es
+  int es;
+  if constexpr (E_SMEM) {
+    eb = ring + (size_t)NS * SWEEP_ROWS * P;
+    es = L;
+  } else {
+    eb = p.e_out + c.o0;
+    es = obs;
   }
+  for (int r = 0; r < k; ++r)
+    for (int i = threadIdx.x; i < n; i += blockDim.x)
+      eb[(size_t)r * es + i] = p.e_in[(size_t)r * obs + c.o0 + i];
+
+  const bool vec16 = p.vec16 != 0;
+  const int nblocks = p.nvars / CB;
+  const int NG = (CB + SWEEP_ROWS - 1) / SWEEP_ROWS;
+  const int NPC = (n + P - 1) / P;     // 0 for a CTA past the end
+  const int nrc = (k + KC - 1) / KC;
+  const int per = NG * NPC;            // chunks of one pass over the block
+  const int Q = (nrc + 1) * per;       // chunks of a block
+  const long long total = (long long)nblocks * Q;
+
+  // Issue the copies of chunk q into its stage, as one commit group (an
+  // empty one past the last chunk).
+  auto fetch = [&](long long q) {
+    if (q < total) {
+      const int b = (int)(q / Q);
+      int w = (int)(q - (long long)b * Q);
+      w = w < nrc * per ? w % per : w - nrc * per;
+      const int g = w / NPC, pc = w - g * NPC;
+      const int rows = CB - g * SWEEP_ROWS < SWEEP_ROWS ? CB - g * SWEEP_ROWS : SWEEP_ROWS;
+      const int p0 = pc * P;
+      const int np = n - p0 < P ? n - p0 : P;
+      float* stage = ring + (size_t)(q % NS) * SWEEP_ROWS * P;
+      const float* src = p.x_t + (size_t)(b * CB + g * SWEEP_ROWS) * obs + c.o0 + p0;
+      if (vec16) cp_async_rows<4>(stage, P, src, obs, rows, np);  // np % 4 == 0
+      else cp_async_rows<1>(stage, P, src, obs, rows, np);
+    }
+    cp_async_commit();
+  };
+  // Wait for chunk q, free the stage of chunk q - 1 and refill it with
+  // chunk q + NS - 1; returns chunk q's stage.
+  auto take = [&](long long q) -> const float* {
+    cp_async_wait_n(NS - 2);
+    __syncthreads();
+    fetch(q + NS - 1);
+    return ring + (size_t)(q % NS) * SWEEP_ROWS * P;
+  };
+
+  for (int s = 0; s < NS - 1; ++s) fetch(s);
+  __syncthreads();                     // the residual slice is in place
+  const int warp = threadIdx.x >> 5;
+  long long q = 0;
+  for (int b = 0; b < nblocks; ++b) {
+    BAKP_CLOCK_START;
+#ifdef BAKP_PHASE_CLOCKS
+    long long fma_ = 0, wait_ = 0;
+#endif
+    for (int r0 = 0; r0 < k; r0 += KC) {
+      const int kc = k - r0 < KC ? k - r0 : KC;
+      for (int g = 0; g < NG; ++g) {
+        const int c0 = g * SWEEP_ROWS + warp * BAKP_CT;
+        const int rows = CB - c0 < BAKP_CT ? CB - c0 : BAKP_CT;
+        float acc[BAKP_CT][KC] = {};
+        for (int pc = 0; pc < NPC; ++pc, ++q) {
+#ifdef BAKP_PHASE_CLOCKS
+          const long long w0_ = clock64();
+#endif
+          const float* stage = take(q);
+#ifdef BAKP_PHASE_CLOCKS
+          const long long f0_ = clock64();
+          wait_ += f0_ - w0_;
+#endif
+          const int p0 = pc * P;
+          const int np = n - p0 < P ? n - p0 : P;
+          if (rows > 0)
+            bakp_acc<KC, E_SMEM>(stage + (size_t)warp * BAKP_CT * P, P, rows,
+                                 eb + (size_t)r0 * es + p0, es, np, kc, acc);
+#ifdef BAKP_PHASE_CLOCKS
+          fma_ += clock64() - f0_;
+#endif
+        }
+        if (rows > 0) bakp_warp_scatter<KC>(acc, c0, rows, r0, kc, c.kp, c.part);
+      }
+    }
+    __syncthreads();
+#ifdef BAKP_PHASE_CLOCKS
+    {
+      const long long t_ = clock64();
+      BAKP_CLOCK_ADD(0, wait_);
+      BAKP_CLOCK_ADD(1, fma_);
+      BAKP_CLOCK_ADD(2, t_ - bakp_t0_ - fma_ - wait_);
+      bakp_t0_ = t_;
+    }
+#endif
+    bakp_exchange(c, b, b, p.inv_cn, p.da, false, p.omega);
+#ifdef BAKP_PHASE_CLOCKS
+    bakp_t0_ = clock64();
+#endif
+    for (int g = 0; g < NG; ++g) {
+      const int rows = CB - g * SWEEP_ROWS < SWEEP_ROWS ? CB - g * SWEEP_ROWS : SWEEP_ROWS;
+      for (int pc = 0; pc < NPC; ++pc, ++q) {
+        const float* stage = take(q);
+        const int p0 = pc * P;
+        const int np = n - p0 < P ? n - p0 : P;
+        bakp_update<BAKP_KG(KC)>(stage, P, rows, eb + p0, es,
+                                 c.da + (size_t)g * SWEEP_ROWS * c.kp, c.kp, k, np);
+      }
+    }
+    BAKP_CLOCK(6);
+    BAKP_CLOCK_STEP();
+  }
+  cp_async_wait<0>();                  // the empty groups past the last chunk
+  if constexpr (E_SMEM) {
+    __syncthreads();
+    for (int r = 0; r < k; ++r)
+      for (int i = threadIdx.x; i < n; i += blockDim.x)
+        p.e_out[(size_t)r * obs + c.o0 + i] = eb[(size_t)r * es + i];
+  }
+  cl_cluster_sync();                   // no CTA leaves while the cluster pushes to it
+}
+
+template <int KC>
+static void* sweep_kernel(bool e_smem) {
+  return e_smem ? (void*)bakp_sweep_kernel<KC, true> : (void*)bakp_sweep_kernel<KC, false>;
+}
+
+static void* sweep_pick(int k, bool e_smem) {
+  switch (bakp_pick_kc(k)) {
+    case 1: return sweep_kernel<1>(e_smem);
+    case 2: return sweep_kernel<2>(e_smem);
+    case 4: return sweep_kernel<4>(e_smem);
+    default: return sweep_kernel<8>(e_smem);
+  }
+}
+
+extern "C" int bakp_sweep_clusters(int k, int cluster, int smem, int* n) {
+  if (cluster < 1 || cluster > BAKP_MAX_CLUSTER) return (int)cudaErrorInvalidValue;
+  size_t s = 0;
+  cudaError_t err = cl_launch_smem((size_t)smem, &s);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cl_max_clusters((void (*)(SweepParams))sweep_pick(k, true), cluster, s, n);
 }
 
 extern "C" int bakp_sweep_launch(const float* x_t, const float* inv_cn,
                                  const float* e_in, float* e_out, float* da,
-                                 float* partials, float* da_buf, int nvars,
-                                 int obs, int k, int block, float omega,
-                                 int grid, void* stream) {
-  SweepParams p{x_t, inv_cn, e_in, e_out, da, partials, da_buf,
-                nvars, obs, k, block, omega};
-  switch (bakp_pick_kc(k)) {
-    case 1: return sweep_launch<1>(p, grid, stream);
-    case 2: return sweep_launch<2>(p, grid, stream);
-    case 4: return sweep_launch<4>(p, grid, stream);
-    default: return sweep_launch<8>(p, grid, stream);
-  }
+                                 void* xchg, unsigned tag0, int nvars, int obs,
+                                 int k, int block, float omega, int regime, int ctas,
+                                 int cluster,
+                                 int e_smem, int stages, int smem, void* stream) {
+  const size_t need = sizeof(float) * sweep_smem_floats(obs, ctas, cluster, k, block,
+                                                        e_smem != 0, stages);
+  cudaError_t err = bakp_plan_check(obs, regime, ctas, cluster, xchg, need, (size_t)smem);
+  if (stages < SWEEP_MIN_STAGES || stages > SWEEP_MAX_STAGES) err = cudaErrorInvalidValue;
+  size_t s = 0;
+  if (err == cudaSuccess) err = cl_launch_smem((size_t)smem, &s);
+  if (err != cudaSuccess) return (int)err;
+  const int vec16 = obs % 4 == 0 && ((uintptr_t)x_t & 15) == 0;
+  SweepParams p{x_t, inv_cn, e_in, e_out, da,
+                regime == BAKP_SINGLE_CLUSTER ? nullptr : xchg, tag0,
+                nvars, obs, k, block, omega, vec16, stages};
+  return (int)cl_launch((void (*)(SweepParams))sweep_pick(k, e_smem != 0), p, ctas,
+                        cluster, regime != BAKP_SINGLE_CLUSTER, s, stream);
 }

@@ -13,42 +13,37 @@
 // whole-solve kernel (fused_solve.cu) reads it twice through L2, which
 // holds the design only within its 40 MiB budget.  Here each CTA copies its
 // (block × L) slice of a block's tile into shared memory once and both
-// phases of the block step read it there.
+// phases of the block step read it there.  At the shapes the port runs the
+// block step's latency, not bytes, sets the time, so the step runs on
+// thread-block clusters with no grid-wide barrier (bakp_cluster.cuh).
 //
-// Decomposition: bakp_block.cuh's persistent cooperative grid, one CTA per
-// SM at most, CTA q owning the obs slice [o0, o0 + L).  Shared memory of a
-// CTA, all dynamic:
+// Decomposition: bakp_cluster.cuh's clusters of C CTAs, one CTA per SM,
+// CTA q owning the obs slice [o0, o0 + L).  Shared memory of a CTA, all
+// dynamic: the block step's exchange arrays (bakp_hdr_floats), then
 //   ring   2 · block · L   two stages of the tile, row c at c·L
 //   e      k · L           the CTA's residual slice, for the whole solve
-//   da     block · k       the block's increments
-//   red    33              the SSE reduction scratch
-// The block step is bakp_block.cuh's partials → grid.sync → fixed-order
-// reduce → grid.sync → update, with the tile and e read from shared memory
-// by the same loops the other two Algorithm-2 kernels run, so the three
-// cannot drift numerically.  The SSE is bakp_grid_sse's fixed-order sum:
-// every CTA holds the same bits and takes the same stop decision.
+// The SSE is bakp_cluster_sse's fixed-order sum: every CTA holds the same
+// bits and takes the same stop decision.  Cluster 0's CTAs own the
+// coefficients (each its slice of every block's, from a0 on), CTA 0 the
+// history and the scalar outputs.
 //
 // The stream: cp.async (16-byte cp.async.cg when rows and the base are
 // 16-byte aligned, else 4-byte cp.async.ca) with one commit group per
-// tile.  At the top of block step t a CTA issues the copy of step t+1's
-// tile (the next block, or block 0 of the next sweep) into the other stage,
-// then waits for step t's group: the fetch overlaps the whole of step t,
-// both grid barriers included.  The other stage last held step t-1's tile,
+// tile.  At the top of block step t a CTA issues the copy of step
+// t+1's tile (the next block, or block 0 of the next sweep) into the other
+// stage, then waits for step t's tile: the fetch overlaps the whole of step
+// t, its exchanges included.  The other stage last held step t-1's tile,
 // which every thread finished reading before the __syncthreads that closes
 // step t-1, so the copy never overwrites a tile still in use.  The copy
 // issued in the last step of the last sweep is waited for and unused.
 //
 // C interface (ctypes; pointers and stream void*-sized; cudaError_t return):
-//   stream_solve_grid(k, smem, &grid_max)  largest cooperative grid at smem
-//   stream_solve_launch(...)               one whole solve on `stream`
+//   stream_solve_clusters(k, cluster, smem, &n)  clusters the card holds
+//   stream_solve_launch(...)                     one whole solve on `stream`
 #include <math.h>
 #include <stdint.h>
 
-#include "bakp_block.cuh"
-#include "cp_async.cuh"
-
-// Floats of the SSE reduction scratch at the end of the dynamic memory.
-#define STREAM_RED_FLOATS 33
+#include "bakp_cluster.cuh"
 
 struct StreamParams {
   const float* x_t;     // (vars, obs), device memory
@@ -61,94 +56,118 @@ struct StreamParams {
   float* sse_out;       // (1,)
   int* n_out;           // (1,)
   int* conv_out;        // (1,)
-  float* partials;      // (grid, block, k) scratch
-  float* da_buf;        // (block, k) scratch
-  float* sse_part;      // (grid,) scratch
+  void* xchg;           // device exchange words (several clusters)
+  unsigned tag0;        // the launch's exchange tags count from here
   int nvars, obs, k, block, max_iter;
   float atol_sse, rtol, omega;
   int vec16;            // rows and base 16-byte aligned: 16-byte copies
 };
 
 // Issue the copies of this CTA's slice (n positions from o0) of rows
-// [row0, row0 + CB) of x_t into `stage` (row stride L), as one commit group.
-__device__ __forceinline__ void stream_fetch(float* stage, const float* x_t,
-                                             int obs, int row0, int CB, int o0,
-                                             int n, int L, bool vec16) {
-  if (vec16) {
-    const int n4 = n >> 2;             // n is a multiple of 4 here
-    const int total = CB * n4;
-    for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
-      const int c = idx / n4;
-      const int i = (idx - c * n4) << 2;
-      cp_async16(stage + (size_t)c * L + i,
-                 x_t + (size_t)(row0 + c) * obs + o0 + i);
-    }
-  } else {
-    const int total = CB * n;
-    for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
-      const int c = idx / n;
-      const int i = idx - c * n;
-      cp_async4(stage + (size_t)c * L + i,
-                x_t + (size_t)(row0 + c) * obs + o0 + i);
-    }
-  }
+// [row0, row0 + CB) of x_t into ring stage s (row stride L), as one commit
+// group.
+__device__ __forceinline__ void stream_fetch(const BakpCta& c, float* ring, int s,
+                                             const float* x_t, int obs, int row0, int CB,
+                                             bool vec16) {
+  float* stage = ring + (size_t)s * CB * c.L;
+  const float* src = x_t + (size_t)row0 * obs + c.o0;
+  if (vec16) cp_async_rows<4>(stage, c.L, src, obs, CB, c.n);  // n % 4 == 0 here
+  else cp_async_rows<1>(stage, c.L, src, obs, CB, c.n);
   cp_async_commit();
+}
+
+// Floats of a CTA's dynamic shared memory.
+static inline size_t stream_smem_floats(int obs, int ctas, int cluster, int k, int CB) {
+  const size_t L = (size_t)bakp_slice_len(obs, ctas);
+  return (size_t)bakp_hdr_floats(CB, k, cluster) + 2 * (size_t)CB * L + (size_t)k * L;
 }
 
 template <int KC>
 __global__ void __launch_bounds__(BAKP_THREADS) stream_solve_kernel(StreamParams p) {
-  cg::grid_group grid = cg::this_grid();
   extern __shared__ __align__(16) float smem[];
-  const BakpSlice s = bakp_slice(p.obs);
-  const int L = bakp_slice_len(p.obs, gridDim.x);
-  const int n = s.o1 - s.o0;
   const int CB = p.block, k = p.k;
-  float* ring = smem;
+  const BakpCta c = bakp_cta(smem, p.obs, CB, k, p.xchg, p.tag0);
+  const int L = c.L, n = c.n;
+  float* ring = c.rest;
   float* s_e = ring + (size_t)2 * CB * L;
-  float* s_da = s_e + (size_t)k * L;
-  float* s_red = s_da + (size_t)CB * k;
   const bool vec16 = p.vec16 != 0;
+  const int nblocks = p.nvars / CB;
+  const size_t ncoef = (size_t)CB * k;
 
   // The first tile's copy runs while the residual slice loads.
-  stream_fetch(ring, p.x_t, p.obs, 0, CB, s.o0, n, L, vec16);
+  stream_fetch(c, ring, 0, p.x_t, p.obs, 0, CB, vec16);
   for (int r = 0; r < k; ++r)
     for (int i = threadIdx.x; i < n; i += blockDim.x)
-      s_e[(size_t)r * L + i] = p.e0[(size_t)r * p.obs + s.o0 + i];
-  const int gt = blockIdx.x * blockDim.x + threadIdx.x;
-  const int gs = gridDim.x * blockDim.x;
-  for (int i = gt; i < p.nvars * k; i += gs) p.coef[i] = p.a0[i];
-  for (int i = gt; i < p.max_iter; i += gs) p.hist[i] = nanf("");
+      s_e[(size_t)r * L + i] = p.e0[(size_t)r * p.obs + c.o0 + i];
+  if (c.cid == 0)                      // the coefficients this CTA owns
+    for (int b = 0; b < nblocks; ++b)
+      for (int i = threadIdx.x; i < c.S; i += blockDim.x) {
+        const int idx = c.rank * c.S + i;
+        const int col = idx / c.kp, r = idx - col * c.kp;
+        if (col < CB && r < k) {
+          const size_t at = (size_t)b * ncoef + (size_t)col * k + r;
+          p.coef[at] = p.a0[at];
+        }
+      }
+  if (blockIdx.x == 0)
+    for (int i = threadIdx.x; i < p.max_iter; i += blockDim.x) p.hist[i] = nanf("");
   __syncthreads();
 
-  const float sse0 = bakp_grid_sse(grid, s_e, L, 0, n, k, p.sse_part, s_red);
+  int sse_idx = 0;
+  const float sse0 = bakp_cluster_sse(c, s_e, L, sse_idx++);
   float sse = sse0;
   bool converged = false, stop = false;
   int n_sweeps = 0;
-  const int nblocks = p.nvars / CB;
-  const size_t nda = (size_t)CB * k;
   int step = 0;                        // block steps so far; parity = stage
   while (n_sweeps < p.max_iter && !stop) {
     for (int b = 0; b < nblocks; ++b, ++step) {
+      BAKP_CLOCK_START;
       const float* tile = ring + (size_t)(step & 1) * CB * L;
       const int next = b + 1 < nblocks ? b + 1 : 0;
-      stream_fetch(ring + (size_t)((step + 1) & 1) * CB * L, p.x_t, p.obs,
-                   next * CB, CB, s.o0, n, L, vec16);
+      stream_fetch(c, ring, (step + 1) & 1, p.x_t, p.obs, next * CB, CB, vec16);
       cp_async_wait<1>();              // this thread's part of `tile` ...
       __syncthreads();                 // ... and every thread's
-      bakp_partials<KC, false>(tile, L, s_e, L, 0, n, k, CB,
-                               p.partials + blockIdx.x * nda);
-      grid.sync();
-      bakp_reduce(p.partials, p.da_buf, p.coef + (size_t)b * nda, true,
-                  p.inv_cn + (size_t)b * CB, CB, k, p.omega);
-      grid.sync();
-      for (int i = threadIdx.x; i < (int)nda; i += blockDim.x)
-        s_da[i] = __ldcg(p.da_buf + i);
+      BAKP_CLOCK(0);
+#ifdef BAKP_PHASE_CLOCKS
+      long long fma_ = 0;
+#endif
+      const int warp = threadIdx.x >> 5;
+      for (int r0 = 0; r0 < k; r0 += KC) {
+        const int kc = k - r0 < KC ? k - r0 : KC;
+        for (int c0 = warp * BAKP_CT; c0 < CB; c0 += BAKP_THREADS / 32 * BAKP_CT) {
+          float acc[BAKP_CT][KC] = {};
+          const int rows = CB - c0 < BAKP_CT ? CB - c0 : BAKP_CT;
+#ifdef BAKP_PHASE_CLOCKS
+          const long long f0_ = clock64();
+#endif
+          bakp_acc<KC, true>(tile + (size_t)c0 * L, L, rows, s_e + (size_t)r0 * L, L, n,
+                             kc, acc);
+#ifdef BAKP_PHASE_CLOCKS
+          fma_ += clock64() - f0_;
+#endif
+          bakp_warp_scatter<KC>(acc, c0, rows, r0, kc, c.kp, c.part);
+        }
+      }
       __syncthreads();
-      bakp_update<KC, false>(tile, L, s_e, L, s_da, 0, n, k, CB);
+#ifdef BAKP_PHASE_CLOCKS
+      {
+        const long long t_ = clock64();
+        BAKP_CLOCK_ADD(1, fma_);
+        BAKP_CLOCK_ADD(2, t_ - bakp_t0_ - fma_);
+        bakp_t0_ = t_;
+      }
+#endif
+      bakp_exchange(c, step, b, p.inv_cn, p.coef, true, p.omega);
+#ifdef BAKP_PHASE_CLOCKS
+      bakp_t0_ = clock64();
+#endif
+      bakp_update<BAKP_KG(KC)>(tile, L, CB, s_e, L, c.da, c.kp, k, n);
       __syncthreads();                 // `tile`'s stage may be refilled now
+      BAKP_CLOCK(6);
+      BAKP_CLOCK_STEP();
     }
-    const float sse_new = bakp_grid_sse(grid, s_e, L, 0, n, k, p.sse_part, s_red);
-    if (gt == 0) p.hist[n_sweeps] = sse_new;
+    const float sse_new = bakp_cluster_sse(c, s_e, L, sse_idx++);
+    if (blockIdx.x == 0 && threadIdx.x == 0) p.hist[n_sweeps] = sse_new;
     sweep_stop_flags(sse_new, sse, sse0, p.atol_sse, p.rtol, &converged, &stop);
     sse = sse_new;
     ++n_sweeps;
@@ -156,59 +175,51 @@ __global__ void __launch_bounds__(BAKP_THREADS) stream_solve_kernel(StreamParams
   cp_async_wait<0>();                  // the unused prefetch of the last step
   for (int r = 0; r < k; ++r)
     for (int i = threadIdx.x; i < n; i += blockDim.x)
-      p.e[(size_t)r * p.obs + s.o0 + i] = s_e[(size_t)r * L + i];
-  if (gt == 0) {
+      p.e[(size_t)r * p.obs + c.o0 + i] = s_e[(size_t)r * L + i];
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
     *p.sse_out = sse;
     *p.n_out = n_sweeps;
     *p.conv_out = converged ? 1 : 0;
   }
+  cl_cluster_sync();                   // no CTA leaves while the cluster pushes to it
 }
 
-template <int KC>
-static cudaError_t stream_grid(int k, int smem, int* out) {
-  (void)k;
-  return bakp_max_grid(stream_solve_kernel<KC>, (size_t)smem, out);
-}
-
-template <int KC>
-static cudaError_t stream_launch(const StreamParams& p, int grid, int smem,
-                                 void* stream) {
-  return bakp_launch_coop(stream_solve_kernel<KC>, p, grid, (size_t)smem,
-                          stream);
-}
-
-extern "C" int stream_solve_grid(int k, int smem, int* grid_max) {
+static void* stream_pick(int k) {
   switch (bakp_pick_kc(k)) {
-    case 1: return stream_grid<1>(k, smem, grid_max);
-    case 2: return stream_grid<2>(k, smem, grid_max);
-    case 4: return stream_grid<4>(k, smem, grid_max);
-    default: return stream_grid<8>(k, smem, grid_max);
+    case 1: return (void*)stream_solve_kernel<1>;
+    case 2: return (void*)stream_solve_kernel<2>;
+    case 4: return (void*)stream_solve_kernel<4>;
+    default: return (void*)stream_solve_kernel<8>;
   }
+}
+
+extern "C" int stream_solve_clusters(int k, int cluster, int smem, int* n) {
+  if (cluster < 1 || cluster > BAKP_MAX_CLUSTER) return (int)cudaErrorInvalidValue;
+  size_t s = 0;
+  cudaError_t err = cl_launch_smem((size_t)smem, &s);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cl_max_clusters((void (*)(StreamParams))stream_pick(k), cluster, s, n);
 }
 
 extern "C" int stream_solve_launch(const float* x_t, const float* inv_cn,
                                    const float* e0, const float* a0,
                                    float* coef, float* e, float* hist,
                                    float* sse_out, int* n_out, int* conv_out,
-                                   float* partials, float* da_buf,
-                                   float* sse_part, int nvars, int obs, int k,
+                                   void* xchg, unsigned tag0, int nvars, int obs, int k,
                                    int block, int max_iter, float atol_sse,
-                                   float rtol, float omega, int grid, int smem,
+                                   float rtol, float omega, int regime,
+                                   int ctas, int cluster, int smem,
                                    void* stream) {
-  // Dynamic shared memory the kernel carves (see top); the caller's plan
-  // must have sized it the same way.
-  const int L = bakp_slice_len(obs, grid);
-  const size_t need = sizeof(float) * ((size_t)2 * block * L + (size_t)k * L +
-                                       (size_t)block * k + STREAM_RED_FLOATS);
-  if ((size_t)smem != need) return (int)cudaErrorInvalidValue;
+  // The plan the caller made must leave room for what the kernel carves.
+  const size_t need = sizeof(float) * stream_smem_floats(obs, ctas, cluster, k, block);
+  cudaError_t err = bakp_plan_check(obs, regime, ctas, cluster, xchg, need, (size_t)smem);
+  size_t s = 0;
+  if (err == cudaSuccess) err = cl_launch_smem((size_t)smem, &s);
+  if (err != cudaSuccess) return (int)err;
   const int vec16 = obs % 4 == 0 && ((uintptr_t)x_t & 15) == 0;
   StreamParams p{x_t, inv_cn, e0, a0, coef, e, hist, sse_out, n_out, conv_out,
-                 partials, da_buf, sse_part, nvars, obs, k, block, max_iter,
-                 atol_sse, rtol, omega, vec16};
-  switch (bakp_pick_kc(k)) {
-    case 1: return stream_launch<1>(p, grid, smem, stream);
-    case 2: return stream_launch<2>(p, grid, smem, stream);
-    case 4: return stream_launch<4>(p, grid, smem, stream);
-    default: return stream_launch<8>(p, grid, smem, stream);
-  }
+                 regime == BAKP_SINGLE_CLUSTER ? nullptr : xchg, tag0, nvars, obs, k,
+                 block, max_iter, atol_sse, rtol, omega, vec16};
+  return (int)cl_launch((void (*)(StreamParams))stream_pick(k), p, ctas, cluster,
+                        regime != BAKP_SINGLE_CLUSTER, s, stream);
 }

@@ -5,18 +5,23 @@ Counterpart of ``repro.kernels.stream_solve``.  The whole-solve kernel
 (``fused_solve``) is admitted only while the design fits the L2 budget;
 this one leaves x in device memory and streams it, so a design of any size
 that fits the card keeps the single-launch, early-exit solve.  Each CTA of
-a persistent cooperative grid keeps its residual slice in shared memory
-for the whole solve and copies its (block × L) slice of every column
-block's tile into a two-stage shared-memory ring one block step ahead of
-the compute (see the source), so x crosses device memory once per sweep.
+a persistent grid of thread-block clusters keeps its residual slice in
+shared memory for the whole solve and copies its (block × L) slice of
+every column block's tile into a two-stage shared-memory ring one block
+step ahead of the compute (see the source), so x crosses device memory
+once per sweep.
 
-Fit check: a CTA's shared memory (the ring, its residual slice, one
-block's increments and the reduction scratch, ``stream_smem_bytes``) must
-fit ``SMEM_PER_CTA_BYTES``.  The grid is at most ``MAX_CTAS`` CTAs and at
-least ``cd_sweep.MIN_OBS_PER_CTA`` obs each; all three constants are read
-at call time, so dispatch is the same on any host and tests may patch
-them.  On the card the wrapper checks the real launch plan (the card's SM
-count and occupancy) and raises if it does not fit.
+Fit check: a CTA's shared memory (the block step's exchange arrays, the
+ring and its residual slice, ``stream_smem_bytes``) must fit
+``cd_sweep.SMEM_PER_CTA_BYTES``.  The launch is ``cd_sweep.bakp_plan``'s:
+clusters of ``cd_sweep.BAKP_CLUSTER["stream"]`` CTAs, at most
+``cd_sweep.MAX_CTAS`` CTAs, at most as many clusters as an H100 holds at
+once (``cd_sweep.CARD_CLUSTERS``) and at least
+``cd_sweep.MIN_OBS_PER_CTA`` obs a CTA; every constant lives in
+``cd_sweep`` alone and is read at call time, so dispatch is the same on
+any host and tests may patch them there.
+On the card the wrapper plans with the card's SM count and the clusters
+the CUDA runtime says it holds, and raises if that plan does not fit.
 
 ``stream_solve`` follows the device of its tensors: CPU tensors run the
 plain version (``stream_solve_plain``), CUDA tensors launch the kernel,
@@ -32,7 +37,6 @@ previous tile computes; the stop flag is read once per sweep.
 """
 from __future__ import annotations
 
-import ctypes
 import importlib
 import math
 from typing import Optional
@@ -45,16 +49,9 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.fused_solve import (fused_solve_plain, solve_init,
                                              validate_solver_args)
 
-# Budget and block math live with the per-sweep kernel; read at call time.
+# Budget and block math live with the per-sweep kernel: its constants
+# (``SMEM_PER_CTA_BYTES``, ``MAX_CTAS``, ...) are read there at call time.
 _cd = importlib.import_module("repro_torch.kernels.cd_sweep")
-
-# Dynamic shared memory one CTA may use on an H100 (227 KB, opt-in).
-SMEM_PER_CTA_BYTES = 232_448
-# CTAs of the grid at most: one per SM of an H100 SXM.
-MAX_CTAS = 132
-# Floats of reduction scratch per CTA (``STREAM_RED_FLOATS`` in the source).
-_RED_FLOATS = 33
-_SLICE_ALIGN = 32
 
 
 def stream_x_resident_bytes(block: int, obs: int, itemsize: int) -> int:
@@ -63,33 +60,34 @@ def stream_x_resident_bytes(block: int, obs: int, itemsize: int) -> int:
     return 2 * block * obs * itemsize
 
 
-def stream_plan(obs: int, ctas: Optional[int] = None):
-    """``(grid, L)``: CTAs and obs per CTA of a launch on ``ctas`` SMs
-    (default ``MAX_CTAS``), at least ``MIN_OBS_PER_CTA`` obs each, L a
-    multiple of 32 (``bakp_slice_len`` in the source)."""
-    cap = MAX_CTAS if ctas is None else min(MAX_CTAS, ctas)
-    grid = max(1, min(cap, -(-obs // _cd.MIN_OBS_PER_CTA)))
-    length = -(-obs // grid)
-    return grid, -(-length // _SLICE_ALIGN) * _SLICE_ALIGN
+def stream_plan(obs: int, nrhs: int = 1, *, block: int = 256,
+                ctas: Optional[int] = None,
+                max_clusters: Optional[int] = None) -> "_cd.BakpPlan":
+    """The launch plan (``cd_sweep.BakpPlan``) on at most ``ctas`` SMs
+    (default ``cd_sweep.MAX_CTAS``) and ``max_clusters`` clusters (default what an
+    H100 holds at once)."""
+    cap = _cd.MAX_CTAS if ctas is None else min(_cd.MAX_CTAS, ctas)
+    return _cd.bakp_plan("stream", obs, nrhs, block, max_ctas=cap,
+                         max_clusters=max_clusters)
 
 
 def stream_smem_bytes(obs: int, nrhs: int, itemsize: int, *, block: int,
                       ctas: Optional[int] = None) -> int:
-    """Shared memory of one CTA: the ring (2·block·L·itemsize), the
-    residual slice (k·L·4), one block's increments (block·k·4) and the
-    reduction scratch."""
-    _, length = stream_plan(obs, ctas)
-    return (2 * block * length * itemsize + nrhs * length * 4
-            + block * nrhs * 4 + _RED_FLOATS * 4)
+    """Shared memory of one CTA: the block step's exchange arrays
+    (``cd_sweep.bakp_exchange_bytes``), the ring (2·block·L·itemsize) and
+    the residual slice (k·L·4)."""
+    plan = stream_plan(obs, nrhs, block=block, ctas=ctas)
+    return (_cd.bakp_exchange_bytes(block, nrhs, plan.cluster)
+            + 2 * block * plan.L * itemsize + nrhs * plan.L * 4)
 
 
 def stream_fits(nvars: int, obs: int, nrhs: int, itemsize: int, *,
                 block: int, max_iter: int = 1) -> bool:
     """Whether a streaming solve's per-CTA shared memory fits
-    ``SMEM_PER_CTA_BYTES``.  ``nvars`` and ``max_iter`` do not enter: the
+    ``cd_sweep.SMEM_PER_CTA_BYTES``.  ``nvars`` and ``max_iter`` do not enter: the
     coefficients and the history stay in device memory."""
     return (stream_smem_bytes(obs, nrhs, itemsize, block=block)
-            <= SMEM_PER_CTA_BYTES)
+            <= _cd.SMEM_PER_CTA_BYTES)
 
 
 def stream_solve_plain(x_t, inv_cn, e0, a0m, *, block, max_iter, atol_sse,
@@ -112,22 +110,13 @@ def stream_cuda(x_t, inv_cn, e0, a0m, *, block, max_iter, atol_sse, rtol,
     lib = _build.load("stream_solve")
     dev = x_t.device
     with torch.cuda.device(dev):
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        grid, _ = stream_plan(obs, sms)
-        smem = stream_smem_bytes(obs, nrhs, 4, block=block, ctas=sms)
-        if smem > SMEM_PER_CTA_BYTES:
+        plan = _cd.bakp_grid(lib.stream_solve_clusters, "stream", obs, nrhs,
+                             block)
+        if plan.smem > _cd.SMEM_PER_CTA_BYTES:
             raise ValueError(
-                f"stream_solve needs {smem} bytes of shared memory per CTA "
-                f"on {grid} CTAs, over {SMEM_PER_CTA_BYTES}; use the "
-                f"per-sweep path (solvebakp_persweep_kernel)")
-        grid_max = ctypes.c_int(0)
-        _build.check(lib.stream_solve_grid(
-            nrhs, smem, ctypes.addressof(grid_max)), "stream_solve_grid")
-        if grid_max.value < grid:
-            raise ValueError(
-                f"stream_solve: {grid} CTAs with {smem} bytes of shared "
-                f"memory each do not fit this card at once (at most "
-                f"{grid_max.value})")
+                f"stream_solve needs {plan.smem} bytes of shared memory per "
+                f"CTA on {plan.ctas} CTAs, over {_cd.SMEM_PER_CTA_BYTES}; use "
+                f"the per-sweep path (solvebakp_persweep_kernel)")
         inv = inv_cn.float().contiguous()
         e0c = e0.float().contiguous()
         a0c = a0m.float().contiguous()
@@ -138,18 +127,20 @@ def stream_cuda(x_t, inv_cn, e0, a0m, *, block, max_iter, atol_sse, rtol,
         sse = torch.empty((1,), **f32)
         n = torch.empty((1,), dtype=torch.int32, device=dev)
         conv = torch.empty((1,), dtype=torch.int32, device=dev)
-        partials = torch.empty((grid, block, nrhs), **f32)
-        da_buf = torch.empty((block, nrhs), **f32)
-        sse_part = torch.empty((grid,), **f32)
+        # Tags: one a block step, one a per-sweep SSE (and the first).
+        xchg, tag0 = _cd.bakp_exchange(
+            plan, dev, max(max_iter * (nvars // block), max_iter + 1))
         stream = torch.cuda.current_stream(dev).cuda_stream
         _build.LAUNCHES["stream_solve"] += 1
+        _build.PLANS["stream_solve"] = plan
         _build.check(lib.stream_solve_launch(
             x_t.data_ptr(), inv.data_ptr(), e0c.data_ptr(), a0c.data_ptr(),
             coef.data_ptr(), e.data_ptr(), hist.data_ptr(), sse.data_ptr(),
-            n.data_ptr(), conv.data_ptr(), partials.data_ptr(),
-            da_buf.data_ptr(), sse_part.data_ptr(), nvars, obs, nrhs, block,
-            max_iter, float(atol_sse), float(rtol), float(omega), grid, smem,
-            stream), "stream_solve_launch")
+            n.data_ptr(), conv.data_ptr(),
+            None if xchg is None else xchg.data_ptr(), tag0, nvars, obs, nrhs,
+            block, max_iter, float(atol_sse), float(rtol), float(omega),
+            _cd.BAKP_REGIMES.index(plan.regime), plan.ctas, plan.cluster,
+            plan.smem, stream), "stream_solve_launch")
     return coef, e, hist, sse[0], n[0], conv[0] != 0
 
 
@@ -170,7 +161,7 @@ def stream_solve(
 
     Arguments as ``fused_solve`` minus ``variant`` (Algorithm 2 only).
     ``x_t`` may be any size that fits the card; only the per-CTA shared
-    memory (``stream_smem_bytes``) must fit ``SMEM_PER_CTA_BYTES``.
+    memory (``stream_smem_bytes``) must fit ``cd_sweep.SMEM_PER_CTA_BYTES``.
     """
     nvars, obs = x_t.shape
     if nvars % block != 0:
@@ -181,10 +172,10 @@ def stream_solve(
         raise ValueError(f"max_iter must be >= 1, got {max_iter}")
     multi, nrhs, inv_cn = validate_solver_args(x_t, y, cn, inv_cn, a0)
     smem = stream_smem_bytes(obs, nrhs, x_t.element_size(), block=block)
-    if smem > SMEM_PER_CTA_BYTES:
+    if smem > _cd.SMEM_PER_CTA_BYTES:
         raise ValueError(
             f"stream_solve needs {smem} bytes of shared memory per CTA, "
-            f"over {SMEM_PER_CTA_BYTES}; reduce block ({block}) / nrhs "
+            f"over {_cd.SMEM_PER_CTA_BYTES}; reduce block ({block}) / nrhs "
             f"({nrhs}), or use the per-sweep path")
     inv_cn, a0m, e0 = solve_init(x_t, y, inv_cn, a0, multi)
     kw = dict(block=block, max_iter=max_iter,

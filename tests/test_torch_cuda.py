@@ -51,19 +51,93 @@ def _system(seed, obs, nvars, k, device):
             torch.tensor(y, device=device))
 
 
-@pytest.mark.parametrize("k,block", [(1, 8), (3, 16), (8, 128)])
-def test_sweep_kernel_matches_plain(cuda, k, block):
+def _want_plan(obs, cluster):
+    """The regime and clusters ``cd_sweep.bakp_plan`` gives an H100."""
+    from repro_torch.kernels.cd_sweep import CARD_CLUSTERS
+    if obs <= cluster * 128:
+        return "single_cluster", 1
+    return "multi_cluster", min(CARD_CLUSTERS[cluster],
+                                 min(-(-obs // 128), 132) // cluster)
+
+
+@pytest.mark.parametrize("k,block,obs,nvars,cluster,e_in", [
+    (1, 8, 2048, 256, 16, "shared"),        # one cluster
+    (2, 16, 1000, 64, 8, "shared"),         # one cluster of 4, a ragged slice
+    (3, 16, 4096, 256, 16, "shared"),       # two clusters
+    (8, 128, 4096, 256, 4, "shared"),
+    (8, 128, 16384, 256, 16, "shared"),     # 103 of 112 CTAs own obs
+    (1, 32, 200000, 64, 4, "shared"),       # empty slices in the last cluster
+    (3, 32, 200000, 64, 8, "shared"),
+    (8, 32, 200000, 64, 16, "shared"),
+    (9, 16, 200000, 32, 16, "shared"),      # two KC chunks
+    (8, 32, 1000003, 32, 16, "device"),     # e in device memory; odd obs
+])
+def test_sweep_kernel_matches_plain(cuda, monkeypatch, k, block, obs, nvars,
+                                    cluster, e_in):
+    import importlib
+    cd = importlib.import_module("repro_torch.kernels.cd_sweep")
+    monkeypatch.setitem(cd.BAKP_CLUSTER, "sweep", cluster)
     rng = np.random.default_rng(40)
-    x_t = torch.tensor(rng.normal(size=(256, 4096)).astype(np.float32),
+    x_t = torch.tensor(rng.normal(size=(nvars, obs)).astype(np.float32),
                        device=cuda)
     inv = 1.0 / (x_t * x_t).sum(1)
-    e = torch.tensor(rng.normal(size=(k, 4096)).astype(np.float32),
+    e = torch.tensor(rng.normal(size=(k, obs)).astype(np.float32),
                      device=cuda)
     n0 = _build.launch_counts()["bakp_sweep"]
     da, e2 = bakp_sweep(x_t, e, inv, block=block)
     assert _build.launch_counts()["bakp_sweep"] == n0 + 1
+    plan = _build.PLANS["bakp_sweep"]
+    assert (plan.regime, plan.clusters) == _want_plan(obs, cluster)
+    assert plan.ctas == plan.cluster * plan.clusters and plan.e_in == e_in
     pda, pe2 = bakp_sweep_plain(x_t, e, inv, block=block)
     assert _within(da, pda) and _within(e2, pe2, scale=e)
+
+
+def test_sweep_kernel_splits_rhs_over_shared_memory(cuda):
+    """block 256 x k 64: every RHS's exchange arrays do not fit one CTA's
+    shared memory, so the wrapper launches the kernel on two groups of
+    32, which compute what one launch would."""
+    rng = np.random.default_rng(57)
+    x_t = torch.tensor(rng.normal(size=(512, 4096)).astype(np.float32),
+                       device=cuda)
+    inv = 1.0 / (x_t * x_t).sum(1)
+    e = torch.tensor(rng.normal(size=(64, 4096)).astype(np.float32),
+                     device=cuda)
+    n0 = _build.launch_counts()["bakp_sweep"]
+    da, e2 = bakp_sweep(x_t, e, inv, block=256)
+    assert _build.launch_counts()["bakp_sweep"] == n0 + 2
+    pda, pe2 = bakp_sweep_plain(x_t, e, inv, block=256)
+    assert da.shape == (512, 64) and e2.shape == (64, 4096)
+    assert _within(da, pda) and _within(e2, pe2, scale=e)
+
+
+@pytest.mark.parametrize("tag_limit", [None, 64])
+def test_sweep_exchange_words_outlive_launches(cuda, monkeypatch, tag_limit):
+    """A stream's cross-cluster words are kept from launch to launch, not
+    zeroed: each launch's tags start past the last one's, through plans of
+    other sizes (the words grow once) and, with a small tag limit, across
+    the zeroing before the tags would wrap.  Every launch must still match
+    the plain version."""
+    import importlib
+    cd = importlib.import_module("repro_torch.kernels.cd_sweep")
+    if tag_limit is not None:
+        monkeypatch.setattr(cd, "_TAG_LIMIT", tag_limit)
+    rng = np.random.default_rng(58)
+    words = []
+    for obs, k in [(4096, 1), (20000, 3)] * 3:
+        x_t = torch.tensor(rng.normal(size=(256, obs)).astype(np.float32),
+                           device=cuda)
+        inv = 1.0 / (x_t * x_t).sum(1)
+        e = torch.tensor(rng.normal(size=(k, obs)).astype(np.float32),
+                         device=cuda)
+        da, e2 = bakp_sweep(x_t, e, inv, block=16)
+        assert _build.PLANS["bakp_sweep"].regime == "multi_cluster"
+        words.append(cd._xchg[(x_t.device, torch.cuda.current_stream(
+            cuda).cuda_stream)][0])
+        pda, pe2 = bakp_sweep_plain(x_t, e, inv, block=16)
+        assert _within(da, pda) and _within(e2, pe2, scale=e)
+    if tag_limit is None:
+        assert all(w is words[1] for w in words[2:])
 
 
 @pytest.mark.parametrize("k", [None, 8])
@@ -272,14 +346,22 @@ def test_bak_handle_on_card(cuda):
 
 
 # ----------------------------------------------------- streaming kernel
-@pytest.mark.parametrize("k,obs,nvars,block,warm", [
-    (None, 4096, 256, 32, False),   # 8 blocks: the ring wraps every sweep
-    (8, 4096, 224, 32, True),       # 7 blocks: the stage parity flips
-    (3, 4099, 96, 16, False),       # obs % 4 != 0: the 4-byte copies
-    (8, 16384, 512, 128, True),
+@pytest.mark.parametrize("k,obs,nvars,block,warm,cluster", [
+    (None, 2048, 256, 32, False, 16),  # one cluster; the ring wraps every sweep
+    (8, 4096, 224, 32, True, 16),      # 7 blocks: the stage parity flips
+    (3, 4099, 96, 16, False, 8),       # obs % 4 != 0: the 4-byte copies
+    (8, 16384, 512, 128, True, 16),    # 103 of 112 CTAs own obs
+    (None, 200000, 64, 8, False, 4),   # empty slices in the last cluster
+    (3, 200000, 64, 8, True, 8),
+    (8, 200000, 64, 8, False, 16),
+    (8, 1000, 64, 16, True, 4),
 ])
-def test_stream_kernel_matches_plain(cuda, k, obs, nvars, block, warm):
+def test_stream_kernel_matches_plain(cuda, monkeypatch, k, obs, nvars, block,
+                                     warm, cluster):
+    import importlib
     from repro_torch.kernels.stream_solve import stream_solve_plain
+    monkeypatch.setitem(importlib.import_module(
+        "repro_torch.kernels.cd_sweep").BAKP_CLUSTER, "stream", cluster)
     x, a, y = _system(51, obs, nvars, k, cuda)
     y = y + 0.1 * torch.randn(y.shape, device=cuda)
     x_t = x.T.contiguous()
@@ -289,6 +371,9 @@ def test_stream_kernel_matches_plain(cuda, k, obs, nvars, block, warm):
     n0 = _build.launch_counts()["stream_solve"]
     r = stream_solve(x_t, y, a0=a0, block=block, max_iter=12)
     assert _build.launch_counts()["stream_solve"] == n0 + 1
+    plan = _build.PLANS["stream_solve"]
+    assert (plan.regime, plan.clusters) == _want_plan(obs, cluster)
+    assert plan.ctas == plan.cluster * plan.clusters
     pc, pe, ph, _, pn, _ = stream_solve_plain(
         x_t, inv, e0, a0m, block=block, max_iter=12, atol_sse=0.0, rtol=0.0,
         omega=1.0)
@@ -314,13 +399,34 @@ def test_stream_kernel_stops_like_plain(cuda, k):
     assert _within(r.coef, a)
 
 
-@pytest.mark.parametrize("smem,path", [(None, "stream"), (4096, "persweep")])
+def test_stream_kernel_stops_like_plain_across_clusters(cuda):
+    """The stop decision with several clusters: every CTA must take the
+    same one from the exchanged SSE, or the solve hangs."""
+    from repro_torch.kernels.stream_solve import stream_solve_plain
+    x, _, y = _system(56, 200000, 64, 8, cuda)
+    y = y + 0.1 * torch.randn(y.shape, device=cuda)
+    x_t = x.T.contiguous()
+    r = stream_solve(x_t, y, block=8, max_iter=200, rtol=1e-7)
+    plan = _build.PLANS["stream_solve"]
+    assert plan.regime == "multi_cluster" and plan.clusters > 1
+    inv, a0m, e0 = solve_init(x_t, y, None, None, True)
+    _, _, _, _, pn, pconv = stream_solve_plain(
+        x_t, inv, e0, a0m, block=8, max_iter=200, atol_sse=0.0, rtol=1e-7,
+        omega=1.0)
+    assert abs(int(r.n_sweeps) - int(pn)) <= 1 and int(r.n_sweeps) < 200
+    assert bool(r.converged) and bool(pconv)
+
+
+# 100,000 bytes a CTA: too few for the streaming solve's ring at this
+# shape (about 135 KB), enough for the per-sweep kernel's (about 52 KB).
+@pytest.mark.parametrize("smem,path", [(None, "stream"),
+                                       (100_000, "persweep")])
 def test_stream_entry_dispatch_on_card(cuda, monkeypatch, smem, path):
     import importlib
     from repro_torch.kernels import solvebakp_stream_kernel
     if smem is not None:
         monkeypatch.setattr(importlib.import_module(
-            "repro_torch.kernels.stream_solve"), "SMEM_PER_CTA_BYTES", smem)
+            "repro_torch.kernels.cd_sweep"), "SMEM_PER_CTA_BYTES", smem)
     x, a, y = _system(53, 8192, 256, 2, cuda)
     _build.reset_launch_counts()
     consume_dispatch()

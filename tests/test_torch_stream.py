@@ -143,21 +143,26 @@ def test_stream_solve_rejects_bad_shapes(monkeypatch):
     with pytest.raises(ValueError, match="max_iter"):
         stream_solve(torch.zeros(64, 64), torch.zeros(64), block=32,
                      max_iter=0)
-    monkeypatch.setattr(_sm, "SMEM_PER_CTA_BYTES", 1024)
+    monkeypatch.setattr(_cd, "SMEM_PER_CTA_BYTES", 1024)
     with pytest.raises(ValueError, match="shared memory"):
         stream_solve(torch.zeros(64, 64), torch.zeros(64), block=32)
 
 
 # ------------------------------------------------------- the fit predicate
 def test_stream_fits_worked_examples():
-    # 16,384 obs on 128 CTAs of L = 128, thr 128, k 8: 139,264 bytes of
-    # ring, residual and increments, plus the reduction scratch.
-    assert _sm.stream_plan(16_384) == (128, 128)
-    assert stream_smem_bytes(16_384, 8, 4, block=128) == 139_264 + 33 * 4
+    # 16,384 obs on 7 clusters of 16 CTAs (what an H100 holds at once at
+    # one CTA per SM), L = 160, thr 128, k 8: the exchange arrays (3 x 16
+    # slices of 64 floats, the owned slice and 60 fixed floats, 12,784
+    # bytes), a 163,840-byte ring and the 5,120-byte residual slice.
+    plan = _sm.stream_plan(16_384, 8, block=128)
+    assert (plan.regime, plan.ctas, plan.cluster, plan.clusters, plan.L) == (
+        "multi_cluster", 112, 16, 7, 160)
+    assert stream_smem_bytes(16_384, 8, 4, block=128) == (
+        12_784 + 163_840 + 5_120) == plan.smem
     assert stream_fits(4_096, 16_384, 8, 4, block=128)
-    # Phase 2 of chip_smoke.py: 262,144 obs at thr 256 is a 2 MB tile per
+    # Phase 2 of chip_smoke.py: 262,144 obs at thr 256 is a 2.4 MB tile per
     # stage per CTA, so the per-sweep path, as JAX routes it too.
-    assert _sm.stream_plan(262_144) == (132, 2_016)
+    assert _sm.stream_plan(262_144, 8, block=256).L == 2_368
     assert not stream_fits(1_024, 262_144, 8, 4, block=256)
     assert not j_stream_fits(1_024, 262_144, 8, 4, block=256)
     # vars never enters; the x resident on chip is two (block, obs) tiles.
@@ -165,6 +170,48 @@ def test_stream_fits_worked_examples():
     for block, obs in ((128, 16_384), (256, 262_144)):
         assert (stream_x_resident_bytes(block, obs, 4)
                 == j_x_resident(block, obs, 4))
+
+
+@pytest.mark.parametrize("cluster", [4, 8, 16])
+def test_bakp_plan_arithmetic(monkeypatch, cluster):
+    """The Algorithm-2 cluster plan: one cluster while obs needs no more
+    CTAs at MIN_OBS_PER_CTA each (halved below that), else as many clusters
+    as the card holds, with empty slices in a ragged last cluster; the
+    exchange words and the per-sweep kernel's residual placement."""
+    monkeypatch.setitem(_cd.BAKP_CLUSTER, "stream", cluster)
+    held = _cd.CARD_CLUSTERS[cluster]
+    one = _cd.bakp_plan("stream", cluster * 128, 3, 32)
+    assert (one.regime, one.ctas, one.clusters, one.L, one.xchg_words) == (
+        "single_cluster", cluster, 1, 128, 0)
+    half = _cd.bakp_plan("stream", cluster * 128 - 1, 3, 32)
+    assert half.ctas == half.cluster == cluster // 2
+    many = _cd.bakp_plan("stream", 200_000, 3, 32)
+    assert (many.regime, many.cluster, many.clusters) == (
+        "multi_cluster", cluster, held)
+    assert many.ctas == cluster * held
+    assert many.L == -(-(-(-200_000 // many.ctas)) // 32) * 32
+    # kp = 4 for k = 3; S = ceil(32·4 / C) rounded to 4; two parities of
+    # C·S step words and 2 SSE words a cluster, 64 bits each.
+    own = -(-(-(-128 // cluster)) // 4) * 4
+    assert _cd.bakp_own(32, 3, cluster) == own
+    assert many.xchg_words == 4 * held * (cluster * own + 2)
+    assert _cd.bakp_exchange_bytes(32, 3, cluster) == 4 * (
+        60 + 3 * cluster * own + own)
+    # The phase 3 shape leaves part of the last cluster without obs.
+    p3 = _cd.bakp_layout(16_384, cluster=cluster, max_clusters=held)
+    assert p3[1] * p3[4] - 16_384 >= 0
+    if cluster == 16:
+        assert -(-16_384 // p3[4]) == 103 < p3[1] == 112
+    # Capped CTAs shrink the cluster; the per-sweep kernel keeps e in
+    # shared memory while it fits beside its ring, else in device memory.
+    assert _cd.bakp_layout(2_000, cluster=cluster, max_ctas=1)[1:4] == (
+        1, 1, 1)
+    # The per-sweep kernel has its own cluster size; e stays in shared
+    # memory while it fits beside a ring of three chunks.
+    assert _cd.bakp_plan("sweep", 262_144, 8, 256).cluster == (
+        _cd.BAKP_CLUSTER["sweep"])
+    assert _cd.bakp_plan("sweep", 262_144, 8, 256).e_in == "shared"
+    assert _cd.bakp_plan("sweep", 1_000_003, 8, 128).e_in == "device"
 
 
 @pytest.mark.parametrize("const,value", [("SMEM_PER_CTA_BYTES", 4096),
@@ -180,8 +227,7 @@ def test_resident_handle_streams_and_reroutes(monkeypatch, const, value):
     jr = j_solvebakp(x, y, thr=32, mode="jacobi", max_iter=30, a0=a0)
     _close(r.coef, jr.coef)
     _close(r.residual, jr.residual, scale=y)
-    monkeypatch.setattr(_cd if const == "MIN_OBS_PER_CTA" else _sm, const,
-                        value)
+    monkeypatch.setattr(_cd, const, value)
     before = fallback_counts().get(("bakp_stream", "vmem"), 0)
     rf = p.solve(y, a0)
     assert consume_dispatch() == "persweep"
