@@ -30,17 +30,22 @@ process per source, in parallel), then:
   4. each kernel against its plain torch version on the same inputs, on the
      card, and timed with CUDA events beside its roofline bound (and beside
      the nearest single PyTorch call, where there is one); for the streaming
-     kernel also the whole-solve kernel and the per-sweep loop on the same
-     design, as findings.  The Algorithm-1 rows carry their launch plan
+     kernel also the per-sweep loop on the same design, as a finding.  The
+     Algorithm-1 rows carry their launch plan
      (regime, CTAs, cluster size, clusters, where e lives) and the time of a
      column step; phase 1 must run on one thread-block cluster and phase 2
-     on several.  The Algorithm-2 cluster kernels' rows (``bakp_sweep`` at
-     phases 1-3, ``stream_solve`` at phase 3) carry their plan (regime,
-     CTAs, cluster size, clusters, L) and the time of a block step; phase 3's
-     streaming solves and phase 2's per-sweep loop must run on several
-     clusters.  Then the Algorithm-1 kernels at each cluster size of 2, 4,
-     8 and 16, and the Algorithm-2 cluster kernels at 4, 8 and 16, each
-     launch held to its plain version;
+     on several.  The Algorithm-2 kernels' rows (``bakp_sweep`` at phases
+     1-3, ``fused_solve`` at phase 1, ``stream_solve`` at phase 3) carry
+     their plan (regime, CTAs, cluster size, clusters, L, where x's tiles
+     come from, right-hand sides an exchange) and the time of a block step;
+     phase 1's handle must run the fused kernel with x's slices in shared
+     memory (x_shared), phase 3's streaming solves and phase 2's per-sweep
+     loop on several clusters.  The fused kernel also runs on a 16,384 x
+     512 design (within the budget, over shared memory: x_l2) and at block
+     256 with k 64 (right-hand sides in groups), each in one launch.  Then
+     the Algorithm-1 kernels at each cluster size of 2, 4, 8 and 16, and
+     the Algorithm-2 cluster kernels at 4, 8 and 16, each launch held to its
+     plain version;
   5. a ``kernels`` summary line, the card's name and power limit, and the
      result line ``{"ok": true, "device": {...}}``.
 
@@ -190,6 +195,7 @@ def main() -> int:
     check(fused_fits(vars1, obs1, k, 4, max_iter=spec1.max_iter),
           "phase 1 design must fit the fused budget")
     p1 = prepare(x1, spec1)
+    _build.PLANS.pop("fused_solve", None)
     request("handle", "bakp_fused", lambda: p1.solve(y1), a1, "fused")
     request("handle_k8", "bakp_fused", lambda: p1.solve(y1k), a1k, "fused")
     cold = request("handle_tenant_cold", "bakp_fused",
@@ -201,6 +207,10 @@ def main() -> int:
     check(int(warm.n_sweeps) < int(cold.n_sweeps),
           f"warm solve took {int(warm.n_sweeps)} sweeps, cold "
           f"{int(cold.n_sweeps)}")
+    plan1 = _build.PLANS.get("fused_solve")
+    check(plan1 is not None and plan1.x_in == "shared",
+          f"phase 1 bakp_fused must keep x's slices in shared memory "
+          f"(x_shared), ran {plan1}")
     for m in ("bakp", "bakp_gram", "lstsq", "normal"):
         request("solve_shim", m,
                 lambda m=m: solve(x1, y1, method=m, rtol=1e-7, max_iter=100),
@@ -477,7 +487,8 @@ def main() -> int:
                    variant="bakp", plain_iters=None):
         """A whole-solve kernel against its plain version: ``variant``
         "bakp" / "bak" (fused_solve.cu / bak_fused.cu) or "stream"
-        (stream_solve.cu, which reads x once per sweep)."""
+        (stream_solve.cu, which reads x once per sweep); one solve must be
+        one launch."""
         nv, no = x_t.shape
         nrhs = y.shape[1] if y.dim() == 2 else 1
         inv_cn, a0m, e0 = solve_init(x_t, y, inv, None, y.dim() == 2)
@@ -490,7 +501,10 @@ def main() -> int:
             kw["variant"] = variant
             name = "fused_solve" if variant == "bakp" else "bak_fused"
             kernel_fn, plain_fn = fused_cuda, fused_solve_plain
+        n0 = _build.LAUNCHES[name]
         ck, ek, hk, sk, nk, _ = kernel_fn(x_t, inv_cn, e0, a0m, **kw)
+        check(_build.LAUNCHES[name] == n0 + 1,
+              f"{name} {label}: {_build.LAUNCHES[name] - n0} launches")
         cp, ep, hp, sp, np_, _ = plain_fn(x_t, inv_cn, e0, a0m, **kw)
         sync()
         nk, np_ = int(nk), int(np_)
@@ -521,8 +535,9 @@ def main() -> int:
             # A column step's time; the per-sweep SSE step is included.
             row["plan"] = _build.PLANS[name]._asdict()
             row["us_per_column"] = ms * 1e3 / (nk * nv)
-        elif variant == "stream":
-            # A block step's time; the per-sweep SSE is included.
+        else:
+            # A block step's time (every group of right-hand sides); the
+            # per-sweep SSE is included.
             row["plan"] = _build.PLANS[name]._asdict()
             row["us_per_step"] = ms * 1e3 / (nk * (nv // block))
         emit({"phase": "kernel_vs_plain", "kernel": name, "case": label,
@@ -559,10 +574,34 @@ def main() -> int:
                                      y1k + 0.1 * randn(obs1, k), thr1, 20,
                                      0.0, 10)
     fused_case("phase1_k8_rtol", x1t, inv1, y1k, thr1, 100, 1e-7, 5)
-    # Same design and work at half the block width: twice the column
-    # blocks, so 2·nblocks+1 = 9 grid barriers per sweep instead of 5.
+    # Same design and work at half the block width: twice the block steps
+    # a sweep.
     fused_case("phase1_k1_thr64_fixed20", p1.x_t_for(64), p1.inv_cn_for(64),
                y1 + 0.1 * randn(obs1), 64, 20, 0.0, 10)
+    # A 16,384 x 512 design (32 MiB, within the fused budget): no CTA can
+    # keep its slice of x, so each block's tile comes from the L2 through
+    # the two-stage ring (x_l2).
+    x1w = randn(obs1, 2 * vars1)
+    x1wt = x1w.T.contiguous()
+    inv1w = safe_inv(column_norms_sq_t(x1wt))
+    check(fused_fits(2 * vars1, obs1, k, 4, max_iter=20),
+          "the 16,384 x 512 design must fit the fused budget")
+    wide = fused_case("phase1w_k8_fixed20", x1wt, inv1w,
+                      x1w @ randn(2 * vars1, k) + 0.1 * randn(obs1, k), thr1,
+                      20, 0.0, 10)
+    check(wide["plan"]["x_in"] == "ring",
+          f"16,384 x 512 fused_solve: x_in {wide['plan']['x_in']}, want ring")
+    del x1w, x1wt
+    # Block 256 at k 64: one exchange of all 64 right-hand sides does not
+    # fit a CTA beside the slices, so a block step runs them in groups.
+    g64 = fused_case("phase1_k64_thr256_fixed20", p1.x_t_for(256),
+                     p1.inv_cn_for(256), x1 @ randn(vars1, 64)
+                     + 0.1 * randn(obs1, 64), 256, 20, 0.0, 5)
+    check(1 < g64["plan"]["group"] < 64,
+          f"block 256, k 64 fused_solve: group {g64['plan']['group']}")
+    for row in (rows["fused_solve"], g64):
+        check(row["plan"]["x_in"] == "shared",
+              f"phase 1 fused_solve: x_in {row['plan']['x_in']}, want shared")
 
     # Algorithm 1: one sweep at the phase shapes, the whole solve at a
     # fixed 20 sweeps (n_sweeps must match) and to rtol 1e-7.  The plain
@@ -657,9 +696,7 @@ def main() -> int:
         20, [thr2, obs2, k])
 
     # The streaming kernel on the phase 3 design: 20 fixed sweeps at k 1 and
-    # k 8, and to rtol 1e-7.  Beside it, as findings, the whole-solve kernel
-    # launched directly on the same design (x read twice a block, from a
-    # 256 MiB design that misses the L2) and the per-sweep loop.
+    # k 8, and to rtol 1e-7.  Beside it, as a finding, the per-sweep loop.
     x3t, inv3 = p3.x_t_for(thr3), p3.inv_cn_for(thr3)
     y3n = y3 + 0.1 * randn(obs3)
     y3kn = y3k + 0.1 * randn(obs3, k)
@@ -683,23 +720,31 @@ def main() -> int:
               f"stream_solve phase3 k {label}: regime {row['plan']['regime']}")
 
     # The cluster size of the Algorithm-2 cluster kernels: 4, 8 and 16 at
-    # the phase 2 and 3 shapes, every launch held to its plain version;
-    # cd_sweep.BAKP_CLUSTER holds each kernel's rule.
+    # the phase 1 (the fused solve), 2 and 3 shapes, every launch held to
+    # its plain version; cd_sweep.BAKP_CLUSTER holds each kernel's rule.
     rule2 = dict(cd_mod.BAKP_CLUSTER)
     a2_in = {"bakp_sweep phase2_k8": (x2t, e2k, inv2, thr2),
              "bakp_sweep phase3_k8": (x3t, randn(k, obs3), inv3, thr3)}
     a2_plain = {lab: bakp_sweep_plain(x_t, e_in, inv, block=blk)
                 for lab, (x_t, e_in, inv, blk) in a2_in.items()}
+    # Whole solves, 20 fixed sweeps: (kernel, plain, x_t, block, operands).
     s_ops = {}
-    for lab, yy in (("stream_solve phase3_k1_fixed20", y3n),
-                    ("stream_solve phase3_k8_fixed20", y3kn)):
-        inv_cn, a0m, e0 = solve_init(x3t, yy, inv3, None, yy.dim() == 2)
-        s_ops[lab] = (inv_cn, e0, a0m)
-        a2_plain[lab] = stream_solve_plain(
-            x3t, *s_ops[lab], block=thr3, max_iter=20, atol_sse=0.0,
+    for lab, solver, plain_fn, x_t, inv, blk, yy in (
+            ("fused_solve phase1_k1_fixed20", fused_cuda, fused_solve_plain,
+             x1t, inv1, thr1, y1 + 0.1 * randn(obs1)),
+            ("fused_solve phase1_k8_fixed20", fused_cuda, fused_solve_plain,
+             x1t, inv1, thr1, y1k + 0.1 * randn(obs1, k)),
+            ("stream_solve phase3_k1_fixed20", stream_cuda,
+             stream_solve_plain, x3t, inv3, thr3, y3n),
+            ("stream_solve phase3_k8_fixed20", stream_cuda,
+             stream_solve_plain, x3t, inv3, thr3, y3kn)):
+        inv_cn, a0m, e0 = solve_init(x_t, yy, inv, None, yy.dim() == 2)
+        s_ops[lab] = (solver, x_t, blk, (inv_cn, e0, a0m))
+        a2_plain[lab] = plain_fn(
+            x_t, inv_cn, e0, a0m, block=blk, max_iter=20, atol_sse=0.0,
             rtol=0.0, omega=1.0)[:2]
     for csize in (4, 8, 16):
-        cd_mod.BAKP_CLUSTER.update(stream=csize, sweep=csize)
+        cd_mod.BAKP_CLUSTER.update(stream=csize, sweep=csize, fused=csize)
         for lab in (*a2_in, *s_ops):
             if lab in a2_in:
                 x_t, e_in, inv, blk = a2_in[lab]
@@ -707,32 +752,27 @@ def main() -> int:
                       _bakp_sweep_cuda(x_t, e_in, inv, block=blk, omega=1.0))
                 name, steps, scale = "bakp_sweep", x_t.shape[0] // blk, e_in
             else:
-                ops = s_ops[lab]
-                fn = (lambda ops=ops: stream_cuda(
-                    x3t, *ops, block=thr3, max_iter=20, atol_sse=0.0,
+                solver, x_t, blk, ops = s_ops[lab]
+                fn = (lambda solver=solver, x_t=x_t, blk=blk, ops=ops: solver(
+                    x_t, *ops, block=blk, max_iter=20, atol_sse=0.0,
                     rtol=0.0, omega=1.0))
-                name, steps, scale = ("stream_solve", 20 * (vars3 // thr3),
-                                      ops[1])
+                name = lab.split()[0]
+                steps, scale = 20 * (x_t.shape[0] // blk), ops[1]
             out = fn()
             sync()
             err = max(rel(out[0], a2_plain[lab][0]),
                       rel(out[1], a2_plain[lab][1], scale=scale))
             check(err <= KERNEL_TOL, f"{lab} cluster {csize}: rel err {err}")
-            ms = cuda_ms(fn, 3)
+            ms = cuda_ms(fn, 10 if name == "fused_solve" else 3)
             emit({"phase": "bakp_cluster_sweep", "case": lab,
                   "cluster": csize, "plan": _build.PLANS[name]._asdict(),
                   "rel_err": err, "ms": ms, "us_per_step": ms * 1e3 / steps})
     cd_mod.BAKP_CLUSTER.update(rule2)
     for label, yy in (("phase3_k1_fixed20", y3n), ("phase3_k8_fixed20", y3kn)):
         nrhs = yy.shape[1] if yy.dim() == 2 else 1
-        inv_cn, a0m, e0 = solve_init(x3t, yy, inv3, None, yy.dim() == 2)
-        fused_ms = cuda_ms(lambda: fused_cuda(
-            x3t, inv_cn, e0, a0m, block=thr3, max_iter=20, atol_sse=0.0,
-            rtol=0.0, omega=1.0), 10)
         persweep_ms = cuda_ms(lambda: solvebakp_persweep_kernel(
             x3t, yy, inv_cn=inv3, block=thr3, max_iter=20), 3)
         emit({"phase": "stream_findings", "case": label, "k": nrhs,
-              "fused_solve_direct_ms": fused_ms,
               "persweep_loop_ms": persweep_ms,
               "stream_solve_ms": stream_rows[nrhs]["ms"]})
 

@@ -8,8 +8,8 @@
                   cluster kernels (bakp_plan / bakp_grid for Algorithm 2,
                   bak_grid for Algorithm 1) and the on-chip budget; the
                   steps the kernels share are csrc/bakp_cluster.cuh
-                  (bakp_sweep, stream_solve), csrc/bakp_block.cuh
-                  (fused_solve) and csrc/bak_column.cuh.
+                  (bakp_sweep, and through csrc/bakp_solve.cuh's loop
+                  fused_solve and stream_solve) and csrc/bak_column.cuh.
   stream_solve.py whole-solve SolveBakP with x left in device memory and
                   streamed through a shared-memory ring
                   (csrc/stream_solve.cu), and the out-of-core host-block

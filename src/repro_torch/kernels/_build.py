@@ -48,8 +48,9 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "bakp_sweep_launch": [_P] * 6 + [_U] + [_I] * 4 + [_F] + [_I] * 6 + [_P],
     },
     "fused_solve": {
-        "bakp_fused_grid": [_I, _I, _P],
-        "bakp_fused_launch": [_P] * 13 + [_I] * 5 + [_F] * 3 + [_I, _P],
+        "bakp_fused_clusters": [_I, _I, _I, _P],
+        "bakp_fused_launch": [_P] * 11 + [_U] + [_I] * 6 + [_F] * 3
+        + [_I] * 5 + [_P],
     },
     "bak_sweep": {
         "bak_sweep_grid": [_I, _I, _I, _I, _P],

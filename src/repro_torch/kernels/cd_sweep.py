@@ -10,8 +10,9 @@ given: CPU tensors run the plain versions (``cd_sweep_plain``,
 ``bakp_sweep_plain``), CUDA tensors launch the kernels, and anything else
 raises.  Both kernels split obs across CTAs on thread-block clusters: the
 Algorithm-2 kernel in one of two regimes (``bakp_grid``,
-``csrc/bakp_cluster.cuh``, whose plan the streaming kernel shares), the
-Algorithm-1 kernel in one of four (``bak_grid``, ``csrc/bak_column.cuh``).
+``csrc/bakp_cluster.cuh``, whose plan the two whole-solve kernels share),
+the Algorithm-1 kernel in one of four (``bak_grid``,
+``csrc/bak_column.cuh``).
 The JAX ``cd_sweep``
 stages ``block`` rows per grid step and checks a VMEM budget; here
 ``block`` only has to divide vars (as in JAX), since the Algorithm-1 kernel
@@ -28,11 +29,12 @@ from repro_torch.kernels import _build
 
 # On-chip budget of the whole-solve kernel's working set, in bytes; replaces
 # the JAX package's TPU figure ``VMEM_BUDGET_BYTES`` (64 MiB of VMEM).  The
-# port's fused kernel reads x through the L2 cache every sweep, so the
+# port's fused kernel keeps x's slices in shared memory where they fit and
+# reads x through the L2 cache every sweep where they do not, so the
 # budget is an L2 figure: 40 MiB, 80% of an H100's 50 MiB L2, leaving the
-# rest to the scratch, the residual traffic and other streams' lines (see
-# PERF.md).  A fixed constant keeps dispatch deterministic on any host;
-# ``fused_fits`` reads it at call time, so tests may patch it.
+# rest to the residual traffic and other streams' lines (see PERF.md).  A
+# fixed constant keeps dispatch deterministic on any host; ``fused_fits``
+# reads it at call time, so tests may patch it.
 ON_CHIP_BUDGET_BYTES = 40 * 1024 * 1024
 
 # Shared memory the kernels may take for one block's increments (block·k
@@ -55,8 +57,9 @@ BAK_E_PLACES = ("device", "shared", "registers")
 # CTAs in a thread-block cluster of each Algorithm-2 kernel, from the sweep
 # over {4, 8, 16} at the phase shapes (PERF.md): the streaming solve
 # is fastest on 7 clusters of 16, the per-sweep kernel on 15 of 8 (120
-# CTAs pull x from device memory, not 112); read at call time.
-BAKP_CLUSTER = {"stream": 16, "sweep": 8}
+# CTAs pull x from device memory, not 112), the fused solve on 7 of 16;
+# read at call time.
+BAKP_CLUSTER = {"stream": 16, "sweep": 8, "fused": 16}
 
 # Clusters of C CTAs an H100 SXM holds at once at one CTA per SM (measured,
 # PERF.md): the plan's arithmetic where no card is asked (the fit
@@ -72,6 +75,15 @@ SMEM_PER_CTA_BYTES = 232_448
 # The Algorithm-2 plan's regimes, by the codes the kernels take
 # (csrc/bakp_cluster.cuh).
 BAKP_REGIMES = ("single_cluster", "multi_cluster")
+
+# Where a block's tile of x comes from in an Algorithm-2 kernel, by the
+# codes the whole-solve kernels take (csrc/bakp_solve.cuh): "shared", x's
+# slice resident in shared memory for the whole launch (the fused kernel's
+# x_shared regime); "ring", tiles copied through a shared-memory ring (the
+# streaming kernel, the per-sweep kernel's ring of row chunks, and the
+# fused kernel's x_l2 regime); "direct", read in place from the L2 with
+# the residual (the fused kernel's x_l2 where no ring fits a CTA).
+BAKP_X_IN = ("shared", "ring", "direct")
 
 # Floats of a CTA's dynamic shared memory besides the exchange arrays
 # (BAKP_HDR_FIXED), and the per-sweep kernel's ring: 3 to 8 stages of 32
@@ -137,19 +149,6 @@ def bakp_sweep_plain(x_t, e2, inv_cn, *, block, omega=1.0):
     return torch.cat(das), e
 
 
-def cooperative_grid(lib_fn, obs: int, k: int, block: int) -> int:
-    """CTAs for a cooperative launch of the grid-barrier kernel
-    (``fused_solve``): at most what the card holds at once for this kernel,
-    and at least ``MIN_OBS_PER_CTA`` obs per CTA."""
-    key = (lib_fn.__name__, torch.cuda.current_device(), k, block)
-    if key not in _grid_cache:
-        out = ctypes.c_int(0)
-        _build.check(lib_fn(k, block, ctypes.addressof(out)),
-                     lib_fn.__name__)
-        _grid_cache[key] = out.value
-    return max(1, min(_grid_cache[key], -(-obs // MIN_OBS_PER_CTA)))
-
-
 class BakpPlan(NamedTuple):
     """Launch plan of the Algorithm-2 cluster kernels (``bakp_plan``)."""
     regime: str         # one of BAKP_REGIMES
@@ -160,7 +159,9 @@ class BakpPlan(NamedTuple):
     xchg_words: int     # int32 words of the cross-cluster exchange
     smem: int           # dynamic shared memory bytes a CTA carves
     e_in: str           # where the residual slices live: "shared"/"device"
-    stages: int         # depth of the x ring
+    stages: int         # depth of the x ring (0: no ring)
+    x_in: str           # where a block's tile comes from: one of BAKP_X_IN
+    group: int          # right-hand sides a block step exchanges at once
 
 
 def slice_len(obs: int, ctas: int) -> int:
@@ -191,6 +192,23 @@ def bakp_exchange_bytes(block: int, k: int, cluster: int) -> int:
     return 4 * (_HDR_FIXED + 3 * cluster * own + own)
 
 
+def _cluster_size(cluster: int, max_ctas: "int | None") -> int:
+    """``cluster`` halved until a cluster fits ``max_ctas`` CTAs."""
+    cap = MAX_CTAS if max_ctas is None else max_ctas
+    while cluster > 1 and cluster > cap:
+        cluster >>= 1
+    return cluster
+
+
+def _clusters_held(size: int, max_ctas: "int | None",
+                   max_clusters: "int | None") -> int:
+    """Clusters of ``size`` CTAs a launch may take at most."""
+    cap = MAX_CTAS if max_ctas is None else max_ctas
+    fit = (CARD_CLUSTERS.get(size, MAX_CTAS // size)
+           if max_clusters is None else max_clusters)
+    return max(1, min(fit, cap // size))
+
+
 def bakp_layout(obs: int, *, cluster: int, max_ctas: "int | None" = None,
                 max_clusters: "int | None" = None):
     """``(regime, ctas, cluster, clusters, L)`` of an Algorithm-2 launch.
@@ -202,32 +220,92 @@ def bakp_layout(obs: int, *, cluster: int, max_ctas: "int | None" = None,
     clusters (default ``CARD_CLUSTERS``, what an H100 holds at once).  The
     cluster shrinks to fit ``max_ctas``.  A launch of one cluster is the
     single-cluster regime; the last CTAs may own empty slices."""
-    size = cluster
-    cap = MAX_CTAS if max_ctas is None else max_ctas
-    while size > 1 and size > cap:
-        size >>= 1
+    size = _cluster_size(cluster, max_ctas)
     if obs <= size * MIN_OBS_PER_CTA:
         while size > 1 and size * MIN_OBS_PER_CTA > obs:
             size >>= 1
         n = 1
     else:
-        fit = (CARD_CLUSTERS.get(size, MAX_CTAS // size)
-               if max_clusters is None else max_clusters)
         want = -(-obs // MIN_OBS_PER_CTA)
-        n = max(1, min(fit, min(want, cap) // size))
+        n = max(1, min(_clusters_held(size, max_ctas, max_clusters),
+                       want // size))
     regime = BAKP_REGIMES[0] if n == 1 else BAKP_REGIMES[1]
     return regime, n * size, size, n, slice_len(obs, n * size)
 
 
-def bakp_plan(kind: str, obs: int, k: int, block: int, **layout) -> BakpPlan:
-    """The launch plan of ``kind`` ("stream" or "sweep") on ``bakp_layout``
-    (its keywords; the cluster defaults to ``BAKP_CLUSTER[kind]``), with
-    the shared memory a CTA carves: the exchange
-    arrays, then for "stream" the two-stage tile ring and the residual
-    slice; for "sweep" the residual slice when it fits
+def _more_ctas(obs: int, **layout):
+    """``bakp_layout``'s launch, then every launch of more CTAs the card
+    holds (one cluster more at a time), each with a shorter slice."""
+    base = bakp_layout(obs, **layout)
+    yield base
+    size = _cluster_size(layout["cluster"], layout.get("max_ctas"))
+    held = _clusters_held(size, layout.get("max_ctas"),
+                          layout.get("max_clusters"))
+    for n in range(1, held + 1):
+        if n * size > base[1]:
+            yield (BAKP_REGIMES[n > 1], n * size, size, n,
+                   slice_len(obs, n * size))
+
+
+def _group(block: int, k: int, cluster: int, room: int) -> int:
+    """Most right-hand sides one exchange may carry within ``room`` bytes
+    of exchange arrays, spread evenly over the groups k then takes; 0
+    where not even one fits."""
+    g = k
+    while g > 0 and bakp_exchange_bytes(block, g, cluster) > room:
+        g -= 1
+    return g and -(-k // -(-k // g))
+
+
+def _fused_plan(obs: int, k: int, block: int, nvars: int, layout) -> BakpPlan:
+    """The whole-solve kernel's plan: x's slice resident in shared memory
+    (``x_in`` "shared") where it, the residual slice and one exchange of at
+    least one right-hand side fit ``SMEM_PER_CTA_BYTES`` on some launch of
+    ``_more_ctas``; else each block's tile through the two-stage ring
+    ("ring") where that fits; else x and the residual read in place
+    ("direct") on ``bakp_layout``'s launch.  Of the launches that fit, the
+    one whose exchanges carry the most right-hand sides (the fewest groups),
+    then the fewest CTAs.  Raises where one right-hand side's exchange
+    arrays alone overflow a CTA."""
+    for x_in, per_pos in (("shared", 4 * (nvars + k)),
+                          ("ring", 4 * (2 * block + k)), ("direct", 0)):
+        layouts = (_more_ctas(obs, **layout) if x_in != "direct"
+                   else [bakp_layout(obs, **layout)])
+        best, best_group = None, 0
+        for lay in layouts:
+            group = _group(block, k, lay[2],
+                           SMEM_PER_CTA_BYTES - per_pos * lay[4])
+            if group > best_group:
+                best, best_group = lay, group
+        if best is not None:
+            regime, ctas, size, n, length = best
+            own = bakp_own(block, best_group, size)
+            smem = bakp_exchange_bytes(block, best_group, size)
+            return BakpPlan(
+                regime, ctas, size, n, length,
+                0 if n == 1 else 4 * n * (size * own + 2),
+                smem + per_pos * length,
+                "device" if x_in == "direct" else "shared",
+                2 if x_in == "ring" else 0, x_in, best_group)
+    raise ValueError(
+        f"fused_solve: one right-hand side's exchange arrays at block "
+        f"{block} take {bakp_exchange_bytes(block, 1, layouts[0][2])} bytes "
+        f"of shared memory a CTA, over {SMEM_PER_CTA_BYTES}; reduce block")
+
+
+def bakp_plan(kind: str, obs: int, k: int, block: int, *, nvars: int = 0,
+              **layout) -> BakpPlan:
+    """The launch plan of ``kind`` ("stream", "sweep" or "fused") on
+    ``bakp_layout`` (its keywords; the cluster defaults to
+    ``BAKP_CLUSTER[kind]``), with the shared memory a CTA carves: the
+    exchange arrays, then for "stream" the two-stage tile ring and the
+    residual slice; for "sweep" the residual slice when it fits
     ``SMEM_PER_CTA_BYTES`` beside a ring of three chunks, and a ring of as
-    many chunks as then fit, three to eight."""
+    many chunks as then fit, three to eight; for "fused" (a design of
+    ``nvars`` rows) as ``_fused_plan`` picks."""
     layout.setdefault("cluster", BAKP_CLUSTER[kind])
+    if kind == "fused":
+        return _fused_plan(obs, k, block, nvars, layout)
     regime, ctas, size, n, length = bakp_layout(obs, **layout)
     smem = bakp_exchange_bytes(block, k, size)
     e_bytes = 4 * k * length
@@ -246,29 +324,34 @@ def bakp_plan(kind: str, obs: int, k: int, block: int, **layout) -> BakpPlan:
         smem += stages * stage
     # Two parities x clusters x (C·S step words + 2 SSE words), 64 bits each.
     words = 0 if n == 1 else 4 * n * (size * bakp_own(block, k, size) + 2)
-    return BakpPlan(regime, ctas, size, n, length, words, smem, e_in, stages)
+    return BakpPlan(regime, ctas, size, n, length, words, smem, e_in, stages,
+                    "ring", k)
 
 
-def bakp_grid(lib_fn, kind: str, obs: int, k: int, block: int) -> BakpPlan:
+def bakp_grid(lib_fn, kind: str, obs: int, k: int, block: int, *,
+              nvars: int = 0) -> BakpPlan:
     """``bakp_plan`` on the current card: the clusters it holds at once
     come from the CUDA runtime (``lib_fn``, a ``*_clusters`` entry), its
     SM count caps the CTAs.  Raises if the card cannot place one cluster."""
     dev = torch.cuda.current_device()
     size = BAKP_CLUSTER[kind]
-    key = (lib_fn.__name__, dev, obs, k, block, size, SMEM_PER_CTA_BYTES)
+    key = (lib_fn.__name__, dev, obs, k, block, nvars, size,
+           SMEM_PER_CTA_BYTES)
     if key not in _grid_cache:
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        plan = bakp_plan(kind, obs, k, block, cluster=size, max_ctas=sms)
+        plan = bakp_plan(kind, obs, k, block, nvars=nvars, cluster=size,
+                         max_ctas=sms)
         out = ctypes.c_int(0)
-        _build.check(lib_fn(k, plan.cluster, plan.smem,
+        _build.check(lib_fn(plan.group, plan.cluster, plan.smem,
                             ctypes.addressof(out)), lib_fn.__name__)
         if out.value < 1:
             raise RuntimeError(
                 f"{lib_fn.__name__}: the card holds no cluster of "
                 f"{plan.cluster} CTAs with {plan.smem} bytes of shared "
                 f"memory each")
-        _grid_cache[key] = bakp_plan(kind, obs, k, block, cluster=size,
-                                     max_ctas=sms, max_clusters=out.value)
+        _grid_cache[key] = bakp_plan(kind, obs, k, block, nvars=nvars,
+                                     cluster=size, max_ctas=sms,
+                                     max_clusters=out.value)
     return _grid_cache[key]
 
 

@@ -1,8 +1,7 @@
-// SolveBakP (paper Algorithm 2) block step on thread-block clusters, shared
-// by the streaming whole-solve kernel (stream_solve.cu) and the per-sweep
-// kernel (bakp_sweep.cu).  The whole-solve kernel fused_solve.cu still runs
-// bakp_block.cuh's grid-barrier step; the two steps sum in different fixed
-// orders, so they agree to fp32 rounding, not bit for bit.
+// SolveBakP (paper Algorithm 2) block step on thread-block clusters, run by
+// every Algorithm-2 kernel: the two whole-solve kernels (fused_solve.cu and
+// stream_solve.cu, through bakp_solve.cuh's solve loop) and the per-sweep
+// kernel (bakp_sweep.cu).
 //
 // Layout as bakp_block.cuh: x_t (vars, obs) row-major fp32, residuals
 // e (k, obs), coefficients and increments (vars, k), inv_cn (vars,).
@@ -15,7 +14,9 @@
 // every exchange.  A block's CB·k partial inner products are kept as CB
 // rows of kp (k padded to 1, 2 or a multiple of 4) and cut into C equal
 // slices of S floats (S a multiple of 4), slice j owned by cluster rank j.
-// Per column block b (step t):
+// Per column block b (step t; a whole solve whose exchange arrays do not
+// fit every right-hand side runs one step per group of them, see
+// bakp_solve.cuh):
 //   1. partials: warp w carries 4 rows of the block through the CTA's
 //      positions, lanes on consecutive float4 groups, KC right-hand sides
 //      at a time, and ends with a butterfly reduce-scatter of its 4·KC
@@ -84,7 +85,8 @@
 // each phase to bakp_clocks[phase] and counts the steps in bakp_clocks[8].
 // Phases: ring wait, partials' FMAs, their reduce-scatter and write, the
 // push and its wait, the rank-order (and cross-cluster) sum, the da
-// all-gather and its wait, the update.
+// all-gather and its wait, the update; a whole solve's per-sweep SSE is
+// bakp_clocks[7].
 #ifdef BAKP_PHASE_CLOCKS
 __device__ unsigned long long bakp_clocks[9];
 #define BAKP_ON (blockIdx.x == 0 && threadIdx.x == 0)
@@ -140,7 +142,7 @@ static inline long long bakp_xchg_words(int clusters, int CB, int k, int C) {
 struct BakpCta {
   int o0, n, L;            // obs slice [o0, o0 + n); slice stride
   int rank, csize, cid, ncl;
-  int CB, k, kp, S, Np;    // block, RHS, padded RHS, owned slice, C·S
+  int CB, k, kp, S, Np;    // block, RHS a step exchanges, padded, owned slice, C·S
   float* part;             // Np: this CTA's partials of the step, c·kp + r
   float* rx;               // Np: reduce-scatter slots [rank][S]
   float* da;               // Np: the block's increments, c·kp + r
@@ -193,8 +195,10 @@ __device__ __forceinline__ BakpCta bakp_cta(float* smem, int obs, int CB, int k,
 // t < rows (≤ 4), r < kc; lane l takes the float4 groups l, l + 32, ... of
 // the whole rounds of 128 positions, then the rest one position at a time,
 // so no lane does a float4 round more than the others.  xs in shared
-// memory; e in shared memory (E16) or device memory.
-template <int KC, bool E16>
+// memory (X16) or device memory, e in shared memory (E16) or device
+// memory: a row in device memory is read as single floats, since its
+// start need not be 16-byte aligned.
+template <int KC, bool E16, bool X16 = true>
 __device__ __forceinline__ void bakp_acc(const float* __restrict__ xs, int x_ld, int rows,
                                          const float* __restrict__ e, int e_ld,
                                          int np, int kc, float (&acc)[BAKP_CT][KC]) {
@@ -207,7 +211,7 @@ __device__ __forceinline__ void bakp_acc(const float* __restrict__ xs, int x_ld,
       ev[r] = r < kc ? bakp_ld4<E16>(e + (size_t)r * e_ld + b) : make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
     for (int t = 0; t < BAKP_CT; ++t) {
-      const float4 xv = t < rows ? *reinterpret_cast<const float4*>(xs + (size_t)t * x_ld + b)
+      const float4 xv = t < rows ? bakp_ld4<X16>(xs + (size_t)t * x_ld + b)
                                  : make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
       for (int r = 0; r < KC; ++r) {
@@ -274,12 +278,15 @@ __device__ __forceinline__ void bakp_warp_scatter(float (&acc)[BAKP_CT][KC], int
 }
 
 // Steps 2-4 of block b (see the top) once part holds this CTA's partials
-// and a __syncthreads has passed.  accumulate: coef_b += da (whole solve)
-// or coef_b = da (one sweep's da).  On return c.da holds the block's
-// increments in every CTA, visible to every thread.
+// and a __syncthreads has passed.  The step's kc right-hand sides (kc <=
+// c.k) are columns 0..kc of coef, whose rows are coef_ld floats apart.
+// accumulate: coef_b += da (whole solve) or coef_b = da (one sweep's da).
+// On return c.da holds the block's increments in every CTA, visible to
+// every thread.
 __device__ __forceinline__ void bakp_exchange(const BakpCta& c, int step, int b,
                                               const float* __restrict__ inv_cn,
-                                              float* coef, bool accumulate, float omega) {
+                                              float* coef, int coef_ld, int kc,
+                                              bool accumulate, float omega) {
   BAKP_CLOCK_START;
   const int S4 = c.S / 4;
   const unsigned rs_bar = c.mbar, ag_bar = c.mbar + 8;
@@ -339,11 +346,11 @@ __device__ __forceinline__ void bakp_exchange(const BakpCta& c, int step, int b,
     }
     const int idx = c.rank * c.S + i;
     const int col = idx / c.kp, r = idx - col * c.kp;
-    const bool real = col < c.CB && r < c.k;
+    const bool real = col < c.CB && r < kc;
     const float d = real ? omega * g * __ldg(inv_cn + (size_t)b * c.CB + col) : 0.f;
     c.mine[i] = d;
     if (real && c.cid == 0) {
-      float* cp = coef + ((size_t)b * c.CB + col) * c.k + r;
+      float* cp = coef + ((size_t)b * c.CB + col) * coef_ld + r;
       *cp = accumulate ? *cp + d : d;
     }
   }
@@ -413,21 +420,22 @@ __device__ __forceinline__ void bakp_update(const float* __restrict__ xs, int x_
 // (bakp_pick_kc): min(KC, 4), so a group is min(kp, 4) wide.
 #define BAKP_KG(KC) ((KC) < 4 ? (KC) : 4)
 
-// SSE of the residual slice (k rows of stride e_ld in shared memory, n
-// positions), summed over the whole grid in double: squares of floats are
-// exact in double, summed in a fixed thread order into a double per CTA,
-// pushed to every CTA of the cluster and summed there in rank order, then
-// (several clusters) in cluster order through two tagged words a cluster;
+// SSE of the residual slice (k rows of stride e_ld in shared or device
+// memory, c.n positions), summed over the whole grid in double: squares of
+// floats are exact in double, summed in a fixed thread order into a double
+// per CTA, pushed to every CTA of the cluster and summed there in rank
+// order, then (several clusters) in cluster order through two tagged words
+// a cluster;
 // `idx` counts the SSE exchanges of the launch.  The float returned is
 // the SSE of the residual rounded once, so the stopping rule reads the
 // residual, not the order of a sum.  Every CTA returns the same bits, so
 // all take the same stop decision.
 __device__ __forceinline__ float bakp_cluster_sse(const BakpCta& c, const float* e, int e_ld,
-                                                  int idx) {
+                                                  int k, int idx) {
   double* warp_part = reinterpret_cast<double*>(c.sse);   // 8 warps
   double* slots = reinterpret_cast<double*>(c.red);       // 16 ranks
   double acc = 0.0;
-  for (int r = 0; r < c.k; ++r)
+  for (int r = 0; r < k; ++r)
     for (int o = threadIdx.x; o < c.n; o += blockDim.x) {
       const double v = e[(size_t)r * e_ld + o];
       acc = fma(v, v, acc);
@@ -446,25 +454,34 @@ __device__ __forceinline__ float bakp_cluster_sse(const BakpCta& c, const float*
       cl_push8(cl_mapa(slot, q), t, cl_mapa(bar, q));
   }
   cl_mbar_wait(bar, idx);
-  if (threadIdx.x == 0) {
+  if (threadIdx.x < 32) {
+    const int lane = threadIdx.x;
     double t = 0.0;
-    for (int q = 0; q < c.csize; ++q) t += slots[q];
+    if (lane == 0)
+      for (int q = 0; q < c.csize; ++q) t += slots[q];
     if (c.xchg != nullptr) {
       const unsigned seq = c.tag0 + idx + 1;
       unsigned long long* words = c.xchg + (size_t)2 * c.ncl * c.Np +
                                   (size_t)(idx & 1) * c.ncl * 2;
-      if (c.rank == 0) {
+      if (lane == 0 && c.rank == 0) {
         cl_publish(words + 2 * c.cid, seq, (unsigned)__double2loint(t));
         cl_publish(words + 2 * c.cid + 1, seq, (unsigned)__double2hiint(t));
       }
+      // Word 2q and 2q + 1 are the low and high halves of cluster q's sum.
+      // The lanes poll 32 words at once (one L2 round trip, not one a
+      // word) and every lane adds them in cluster order.
       t = 0.0;
-      for (int q = 0; q < c.ncl; ++q) {
-        const unsigned lo = cl_poll(words + 2 * q, seq);
-        const unsigned hi = cl_poll(words + 2 * q + 1, seq);
-        t += __hiloint2double((int)hi, (int)lo);
+      for (int j0 = 0; j0 < 2 * c.ncl; j0 += 32) {
+        const unsigned w = j0 + lane < 2 * c.ncl ? cl_poll(words + j0 + lane, seq) : 0u;
+        const int nq = (2 * c.ncl - j0 < 32 ? 2 * c.ncl - j0 : 32) / 2;
+        for (int q = 0; q < nq; ++q) {
+          const unsigned lo = __shfl_sync(0xffffffffu, w, 2 * q);
+          const unsigned hi = __shfl_sync(0xffffffffu, w, 2 * q + 1);
+          t += __hiloint2double((int)hi, (int)lo);
+        }
       }
     }
-    c.red[32] = (float)t;
+    if (lane == 0) c.red[32] = (float)t;
   }
   __syncthreads();
   const float out = c.red[32];

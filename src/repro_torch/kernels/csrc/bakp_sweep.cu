@@ -171,7 +171,7 @@ __global__ void __launch_bounds__(BAKP_THREADS) bakp_sweep_kernel(SweepParams p)
       bakp_t0_ = t_;
     }
 #endif
-    bakp_exchange(c, b, b, p.inv_cn, p.da, false, p.omega);
+    bakp_exchange(c, b, b, p.inv_cn, p.da, k, k, false, p.omega);
 #ifdef BAKP_PHASE_CLOCKS
     bakp_t0_ = clock64();
 #endif

@@ -6,9 +6,8 @@
 //
 // What bounds it on an H100: device-memory bytes.  2·CB·obs·k FLOP against
 // CB·obs·4 bytes of x plus 2·k·obs·4 of residuals: at most 2·k/4 FLOP a
-// byte, under the fp32 ridge for any k the kernels take.  The design is the
-// arithmetic of bakp_block.cuh's bakp_update on a regular (non-cooperative)
-// grid over obs: da (CB·k floats) is staged in shared memory once per CTA;
+// byte, under the fp32 ridge for any k the kernels take.  The design: a
+// regular grid over obs; da (CB·k floats) is staged in shared memory once per CTA;
 // each thread owns 4 consecutive obs (16-byte loads where aligned), carries
 // KC right-hand sides of e in registers and streams the CB rows of x_blk
 // past them.  fp32 FMAs; no tensor cores.

@@ -1,5 +1,5 @@
 // cp.async helpers shared by the kernels that stream x through a
-// shared-memory ring (stream_solve.cu, bakp_sweep.cu, bak_column.cuh):
+// shared-memory ring or slice (bakp_solve.cuh, bakp_sweep.cu, bak_column.cuh):
 // 16-byte cp.async.cg copies where source and destination are 16-byte
 // aligned, 4-byte cp.async.ca copies otherwise, one commit group per stage.
 #pragma once

@@ -13,6 +13,13 @@ ignored there, as in the JAX kernel.
 Fit check: ``fused_fits`` admits a solve whose working set
 (``fused_working_set_bytes``) fits ``cd_sweep.ON_CHIP_BUDGET_BYTES``; the
 callers (``ops.solvebakp_kernel``, the ``bakp_fused`` method) dispatch on it.
+The Algorithm-2 kernel's launch is ``cd_sweep.bakp_plan("fused", ...)``:
+thread-block clusters of ``cd_sweep.BAKP_CLUSTER["fused"]`` CTAs, each CTA
+keeping its slice of x in shared memory for the whole solve where it fits
+(``x_in`` "shared", the x_shared regime), else reading each block's tile
+from the L2 ("ring" or "direct", the x_l2 regime), with the right-hand
+sides of a block step in groups where one exchange of all of them does not
+fit a CTA; every admitted solve is one launch with one joint stop.
 
 ``fused_solve`` follows the device of its tensors: CPU tensors run the
 plain version (``fused_solve_plain``, a host loop that reads the stop flag
@@ -183,7 +190,8 @@ def _fused_cuda(x_t, inv_cn, e0, a0m, *, block, max_iter, atol_sse, rtol,
     lib = _build.load("fused_solve")
     dev = x_t.device
     with torch.cuda.device(dev):
-        grid = _cd.cooperative_grid(lib.bakp_fused_grid, obs, nrhs, block)
+        plan = _cd.bakp_grid(lib.bakp_fused_clusters, "fused", obs, nrhs,
+                             block, nvars=nvars)
         inv = inv_cn.float().contiguous()
         e0c = e0.float().contiguous()
         a0c = a0m.float().contiguous()
@@ -194,18 +202,22 @@ def _fused_cuda(x_t, inv_cn, e0, a0m, *, block, max_iter, atol_sse, rtol,
         sse = torch.empty((1,), **f32)
         n = torch.empty((1,), dtype=torch.int32, device=dev)
         conv = torch.empty((1,), dtype=torch.int32, device=dev)
-        partials = torch.empty((grid, block, nrhs), **f32)
-        da_buf = torch.empty((block, nrhs), **f32)
-        sse_part = torch.empty((grid,), **f32)
+        # Tags: one an exchange (a group of a block step), one a per-sweep
+        # SSE (and the first).
+        steps = max_iter * (nvars // block) * -(-nrhs // plan.group)
+        xchg, tag0 = _cd.bakp_exchange(plan, dev, max(steps, max_iter + 1))
         stream = torch.cuda.current_stream(dev).cuda_stream
         _build.LAUNCHES["fused_solve"] += 1
+        _build.PLANS["fused_solve"] = plan
         _build.check(lib.bakp_fused_launch(
             x_t.data_ptr(), inv.data_ptr(), e0c.data_ptr(), a0c.data_ptr(),
             coef.data_ptr(), e.data_ptr(), hist.data_ptr(), sse.data_ptr(),
-            n.data_ptr(), conv.data_ptr(), partials.data_ptr(),
-            da_buf.data_ptr(), sse_part.data_ptr(), nvars, obs, nrhs, block,
-            max_iter, float(atol_sse), float(rtol), float(omega), grid,
-            stream), "bakp_fused_launch")
+            n.data_ptr(), conv.data_ptr(),
+            None if xchg is None else xchg.data_ptr(), tag0, nvars, obs,
+            nrhs, block, plan.group, max_iter, float(atol_sse), float(rtol),
+            float(omega), _cd.BAKP_X_IN.index(plan.x_in),
+            _cd.BAKP_REGIMES.index(plan.regime), plan.ctas, plan.cluster,
+            plan.smem, stream), "bakp_fused_launch")
     return coef, e, hist, sse[0], n[0], conv[0] != 0
 
 

@@ -22,7 +22,8 @@ from repro_torch.kernels import (_build, bakp_sweep, block_update, cd_sweep,
 from repro_torch.kernels.block_update import (block_update_plain,
                                               score_features_plain)
 from repro_torch.kernels.cd_sweep import bakp_sweep_plain, cd_sweep_plain
-from repro_torch.kernels.fused_solve import fused_solve_plain, solve_init
+from repro_torch.kernels.fused_solve import (fused_cuda, fused_solve_plain,
+                                             solve_init)
 from repro_torch.obs import consume_dispatch
 
 pytestmark = pytest.mark.cuda
@@ -170,6 +171,109 @@ def test_fused_kernel_stops_like_plain(cuda):
         omega=1.0)
     assert abs(int(r.n_sweeps) - int(pn)) <= 1 and int(r.n_sweeps) < 200
     assert bool(r.converged) == bool(pconv)
+
+
+@pytest.mark.parametrize("k,obs,nvars,block,warm,x_in,regime", [
+    (None, 2048, 256, 32, False, "shared", "single_cluster"),
+    (8, 2048, 256, 32, True, "shared", "single_cluster"),
+    (None, 16384, 256, 128, True, "shared", "multi_cluster"),   # phase 1
+    (8, 16384, 256, 128, False, "shared", "multi_cluster"),
+    (3, 4099, 96, 16, False, "shared", "multi_cluster"),   # 4-byte copies
+    (None, 2048, 2048, 32, False, "ring", "single_cluster"),
+    (8, 2048, 2048, 32, True, "ring", "single_cluster"),
+    (None, 8192, 1024, 64, True, "ring", "multi_cluster"),
+    (8, 8192, 1024, 64, False, "ring", "multi_cluster"),
+    (3, 4099, 2048, 16, True, "ring", "multi_cluster"),    # 4-byte copies
+    (None, 8192, 1024, 1024, False, "direct", "multi_cluster"),
+    (8, 8192, 1024, 1024, True, "direct", "multi_cluster"),
+])
+def test_fused_kernel_regimes_match_plain(cuda, k, obs, nvars, block, warm,
+                                          x_in, regime):
+    """The whole-solve kernel with x's slice in shared memory (x_shared),
+    with each tile through the ring from the L2 (x_l2, designs whose slice
+    does not fit a CTA) and with x read in place (blocks whose ring does
+    not fit), on one cluster and on several, against the plain version."""
+    x, a, y = _system(59, obs, nvars, k, cuda)
+    y = y + 0.1 * torch.randn(y.shape, device=cuda)
+    x_t = x.T.contiguous()
+    multi = y.dim() == 2
+    a0 = 0.5 * a if warm else None
+    inv, a0m, e0 = solve_init(x_t, y, None, a0, multi)
+    n0 = _build.launch_counts()["fused_solve"]
+    r = fused_solve(x_t, y, a0=a0, block=block, max_iter=12)
+    assert _build.launch_counts()["fused_solve"] == n0 + 1
+    plan = _build.PLANS["fused_solve"]
+    assert (plan.x_in, plan.regime) == (x_in, regime)
+    assert plan.group == (3 if k == 3 else k or 1)
+    pc, pe, ph, _, pn, _ = fused_solve_plain(
+        x_t, inv, e0, a0m, block=block, max_iter=12, atol_sse=0.0, rtol=0.0,
+        omega=1.0)
+    assert int(r.n_sweeps) == int(pn) == 12
+    coef = r.coef if multi else r.coef[:, None]
+    res = r.residual.T if multi else r.residual[None]
+    assert _within(coef, pc) and _within(res, pe, scale=e0)
+    assert _within(r.history, ph)
+
+
+@pytest.mark.parametrize("obs,nvars", [(16384, 256), (4096, 512)])
+def test_fused_kernel_groups_rhs_in_one_launch(cuda, obs, nvars):
+    """Block 256 at k 64: one exchange of all 64 right-hand sides does not
+    fit a CTA beside the slices, so each block step runs them in groups,
+    still in one launch with one joint stop."""
+    x, _, y = _system(60, obs, nvars, 64, cuda)
+    y = y + 0.1 * torch.randn(y.shape, device=cuda)
+    x_t = x.T.contiguous()
+    inv, a0m, e0 = solve_init(x_t, y, None, None, True)
+    n0 = _build.launch_counts()["fused_solve"]
+    r = fused_solve(x_t, y, block=256, max_iter=10)
+    assert _build.launch_counts()["fused_solve"] == n0 + 1
+    plan = _build.PLANS["fused_solve"]
+    assert 1 < plan.group < 64 and plan.x_in == "shared"
+    pc, pe, ph, _, pn, _ = fused_solve_plain(
+        x_t, inv, e0, a0m, block=256, max_iter=10, atol_sse=0.0, rtol=0.0,
+        omega=1.0)
+    assert int(r.n_sweeps) == int(pn) == 10
+    assert _within(r.coef, pc) and _within(r.residual.T, pe, scale=e0)
+    assert _within(r.history, ph)
+
+
+def _sse64(e):
+    return float((e.double() * e.double()).sum())
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("k", [1, 8])
+def test_fused_kernel_rtol_stop_at_phase_1(cuda, seed, k):
+    """At rtol 1e-7 the stop falls where the SSE meets the residual's fp32
+    floor.  On chip_smoke.py's phase 1 design (noise-free), the kernel must
+    stop within one sweep of where the rule stops on the plain iterate's
+    SSE summed in fp64, with a final residual whose fp64 SSE is within 2x
+    of the plain version's: an update that rounds e once a column (an FMA
+    chain into e) or a per-CTA SSE summed in fp32 breaks both."""
+    from repro_torch.core.types import sweep_stop_flags
+    from repro_torch.kernels.cd_sweep import bakp_block_update
+    x, _, y = _system(seed, 16384, 256, k, cuda)
+    x_t = x.T.contiguous()
+    inv, a0m, e0 = solve_init(x_t, y, None, None, y.dim() == 2)
+    kw = dict(block=128, max_iter=100, atol_sse=0.0, rtol=1e-7, omega=1.0)
+    _, ek, _, _, nk, _ = fused_cuda(x_t, inv, e0, a0m, **kw)
+    assert _build.PLANS["fused_solve"].x_in == "shared"
+    _, ep, _, _, np_, _ = fused_solve_plain(x_t, inv, e0, a0m, **kw)
+    # The rule on the plain iterate's SSE summed in fp64.
+    sse0 = float(torch.dot(e0.reshape(-1), e0.reshape(-1)))
+    e, prev, rule = e0, sse0, None
+    inv2 = inv.reshape(-1, 1)
+    for n in range(1, 101):
+        for b in range(0, 256, 128):
+            _, e = bakp_block_update(x_t[b:b + 128], inv2[b:b + 128], e, 1.0)
+        sse = _sse64(e)
+        if bool(sweep_stop_flags(sse, prev, sse0, 0.0, 1e-7)[1]):
+            rule = n
+            break
+        prev = sse
+    assert rule is not None and abs(int(nk) - rule) <= 1, (int(nk), rule,
+                                                           int(np_))
+    assert _sse64(ek) <= 2 * _sse64(ep), (_sse64(ek), _sse64(ep))
 
 
 @pytest.mark.parametrize("budget,path", [(None, "fused"), (1024, "persweep")])

@@ -233,6 +233,87 @@ def test_fused_raises_over_budget(monkeypatch):
         fused_solve(torch.tensor(x.T.copy()), torch.tensor(y), block=8)
 
 
+# ------------------------------------------- the whole-solve kernel's plan
+@pytest.mark.parametrize("k", [1, 8])
+def test_fused_plan_keeps_x_in_shared_memory_at_phase_1(k):
+    """16,384 x 256 at thr 128 (chip_smoke.py's phase 1): 7 clusters of 16,
+    L = 160; each CTA holds its 163,840-byte slice of x, its residual
+    slice and one exchange of every right-hand side (12,784 bytes at k 8)
+    within one CTA's shared memory."""
+    plan = _CD.bakp_plan("fused", 16_384, k, 128, nvars=256)
+    assert (plan.regime, plan.ctas, plan.cluster, plan.clusters, plan.L) == (
+        "multi_cluster", 112, 16, 7, 160)
+    assert (plan.x_in, plan.e_in, plan.stages, plan.group) == (
+        "shared", "shared", 0, k)
+    assert plan.smem == (_CD.bakp_exchange_bytes(128, k, 16)
+                         + 4 * 256 * 160 + 4 * k * 160)
+    assert plan.smem <= _CD.SMEM_PER_CTA_BYTES
+    if k == 8:
+        assert plan.smem == 12_784 + 163_840 + 5_120
+    assert plan.xchg_words == 4 * 7 * (16 * _CD.bakp_own(128, k, 16) + 2)
+
+
+def test_fused_plan_takes_more_ctas_to_keep_x_in_shared_memory():
+    """8,192 x 448: at MIN_OBS_PER_CTA obs a CTA (4 clusters, L = 128) the
+    slice of x does not fit a CTA; on 6 clusters (L = 96) it does."""
+    layout = _CD.bakp_layout(8_192, cluster=16)
+    assert layout[1:] == (64, 16, 4, 128)
+    assert (_CD.bakp_exchange_bytes(128, 8, 16) + 4 * (448 + 8) * 128
+            > _CD.SMEM_PER_CTA_BYTES)
+    plan = _CD.bakp_plan("fused", 8_192, 8, 128, nvars=448)
+    assert (plan.x_in, plan.ctas, plan.clusters, plan.L, plan.group) == (
+        "shared", 96, 6, 96, 8)
+    assert plan.smem <= _CD.SMEM_PER_CTA_BYTES
+
+
+def test_fused_plan_streams_x_from_l2_over_shared_memory():
+    """16,384 x 512 (32 MiB, within fused_fits): no CTA the card holds can
+    keep its slice of x (332,800 bytes with the residual at L = 160), so
+    each block's tile comes through the two-stage ring from the L2."""
+    assert fused_fits(512, 16_384, 8, 4, max_iter=100)
+    assert 4 * (512 + 8) * 160 > _CD.SMEM_PER_CTA_BYTES
+    plan = _CD.bakp_plan("fused", 16_384, 8, 128, nvars=512)
+    assert (plan.x_in, plan.stages, plan.e_in, plan.ctas, plan.L,
+            plan.group) == ("ring", 2, "shared", 112, 160, 8)
+    assert plan.smem == 12_784 + 2 * 4 * 128 * 160 + 4 * 8 * 160
+    assert plan.smem <= _CD.SMEM_PER_CTA_BYTES
+    # The streaming kernel's plan at the same shape carves the same bytes.
+    assert plan.smem == _CD.bakp_plan("stream", 16_384, 8, 128).smem
+
+
+def test_fused_plan_groups_right_hand_sides():
+    """Block 256 at k 64 on the phase 1 design: one exchange of all 64
+    right-hand sides (200,944 bytes) does not fit beside the slices of x
+    and e (204,800), so a block step runs them in 8 groups of 8; a
+    design whose slices leave room runs fewer, wider groups."""
+    slices = 4 * (256 + 64) * 160
+    assert (_CD.bakp_exchange_bytes(256, 64, 16) + slices
+            > _CD.SMEM_PER_CTA_BYTES)
+    plan = _CD.bakp_plan("fused", 16_384, 64, 256, nvars=256)
+    assert (plan.x_in, plan.group) == ("shared", 8)
+    assert plan.smem == _CD.bakp_exchange_bytes(256, 8, 16) + slices
+    assert plan.smem <= _CD.SMEM_PER_CTA_BYTES
+    assert plan.xchg_words == 4 * 7 * (16 * _CD.bakp_own(256, 8, 16) + 2)
+    assert fused_fits(256, 16_384, 64, 4, max_iter=100)
+    # Groups spread evenly: 9 right-hand sides where 8 fit are 2 groups
+    # of 5 (the last one 4), not 8 and 1.
+    room = _CD.bakp_exchange_bytes(256, 8, 16)
+    assert _CD._group(256, 9, 16, room) == 5
+    assert _CD._group(256, 9, 16, room - 1) == 3
+
+
+def test_fused_plan_reads_large_blocks_in_place():
+    """Block 2,048: one tile is 1.3 MB at L = 160, so neither the slice of
+    x nor the ring fits a CTA, and x and the residual are read in place; a
+    block whose exchange of one right-hand side overflows a CTA raises."""
+    plan = _CD.bakp_plan("fused", 16_384, 1, 2_048, nvars=2_048)
+    assert (plan.x_in, plan.e_in, plan.stages, plan.group) == (
+        "direct", "device", 0, 1)
+    assert plan.smem == _CD.bakp_exchange_bytes(2_048, 1, 16)
+    with pytest.raises(ValueError, match="reduce block"):
+        _CD.bakp_plan("fused", 256, 1, 32_768, nvars=32_768)
+
+
 # ------------------------------------------------------------- dispatch
 @pytest.mark.parametrize("budget,max_iter,path,reason", [
     (None, 30, "fused", None),

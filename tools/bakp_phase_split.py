@@ -6,12 +6,14 @@
     python3 tools/bakp_phase_split.py --design grid \
         --csrc old/src/repro_torch/kernels/csrc            # the design before
 
-Times the phases of one column-block step of ``stream_solve`` and
-``bakp_sweep`` with ``clock64`` stamps of thread 0 of CTA 0, summed over
-every step, at the shapes ``chip_smoke.py`` runs (phase 3: 4,096 x 16,384
-at thr 128, k 1 and 8, 20 fixed sweeps; the sweep at phase 1, 256 x 16,384
-at thr 128, k 1 and 8, at phase 2, 1,024 x 262,144 at thr 256, k 8, and at
-phase 3, k 8), and prints per step the time
+Times the phases of one column-block step of ``stream_solve``,
+``bakp_sweep`` and ``fused_solve`` with ``clock64`` stamps of thread 0 of
+CTA 0, summed over every step, at the shapes ``chip_smoke.py`` runs (phase
+3: 4,096 x 16,384 at thr 128, k 1 and 8, 20 fixed sweeps; the sweep at
+phase 1, 256 x 16,384 at thr 128, k 1 and 8, at phase 2, 1,024 x 262,144
+at thr 256, k 8, and at phase 3, k 8; the fused solve at phase 1, k 1 and
+8, and on a 512 x 16,384 design at k 8, 20 fixed sweeps), and prints per
+step the time
 from CUDA events and its split over the phases, scaled so that they add up
 to it.  The stamps slow a step (a clock read ends each column group of the
 partials), so the split is a share of a stamped step; ``--no-clocks``
@@ -19,17 +21,22 @@ gives the times without them.
 
 ``--design grid`` copies the grid-barrier design's ``csrc`` (commit
 4d81b73), adds the stamps to its ``bakp_block.cuh`` and ``stream_solve.cu``
-by text edits and calls the C entries through ``ctypes``.  Phases: ring
+by text edits and calls the C entries through ``ctypes`` (the streaming
+solve and the sweep; ``tools/stop_witness.py`` also builds that design's
+whole-solve kernel, unstamped).  Phases: ring
 wait (the tile fetch's issue and wait; stream only), the partials' FMAs,
 their cross-lane sums and write, the first ``grid.sync``, the owner
 reduce, the second ``grid.sync``, the ``da`` reload, the update.
 
 ``--design cluster`` builds this tree's kernels with ``-DBAKP_PHASE_CLOCKS``
 (``csrc/bakp_cluster.cuh``) and launches them through the package's own
-wrappers.  Phases: ring wait, the partials' FMAs, their butterfly
+wrappers.  With right-hand sides in groups a step holds one exchange a
+group; the fused solve's x_shared regime has no ring, so its ring wait is
+the step's start.  Phases: ring wait, the partials' FMAs, their butterfly
 reduce-scatter and write, the push into the cluster and its mbarrier wait,
 the rank-order sum with the cross-cluster exchange and the coefficients,
-the ``da`` all-gather and its wait, the update.
+the ``da`` all-gather and its wait, the update, and a whole solve's
+per-sweep SSE exchange spread over the sweep's steps.
 
 ``--no-clocks`` builds either design as it is (no stamps) and prints only
 the times, so that the two designs can be compared unstamped in one run
@@ -50,14 +57,20 @@ PHASES = {"grid": ["ring_wait", "partials_fma", "partials_sum_write",
                    "grid_sync_1", "owner_reduce", "grid_sync_2",
                    "da_reload", "update"],
           "cluster": ["ring_wait", "partials_fma", "partials_sum_write",
-                      "push_wait", "cluster_sum", "da_gather", "update"]}
+                      "push_wait", "cluster_sum", "da_gather", "update",
+                      "sweep_sse"]}
 # (kernel, vars, obs, block, k)
 CASES = [("bakp_sweep", 256, 16384, 128, 1),
          ("bakp_sweep", 256, 16384, 128, 8),
          ("stream_solve", 4096, 16384, 128, 1),
          ("stream_solve", 4096, 16384, 128, 8),
          ("bakp_sweep", 1024, 262144, 256, 8),
-         ("bakp_sweep", 4096, 16384, 128, 8)]
+         ("bakp_sweep", 4096, 16384, 128, 8),
+         ("fused_solve", 256, 16384, 128, 1),
+         ("fused_solve", 256, 16384, 128, 8),
+         ("fused_solve", 512, 16384, 128, 8)]
+# Kernels the grid-barrier design is stamped in.
+GRID_KERNELS = ("bakp_sweep", "stream_solve")
 SWEEPS = 20
 MIN_OBS_PER_CTA = 128
 STREAM_RED_FLOATS = 33
@@ -144,7 +157,10 @@ _GRID_SIGS = {
     "stream_solve": {"stream_solve_grid": [_I, _I, _P],
                      "stream_solve_launch": [_P] * 13 + [_I] * 5 + [_F] * 3
                      + [_I] * 2 + [_P],
-                     "bakp_timing": [_P, _I]}}
+                     "bakp_timing": [_P, _I]},
+    "fused_solve": {"bakp_fused_grid": [_I, _I, _P],
+                    "bakp_fused_launch": [_P] * 13 + [_I] * 5 + [_F] * 3
+                    + [_I, _P]}}
 
 
 def instrument(csrc: Path, work: Path) -> Path:
@@ -240,10 +256,11 @@ def cluster_launcher(name, x_t, inv, e, nv, no, block, k, torch,
     so that a short sweep is timed on the card and not in the wrapper's
     host work; ``zero_exchange`` zeroes the exchange words before each
     launch (what every launch did before the words carried a launch's tag
-    base).  The streaming solve goes through its wrapper."""
+    base).  The two whole solves go through their wrappers."""
     import importlib
     from repro_torch.kernels import _build
     cd = importlib.import_module("repro_torch.kernels.cd_sweep")
+    from repro_torch.kernels.fused_solve import fused_cuda
     from repro_torch.kernels.stream_solve import stream_cuda
     if name == "bakp_sweep":
         lib = _build.load(name)
@@ -267,10 +284,11 @@ def cluster_launcher(name, x_t, inv, e, nv, no, block, k, torch,
         return launch, plan._asdict(), lib
     else:
         a0 = torch.zeros((nv, k), dtype=torch.float32, device="cuda")
+        solve = stream_cuda if name == "stream_solve" else fused_cuda
 
         def launch():
-            stream_cuda(x_t, inv, e, a0, block=block, max_iter=SWEEPS,
-                        atol_sse=0.0, rtol=0.0, omega=1.0)
+            solve(x_t, inv, e, a0, block=block, max_iter=SWEEPS,
+                  atol_sse=0.0, rtol=0.0, omega=1.0)
             return 0
     launch()
     return launch, _build.PLANS[name]._asdict(), _build.load(name)
@@ -288,6 +306,8 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--clocks", action=argparse.BooleanOptionalAction,
                     default=True, help="build with the phase stamps")
+    ap.add_argument("--kernels", nargs="+", default=None,
+                    help="only the cases of these kernels")
     ap.add_argument("--zero-exchange", action="store_true",
                     help="cluster design: zero the sweep's exchange words "
                     "before each launch")
@@ -306,16 +326,19 @@ def main() -> int:
     if design == "grid":
         src = instrument(args.csrc, args.work) if args.clocks else args.csrc
         libs = {n: build_grid(src, args.work, n, args.clocks)
-                for n in _GRID_SIGS}
+                for n in GRID_KERNELS}
     else:
         sys.path.insert(0, str(ROOT / "src"))
         from repro_torch.kernels import _build
         if args.clocks:
             _build.NVCC_FLAGS.append("-DBAKP_PHASE_CLOCKS")
-        _build.build_all(["bakp_sweep", "stream_solve"])
+        _build.build_all(["bakp_sweep", "stream_solve", "fused_solve"])
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     rows = []
     for name, nv, no, block, k in CASES:
+        if ((design == "grid" and name not in GRID_KERNELS)
+                or (args.kernels is not None and name not in args.kernels)):
+            continue
         x_t = torch.randn(nv, no, generator=gen, device="cuda")
         inv = 1.0 / (x_t * x_t).sum(1)
         e = torch.randn(k, no, generator=gen, device="cuda")
@@ -335,6 +358,7 @@ def main() -> int:
                 raise RuntimeError(f"{name} launch failed")
         torch.cuda.synchronize()
         iters = (3 if name == "stream_solve" or no > 100_000
+                 else 10 if name == "fused_solve"
                  else 50 if nv <= 256 else 10)
         if not args.clocks:
             iters *= 3
