@@ -27,7 +27,20 @@ process per source, in parallel), then:
      does not fit a CTA: the per-sweep loop); and a non-resident handle over
      the design's pinned host copy (the host-block loop, cold and warm),
      beside the rate of one plain pinned host-to-device copy of the design;
-  4. each kernel against its plain torch version on the same inputs, on the
+  4. mixed precision — phase 1's handle at ``precision="bf16"`` and
+     ``"bf16_fp32acc"`` (refine 8) for ``bakp_fused`` and ``bak_fused`` at
+     k 1 and 8 (coefficients within 1e-2 and 1e-5 of the fp32 solve, as
+     JAX's test_precision; the history max_iter + refine_sweeps long); a
+     16,384 x 512 design whose bf16 slice stays in shared memory where the
+     fp32 one streams from the L2; a 16,384 x 1,024 design on the fused
+     kernels at bf16 only; phase 3's design on the bf16 per-sweep loop
+     (both algorithms), the bf16 streaming kernel and the non-resident
+     handle (fp32 blocks whatever the precision); then the gates of
+     ``benchmarks/solver_precision.py`` on its well-conditioned designs
+     (post-refine MAPE against fp64 lstsq, analytic x bytes, a bf16-only
+     fused dispatch) beside the JAX figures in ``BENCH_precision.json``.
+     Each bf16 request runs twice, its first and repeat latency printed;
+  5. each kernel against its plain torch version on the same inputs, on the
      card, and timed with CUDA events beside its roofline bound (and beside
      the nearest single PyTorch call, where there is one); for the streaming
      kernel also the per-sweep loop on the same design, as a finding.  The
@@ -45,12 +58,17 @@ process per source, in parallel), then:
      256 with k 64 (right-hand sides in groups), each in one launch.  Then
      the Algorithm-1 kernels at each cluster size of 2, 4, 8 and 16, and
      the Algorithm-2 cluster kernels at 4, 8 and 16, each launch held to its
-     plain version;
-  5. a ``kernels`` summary line, the card's name and power limit, and the
-     result line ``{"ok": true, "device": {...}}``.
+     plain version.  The five x-reading kernels also run on bf16 copies of
+     x at the shapes of their fp32 rows and at every shape phase 4 gave
+     them, there on the plan phase 4 ran (x at 2 bytes in the bound), with
+     their rtol stops held to the rule on the plain iterate's fp64 SSE;
+  6. a ``kernels`` summary line (the bf16 kernels as ``<name>_bf16``), the
+     card's name and power limit, and the result line
+     ``{"ok": true, "device": {...}}``.
 
 Launch counts are reset just before each path (phases 1-2, the earlier
-slices' path; phase 3, the streaming path) and read just after it, so they
+slices' path; phase 3, the streaming path; phase 4, the mixed-precision
+path, where each bf16 kernel must launch) and read just after it, so they
 count that path only; each kernel must have launched on its path.  Inputs
 are Gaussian designs with a planted ``a_true`` and ``y = x @ a_true`` from
 a fixed seed.  Any failed check, build or launch error exits non-zero
@@ -61,6 +79,7 @@ from __future__ import annotations
 
 import importlib
 import json
+import re
 import subprocess
 import sys
 import time
@@ -75,6 +94,9 @@ COEF_TOL = 1e-4
 # rounding, not bit for bit.  Errors are max |kernel - plain| over the
 # largest magnitude of the reference quantity.
 KERNEL_TOL = 1e-4
+# The same on a bf16 x: each kernel and its plain version widen the same
+# bf16 values exactly, so only the order of the fp32 sums differs.
+BF16_KERNEL_TOL = 1e-5
 # Published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and fp32
 # (non-tensor-core) FLOP/s.
 HBM_BYTES_PER_S = 3.35e12
@@ -122,7 +144,7 @@ def main() -> int:
                                               cd_sweep_plain)
     from repro_torch.kernels.fused_solve import (fused_cuda, fused_fits,
                                                  fused_solve_plain,
-                                                 solve_init)
+                                                 plain_rtol_stop, solve_init)
     from repro_torch.kernels.stream_solve import (stream_cuda, stream_fits,
                                                   stream_solve_plain)
     from repro_torch.core.types import (atol_to_sse, column_norms_sq_t,
@@ -146,8 +168,24 @@ def main() -> int:
     logs = _build.build_all()
     regs = {n: [ln.strip() for ln in log.splitlines() if "Used" in ln]
             for n, log in logs.items()}
+    # Kernels that spill registers (ptxas -v), by library; a bf16
+    # instantiation must not.
+    spills = {}
+    for n, log in logs.items():
+        fn = None
+        for ln in log.splitlines():
+            m = re.search(r"Compiling entry function '([^']+)'", ln)
+            fn = m.group(1) if m else fn
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          ln)
+            if m and fn and m.group(1) + m.group(2) != "00":
+                spills.setdefault(n, {})[fn] = [int(m.group(1)),
+                                                int(m.group(2))]
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "ptxas": regs})
+          "ptxas": regs, "spills": spills})
+    bf16_spills = [fn for by_fn in spills.values() for fn in by_fn
+                   if "bfloat16" in fn]
+    check(not bf16_spills, f"bf16 kernels spill registers: {bf16_spills}")
 
     def sync():
         torch.cuda.synchronize()
@@ -298,11 +336,13 @@ def main() -> int:
     path_kernels = {
         "phases_1_2": ("bakp_sweep", "fused_solve", "bak_sweep", "bak_fused",
                        "score_features", "block_update"),
-        "phase_3_stream": ("stream_solve",)}
+        "phase_3_stream": ("stream_solve",),
+        "phase_4_precision": tuple(_build.launch_key(n, 2)
+                                   for n in _build.X_KERNELS)}
     launches = {}
 
     def read_launches(path):
-        counts = _build.launch_counts()
+        counts = {**_build.launch_counts(), **_build.launch_counts(2)}
         emit({"phase": "main_path_launches", "path": path, **counts,
               "plans": {n: p._asdict() for n, p in _build.PLANS.items()}})
         for name in path_kernels[path]:
@@ -422,6 +462,270 @@ def main() -> int:
           nbytes3 / (min(h2d) / 1e3) / 1e9})
     del x3_dev
 
+    # ---------------------------------------- the mixed-precision path
+    _build.reset_launch_counts()
+    # The plan each bf16 kernel ran on this path, by (kernel, case): the
+    # kernel rows below are held to the same plans.
+    path_plans = {}
+
+    def record_plan(name, case):
+        path_plans[name, case] = _build.PLANS[name]._asdict()
+
+    def precision_request(name, method, precision, fn, ref, tol, want_path,
+                          want_len=None, truth=None):
+        """A bf16 / bf16_fp32acc request against the fp32 solve ``ref``
+        (max |coef - ref| <= ``tol``, as JAX's test_precision) and its
+        path.  The request runs twice: the first call's latency carries the
+        set-up of a precision or shape first seen (the quantized copy, plan
+        queries, exchange words), the second is the one a repeat request
+        pays; the checks read the second."""
+        sync()
+        t = time.perf_counter()
+        fn()
+        sync()
+        first_ms = (time.perf_counter() - t) * 1e3
+        consume_dispatch()
+        t = time.perf_counter()
+        res = fn()
+        sync()
+        ms = (time.perf_counter() - t) * 1e3
+        path = consume_dispatch()
+        err = (res.coef - ref).abs().max().item()
+        row = {"phase": name, "method": method, "precision": precision,
+               "path": path, "n_sweeps": int(res.n_sweeps),
+               "history_len": int(res.history.shape[0]),
+               "first_latency_ms": first_ms, "latency_ms": ms,
+               "max_abs_err_vs_fp32": err}
+        if truth is not None:
+            row["max_rel_err"] = rel(res.coef, truth)
+        emit(row)
+        check(err <= tol, f"{name}/{method}/{precision}: max |coef - fp32 "
+                          f"coef| {err} over {tol}")
+        check(path == want_path, f"{name}/{method}/{precision}: path {path}, "
+                                 f"want {want_path}")
+        if want_len is not None:
+            check(int(res.history.shape[0]) == want_len,
+                  f"{name}/{method}/{precision}: history length "
+                  f"{int(res.history.shape[0])}, want {want_len}")
+        check(bool(torch.isfinite(res.coef).all()
+                   and torch.isfinite(res.residual).all()),
+              f"{name}/{method}/{precision}: non-finite result")
+        return res
+
+    # Phase 4a: phase 1's handle at bf16 and bf16_fp32acc, k 1 and 8.
+    refine = 8
+    for ktag, yy, truth in (("k1", y1, a1), ("k8", y1k, a1k)):
+        for method in ("bakp_fused", "bak_fused"):
+            sp = spec1.replace(method=method)
+            r32 = p1.solve(yy, spec=sp)
+            consume_dispatch()
+            precision_request(
+                f"precision_p1_{ktag}", method, "bf16",
+                lambda: p1.solve(yy, spec=sp.replace(precision="bf16")),
+                r32.coef, 1e-2, "fused", truth=truth)
+            kname = ("fused_solve_bf16" if method == "bakp_fused"
+                     else "bak_fused_bf16")
+            record_plan(kname, f"phase1_{ktag}")
+            if method == "bakp_fused":
+                plan = _build.PLANS[kname]
+                check(plan.x_in == "shared",
+                      f"phase 4 p1 {ktag} bf16 bakp_fused: x_in {plan.x_in}, "
+                      f"want shared")
+            precision_request(
+                f"precision_p1_{ktag}", method, "bf16_fp32acc",
+                lambda: p1.solve(yy, spec=sp.replace(
+                    precision="bf16_fp32acc", refine_sweeps=refine)),
+                r32.coef, 1e-5, "fused", want_len=sp.max_iter + refine,
+                truth=truth)
+
+    # Phase 4b: 16,384 x 512, k 8: x_l2 (the ring) at fp32, its bf16 slice
+    # (512 x 2 B x L 160) fits a CTA: x_shared on the plan the launch used.
+    x4w = randn(obs1, 2 * vars1)
+    a4w = randn(2 * vars1, k)
+    y4w = x4w @ a4w
+    p4w = prepare(x4w, spec1.replace(precision="bf16"))
+    r32 = p4w.solve(y4w, spec=spec1)
+    plan32 = _build.PLANS["fused_solve"]
+    precision_request("precision_16384x512_k8", "bakp_fused", "bf16",
+                      lambda: p4w.solve(y4w), r32.coef, 1e-2, "fused",
+                      truth=a4w)
+    plan16 = _build.PLANS["fused_solve_bf16"]
+    record_plan("fused_solve_bf16", "16384x512_k8")
+    emit({"phase": "precision_plan_16384x512", "fp32": plan32._asdict(),
+          "bf16": plan16._asdict()})
+    check(plan32.x_in == "ring" and plan16.x_in == "shared",
+          f"16,384 x 512 k 8: x_in fp32 {plan32.x_in} (want ring), bf16 "
+          f"{plan16.x_in} (want shared)")
+
+    # Phase 4c: 16,384 x 1,024 (64 MiB fp32, 32 MiB bf16), k 8: fused only
+    # at bf16.
+    vars4 = 1_024
+    x4 = randn(obs1, vars4)
+    a4 = randn(vars4, k)
+    y4 = x4 @ a4
+    check(not fused_fits(vars4, obs1, k, 4, max_iter=spec1.max_iter)
+          and fused_fits(vars4, obs1, k, 2, max_iter=spec1.max_iter),
+          "16,384 x 1,024 must fit the fused budget at bf16 only")
+    p4 = prepare(x4, spec1)
+    for method in ("bakp_fused", "bak_fused"):
+        sp = spec1.replace(method=method)
+        vmem_before = fallback_counts().get((method, "vmem"), 0)
+        r32 = request("precision_16384x1024_k8_fp32", method,
+                      lambda: p4.solve(y4, spec=sp), a4, "xla")
+        check(fallback_counts().get((method, "vmem"), 0) == vmem_before + 1,
+              f"{method} fp32 on 16,384 x 1,024 must record reason=vmem")
+        precision_request("precision_16384x1024_k8", method, "bf16",
+                          lambda: p4.solve(y4, spec=sp.replace(
+                              precision="bf16")),
+                          r32.coef, 1e-2, "fused", truth=a4)
+        record_plan("fused_solve_bf16" if method == "bakp_fused"
+                    else "bak_fused_bf16", "16384x1024_k8")
+        precision_request("precision_16384x1024_k8", method, "bf16_fp32acc",
+                          lambda: p4.solve(y4, spec=sp.replace(
+                              precision="bf16_fp32acc",
+                              refine_sweeps=refine)),
+                          r32.coef, 1e-5, "fused",
+                          want_len=sp.max_iter + refine, truth=a4)
+
+    # Phase 4d: phase 3's design (128 MiB at bf16, still over the budget):
+    # the per-sweep loop on the bf16 copy, the streaming kernel on it, and
+    # the host-block handle, which streams fp32 blocks whatever the
+    # precision.
+    for ktag, yy, truth in (("k1", y3, a3), ("k8", y3k, a3k)):
+        r32 = p3.solve(yy)                        # bakp_stream fp32
+        consume_dispatch()
+        precision_request(
+            f"precision_p3_{ktag}", "bakp_fused", "bf16",
+            lambda: p3.solve(yy, spec=spec3.replace(method="bakp_fused",
+                                                    precision="bf16")),
+            r32.coef, 1e-2, "persweep", truth=truth)
+        record_plan("bakp_sweep_bf16", f"phase3_{ktag}")
+        precision_request(
+            f"precision_p3_{ktag}", "bakp_stream", "bf16",
+            lambda: p3.solve(yy, spec=spec3.replace(precision="bf16")),
+            r32.coef, 1e-2, "stream", truth=truth)
+        record_plan("stream_solve_bf16", f"phase3_{ktag}")
+        # Algorithm 1 over 4,096 columns: three sweeps, held to the
+        # residual of its own coefficients on the bf16 x.
+        consume_dispatch()
+        rb = p3.solve(yy, spec=spec3.replace(method="bak_fused", max_iter=3,
+                                             precision="bf16"))
+        path = consume_dispatch()
+        record_plan("bak_sweep_bf16", f"phase3_{ktag}")
+        x3b = p3.x_bf16_for(thr3)
+        e_re = (yy.reshape(obs3, -1)
+                - x3b.float().T @ rb.coef.reshape(vars3, -1))
+        err_e = rel(rb.residual.reshape(obs3, -1), e_re, scale=yy)
+        hist = rb.history
+        emit({"phase": f"precision_p3_{ktag}", "method": "bak_fused",
+              "precision": "bf16", "path": path,
+              "n_sweeps": int(rb.n_sweeps), "residual_rel_err": err_e,
+              "history": hist.tolist()})
+        check(path == "persweep", f"p3 {ktag} bak_fused bf16: path {path}")
+        check(err_e <= KERNEL_TOL and bool(torch.isfinite(hist).all())
+              and bool((hist[1:] <= hist[:-1]).all()),
+              f"p3 {ktag} bak_fused bf16: residual err {err_e}, history "
+              f"{hist.tolist()}")
+        consume_dispatch()
+        rh32 = h3.solve(yy)
+        rh = h3.solve(yy, spec=spec3.replace(precision="bf16"))
+        path = consume_dispatch()
+        err_h = rel(rh.coef, rh32.coef)
+        emit({"phase": f"precision_p3_{ktag}", "method": "bakp_stream",
+              "precision": "bf16", "handle": "non-resident", "path": path,
+              "n_sweeps": int(rh.n_sweeps), "rel_err_vs_fp32": err_h,
+              "max_rel_err": rel(rh.coef, truth)})
+        check(path == "stream_host" and err_h <= 1e-6
+              and int(rh.n_sweeps) == int(rh32.n_sweeps),
+              f"p3 {ktag} non-resident bf16: path {path}, rel err vs its "
+              f"fp32 solve {err_h}")
+    emit({"phase": "precision_plans",
+          **{f"{n} {case}": pl for (n, case), pl in path_plans.items()}})
+    read_launches("phase_4_precision")
+
+    # Phase 4e: benchmarks/solver_precision.py's gates, on the card, at
+    # the budget as it stands: its well-conditioned design (singular values
+    # in [1, 2]), k 1, rtol = atol = 0 so every sweep in the budget runs
+    # and the bytes below are exact.
+    def well_conditioned(obs, nv):
+        g64 = torch.Generator(device=dev).manual_seed(SEED + nv)
+        u = torch.linalg.qr(torch.randn(obs, nv, generator=g64, device=dev,
+                                        dtype=torch.float64))[0]
+        v = torch.linalg.qr(torch.randn(nv, nv, generator=g64, device=dev,
+                                        dtype=torch.float64))[0]
+        s_ = torch.linspace(1.0, 2.0, nv, device=dev, dtype=torch.float64)
+        return ((u * s_) @ v).float()
+
+    def x_bytes_moved(obs, nv, precision, path, n_lp, n_polish,
+                      polish_path):
+        """``benchmarks/solver_precision.py::_x_bytes_moved``: x crosses
+        device memory once a fused solve, once a sweep otherwise; the
+        polish streams fp32."""
+        x32, x16 = obs * nv * 4, obs * nv * 2
+        lp = x32 if precision == "fp32" else x16
+        total = lp if path == "fused" else n_lp * lp
+        if n_polish:
+            total += x32 if polish_path == "fused" else n_polish * x32
+        return total
+
+    gate_rows = []
+    for nv, max_iter in ((256, 40), (1_024, 40)):
+        xg = well_conditioned(obs1, nv)
+        ag = randn(nv)
+        yg = xg @ ag
+        ref = torch.linalg.lstsq(xg.double(), yg.double()[:, None]).solution[:, 0]
+        base = SolverSpec(method="bakp_fused", thr=thr1, max_iter=max_iter,
+                          refine_sweeps=refine)
+        pg = prepare(xg, base.replace(precision="bf16"))
+        polish_path = ("fused" if fused_fits(nv, obs1, 1, 4, max_iter=refine)
+                       else "persweep")
+        row = {"obs": obs1, "vars": nv, "thr": thr1, "max_iter": max_iter,
+               "refine_sweeps": refine}
+        for precision in ("fp32", "bf16", "bf16_fp32acc"):
+            consume_dispatch()
+            res = pg.solve(yg, spec=base.replace(precision=precision))
+            sync()
+            path = consume_dispatch()
+            n_pol = refine if precision == "bf16_fp32acc" else 0
+            coef = res.coef.double()
+            row[precision] = {
+                "path": path, "n_sweeps": int(res.n_sweeps),
+                "x_bytes_moved": x_bytes_moved(
+                    obs1, nv, precision, path, int(res.n_sweeps) - n_pol,
+                    n_pol, polish_path),
+                "mape_vs_lstsq": float((coef - ref).abs().sum()
+                                       / ref.abs().sum())}
+        row["bf16acc_bytes_ratio_vs_fp32"] = (
+            row["bf16_fp32acc"]["x_bytes_moved"]
+            / row["fp32"]["x_bytes_moved"])
+        emit({"phase": "precision_gates_design", **row})
+        gate_rows.append(row)
+        del pg, xg
+    worst_mape = max(r["bf16_fp32acc"]["mape_vs_lstsq"] for r in gate_rows)
+    # The bytes gate is the benchmark's for its two regimes, where the fp32
+    # solve leaves the chip (x once a sweep); where fp32 runs fused too, x
+    # crosses once in both and the polish adds an fp32 pass (1.5x).
+    off_chip = [r for r in gate_rows if r["fp32"]["path"] != "fused"]
+    worst_ratio = max(r["bf16acc_bytes_ratio_vs_fp32"] for r in off_chip)
+    only16 = any(r["bf16"]["path"] == "fused" and r["fp32"]["path"] != "fused"
+                 for r in gate_rows)
+    jax_gates = json.loads((src.parent / "BENCH_precision.json").read_text(
+        ))["precision_gates"]
+    emit({"phase": "precision_gates", "mape_pass": worst_mape <= 1e-4,
+          "worst_post_refine_mape": worst_mape,
+          "bytes_pass": worst_ratio < 0.6,
+          "worst_bf16acc_bytes_ratio_off_chip": worst_ratio,
+          "bf16acc_bytes_ratio_by_vars": {
+              r["vars"]: r["bf16acc_bytes_ratio_vs_fp32"] for r in gate_rows},
+          "bf16_only_fused_dispatch_pass": only16,
+          "jax_cpu_interpret_figures": {
+              "worst_post_refine_mape": jax_gates["worst_post_refine_mape"],
+              "worst_bf16acc_bytes_ratio":
+                  jax_gates["worst_bf16acc_bytes_ratio"]}})
+    check(worst_mape <= 1e-4, f"precision gate: post-refine MAPE {worst_mape}")
+    check(worst_ratio < 0.6, f"precision gate: bytes ratio {worst_ratio}")
+    check(only16, "precision gate: no design dispatched fused at bf16 only")
+
     # ------------------------------------------ kernels against plain
     def cuda_ms(fn, iters):
         for _ in range(2):
@@ -443,10 +747,26 @@ def main() -> int:
 
     rows = {}
 
-    def sweep_case(label, x_t, inv, nrhs, block, iters, alg=2, plain_iters=None):
+    held_plans = set()
+
+    def held_to_path_plan(name, label, row, path_case):
+        """A kernel row of the precision path must run the plan that path
+        ran at the same shape (``path_case``)."""
+        if path_case is None:
+            return
+        want = path_plans.get((name, path_case))
+        held_plans.add((name, path_case))
+        row["path_case"] = path_case
+        check(want is not None and row["plan"] == want,
+              f"{name} {label}: plan {row['plan']}, the precision path ran "
+              f"{want} ({path_case})")
+
+    def sweep_case(label, x_t, inv, nrhs, block, iters, alg=2,
+                   plain_iters=None, path_case=None):
         nv, no = x_t.shape
         e = randn(nrhs, no)
-        name = "bak_sweep" if alg == 1 else "bakp_sweep"
+        name = _build.launch_key("bak_sweep" if alg == 1 else "bakp_sweep",
+                                 x_t.element_size())
 
         def kernel():
             if alg == 1:
@@ -462,11 +782,13 @@ def main() -> int:
         da_p, e_p = plain_fn()
         sync()
         err_da, err_e = rel(da, da_p), rel(e_k, e_p, scale=e)
-        check(err_da <= KERNEL_TOL and err_e <= KERNEL_TOL,
+        tol = BF16_KERNEL_TOL if x_t.element_size() == 2 else KERNEL_TOL
+        check(err_da <= tol and err_e <= tol,
               f"{name} {label}: rel err da {err_da}, e {err_e}")
         ms = cuda_ms(kernel, iters)
         plain = cuda_ms(plain_fn, plain_iters or iters)
-        nbytes = 4 * (nv * no + nv + 2 * nrhs * no + nv * nrhs)
+        nbytes = (x_t.element_size() * nv * no
+                  + 4 * (nv + 2 * nrhs * no + nv * nrhs))
         b_ms, b_by = bound(nbytes, 4 * nv * no * nrhs)
         max_abs = max((da - da_p).abs().max().item(),
                       (e_k - e_p).abs().max().item())
@@ -479,21 +801,25 @@ def main() -> int:
             row["us_per_column"] = ms * 1e3 / nv
         else:
             row["us_per_step"] = ms * 1e3 / (nv // block)
+        held_to_path_plan(name, label, row, path_case)
         emit({"phase": "kernel_vs_plain", "kernel": name, "case": label,
               **row})
         return row
 
     def fused_case(label, x_t, inv, y, block, max_iter, rtol, iters,
-                   variant="bakp", plain_iters=None):
+                   variant="bakp", plain_iters=None, atol=0.0, rule=False,
+                   path_case=None):
         """A whole-solve kernel against its plain version: ``variant``
         "bakp" / "bak" (fused_solve.cu / bak_fused.cu) or "stream"
         (stream_solve.cu, which reads x once per sweep); one solve must be
-        one launch."""
+        one launch.  ``rule``: an rtol stop must also fall within one sweep
+        of the rule on the plain iterate's SSE summed in fp64.
+        ``path_case``: the plan must be the one the precision path ran."""
         nv, no = x_t.shape
         nrhs = y.shape[1] if y.dim() == 2 else 1
         inv_cn, a0m, e0 = solve_init(x_t, y, inv, None, y.dim() == 2)
         kw = dict(block=block, max_iter=max_iter,
-                  atol_sse=atol_to_sse(no, nrhs, 0.0), rtol=rtol, omega=1.0)
+                  atol_sse=atol_to_sse(no, nrhs, atol), rtol=rtol, omega=1.0)
         if variant == "stream":
             name, kernel_fn, plain_fn = ("stream_solve", stream_cuda,
                                          stream_solve_plain)
@@ -501,6 +827,7 @@ def main() -> int:
             kw["variant"] = variant
             name = "fused_solve" if variant == "bakp" else "bak_fused"
             kernel_fn, plain_fn = fused_cuda, fused_solve_plain
+        name = _build.launch_key(name, x_t.element_size())
         n0 = _build.LAUNCHES[name]
         ck, ek, hk, sk, nk, _ = kernel_fn(x_t, inv_cn, e0, a0m, **kw)
         check(_build.LAUNCHES[name] == n0 + 1,
@@ -510,24 +837,34 @@ def main() -> int:
         nk, np_ = int(nk), int(np_)
         err_c, err_e = rel(ck, cp), rel(ek, ep, scale=e0)
         if rtol == 0.0:
-            check(nk == np_ == max_iter,
+            check(nk == np_ and (atol > 0.0 or nk == max_iter),
                   f"{name} {label}: n_sweeps {nk} vs {np_}")
         else:
             check(abs(nk - np_) <= 1,
                   f"{name} {label}: n_sweeps {nk} vs {np_}")
-        check(err_c <= KERNEL_TOL and err_e <= KERNEL_TOL,
+        stop_rule = None
+        if rule:
+            stop_rule = plain_rtol_stop(
+                x_t, inv_cn, e0, block=block, rtol=rtol, max_iter=max_iter,
+                variant="bak" if variant == "bak" else "bakp")
+            check(stop_rule is not None and abs(nk - stop_rule) <= 1,
+                  f"{name} {label}: stopped at {nk}, the rule on the plain "
+                  f"iterate's fp64 SSE at {stop_rule}")
+        tol = BF16_KERNEL_TOL if x_t.element_size() == 2 else KERNEL_TOL
+        check(err_c <= tol and err_e <= tol,
               f"{name} {label}: rel err coef {err_c}, e {err_e}")
         ms = cuda_ms(lambda: kernel_fn(x_t, inv_cn, e0, a0m, **kw), iters)
         plain = cuda_ms(lambda: plain_fn(x_t, inv_cn, e0, a0m, **kw),
                         plain_iters or iters)
         x_reads = nk if variant == "stream" else 1
-        nbytes = 4 * (x_reads * nv * no + nv + 2 * nrhs * no + 2 * nv * nrhs
-                      + max_iter)
+        nbytes = (x_t.element_size() * x_reads * nv * no
+                  + 4 * (nv + 2 * nrhs * no + 2 * nv * nrhs + max_iter))
         b_ms, b_by = bound(nbytes, 4 * nk * nv * no * nrhs)
         max_abs = max((ck - cp).abs().max().item(),
                       (ek - ep).abs().max().item())
         row = {"shape": [nv, no, nrhs, block], "n_sweeps": nk,
-               "n_sweeps_plain": np_, "max_abs_err": max_abs,
+               "n_sweeps_plain": np_, "n_sweeps_rule": stop_rule,
+               "max_abs_err": max_abs,
                "rel_err_coef": err_c, "rel_err_e": err_e, "ms": ms,
                "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
                "library_ms": None}
@@ -540,6 +877,7 @@ def main() -> int:
             # per-sweep SSE is included.
             row["plan"] = _build.PLANS[name]._asdict()
             row["us_per_step"] = ms * 1e3 / (nk * (nv // block))
+        held_to_path_plan(name, label, row, path_case)
         emit({"phase": "kernel_vs_plain", "kernel": name, "case": label,
               **row})
         return row
@@ -776,6 +1114,74 @@ def main() -> int:
               "persweep_loop_ms": persweep_ms,
               "stream_solve_ms": stream_rows[nrhs]["ms"]})
 
+    # bf16 x (precision "bf16"): kernels 1, 2, 3, 4 and 7 at the shapes of
+    # their fp32 rows and at every shape the precision path gave them, on
+    # the handles' bf16 copies, each held to its plain version on the same
+    # bf16 tensor and, at a precision-path shape, to the plan that path
+    # ran; x counts 2 bytes in the bound.  The rtol stops are also held to
+    # the rule on the plain iterate's fp64 SSE, and an atol-only stop must
+    # fall on the plain version's sweep.
+    x1b, x2b, x3b = (p1.x_bf16_for(thr1), p2.x_bf16_for(thr2),
+                     p3.x_bf16_for(thr3))
+    x4wb, inv4w = p4w.x_bf16_for(thr1), p4w.inv_cn_for(thr1)
+    x4b, inv4 = p4.x_bf16_for(thr1), p4.inv_cn_for(thr1)
+    rows["bakp_sweep_bf16"] = sweep_case("phase2_k8", x2b, inv2, k, thr2, 10)
+    for ktag, nrhs in (("k1", 1), ("k8", k)):
+        sweep_case(f"phase3_{ktag}", x3b, inv3, nrhs, thr3, 10,
+                   plain_iters=3, path_case=f"phase3_{ktag}")
+    rows["fused_solve_bf16"] = fused_case(
+        "phase1_k8_fixed20", x1b, inv1, y1k + 0.1 * randn(obs1, k), thr1,
+        20, 0.0, 10, path_case="phase1_k8")
+    fused_case("phase1_k1_fixed20", x1b, inv1, y1 + 0.1 * randn(obs1), thr1,
+               20, 0.0, 10, path_case="phase1_k1")
+    fused_case("phase1_k8_rtol", x1b, inv1, y1k, thr1, 100, 1e-7, 5,
+               rule=True)
+    # The noise (0.1) and bf16's rounding of x hold the RMSE near 0.104.
+    fused_case("phase1_k8_atol", x1b, inv1, y1kn, thr1, 100, 0.0, 5,
+               atol=0.12)
+    # 16,384 x 512 (x's bf16 slice in shared memory) and 16,384 x 1,024
+    # (fused at bf16 only), as the precision path ran them.
+    fused_case("16384x512_k8_fixed20", x4wb, inv4w,
+               y4w + 0.1 * randn(obs1, k), thr1, 20, 0.0, 10,
+               path_case="16384x512_k8")
+    y4n = y4 + 0.1 * randn(obs1, k)
+    fused_case("16384x1024_k8_fixed20", x4b, inv4, y4n, thr1, 20, 0.0, 10,
+               path_case="16384x1024_k8")
+    rows["bak_sweep_bf16"] = sweep_case("phase2_k8", x2b, inv2, k, thr2, 5,
+                                        alg=1, plain_iters=2)
+    # Algorithm 1 over phase 3's 4,096 columns: the plain version loops
+    # over them from the host, so it runs once after its warm-ups.
+    for ktag, nrhs in (("k1", 1), ("k8", k)):
+        sweep_case(f"phase3_{ktag}", x3b, inv3, nrhs, thr3, 3, alg=1,
+                   plain_iters=1, path_case=f"phase3_{ktag}")
+    rows["bak_fused_bf16"] = fused_case(
+        "phase1_k8_fixed20", x1b, inv1, y1kn, thr1, 20, 0.0, 5,
+        variant="bak", plain_iters=2, path_case="phase1_k8")
+    fused_case("phase1_k1_fixed20", x1b, inv1, y1n, thr1, 20, 0.0, 5,
+               variant="bak", plain_iters=2, path_case="phase1_k1")
+    fused_case("phase1_k8_rtol", x1b, inv1, y1k, thr1, 100, 1e-7, 5,
+               variant="bak", plain_iters=2, rule=True)
+    fused_case("16384x1024_k8_fixed5", x4b, inv4, y4n, thr1, 5, 0.0, 3,
+               variant="bak", plain_iters=1, path_case="16384x1024_k8")
+    del p4w, x4w, x4wb, p4, x4, x4b
+    rows["stream_solve_bf16"] = fused_case(
+        "phase3_k8_fixed20", x3b, inv3, y3kn, thr3, 20, 0.0, 10,
+        variant="stream", plain_iters=3, path_case="phase3_k8")
+    fused_case("phase3_k1_fixed20", x3b, inv3, y3n, thr3, 20, 0.0, 10,
+               variant="stream", plain_iters=3, path_case="phase3_k1")
+    fused_case("phase3_k8_rtol", x3b, inv3, y3k, thr3, 100, 1e-7, 3,
+               variant="stream", plain_iters=2, rule=True)
+    for name in ("fused_solve_bf16", "bak_fused_bf16"):
+        check(rows[name]["plan"]["regime"] == "multi_cluster"
+              if name == "fused_solve_bf16" else
+              rows[name]["plan"]["regime"] == "single_cluster",
+              f"{name} phase 1: plan {rows[name]['plan']}")
+    check(rows["fused_solve_bf16"]["plan"]["x_in"] == "shared",
+          f"fused_solve_bf16 phase 1: x_in "
+          f"{rows['fused_solve_bf16']['plan']['x_in']}")
+    unheld = set(path_plans) - held_plans
+    check(not unheld, f"precision-path plans no kernel row ran: {unheld}")
+
     kernel_src = "src/repro_torch/kernels/csrc/"
     src_of = {
         "bakp_sweep": ("bakp_sweep.cu", "src/repro/kernels/cd_sweep.py:108"),
@@ -790,6 +1196,8 @@ def main() -> int:
                          "src/repro/kernels/block_update.py:24"),
         "stream_solve": ("stream_solve.cu",
                          "src/repro/kernels/stream_solve.py:87")}
+    src_of.update({_build.launch_key(n, 2): src_of[n]
+                   for n in _build.X_KERNELS})
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": kernel_src + src_of[name][0],
          "replaces": src_of[name][1], "launches": launches[name],

@@ -26,7 +26,8 @@ from repro_torch.core.solvebak import solvebak, solvebak_onesweep
 from repro_torch.core.solvebakf import solvebakf, stepwise_regression_baseline
 from repro_torch.core.solvebakp import block_gram_cholesky, solvebakp
 from repro_torch.core.spec import (PRECISIONS, MethodEntry, SolverSpec,
-                                   UnsupportedSpecError, method_names,
+                                   UnsupportedSpecError,
+                                   ensure_precision_supported, method_names,
                                    methods_for_precision, register_method,
                                    solver_method, streaming_methods)
 from repro_torch.core.types import SelectResult, SolveResult
@@ -42,6 +43,7 @@ __all__ = [
     "UnsupportedSpecError",
     "block_gram_cholesky",
     "design_fingerprint",
+    "ensure_precision_supported",
     "fit_linear_probe",
     "method_names",
     "methods_for_precision",

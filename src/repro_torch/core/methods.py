@@ -27,8 +27,16 @@
 Dispatch labels are the JAX package's: the plain torch family records
 ``xla`` (the route the JAX package leaves to XLA), the kernel routes
 ``fused`` / ``stream`` / ``persweep``, the host-block loop
-``stream_host``.  bf16 precisions, multi-GPU placements and cross-design
-batching arrive with later slices, so no entry here claims them.
+``stream_host``.
+
+Precision, as in the JAX registry: "bakp_fused" and "bak_fused" run
+"fp32", "bf16" and "bf16_fp32acc", "bakp_stream" "fp32" and "bf16".  A
+bf16 solve hands the kernels the handle's bf16 copy of x
+(``PreparedDesign.x_bf16_for``), which they read and widen to fp32 as
+they go; the norms, residual, coefficients and SSE stay fp32.
+"bf16_fp32acc" then polishes with up to ``refine_sweeps`` fp32 sweeps
+(``_refine_fp32``).  Multi-GPU placements and cross-design batching
+arrive with later slices, so no entry here claims them.
 """
 from __future__ import annotations
 
@@ -82,11 +90,47 @@ def _prep_bakp_gram(p, spec: SolverSpec):
 
 
 # ------------------------------------------------------ whole-solve kernel
+def _refine_fp32(p, y, spec: SolverSpec, lp: SolveResult, *, variant: str,
+                 nrhs: int) -> SolveResult:
+    """fp32 polish of ``precision="bf16_fp32acc"`` (iterative refinement).
+
+    Starts from the low-precision coefficients: ``solve_init`` recomputes
+    the residual in fp32 against the fp32 design, then up to
+    ``spec.refine_sweeps`` fp32 sweeps run from it, honouring
+    ``atol``/``rtol``, on the whole-solve kernel where it fits at fp32
+    itemsize, else on the per-sweep loop.  It records no dispatch: the
+    solve's path stays the low-precision route that moved most of the
+    bytes.  Sweeps add, histories concatenate (``max_iter +
+    refine_sweeps`` long) and ``converged`` is the OR."""
+    from repro_torch.kernels.fused_solve import fused_fits, fused_solve
+    from repro_torch.kernels.ops import solvebakp_persweep_kernel
+
+    block = spec.thr
+    obs_p = p.shape[0]
+    x_t = p.x_t_for(block)
+    kw = dict(inv_cn=p.inv_cn_for(block), a0=lp.coef, block=block,
+              max_iter=spec.refine_sweeps, atol=spec.atol, rtol=spec.rtol,
+              omega=spec.omega if variant == "bakp" else 1.0,
+              variant=variant)
+    if fused_fits(x_t.shape[0], obs_p, nrhs, x_t.element_size(),
+                  max_iter=spec.refine_sweeps):
+        pol = fused_solve(x_t, y, **kw)
+    else:
+        pol = solvebakp_persweep_kernel(x_t, y, **kw)
+    return SolveResult(
+        pol.coef, pol.residual, pol.sse, lp.n_sweeps + pol.n_sweeps,
+        lp.converged | pol.converged, torch.cat([lp.history, pol.history]))
+
+
 def _fused_method(variant: str):
     """Algorithm 2 (``variant="bakp"``) or 1 (``"bak"``) on the whole-solve
     kernel, over the handle's cached transposed padded design and inverse
-    norms.  Over the on-chip budget (or with ``max_iter < 1``) it runs the
-    plain path of the same algorithm, "bakp" or "bak", instead."""
+    norms.  Over the on-chip budget (or with ``max_iter < 1``) an fp32
+    solve runs the plain path of the same algorithm, "bakp" or "bak",
+    instead.  A bf16 solve reads the handle's bf16 copy and fits at
+    itemsize 2, so designs twice as large stay on the kernel; one over the
+    budget even then runs the per-sweep loop on the bf16 copy (never the
+    fp32 plain path).  "bf16_fp32acc" adds the ``_refine_fp32`` polish."""
     method = f"{variant}_fused"
 
     def kernel(p, y, spec: SolverSpec, *, a0=None, generator=None):
@@ -94,14 +138,19 @@ def _fused_method(variant: str):
         # so a module-level import here would tie the two packages' import
         # order.
         from repro_torch.kernels.fused_solve import fused_fits, fused_solve
+        from repro_torch.kernels.ops import solvebakp_persweep_kernel
 
         block = spec.thr
+        lowp = spec.precision != "fp32"
+        polish = spec.precision == "bf16_fp32acc" and spec.refine_sweeps > 0
         obs_p, vars_p = p.shape
         nrhs = y.shape[1] if y.dim() == 2 else 1
         vars_pb = -(-vars_p // block) * block
-        if spec.max_iter < 1 or not fused_fits(vars_pb, obs_p, nrhs,
-                                               p.x_pad.element_size(),
-                                               max_iter=spec.max_iter):
+        itemsize = 2 if lowp else p.x_pad.element_size()
+        fits = (spec.max_iter >= 1
+                and fused_fits(vars_pb, obs_p, nrhs, itemsize,
+                               max_iter=spec.max_iter))
+        if spec.max_iter < 1 or (not fits and not lowp):
             record_dispatch("xla", method=method,
                             reason="max_iter" if spec.max_iter < 1 else "vmem")
             if variant == "bak":
@@ -114,12 +163,21 @@ def _fused_method(variant: str):
         if a0 is not None and vars_pb != vars_p:
             a0 = torch.nn.functional.pad(
                 a0, (0, 0) * (a0.dim() - 1) + (0, vars_pb - vars_p))
-        record_dispatch("fused", method=method)
-        res = fused_solve(p.x_t_for(block), y, inv_cn=p.inv_cn_for(block),
-                          a0=a0, block=block, max_iter=spec.max_iter,
-                          atol=spec.atol, rtol=spec.rtol,
-                          omega=spec.omega if variant == "bakp" else 1.0,
-                          variant=variant)
+        x_t = p.x_bf16_for(block) if lowp else p.x_t_for(block)
+        kw = dict(inv_cn=p.inv_cn_for(block), a0=a0, block=block,
+                  max_iter=spec.max_iter, atol=spec.atol, rtol=spec.rtol,
+                  omega=spec.omega if variant == "bakp" else 1.0,
+                  variant=variant)
+        if fits:
+            record_dispatch("fused", method=method)
+            res = fused_solve(x_t, y, **kw)
+        else:
+            # bf16 over the budget: the per-sweep loop on the bf16 copy
+            # keeps the halved bytes where they matter most.
+            record_dispatch("persweep", method=method, reason="vmem")
+            res = solvebakp_persweep_kernel(x_t, y, **kw)
+        if polish:
+            res = _refine_fp32(p, y, spec, res, variant=variant, nrhs=nrhs)
         if vars_pb != vars_p:
             res = res._replace(coef=res.coef[:vars_p])
         return res
@@ -129,6 +187,8 @@ def _fused_method(variant: str):
 def _prep_fused(p, spec: SolverSpec):
     p.x_t_for(spec.thr)
     p.inv_cn_for(spec.thr)
+    if spec.precision != "fp32":
+        p.x_bf16_for(spec.thr)
 
 
 # ------------------------------------------------- streaming out-of-core
@@ -137,17 +197,21 @@ def _stream_solve_method(p, y, spec: SolverSpec, *, a0=None, generator=None):
 
     Resident designs run the streaming kernel: x stays in device memory
     and each CTA copies its slice of every tile through a two-stage
-    shared-memory ring while the residual and coefficients stay on chip.
-    When even the ring does not fit a CTA, the per-sweep kernel loop
-    (``persweep``/``vmem``).  Non-resident handles take the host-block loop
-    (``stream_host``), fetching tiles from host memory per block.  Same
-    block-Jacobi math and stopping rule as "bakp"/"bakp_fused" either way.
+    shared-memory ring while the residual and coefficients stay on chip
+    (under "bf16" the ring holds the handle's bf16 copy, and the fit is
+    checked at itemsize 2).  When even the ring does not fit a CTA, the
+    per-sweep kernel loop (``persweep``/``vmem``).  Non-resident handles
+    take the host-block loop (``stream_host``), fetching fp32 tiles from
+    host memory per block whatever the precision, as the JAX package
+    does.  Same block-Jacobi math and stopping rule as
+    "bakp"/"bakp_fused" either way.
     """
     from repro_torch.kernels.ops import solvebakp_persweep_kernel
     from repro_torch.kernels.stream_solve import (stream_fits, stream_solve,
                                                   stream_solve_blocks)
 
     block = spec.thr
+    lowp = spec.precision != "fp32"
     obs_p, vars_p = p.shape
     nrhs = y.shape[1] if y.dim() == 2 else 1
     vars_pb = -(-vars_p // block) * block
@@ -165,16 +229,17 @@ def _stream_solve_method(p, y, spec: SolverSpec, *, a0=None, generator=None):
     if not p.resident:
         record_dispatch("stream_host", method="bakp_stream")
         res = stream_solve_blocks(p.blocks, y, **kw)
-    elif stream_fits(vars_pb, obs_p, nrhs, p.x_pad.element_size(),
-                     block=block, max_iter=spec.max_iter):
-        record_dispatch("stream", method="bakp_stream")
-        res = stream_solve(p.x_t_for(block), y, **kw)
     else:
-        # Even one CTA's ring is over its shared memory (very large obs):
-        # the per-sweep loop also holds one block at a time.
-        record_dispatch("persweep", method="bakp_stream", reason="vmem")
-        res = solvebakp_persweep_kernel(p.x_t_for(block), y, variant="bakp",
-                                        **kw)
+        x_t = p.x_bf16_for(block) if lowp else p.x_t_for(block)
+        if stream_fits(vars_pb, obs_p, nrhs, x_t.element_size(),
+                       block=block, max_iter=spec.max_iter):
+            record_dispatch("stream", method="bakp_stream")
+            res = stream_solve(x_t, y, **kw)
+        else:
+            # Even one CTA's ring is over its shared memory (very large
+            # obs): the per-sweep loop also holds one block at a time.
+            record_dispatch("persweep", method="bakp_stream", reason="vmem")
+            res = solvebakp_persweep_kernel(x_t, y, variant="bakp", **kw)
     if vars_pb != vars_p:
         res = res._replace(coef=res.coef[:vars_p])
     return res
@@ -184,6 +249,8 @@ def _prep_stream(p, spec: SolverSpec):
     p.inv_cn_for(spec.thr)
     if p.resident:
         p.x_t_for(spec.thr)
+        if spec.precision != "fp32":
+            p.x_bf16_for(spec.thr)
 
 
 # ---------------------------------------------------- greedy selection (A3)
@@ -257,14 +324,16 @@ register_method(MethodEntry(
 register_method(MethodEntry(
     name="bakp_fused", solve=_fused_method("bakp"),
     consumes=_ITER_FIELDS + ("thr", "omega", "precision", "refine_sweeps"),
-    iterative=True, multi_rhs=True, blocked=True, lane="fused",
+    iterative=True, multi_rhs=True, blocked=True,
+    precisions=("fp32", "bf16", "bf16_fp32acc"), lane="fused",
     prepare=_prep_fused, fallback="bakp",
     summary="Algorithm 2 on the whole-solve CUDA kernel (sweeps, SSE and "
             "stop on the card; plain bakp path over the on-chip budget)"))
 register_method(MethodEntry(
     name="bak_fused", solve=_fused_method("bak"),
     consumes=_ITER_FIELDS + ("thr", "precision", "refine_sweeps"),
-    iterative=True, multi_rhs=True, blocked=True, lane="fused",
+    iterative=True, multi_rhs=True, blocked=True,
+    precisions=("fp32", "bf16", "bf16_fp32acc"), lane="fused",
     prepare=_prep_fused, fallback="bak",
     summary="Algorithm 1 on the whole-solve CUDA kernel (sequential column "
             "order; plain bak path over the on-chip budget)"))
@@ -272,7 +341,8 @@ register_method(MethodEntry(
     name="bakp_stream", solve=_stream_solve_method,
     consumes=_ITER_FIELDS + ("thr", "omega", "precision"),
     iterative=True, multi_rhs=True, blocked=True, streams=True,
-    lane="stream", prepare=_prep_stream, fallback="lstsq",
+    precisions=("fp32", "bf16"), lane="stream", prepare=_prep_stream,
+    fallback="lstsq",
     summary="Algorithm 2 streaming out-of-core: x tiles double-buffered "
             "from device memory through each CTA's shared memory, or "
             "fetched per block from host memory for non-resident designs"))

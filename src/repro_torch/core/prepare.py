@@ -11,10 +11,11 @@ Counterpart of ``repro.core.prepare``:
 ``x_pad``; its content ``fingerprint``; the squared column norms, their
 thr-padded layouts and inverses (``cn_for_thr``, ``inv_cn_for``); the
 transposed padded copy per block width (``x_t_for``, the CUDA kernels'
-layout); block-Gram Cholesky factors per ``(thr, ridge)``; and an LRU of
-per-tenant warm-start coefficients.  All of it is built lazily under a
-per-design lock.  The bf16 tier, mesh copies and lane residency arrive
-with their slices.
+layout) and its bf16 cast (``x_bf16_for``, the quantized tier the bf16
+precisions read); block-Gram Cholesky factors per ``(thr, ridge)``; and an
+LRU of per-tenant warm-start coefficients.  All of it is built lazily
+under a per-design lock.  Mesh copies and lane residency arrive with their
+slices.
 
 A NON-RESIDENT handle has ``x_pad=None``: its x stays in host memory and
 reaches the device block by block through ``blocks`` (a
@@ -99,6 +100,8 @@ class PreparedDesign:
     _cn_thr: Dict[int, torch.Tensor] = field(default_factory=dict, repr=False)
     _inv_cn: Dict[int, torch.Tensor] = field(default_factory=dict, repr=False)
     _x_t: Dict[int, torch.Tensor] = field(default_factory=dict, repr=False)
+    _x_bf16: Dict[int, torch.Tensor] = field(default_factory=dict,
+                                             repr=False)
     _warm: "OrderedDict[str, torch.Tensor]" = field(default_factory=OrderedDict,
                                                     repr=False)
     _lock: threading.RLock = field(default_factory=threading.RLock,
@@ -204,6 +207,18 @@ class PreparedDesign:
                     x_t = torch.nn.functional.pad(x_t, (0, 0, 0, pad))
                 self._x_t[thr] = x_t.contiguous()
             return self._x_t[thr]
+
+    def x_bf16_for(self, thr: int) -> torch.Tensor:
+        """Quantized cache tier: ``x_t_for(thr)`` cast once to bf16 (round
+        to nearest even), contiguous and memoised per ``thr``.  The bf16
+        precisions' kernels read this copy (half the bytes of x) while the
+        norms, residual, coefficients and SSE stay fp32; ``x_t_for`` stays
+        cached beside it for fp32 solves and the fp32 polish."""
+        with self._lock:
+            if thr not in self._x_bf16:
+                self._x_bf16[thr] = self.x_t_for(thr).to(
+                    torch.bfloat16).contiguous()
+            return self._x_bf16[thr]
 
     def chol_for(self, thr: int, ridge: float) -> torch.Tensor:
         """Block-Gram Cholesky factors for (thr, ridge), computed once."""

@@ -15,10 +15,12 @@ Shared semantics:
     (``generator=``), where the JAX package takes a PRNG ``key``.
   * fields a method does not consume (``MethodEntry.consumes``) are reset to
     defaults by ``canonical()``.
-  * ``precision`` — names the storage precision of the X stream.  Every
-    method of this slice runs "fp32" only; a method's ``precisions`` says
-    so, and ``ensure_precision_supported`` raises ``UnsupportedSpecError``
-    for anything else.
+  * ``precision`` — names the storage precision of the X stream: "fp32",
+    "bf16" (the kernels read a bf16 copy of x and keep every accumulator
+    in fp32) or "bf16_fp32acc" (bf16, then up to ``refine_sweeps`` fp32
+    polish sweeps).  A method's ``precisions`` lists the ones it runs, and
+    ``ensure_precision_supported`` raises ``UnsupportedSpecError`` for any
+    other.
 """
 from __future__ import annotations
 
@@ -191,7 +193,7 @@ def ensure_precision_supported(spec: SolverSpec) -> MethodEntry:
     if spec.precision not in entry.precisions:
         raise UnsupportedSpecError(
             f"method {spec.method!r} does not support "
-            f"precision={spec.precision!r} here (supports "
-            f"{entry.precisions}); the PyTorch port runs fp32 until its "
-            f"mixed-precision slice")
+            f"precision={spec.precision!r} (supports {entry.precisions}); "
+            f"pick one of methods {methods_for_precision(spec.precision)} "
+            f"or precision='fp32'")
     return entry

@@ -27,8 +27,10 @@
 
 Every kernel has a plain torch version in its module; a wrapper runs it for
 CPU tensors and launches the kernel for CUDA tensors.  Nothing is compiled
-or loaded at import.  The kernels use fp32 FMAs only; the plain versions
-use ``torch.matmul``, which on the card stays in full fp32 only with
+or loaded at import.  The x-reading kernels take x in fp32 or bf16 and
+widen a bf16 x to fp32 as they load it.  The kernels use fp32 FMAs only;
+the plain versions use ``torch.matmul``, which on the card stays in full
+fp32 only with
 ``torch.backends.cuda.matmul.allow_tf32 = False`` (PyTorch's default,
 which ``chip_smoke.py`` sets before comparing).
 """

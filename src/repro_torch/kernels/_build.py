@@ -9,10 +9,12 @@ carrying a hash of the flags, the library's ``.cu`` and the ``csrc``
 headers it includes (followed transitively), so editing a source rebuilds
 exactly the libraries that compile it and the rest load as they are.
 
-Launch counts also live here: every wrapper adds one to ``LAUNCHES[name]``
-where it launches its kernel, and nowhere else.  A kernel whose launch plan
-varies with the shape (the cluster kernels' regimes) records the plan of
-its last launch in ``PLANS[name]``.
+Launch counts also live here: every wrapper adds one to
+``LAUNCHES[launch_key(name, itemsize)]`` where it launches its kernel, and
+nowhere else; the five kernels that read x count their launches on a bf16
+x apart (``"<name>_bf16"``).  A kernel whose launch plan varies with the
+shape (the cluster kernels' regimes) records the plan of its last launch
+under the same key in ``PLANS``.
 """
 from __future__ import annotations
 
@@ -41,24 +43,27 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _U = ctypes.c_uint
-# C signatures of every entry point, by library.
+# C signatures of every entry point, by library.  The kernels that read x
+# take it untyped, followed by its element size in bytes (4 fp32, 2 bf16).
 SIGNATURES: Dict[str, Dict[str, list]] = {
     "bakp_sweep": {
         "bakp_sweep_clusters": [_I, _I, _I, _P],
-        "bakp_sweep_launch": [_P] * 6 + [_U] + [_I] * 4 + [_F] + [_I] * 6 + [_P],
+        "bakp_sweep_launch": [_P, _I] + [_P] * 5 + [_U] + [_I] * 4 + [_F]
+        + [_I] * 6 + [_P],
     },
     "fused_solve": {
         "bakp_fused_clusters": [_I, _I, _I, _P],
-        "bakp_fused_launch": [_P] * 11 + [_U] + [_I] * 6 + [_F] * 3
-        + [_I] * 5 + [_P],
+        "bakp_fused_launch": [_P, _I] + [_P] * 10 + [_U] + [_I] * 6
+        + [_F] * 3 + [_I] * 5 + [_P],
     },
     "bak_sweep": {
-        "bak_sweep_grid": [_I, _I, _I, _I, _P],
-        "bak_sweep_launch": [_P] * 6 + [_I] * 6 + [_P],
+        "bak_sweep_grid": [_I] * 5 + [_P],
+        "bak_sweep_launch": [_P, _I] + [_P] * 5 + [_I] * 6 + [_P],
     },
     "bak_fused": {
-        "bak_fused_grid": [_I, _I, _I, _I, _P],
-        "bak_fused_launch": [_P] * 11 + [_I] * 4 + [_F] * 2 + [_I] * 3 + [_P],
+        "bak_fused_grid": [_I] * 5 + [_P],
+        "bak_fused_launch": [_P, _I] + [_P] * 10 + [_I] * 4 + [_F] * 2
+        + [_I] * 3 + [_P],
     },
     "score_features": {
         "score_features_launch": [_P] * 5 + [_I] * 4 + [_P],
@@ -68,17 +73,32 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     },
     "stream_solve": {
         "stream_solve_clusters": [_I, _I, _I, _P],
-        "stream_solve_launch": [_P] * 11 + [_U] + [_I] * 5 + [_F] * 3 + [_I] * 4
-        + [_P],
+        "stream_solve_launch": [_P, _I] + [_P] * 10 + [_U] + [_I] * 5
+        + [_F] * 3 + [_I] * 4 + [_P],
     },
 }
+# The kernels that read x, in fp32 or bf16.
+X_KERNELS = ("bakp_sweep", "fused_solve", "bak_sweep", "bak_fused",
+             "stream_solve")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 
 
-def launch_counts() -> Dict[str, int]:
-    return {name: LAUNCHES[name] for name in SIGNATURES}
+def launch_key(name: str, itemsize: int = 4) -> str:
+    """The key of ``LAUNCHES`` / ``PLANS`` for kernel ``name`` on an x of
+    ``itemsize`` bytes an element: ``name`` for fp32, ``name + "_bf16"``."""
+    if itemsize not in (2, 4):
+        raise ValueError(f"x of {itemsize} bytes an element")
+    return name if itemsize == 4 else name + "_bf16"
+
+
+def launch_counts(itemsize: int = 4) -> Dict[str, int]:
+    """Launches per kernel on an x of ``itemsize`` bytes an element, by
+    ``launch_key``: every kernel for fp32, the x-reading ones for bf16."""
+    names = SIGNATURES if itemsize == 4 else X_KERNELS
+    return {launch_key(n, itemsize): LAUNCHES[launch_key(n, itemsize)]
+            for n in names}
 
 
 def reset_launch_counts() -> None:

@@ -17,6 +17,11 @@ The JAX ``cd_sweep``
 stages ``block`` rows per grid step and checks a VMEM budget; here
 ``block`` only has to divide vars (as in JAX), since the Algorithm-1 kernel
 walks the columns one at a time whatever the block.
+
+x is fp32 or bf16 (``check_kernel_args``), as the Pallas kernels load x in
+its stored dtype and widen it to fp32: the plain versions widen one row or
+block at a time, the kernels as they load, and every byte count of x in
+the plans takes x's itemsize.  The residual, norms and increments are fp32.
 """
 from __future__ import annotations
 
@@ -91,6 +96,9 @@ BAKP_X_IN = ("shared", "ring", "direct")
 _HDR_FIXED = 60
 _SWEEP_ROWS, _SWEEP_POS, _SWEEP_STAGES = 32, 256, (3, 8)
 _SLICE_ALIGN = 32
+
+# x's element types the kernels take (the other operands are fp32).
+X_DTYPES = (torch.float32, torch.bfloat16)
 
 _grid_cache: dict = {}
 # Exchange words of the Algorithm-2 kernels by (device, stream): (words,
@@ -257,8 +265,10 @@ def _group(block: int, k: int, cluster: int, room: int) -> int:
     return g and -(-k // -(-k // g))
 
 
-def _fused_plan(obs: int, k: int, block: int, nvars: int, layout) -> BakpPlan:
-    """The whole-solve kernel's plan: x's slice resident in shared memory
+def _fused_plan(obs: int, k: int, block: int, nvars: int, itemsize: int,
+                layout) -> BakpPlan:
+    """The whole-solve kernel's plan, for x of ``itemsize`` bytes an
+    element: x's slice resident in shared memory
     (``x_in`` "shared") where it, the residual slice and one exchange of at
     least one right-hand side fit ``SMEM_PER_CTA_BYTES`` on some launch of
     ``_more_ctas``; else each block's tile through the two-stage ring
@@ -267,8 +277,9 @@ def _fused_plan(obs: int, k: int, block: int, nvars: int, layout) -> BakpPlan:
     one whose exchanges carry the most right-hand sides (the fewest groups),
     then the fewest CTAs.  Raises where one right-hand side's exchange
     arrays alone overflow a CTA."""
-    for x_in, per_pos in (("shared", 4 * (nvars + k)),
-                          ("ring", 4 * (2 * block + k)), ("direct", 0)):
+    for x_in, per_pos in (("shared", itemsize * nvars + 4 * k),
+                          ("ring", itemsize * 2 * block + 4 * k),
+                          ("direct", 0)):
         layouts = (_more_ctas(obs, **layout) if x_in != "direct"
                    else [bakp_layout(obs, **layout)])
         best, best_group = None, 0
@@ -294,27 +305,28 @@ def _fused_plan(obs: int, k: int, block: int, nvars: int, layout) -> BakpPlan:
 
 
 def bakp_plan(kind: str, obs: int, k: int, block: int, *, nvars: int = 0,
-              **layout) -> BakpPlan:
+              itemsize: int = 4, **layout) -> BakpPlan:
     """The launch plan of ``kind`` ("stream", "sweep" or "fused") on
     ``bakp_layout`` (its keywords; the cluster defaults to
-    ``BAKP_CLUSTER[kind]``), with the shared memory a CTA carves: the
-    exchange arrays, then for "stream" the two-stage tile ring and the
-    residual slice; for "sweep" the residual slice when it fits
+    ``BAKP_CLUSTER[kind]``), for x of ``itemsize`` bytes an element (4
+    fp32, 2 bf16), with the shared memory a CTA carves: the exchange
+    arrays, then for "stream" the two-stage tile ring and the residual
+    slice; for "sweep" the residual slice when it fits
     ``SMEM_PER_CTA_BYTES`` beside a ring of three chunks, and a ring of as
     many chunks as then fit, three to eight; for "fused" (a design of
     ``nvars`` rows) as ``_fused_plan`` picks."""
     layout.setdefault("cluster", BAKP_CLUSTER[kind])
     if kind == "fused":
-        return _fused_plan(obs, k, block, nvars, layout)
+        return _fused_plan(obs, k, block, nvars, itemsize, layout)
     regime, ctas, size, n, length = bakp_layout(obs, **layout)
     smem = bakp_exchange_bytes(block, k, size)
     e_bytes = 4 * k * length
     if kind == "stream":
-        smem += 4 * 2 * block * length + e_bytes
+        smem += itemsize * 2 * block * length + e_bytes
         e_in, stages = "shared", 2
     else:
         lo, hi = _SWEEP_STAGES
-        stage = 4 * _SWEEP_ROWS * min(length, _SWEEP_POS)
+        stage = itemsize * _SWEEP_ROWS * min(length, _SWEEP_POS)
         room = SMEM_PER_CTA_BYTES - smem
         e_in = "shared" if room - e_bytes >= lo * stage else "device"
         if e_in == "shared":
@@ -329,18 +341,18 @@ def bakp_plan(kind: str, obs: int, k: int, block: int, *, nvars: int = 0,
 
 
 def bakp_grid(lib_fn, kind: str, obs: int, k: int, block: int, *,
-              nvars: int = 0) -> BakpPlan:
+              nvars: int = 0, itemsize: int = 4) -> BakpPlan:
     """``bakp_plan`` on the current card: the clusters it holds at once
     come from the CUDA runtime (``lib_fn``, a ``*_clusters`` entry), its
     SM count caps the CTAs.  Raises if the card cannot place one cluster."""
     dev = torch.cuda.current_device()
     size = BAKP_CLUSTER[kind]
-    key = (lib_fn.__name__, dev, obs, k, block, nvars, size,
+    key = (lib_fn.__name__, dev, obs, k, block, nvars, itemsize, size,
            SMEM_PER_CTA_BYTES)
     if key not in _grid_cache:
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        plan = bakp_plan(kind, obs, k, block, nvars=nvars, cluster=size,
-                         max_ctas=sms)
+        plan = bakp_plan(kind, obs, k, block, nvars=nvars, itemsize=itemsize,
+                         cluster=size, max_ctas=sms)
         out = ctypes.c_int(0)
         _build.check(lib_fn(plan.group, plan.cluster, plan.smem,
                             ctypes.addressof(out)), lib_fn.__name__)
@@ -350,8 +362,8 @@ def bakp_grid(lib_fn, kind: str, obs: int, k: int, block: int, *,
                 f"{plan.cluster} CTAs with {plan.smem} bytes of shared "
                 f"memory each")
         _grid_cache[key] = bakp_plan(kind, obs, k, block, nvars=nvars,
-                                     cluster=size, max_ctas=sms,
-                                     max_clusters=out.value)
+                                     itemsize=itemsize, cluster=size,
+                                     max_ctas=sms, max_clusters=out.value)
     return _grid_cache[key]
 
 
@@ -388,20 +400,23 @@ class BakPlan(NamedTuple):
     xchg_words: int     # int32 words of the cross-cluster exchange
 
 
-def bak_grid(lib_fn, obs: int, k: int) -> BakPlan:
-    """Launch plan of the Algorithm-1 kernels: one cluster of
-    ``BAK_CLUSTER`` CTAs (fewer for small obs) when the residual slices and
-    the x ring fit it, else clusters of ``BAK_CLUSTER`` CTAs, one CTA per SM
-    and at least ``MIN_OBS_PER_CTA`` obs each, with the residual slices on
-    chip when they fit and in device memory otherwise (``e_device``), and x
-    read from device memory too where even the x ring does not fit a CTA
-    (``x_device``).  On chip means registers for k <= 8 and at most 12
-    positions a thread, else shared memory."""
+def bak_grid(lib_fn, obs: int, k: int, itemsize: int = 4) -> BakPlan:
+    """Launch plan of the Algorithm-1 kernels (``lib_fn``, a ``*_grid``
+    entry, for an x of ``itemsize`` bytes an element, whose ring it
+    carves): one cluster of ``BAK_CLUSTER`` CTAs (fewer for small obs) when
+    the residual slices and the x ring fit it, else clusters of
+    ``BAK_CLUSTER`` CTAs, one CTA per SM and at least ``MIN_OBS_PER_CTA``
+    obs each, with the residual slices on chip when they fit and in device
+    memory otherwise (``e_device``), and x read from device memory too
+    where even the x ring does not fit a CTA (``x_device``).  On chip means
+    registers for k <= 8 and at most 12 positions a thread, else shared
+    memory."""
     cluster = BAK_CLUSTER
-    key = (lib_fn.__name__, torch.cuda.current_device(), obs, k, cluster)
+    key = (lib_fn.__name__, torch.cuda.current_device(), obs, k, cluster,
+           itemsize)
     if key not in _grid_cache:
         out = (ctypes.c_int * 6)()
-        _build.check(lib_fn(obs, k, MIN_OBS_PER_CTA, cluster,
+        _build.check(lib_fn(obs, k, MIN_OBS_PER_CTA, cluster, itemsize,
                             ctypes.addressof(out)), lib_fn.__name__)
         _grid_cache[key] = BakPlan(BAK_REGIMES[out[0]], out[1], out[2],
                                    out[3], BAK_E_PLACES[out[4]], out[5])
@@ -418,12 +433,14 @@ def bak_exchange(plan: BakPlan, device) -> "torch.Tensor | None":
 
 
 def check_kernel_args(x_t: torch.Tensor, nrhs: int, block: int, *tensors):
-    """What the CUDA kernels take: fp32 contiguous x_t on one device with
-    every other operand, vars a multiple of block, and one block's
-    increments within shared memory (``block=1`` for the Algorithm-1
-    kernels, which hold one column's k increments)."""
-    if x_t.dtype != torch.float32:
-        raise TypeError(f"the CUDA kernels take fp32 x_t, got {x_t.dtype}")
+    """What the CUDA kernels take: a contiguous fp32 or bf16 x_t (the
+    other operands fp32) on one device with every other operand, vars a
+    multiple of block, and one block's increments within shared memory
+    (``block=1`` for the Algorithm-1 kernels, which hold one column's k
+    increments)."""
+    if x_t.dtype not in X_DTYPES:
+        raise TypeError(f"the CUDA kernels take fp32 or bf16 x_t, got "
+                        f"{x_t.dtype}")
     if not x_t.is_contiguous():
         raise ValueError("x_t must be contiguous (vars, obs)")
     if x_t.shape[0] % block:
@@ -448,7 +465,8 @@ def _bakp_sweep_cuda(x_t, e2, inv_cn, *, block, omega):
     nrhs = e2.shape[0]
     check_kernel_args(x_t, nrhs, block, e2, inv_cn)
     group = nrhs
-    while group > 1 and (bakp_plan("sweep", obs, group, block).smem
+    while group > 1 and (bakp_plan("sweep", obs, group, block,
+                                   itemsize=x_t.element_size()).smem
                          > SMEM_PER_CTA_BYTES):
         group = -(-group // 2)
     e_in = e2.float().contiguous()
@@ -468,7 +486,8 @@ def _bakp_sweep_launch(x_t, e_in, inv, block, omega):
     lib = _build.load("bakp_sweep")
     dev = x_t.device
     with torch.cuda.device(dev):
-        plan = bakp_grid(lib.bakp_sweep_clusters, "sweep", obs, nrhs, block)
+        plan = bakp_grid(lib.bakp_sweep_clusters, "sweep", obs, nrhs, block,
+                         itemsize=x_t.element_size())
         if plan.smem > SMEM_PER_CTA_BYTES:
             raise ValueError(
                 f"bakp_sweep: block·k = {block}·{nrhs} needs {plan.smem} "
@@ -477,11 +496,13 @@ def _bakp_sweep_launch(x_t, e_in, inv, block, omega):
         da = torch.empty((nvars, nrhs), dtype=torch.float32, device=dev)
         xchg, tag0 = bakp_exchange(plan, dev, nvars // block)
         stream = torch.cuda.current_stream(dev).cuda_stream
-        _build.LAUNCHES["bakp_sweep"] += 1
-        _build.PLANS["bakp_sweep"] = plan
+        key = _build.launch_key("bakp_sweep", x_t.element_size())
+        _build.LAUNCHES[key] += 1
+        _build.PLANS[key] = plan
         _build.check(lib.bakp_sweep_launch(
-            x_t.data_ptr(), inv.data_ptr(), e_in.data_ptr(), e_out.data_ptr(),
-            da.data_ptr(), None if xchg is None else xchg.data_ptr(), tag0,
+            x_t.data_ptr(), x_t.element_size(), inv.data_ptr(),
+            e_in.data_ptr(), e_out.data_ptr(), da.data_ptr(),
+            None if xchg is None else xchg.data_ptr(), tag0,
             nvars, obs, nrhs, block, float(omega),
             BAKP_REGIMES.index(plan.regime), plan.ctas, plan.cluster,
             int(plan.e_in == "shared"), plan.stages, plan.smem, stream),
@@ -496,18 +517,20 @@ def _cd_sweep_cuda(x_t, e2, inv_cn):
     lib = _build.load("bak_sweep")
     dev = x_t.device
     with torch.cuda.device(dev):
-        plan = bak_grid(lib.bak_sweep_grid, obs, nrhs)
+        plan = bak_grid(lib.bak_sweep_grid, obs, nrhs, x_t.element_size())
         e_in = e2.float().contiguous()
         inv = inv_cn.float().contiguous()
         e_out = torch.empty_like(e_in)
         da = torch.empty((nvars, nrhs), dtype=torch.float32, device=dev)
         xchg = bak_exchange(plan, dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
-        _build.LAUNCHES["bak_sweep"] += 1
-        _build.PLANS["bak_sweep"] = plan
+        key = _build.launch_key("bak_sweep", x_t.element_size())
+        _build.LAUNCHES[key] += 1
+        _build.PLANS[key] = plan
         _build.check(lib.bak_sweep_launch(
-            x_t.data_ptr(), inv.data_ptr(), e_in.data_ptr(), e_out.data_ptr(),
-            da.data_ptr(), None if xchg is None else xchg.data_ptr(), nvars,
+            x_t.data_ptr(), x_t.element_size(), inv.data_ptr(),
+            e_in.data_ptr(), e_out.data_ptr(), da.data_ptr(),
+            None if xchg is None else xchg.data_ptr(), nvars,
             obs, nrhs, BAK_REGIMES.index(plan.regime), plan.ctas,
             plan.cluster, stream), "bak_sweep_launch")
     return da, e_out

@@ -4,8 +4,10 @@
 // the two Pallas bodies it replaces.  One definition keeps the two
 // execution models numerically in lockstep.
 //
-// Layout as bakp_block.cuh: x_t (vars, obs) row-major fp32, residuals
-// e (k, obs), increments and coefficients (vars, k), inv_cn (vars,).
+// Layout as bakp_block.cuh: x_t (vars, obs) row-major, its element TX fp32
+// or bf16 (kept in its own type in the ring, widened to fp32 as it is
+// read); residuals e (k, obs), increments and coefficients (vars, k),
+// inv_cn (vars,) in fp32.
 //
 // Decomposition.  G CTAs launched as clusters of C (cudaLaunchKernelEx with
 // a cluster dimension), CTA q owning the obs slice [o0, o0 + L) of e and of
@@ -134,18 +136,18 @@ static inline int bak_xchg_words(int clusters, int k) {
 }
 
 // Dynamic shared memory of a CTA: two mbarriers (4 floats), part (kp),
-// the receive slots (2·C·kp), s_g (kp), the ring (2·L, unless EG = -2)
-// and, when EG = 0, the residual slice (k·L).
-static inline size_t bak_smem_bytes(int L, int k, int cluster, int eg) {
+// the receive slots (2·C·kp), s_g (kp), the ring (2·L elements of xsize
+// bytes, unless EG = -2) and, when EG = 0, the residual slice (k·L).
+static inline size_t bak_smem_bytes(int L, int k, int cluster, int eg, int xsize) {
   return sizeof(float) * (4 + (size_t)bak_kp(k) * (2 * cluster + 2) +
-                          (eg == -2 ? 0 : 2 * (size_t)L) +
-                          (eg == 0 ? (size_t)k * L : 0));
+                          (eg == 0 ? (size_t)k * L : 0)) +
+         (eg == -2 ? 0 : 2 * (size_t)L * xsize);
 }
 
 struct BakCta {
   int o0, n;         // obs slice [o0, o0 + n)
   int L, kp;         // ring stage stride; receive slot stride
-  float* ring;       // two stages of L floats
+  float* ring;       // two stages of L elements of x (TX; bak_stage)
   float* eb;         // e slice: shared memory, or e + o0 in device memory
   int es;            // row stride of eb (L or obs)
   float* part;       // kp floats: this CTA's partials of the step
@@ -157,11 +159,12 @@ struct BakCta {
   unsigned long long* xchg;  // device exchange words, or nullptr (one cluster)
 };
 
-// Carve the dynamic shared memory, point the CTA at its slice and
-// initialise its two mbarriers (one arrival a phase, the expect_tx of
-// bak_push) before any CTA of the cluster writes to them.
+// Carve the dynamic shared memory (a ring of x of xsize bytes an element),
+// point the CTA at its slice and initialise its two mbarriers (one arrival
+// a phase, the expect_tx of bak_push) before any CTA of the cluster writes
+// to them.
 __device__ __forceinline__ BakCta bak_cta(float* smem, float* e, int obs,
-                                          int k, bool e_smem, void* xchg) {
+                                          int k, bool e_smem, void* xchg, int xsize) {
   cg::cluster_group cl = cg::this_cluster();
   BakCta c;
   const BakpSlice s = bakp_slice(obs);
@@ -180,7 +183,7 @@ __device__ __forceinline__ BakCta bak_cta(float* smem, float* e, int obs,
   c.s_g = c.rx + 2 * (size_t)c.csize * c.kp;
   c.ring = c.s_g + c.kp;
   if (e_smem) {
-    c.eb = c.ring + 2 * (size_t)c.L;
+    c.eb = c.ring + 2 * (size_t)c.L * xsize / 4;   // L is a multiple of 32
     c.es = c.L;
   } else {
     c.eb = e + c.o0;
@@ -191,17 +194,33 @@ __device__ __forceinline__ BakCta bak_cta(float* smem, float* e, int obs,
   return c;
 }
 
+// Ring stage s of x's type.
+template <typename TX>
+__device__ __forceinline__ TX* bak_stage(const BakCta& c, int s) {
+  return reinterpret_cast<TX*>(c.ring) + (size_t)s * c.L;
+}
+
 // Issue this thread's copies of its positions of x row `xrow` (already
-// offset to the slice) into `stage`, as one commit group.
-__device__ __forceinline__ void bak_fetch(const BakCta& c, float* stage,
-                                          const float* xrow, bool vec16) {
+// offset to the slice) into `stage`, as one commit group: its 4 positions
+// in one copy where xw (cp_bytes) is 4 elements' bytes (16 of fp32, 8 of
+// bf16; n % 4 == 0 then), else 4 bytes a copy, else (a bf16 row of odd
+// length) 2.
+template <typename TX>
+__device__ __forceinline__ void bak_fetch(const BakCta& c, TX* stage, const TX* xrow, int xw) {
+  constexpr int WIDE = 4 * (int)sizeof(TX);
   for (int b = 4 * threadIdx.x; b < c.n; b += 4 * blockDim.x) {
-    if (vec16) {
-      cp_async16(stage + b, xrow + b);   // n % 4 == 0 when vec16
-    } else {
-      for (int u = 0; u < 4 && b + u < c.n; ++u)
-        cp_async4(stage + b + u, xrow + b + u);
+    if (xw == WIDE) {
+      cp_async_b<WIDE>(stage + b, xrow + b);
+      continue;
     }
+    if constexpr (sizeof(TX) == 2) {
+      if (xw == 2) {
+        for (int u = 0; u < 4 && b + u < c.n; ++u) cp_async_b<2>(stage + b + u, xrow + b + u);
+        continue;
+      }
+    }
+    constexpr int W = 4 / (int)sizeof(TX);  // 4 bytes a copy; n is even for a bf16 x
+    for (int u = 0; u < 4 && b + u < c.n; u += W) cp_async_b<4>(stage + b + u, xrow + b + u);
   }
   cp_async_commit();
 }
@@ -332,8 +351,8 @@ __device__ __forceinline__ void bak_exchange(const BakCta& c, int k, int step) {
 
 // This thread's partial dots <x_j, e[r0 + r]> over its positions; xs is
 // the ring stage (X_SMEM) or x_j's slice in device memory.
-template <int KC, bool E_SMEM, bool X_SMEM>
-__device__ __forceinline__ void bak_dot(const BakCta& c, const float* xs,
+template <int KC, bool E_SMEM, bool X_SMEM, typename TX>
+__device__ __forceinline__ void bak_dot(const BakCta& c, const TX* xs,
                                         int r0, int kc, float (&acc)[KC]) {
   for (int b = 4 * threadIdx.x; b < c.n; b += 4 * blockDim.x) {
     if (b + 4 <= c.n) {
@@ -349,7 +368,7 @@ __device__ __forceinline__ void bak_dot(const BakCta& c, const float* xs,
         }
     } else {
       for (int i = b; i < c.n; ++i) {
-        const float xv = xs[i];
+        const float xv = bakp_f(xs[i]);
 #pragma unroll
         for (int r = 0; r < KC; ++r)
           if (r < kc) acc[r] = fmaf(xv, c.eb[(size_t)(r0 + r) * c.es + i], acc[r]);
@@ -360,8 +379,8 @@ __device__ __forceinline__ void bak_dot(const BakCta& c, const float* xs,
 
 // This thread's positions of e[r0 + r] -= da[r] x_j; every load of a group
 // is issued before its stores.
-template <int KC, bool E_SMEM, bool X_SMEM>
-__device__ __forceinline__ void bak_update(const BakCta& c, const float* xs,
+template <int KC, bool E_SMEM, bool X_SMEM, typename TX>
+__device__ __forceinline__ void bak_update(const BakCta& c, const TX* xs,
                                            int r0, int kc,
                                            const float (&da)[KC]) {
   for (int b = 4 * threadIdx.x; b < c.n; b += 4 * blockDim.x) {
@@ -382,7 +401,7 @@ __device__ __forceinline__ void bak_update(const BakCta& c, const float* xs,
         }
     } else {
       for (int i = b; i < c.n; ++i) {
-        const float xv = xs[i];
+        const float xv = bakp_f(xs[i]);
 #pragma unroll
         for (int r = 0; r < KC; ++r)
           if (r < kc) {
@@ -394,18 +413,21 @@ __device__ __forceinline__ void bak_update(const BakCta& c, const float* xs,
   }
 }
 
-// x_j at positions b..b+3 of the ring stage, zero past the slice's end.
-__device__ __forceinline__ float4 bak_x4(const float* xs, int b, int n) {
-  if (b + 4 <= n) return *reinterpret_cast<const float4*>(xs + b);
-  return make_float4(xs[b], b + 1 < n ? xs[b + 1] : 0.f, b + 2 < n ? xs[b + 2] : 0.f, 0.f);
+// x_j at positions b..b+3 of the ring stage as fp32, zero past the
+// slice's end.
+template <typename TX>
+__device__ __forceinline__ float4 bak_x4(const TX* xs, int b, int n) {
+  if (b + 4 <= n) return bakp_ld4<true>(xs + b);
+  return make_float4(bakp_f(xs[b]), b + 1 < n ? bakp_f(xs[b + 1]) : 0.f,
+                     b + 2 < n ? bakp_f(xs[b + 2]) : 0.f, 0.f);
 }
 
 // The register forms (EG > 0): group g of this thread starts at position
 // 4·(threadIdx.x + g·BAKP_THREADS); positions past the slice's end hold 0
 // in er and take x = 0, so they neither add to a sum nor change.  The
 // arithmetic and its order are bak_dot's and bak_update's.
-template <int KC, int EG>
-__device__ __forceinline__ void bak_dot_reg(const BakCta& c, const float* xs, int kc,
+template <int KC, int EG, typename TX>
+__device__ __forceinline__ void bak_dot_reg(const BakCta& c, const TX* xs, int kc,
                                             const float4 (&er)[EG][KC],
                                             float (&acc)[KC]) {
 #pragma unroll
@@ -425,8 +447,8 @@ __device__ __forceinline__ void bak_dot_reg(const BakCta& c, const float* xs, in
   }
 }
 
-template <int KC, int EG>
-__device__ __forceinline__ void bak_update_reg(const BakCta& c, const float* xs, int kc,
+template <int KC, int EG, typename TX>
+__device__ __forceinline__ void bak_update_reg(const BakCta& c, const TX* xs, int kc,
                                                const float (&da)[KC],
                                                float4 (&er)[EG][KC]) {
 #pragma unroll
@@ -490,24 +512,23 @@ using BakRegs = float4[EG > 0 ? EG : 1][KC];
 
 // One Algorithm-1 column (see top).  x_j sits in ring stage col & 1, or
 // at xj (its slice in device memory) when EG = -2; jn is the next column
-// to prefetch (-1: none).  On return thread t holds in
+// to prefetch (-1: none), copied xw bytes at a time (bak_fetch).  On return thread t holds in
 // c.s_g[r] the full sum g_j[r] for every r = t mod blockDim.x it owns (it
 // wrote or, with several clusters, was barrier-synchronised with them), so
 // a CTA's own loop over r = threadIdx.x, + blockDim.x... reads them with no
 // further barrier; da_j = g_j * inv_j.
-template <int KC, int EG>
+template <int KC, int EG, typename TX>
 __device__ __forceinline__ void bak_column_step(const BakCta& c, BakRegs<KC, EG>& er,
-                                                const float* __restrict__ x_t, int obs,
-                                                const float* xj, int jn, int col,
+                                                const TX* __restrict__ x_t, int obs,
+                                                const TX* xj, int jn, int col,
                                                 int step, float inv_j, int k,
-                                                bool vec16, float* s_red) {
+                                                int xw, float* s_red) {
   BAK_CLOCK_START;
   constexpr bool RING = EG != -2;
-  const float* xs = RING ? c.ring + (size_t)(col & 1) * c.L : xj;
+  const TX* xs = RING ? bak_stage<TX>(c, col & 1) : xj;
   if constexpr (RING) {
     if (jn >= 0)
-      bak_fetch(c, c.ring + (size_t)((col + 1) & 1) * c.L,
-                x_t + (size_t)jn * obs + c.o0, vec16);
+      bak_fetch(c, bak_stage<TX>(c, (col + 1) & 1), x_t + (size_t)jn * obs + c.o0, xw);
     else
       cp_async_commit();
     cp_async_wait<1>();               // this thread's copies of x_j landed
@@ -662,9 +683,10 @@ struct BakKernels {
 // card holds at once and at least min_obs positions a CTA: e on chip when
 // its slices fit, else in device memory with the ring, else without it.
 // Fails when the card cannot place a cluster of C.
+// x's elements are xsize bytes (the ring's share of a CTA's memory).
 template <typename F>
 static cudaError_t bak_plan(const BakKernels<F>& fns, int obs, int k, int min_obs,
-                            int cluster, int* out) {
+                            int cluster, int xsize, int* out) {
   if (cluster < 1 || cluster > BAK_MAX_CLUSTER || obs < 1 || k < 1)
     return cudaErrorInvalidValue;
   int dev = 0, sms = 0, optin = 0, fit = 0;
@@ -681,7 +703,7 @@ static cudaError_t bak_plan(const BakKernels<F>& fns, int obs, int k, int min_ob
   int c1 = cluster;
   while (c1 > 1 && (long long)c1 * min_obs > obs) c1 >>= 1;
   int L = bakp_slice_len(obs, c1), eg = bak_eg(L, k, BAK_SINGLE_CLUSTER);
-  size_t need = bak_smem_bytes(L, k, c1, eg), smem = 0;
+  size_t need = bak_smem_bytes(L, k, c1, eg, xsize), smem = 0;
   if (need <= dyn_max) {
     if ((err = cl_launch_smem(need, &smem)) != cudaSuccess) return err;
     if ((err = cl_max_clusters(fns.pick(eg), c1, smem, &fit)) != cudaSuccess) return err;
@@ -697,7 +719,7 @@ static cudaError_t bak_plan(const BakKernels<F>& fns, int obs, int k, int min_ob
     int n = G / cluster > 1 ? G / cluster : 1;
     L = bakp_slice_len(obs, n * cluster);
     eg = bak_eg(L, k, regime);
-    need = bak_smem_bytes(L, k, cluster, eg);
+    need = bak_smem_bytes(L, k, cluster, eg, xsize);
     if (need > dyn_max) continue;
     // One CTA per SM at any launch size, so the clusters the card holds at
     // once do not depend on the slice length.
@@ -709,7 +731,7 @@ static cudaError_t bak_plan(const BakKernels<F>& fns, int obs, int k, int min_ob
       n = fit;
       L = bakp_slice_len(obs, n * cluster);
       eg = bak_eg(L, k, regime);
-      need = bak_smem_bytes(L, k, cluster, eg);
+      need = bak_smem_bytes(L, k, cluster, eg, xsize);
       if (need > dyn_max) continue;
     }
     const int plan[BAK_PLAN_FIELDS] = {regime, n * cluster, cluster, n,
@@ -724,8 +746,8 @@ static cudaError_t bak_plan(const BakKernels<F>& fns, int obs, int k, int min_ob
 // shared memory a CTA asks for; returns cudaErrorInvalidValue for a plan
 // bak_plan cannot have made.
 static inline cudaError_t bak_launch_check(int obs, int k, int regime, int ctas,
-                                           int cluster, const void* xchg, int* eg,
-                                           size_t* smem) {
+                                           int cluster, const void* xchg, int xsize,
+                                           int* eg, size_t* smem) {
   if (regime < BAK_SINGLE_CLUSTER || regime > BAK_X_DEVICE || cluster < 1 ||
       cluster > BAK_MAX_CLUSTER || ctas < cluster || ctas % cluster != 0 ||
       (regime == BAK_SINGLE_CLUSTER && ctas != cluster) ||
@@ -733,5 +755,5 @@ static inline cudaError_t bak_launch_check(int obs, int k, int regime, int ctas,
     return cudaErrorInvalidValue;
   const int L = bakp_slice_len(obs, ctas);
   *eg = bak_eg(L, k, regime);
-  return cl_launch_smem(bak_smem_bytes(L, k, cluster, *eg), smem);
+  return cl_launch_smem(bak_smem_bytes(L, k, cluster, *eg, xsize), smem);
 }

@@ -20,15 +20,19 @@
 // computes the same SSE bits and so the same stop decision; CTA 0 (rank 0
 // of cluster 0) owns the coefficients, the history and the scalar outputs.
 //
+// x is fp32 or bf16 (TX, precision "bf16"): the ring holds x_j in its own
+// type, widened to fp32 in the dot and the update.
+//
 // C interface (ctypes; pointers and stream void*-sized; cudaError_t return):
-//   bak_fused_grid(obs, k, min_obs, cluster, plan)  launch plan, 6 ints
-//   bak_fused_launch(...)                            one whole solve
+//   bak_fused_grid(obs, k, min_obs, cluster, x_bytes, plan)  launch plan, 6 ints
+//   bak_fused_launch(x_t, x_bytes, ...)              one whole solve
+// x_bytes is x's element size: 4 for fp32, 2 for bf16.
 #include <math.h>
 
 #include "bak_column.cuh"
 
 struct BakFusedParams {
-  const float* x_t;     // (vars, obs)
+  const void* x_t;      // (vars, obs) of TX
   const float* inv_cn;  // (vars,)
   const float* e0;      // (k, obs) initial residual
   const float* a0;      // (vars, k) initial coefficients
@@ -39,19 +43,20 @@ struct BakFusedParams {
   int* n_out;           // (1,)
   int* conv_out;        // (1,)
   float* xchg;          // device exchange slots, or nullptr (one cluster)
-  int nvars, obs, k, max_iter, vec16;
+  int nvars, obs, k, max_iter;
+  int xw;               // bytes of one copy of x (bak_fetch)
   float atol_sse, rtol;
 };
 
-template <int KC, int EG>
-__global__ void __launch_bounds__(BAKP_THREADS) bak_fused_kernel(BakFusedParams p) {
+template <int KC, int EG, typename TX>
+__global__ void BAKP_BOUNDS(TX) bak_fused_kernel(BakFusedParams p) {
   extern __shared__ __align__(16) float smem[];
   __shared__ float s_red[(BAKP_THREADS / 32) * 8];
-  const BakCta c = bak_cta(smem, p.e, p.obs, p.k, EG == 0, p.xchg);
+  const BakCta c = bak_cta(smem, p.e, p.obs, p.k, EG == 0, p.xchg, sizeof(TX));
+  const TX* x_t = static_cast<const TX*>(p.x_t);
   const bool owner = blockIdx.x == 0;
-  const bool vec16 = p.vec16 != 0;
   BakRegs<KC, EG> er;
-  if constexpr (EG != -2) bak_fetch(c, c.ring, p.x_t + c.o0, vec16);  // x_0
+  if constexpr (EG != -2) bak_fetch(c, bak_stage<TX>(c, 0), x_t + c.o0, p.xw);  // x_0
   if (owner) {
     for (int i = threadIdx.x; i < p.nvars * p.k; i += blockDim.x) p.coef[i] = p.a0[i];
     for (int i = threadIdx.x; i < p.max_iter; i += blockDim.x) p.hist[i] = nanf("");
@@ -72,9 +77,9 @@ __global__ void __launch_bounds__(BAKP_THREADS) bak_fused_kernel(BakFusedParams 
       const float cj = owner && (int)threadIdx.x < p.k ? coef_j[threadIdx.x] : 0.f;
       // The last column prefetches column 0 of a next sweep that may not
       // run; that copy is waited for below.
-      bak_column_step<KC, EG>(c, er, p.x_t, p.obs, p.x_t + (size_t)j * p.obs + c.o0,
-                              j + 1 < p.nvars ? j + 1 : 0, col, step, inv_j, p.k,
-                              vec16, s_red);
+      bak_column_step<KC, EG>(c, er, x_t, p.obs, x_t + (size_t)j * p.obs + c.o0,
+                              j + 1 < p.nvars ? j + 1 : 0, col, step, inv_j, p.k, p.xw,
+                              s_red);
       if (owner)
         for (int r = threadIdx.x; r < p.k; r += blockDim.x)
           coef_j[r] = (r == (int)threadIdx.x ? cj : coef_j[r]) + c.s_g[r] * inv_j;
@@ -96,48 +101,69 @@ __global__ void __launch_bounds__(BAKP_THREADS) bak_fused_kernel(BakFusedParams 
   cl_cluster_sync();                  // no CTA leaves while the cluster reads it
 }
 
-template <int KC>
+template <int KC, typename TX>
 static BakKernels<void (*)(BakFusedParams)> fused_kernels() {
-  return {bak_fused_kernel<KC, -2>, bak_fused_kernel<KC, -1>, bak_fused_kernel<KC, 0>, bak_fused_kernel<KC, 1>,
-          bak_fused_kernel<KC, BAK_REG_GROUPS>};
+  return {bak_fused_kernel<KC, -2, TX>, bak_fused_kernel<KC, -1, TX>, bak_fused_kernel<KC, 0, TX>,
+          bak_fused_kernel<KC, 1, TX>, bak_fused_kernel<KC, BAK_REG_GROUPS, TX>};
 }
 
-template <int KC>
+template <int KC, typename TX>
 static cudaError_t fused_launch(const BakFusedParams& p, int regime, int ctas,
                                 int cluster, void* stream) {
   int eg = 0;
   size_t smem = 0;
-  cudaError_t err = bak_launch_check(p.obs, p.k, regime, ctas, cluster, p.xchg, &eg, &smem);
+  cudaError_t err = bak_launch_check(p.obs, p.k, regime, ctas, cluster, p.xchg, sizeof(TX),
+                                     &eg, &smem);
   if (err != cudaSuccess) return err;
-  return cl_launch(fused_kernels<KC>().pick(eg), p, ctas, cluster,
+  return cl_launch(fused_kernels<KC, TX>().pick(eg), p, ctas, cluster,
                     regime != BAK_SINGLE_CLUSTER, smem, stream);
 }
 
-extern "C" int bak_fused_grid(int obs, int k, int min_obs, int cluster, int* plan) {
+template <typename TX>
+static int fused_grid(const TX*, int obs, int k, int min_obs, int cluster, int* plan) {
   switch (bakp_pick_kc(k)) {
-    case 1: return bak_plan(fused_kernels<1>(), obs, k, min_obs, cluster, plan);
-    case 2: return bak_plan(fused_kernels<2>(), obs, k, min_obs, cluster, plan);
-    case 4: return bak_plan(fused_kernels<4>(), obs, k, min_obs, cluster, plan);
-    default: return bak_plan(fused_kernels<8>(), obs, k, min_obs, cluster, plan);
+    case 1: return bak_plan(fused_kernels<1, TX>(), obs, k, min_obs, cluster, sizeof(TX), plan);
+    case 2: return bak_plan(fused_kernels<2, TX>(), obs, k, min_obs, cluster, sizeof(TX), plan);
+    case 4: return bak_plan(fused_kernels<4, TX>(), obs, k, min_obs, cluster, sizeof(TX), plan);
+    default: return bak_plan(fused_kernels<8, TX>(), obs, k, min_obs, cluster, sizeof(TX), plan);
   }
 }
 
-extern "C" int bak_fused_launch(const float* x_t, const float* inv_cn,
+template <typename TX>
+static int fused_run(const TX* x_t, const float* inv_cn, const float* e0, const float* a0,
+                     float* coef, float* e, float* hist, float* sse_out, int* n_out,
+                     int* conv_out, float* xchg, int nvars, int obs, int k, int max_iter,
+                     float atol_sse, float rtol, int regime, int ctas, int cluster,
+                     void* stream) {
+  if (regime != BAK_SINGLE_CLUSTER && xchg == nullptr) return cudaErrorInvalidValue;
+  BakFusedParams p{x_t, inv_cn, e0, a0, coef, e, hist, sse_out, n_out,
+                   conv_out, regime == BAK_SINGLE_CLUSTER ? nullptr : xchg,
+                   nvars, obs, k, max_iter,
+                   cp_bytes(x_t, (long long)obs * sizeof(TX), 4 * sizeof(TX)), atol_sse, rtol};
+  switch (bakp_pick_kc(k)) {
+    case 1: return fused_launch<1, TX>(p, regime, ctas, cluster, stream);
+    case 2: return fused_launch<2, TX>(p, regime, ctas, cluster, stream);
+    case 4: return fused_launch<4, TX>(p, regime, ctas, cluster, stream);
+    default: return fused_launch<8, TX>(p, regime, ctas, cluster, stream);
+  }
+}
+
+extern "C" int bak_fused_grid(int obs, int k, int min_obs, int cluster, int x_bytes,
+                              int* plan) {
+  return bakp_with_x(nullptr, x_bytes, [&](auto x) {
+    return fused_grid(x, obs, k, min_obs, cluster, plan);
+  });
+}
+
+extern "C" int bak_fused_launch(const void* x_t, int x_bytes, const float* inv_cn,
                                 const float* e0, const float* a0, float* coef,
                                 float* e, float* hist, float* sse_out,
                                 int* n_out, int* conv_out, float* xchg,
                                 int nvars, int obs, int k, int max_iter,
                                 float atol_sse, float rtol, int regime,
                                 int ctas, int cluster, void* stream) {
-  if (regime != BAK_SINGLE_CLUSTER && xchg == nullptr) return cudaErrorInvalidValue;
-  const int vec16 = obs % 4 == 0 && ((uintptr_t)x_t & 15) == 0;
-  BakFusedParams p{x_t, inv_cn, e0, a0, coef, e, hist, sse_out, n_out,
-                   conv_out, regime == BAK_SINGLE_CLUSTER ? nullptr : xchg,
-                   nvars, obs, k, max_iter, vec16, atol_sse, rtol};
-  switch (bakp_pick_kc(k)) {
-    case 1: return fused_launch<1>(p, regime, ctas, cluster, stream);
-    case 2: return fused_launch<2>(p, regime, ctas, cluster, stream);
-    case 4: return fused_launch<4>(p, regime, ctas, cluster, stream);
-    default: return fused_launch<8>(p, regime, ctas, cluster, stream);
-  }
+  return bakp_with_x(x_t, x_bytes, [&](auto x) {
+    return fused_run(x, inv_cn, e0, a0, coef, e, hist, sse_out, n_out, conv_out, xchg, nvars,
+                     obs, k, max_iter, atol_sse, rtol, regime, ctas, cluster, stream);
+  });
 }

@@ -3,9 +3,11 @@
 // bakp_pick_kc.  The Algorithm-2 block step itself is bakp_cluster.cuh's
 // (on thread-block clusters), the Algorithm-1 column step bak_column.cuh's.
 //
-// Layout (the JAX package's kernel layout): x_t (vars, obs) row-major fp32,
-// a paper-"column" is a contiguous row; residuals e (k, obs); coefficients
-// and increments (vars, k); inv_cn (vars,).
+// Layout (the JAX package's kernel layout): x_t (vars, obs) row-major, fp32
+// or bf16 (the kernels' TX; a bf16 value is widened to fp32 as it is
+// loaded, as the Pallas kernels widen x), a paper-"column" is a contiguous
+// row; residuals e (k, obs), coefficients and increments (vars, k) and
+// inv_cn (vars,) in fp32.
 //
 // Decomposition.  The TPU kernels keep e in VMEM scratch across grid steps
 // that run in order on one core.  CUDA blocks run in no order, so the obs
@@ -16,11 +18,18 @@
 #pragma once
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace cg = cooperative_groups;
 
 #define BAKP_THREADS 256
+// Launch bounds of the solver kernels for x of type TX: BAKP_THREADS
+// threads and, for a bf16 x, one CTA an SM (what cl_launch_smem's shared
+// memory makes it anyway).  Without that minimum ptxas holds some bf16
+// instantiations to 128 registers and spills; an fp32 kernel keeps ptxas's
+// own choice (a minimum of 0 gives the registers of no minimum).
+#define BAKP_BOUNDS(TX) __launch_bounds__(BAKP_THREADS, sizeof(TX) == 2 ? 1 : 0)
 // Slices start on 32-float (128-byte) boundaries.
 #define BAKP_SLICE_ALIGN 32
 
@@ -48,12 +57,40 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// One element of x as fp32 (a bf16's bits are the top half of the float
+// it widens to, so the widening is exact).
+__device__ __forceinline__ float bakp_f(float v) { return v; }
+__device__ __forceinline__ float bakp_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+// The C entries take x_t untyped, with its element size in bytes (4 fp32, 2
+// bf16): f runs on x_t as the typed pointer; any other size is refused.
+template <typename F>
+static int bakp_with_x(const void* x_t, int x_bytes, F f) {
+  if (x_bytes == 4) return (int)f(static_cast<const float*>(x_t));
+  if (x_bytes == 2) return (int)f(static_cast<const __nv_bfloat16*>(x_t));
+  return (int)cudaErrorInvalidValue;
+}
+
 // Four consecutive floats: one 16-byte access where the address is
 // 16-byte aligned (shared memory), four otherwise (device memory rows).
 template <bool A16>
 __device__ __forceinline__ float4 bakp_ld4(const float* p) {
   if constexpr (A16) return *reinterpret_cast<const float4*>(p);
   else return make_float4(p[0], p[1], p[2], p[3]);
+}
+
+// Four consecutive bf16 values widened to fp32: one 8-byte access where the
+// address is 8-byte aligned (shared memory), four otherwise.  Value 2i is
+// the low half of word i (little-endian).
+template <bool A16>
+__device__ __forceinline__ float4 bakp_ld4(const __nv_bfloat16* p) {
+  if constexpr (A16) {
+    const uint2 u = *reinterpret_cast<const uint2*>(p);
+    return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+                       __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
+  } else {
+    return make_float4(bakp_f(p[0]), bakp_f(p[1]), bakp_f(p[2]), bakp_f(p[3]));
+  }
 }
 
 // Device copy of repro/core/types.py::sweep_stop_flags: fp32 compares, the

@@ -3,8 +3,9 @@
 // stream_solve.cu, through bakp_solve.cuh's solve loop) and the per-sweep
 // kernel (bakp_sweep.cu).
 //
-// Layout as bakp_block.cuh: x_t (vars, obs) row-major fp32, residuals
-// e (k, obs), coefficients and increments (vars, k), inv_cn (vars,).
+// Layout as bakp_block.cuh: x_t (vars, obs) row-major, its element TX fp32
+// or bf16 (widened to fp32 as it is loaded); residuals e (k, obs),
+// coefficients and increments (vars, k), inv_cn (vars,) in fp32.
 //
 // Decomposition.  G CTAs launched as clusters of C (cudaLaunchKernelEx
 // with a cluster dimension; cooperative as well when there are several
@@ -192,14 +193,15 @@ __device__ __forceinline__ BakpCta bakp_cta(float* smem, int obs, int CB, int k,
 }
 
 // acc[t][r] += Σ_o xs[t·x_ld + o] · e[r·e_ld + o] over positions o < np,
-// t < rows (≤ 4), r < kc; lane l takes the float4 groups l, l + 32, ... of
-// the whole rounds of 128 positions, then the rest one position at a time,
-// so no lane does a float4 round more than the others.  xs in shared
-// memory (X16) or device memory, e in shared memory (E16) or device
-// memory: a row in device memory is read as single floats, since its
-// start need not be 16-byte aligned.
-template <int KC, bool E16, bool X16 = true>
-__device__ __forceinline__ void bakp_acc(const float* __restrict__ xs, int x_ld, int rows,
+// t < rows (≤ 4), r < kc; lane l takes the groups of 4 positions l, l + 32,
+// ... of the whole rounds of 128 positions, then the rest one position at
+// a time, so no lane does a round more than the others.  xs (fp32 or bf16,
+// TX) in shared memory (X16: one wide load of 4 values, 16 bytes of fp32
+// or 8 of bf16) or device memory, e in shared memory (E16) or device
+// memory: a row in device memory is read one value at a time, since its
+// start need not be aligned.
+template <int KC, bool E16, bool X16 = true, typename TX>
+__device__ __forceinline__ void bakp_acc(const TX* __restrict__ xs, int x_ld, int rows,
                                          const float* __restrict__ e, int e_ld,
                                          int np, int kc, float (&acc)[BAKP_CT][KC]) {
   const int lane = threadIdx.x & 31;
@@ -228,7 +230,7 @@ __device__ __forceinline__ void bakp_acc(const float* __restrict__ xs, int x_ld,
     for (int r = 0; r < KC; ++r) ev[r] = r < kc ? e[(size_t)r * e_ld + o] : 0.f;
 #pragma unroll
     for (int t = 0; t < BAKP_CT; ++t) {
-      const float xv = t < rows ? xs[(size_t)t * x_ld + o] : 0.f;
+      const float xv = t < rows ? bakp_f(xs[(size_t)t * x_ld + o]) : 0.f;
 #pragma unroll
       for (int r = 0; r < KC; ++r) acc[t][r] = fmaf(xv, ev[r], acc[t][r]);
     }
@@ -378,9 +380,10 @@ __device__ __forceinline__ void bakp_exchange(const BakpCta& c, int step, int b,
 // leaves a residual floor many times the plain version's, which moves
 // the rtol stop.  da in shared memory, read 16 bytes at a time: one
 // column's four increments at KG 4, two or four columns' at KG 2 or 1.
-// Eight columns' loads are issued ahead of their FMAs.
-template <int KG>
-__device__ __forceinline__ void bakp_update(const float* __restrict__ xs, int x_ld, int rows,
+// Eight columns' loads are issued ahead of their FMAs.  x (TX) is widened
+// to fp32 as it is read.
+template <int KG, typename TX>
+__device__ __forceinline__ void bakp_update(const TX* __restrict__ xs, int x_ld, int rows,
                                             float* __restrict__ e, int e_ld,
                                             const float* __restrict__ da, int kp, int k,
                                             int np) {
@@ -393,20 +396,20 @@ __device__ __forceinline__ void bakp_update(const float* __restrict__ xs, int x_
     const int r0 = h * KG;
     float ev[KG] = {};                   // Σ_c da[c]·x[c], then e - it
     const float* dp = da + r0;
-    const float* xo = xs + o;
+    const TX* xo = xs + o;
 #pragma unroll 8
     for (int col = 0; col < rows4; col += CU) {
       const float4 d = *reinterpret_cast<const float4*>(dp + (size_t)col * kp);
       const float dv[4] = {d.x, d.y, d.z, d.w};
 #pragma unroll
       for (int cu = 0; cu < CU; ++cu) {
-        const float xv = xo[(size_t)(col + cu) * x_ld];
+        const float xv = bakp_f(xo[(size_t)(col + cu) * x_ld]);
 #pragma unroll
         for (int j = 0; j < KG; ++j) ev[j] = fmaf(dv[cu * KG + j], xv, ev[j]);
       }
     }
     for (int col = rows4; col < rows; ++col) {
-      const float xv = xo[(size_t)col * x_ld];
+      const float xv = bakp_f(xo[(size_t)col * x_ld]);
 #pragma unroll
       for (int j = 0; j < KG; ++j) ev[j] = fmaf(dp[(size_t)col * kp + j], xv, ev[j]);
     }

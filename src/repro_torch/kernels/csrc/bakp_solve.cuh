@@ -21,12 +21,15 @@
 //   BAKP_X_DIRECT  x read in place from device memory (the L2), and the
 //                  residual kept there too: fused_solve's x_l2 where not
 //                  even the ring and the residual slice fit a CTA.
-// Copies are 16-byte cp.async.cg where rows and the base are 16-byte
-// aligned, else 4-byte cp.async.ca, one commit group a copy.
+// x is fp32 or bf16 (TX), kept on chip in its own type and widened to fp32
+// as the block step reads it; a bf16 slice or ring takes half the shared
+// memory.  Copies are 16-byte cp.async.cg where rows and the base are
+// 16-byte aligned, else 4-byte cp.async.ca (a bf16 row of odd length: plain
+// 2-byte copies), one commit group a copy (cp_bytes).
 //
 // Shared memory of a CTA, all dynamic: the block step's exchange arrays
 // (bakp_hdr_floats, for `group` right-hand sides), then
-//   x   vars·L (SHARED) or 2·CB·L (RING)   row c at c·L
+//   x   vars·L (SHARED) or 2·CB·L (RING)   TX, row c at c·L
 //   e   k·L (not DIRECT)                   the residual slice, whole solve
 //
 // Right-hand sides in groups.  Where the exchange arrays of all k do not
@@ -54,7 +57,7 @@
 #define BAKP_X_DIRECT 2
 
 struct BakpSolveParams {
-  const float* x_t;     // (vars, obs), device memory
+  const void* x_t;      // (vars, obs) of TX, device memory
   const float* inv_cn;  // (vars,)
   const float* e0;      // (k, obs) initial residual
   const float* a0;      // (vars, k) initial coefficients
@@ -68,42 +71,45 @@ struct BakpSolveParams {
   unsigned tag0;        // the launch's exchange tags count from here
   int nvars, obs, k, block, group, max_iter;
   float atol_sse, rtol, omega;
-  int vec16;            // rows and base 16-byte aligned: 16-byte copies
+  int xw;               // bytes of one copy of x (cp_bytes: 16, 4 or 2)
 };
 
-// Floats of a CTA's dynamic shared memory with tile source src.
+// Floats of a CTA's dynamic shared memory with tile source src, for x of
+// xsize bytes an element (L is a multiple of 32, so the x rows fill whole
+// floats).
 static inline size_t bakp_solve_smem_floats(int src, int nvars, int obs, int ctas,
-                                            int cluster, int k, int group, int CB) {
+                                            int cluster, int k, int group, int CB,
+                                            int xsize) {
   const size_t L = (size_t)bakp_slice_len(obs, ctas);
   size_t f = (size_t)bakp_hdr_floats(CB, group, cluster);
-  if (src == BAKP_X_SHARED) f += ((size_t)nvars + k) * L;
-  if (src == BAKP_X_RING) f += (2 * (size_t)CB + k) * L;
+  const size_t xrows = src == BAKP_X_SHARED ? (size_t)nvars : 2 * (size_t)CB;
+  if (src != BAKP_X_DIRECT) f += xrows * L * xsize / 4 + (size_t)k * L;
   return f;
 }
 
 // Issue the copies of this CTA's slice (c.n positions from c.o0) of rows
 // [row0, row0 + rows) of x_t into dst (row stride c.L), as one commit group.
-__device__ __forceinline__ void bakp_fetch(const BakpCta& c, float* dst, const float* x_t,
-                                           int obs, int row0, int rows, bool vec16) {
-  const float* src = x_t + (size_t)row0 * obs + c.o0;
-  if (vec16) cp_async_rows<4>(dst, c.L, src, obs, rows, c.n);  // n % 4 == 0 here
-  else cp_async_rows<1>(dst, c.L, src, obs, rows, c.n);
+template <typename TX>
+__device__ __forceinline__ void bakp_fetch(const BakpCta& c, TX* dst, const TX* x_t, int obs,
+                                           int row0, int rows, int xw) {
+  cp_async_rows_b(dst, c.L, x_t + (size_t)row0 * obs + c.o0, obs, rows, c.n, xw);
   cp_async_commit();
 }
 
-template <int KC, int SRC>
+template <int KC, int SRC, typename TX>
 __device__ __forceinline__ void bakp_solve(const BakpSolveParams& p, float* smem) {
   constexpr bool ON_CHIP = SRC != BAKP_X_DIRECT;
   const int CB = p.block, k = p.k, G = p.group, obs = p.obs;
   const BakpCta c = bakp_cta(smem, obs, CB, G, p.xchg, p.tag0);
   const int L = c.L, n = c.n;
-  const bool vec16 = p.vec16 != 0;
+  const int xw = p.xw;
+  const TX* x_t = static_cast<const TX*>(p.x_t);
   const int nblocks = p.nvars / CB;
-  float* xs = c.rest;                  // the x slice or the ring
+  TX* xs = reinterpret_cast<TX*>(c.rest);  // the x slice or the ring
   float* eb;                           // the residual slice, row stride es
   int es;
   if constexpr (ON_CHIP) {
-    eb = xs + (size_t)(SRC == BAKP_X_SHARED ? p.nvars : 2 * CB) * L;
+    eb = reinterpret_cast<float*>(xs + (size_t)(SRC == BAKP_X_SHARED ? p.nvars : 2 * CB) * L);
     es = L;
   } else {
     eb = p.e + c.o0;
@@ -112,8 +118,8 @@ __device__ __forceinline__ void bakp_solve(const BakpSolveParams& p, float* smem
 
   // The copy of x (the slice, or the first tile) runs while the residual
   // slice loads.
-  if constexpr (SRC == BAKP_X_SHARED) bakp_fetch(c, xs, p.x_t, obs, 0, p.nvars, vec16);
-  if constexpr (SRC == BAKP_X_RING) bakp_fetch(c, xs, p.x_t, obs, 0, CB, vec16);
+  if constexpr (SRC == BAKP_X_SHARED) bakp_fetch(c, xs, x_t, obs, 0, p.nvars, xw);
+  if constexpr (SRC == BAKP_X_RING) bakp_fetch(c, xs, x_t, obs, 0, CB, xw);
   for (int r = 0; r < k; ++r)
     for (int i = threadIdx.x; i < n; i += blockDim.x)
       eb[(size_t)r * es + i] = p.e0[(size_t)r * obs + c.o0 + i];
@@ -146,7 +152,7 @@ __device__ __forceinline__ void bakp_solve(const BakpSolveParams& p, float* smem
   while (n_sweeps < p.max_iter && !stop) {
     for (int b = 0; b < nblocks; ++b, ++bstep) {
       BAKP_CLOCK_START;
-      const float* tile;               // block b's tile, row stride tl
+      const TX* tile;                  // block b's tile, row stride tl
       int tl;
       if constexpr (SRC == BAKP_X_SHARED) {
         tile = xs + (size_t)b * CB * L;
@@ -155,12 +161,11 @@ __device__ __forceinline__ void bakp_solve(const BakpSolveParams& p, float* smem
         tile = xs + (size_t)(bstep & 1) * CB * L;
         tl = L;
         const int next = b + 1 < nblocks ? b + 1 : 0;
-        bakp_fetch(c, xs + (size_t)((bstep + 1) & 1) * CB * L, p.x_t, obs, next * CB, CB,
-                   vec16);
+        bakp_fetch(c, xs + (size_t)((bstep + 1) & 1) * CB * L, x_t, obs, next * CB, CB, xw);
         cp_async_wait<1>();            // this thread's part of `tile` ...
         __syncthreads();               // ... and every thread's
       } else {
-        tile = p.x_t + (size_t)b * CB * obs + c.o0;
+        tile = x_t + (size_t)b * CB * obs + c.o0;
         tl = obs;
       }
       BAKP_CLOCK(0);

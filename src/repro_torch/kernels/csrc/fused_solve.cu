@@ -33,49 +33,82 @@
 // rest (block 256 at k 64, say), each block step runs its right-hand sides
 // in groups, in one launch with one joint stop (bakp_solve.cuh).
 //
+// x is fp32 or bf16 (TX): a bf16 x (precision "bf16") is read as it is
+// stored, half the bytes, and widened to fp32 in the block step; its
+// x_shared slice takes half the shared memory, so designs twice as wide
+// keep their slice on chip.  Every kernel is instantiated for both types.
+//
 // C interface (ctypes; pointers and stream void*-sized; cudaError_t return):
 //   bakp_fused_clusters(k, cluster, smem, &n)  clusters the card holds
-//   bakp_fused_launch(...)                      one whole solve on `stream`
+//   bakp_fused_launch(x_t, x_bytes, ...)        one whole solve on `stream`; x_t
+//                                               fp32 (x_bytes 4) or bf16 (2)
 #include "bakp_solve.cuh"
 
-template <int KC, int SRC>
-__global__ void __launch_bounds__(BAKP_THREADS) bakp_fused_kernel(BakpSolveParams p) {
+template <int KC, int SRC, typename TX>
+__global__ void BAKP_BOUNDS(TX) bakp_fused_kernel(BakpSolveParams p) {
   extern __shared__ __align__(16) float smem[];
-  bakp_solve<KC, SRC>(p, smem);
+  bakp_solve<KC, SRC, TX>(p, smem);
 }
 
-template <int KC>
+template <int KC, typename TX>
 static void* fused_kernel(int src) {
   switch (src) {
-    case BAKP_X_SHARED: return (void*)bakp_fused_kernel<KC, BAKP_X_SHARED>;
-    case BAKP_X_RING: return (void*)bakp_fused_kernel<KC, BAKP_X_RING>;
-    default: return (void*)bakp_fused_kernel<KC, BAKP_X_DIRECT>;
+    case BAKP_X_SHARED: return (void*)bakp_fused_kernel<KC, BAKP_X_SHARED, TX>;
+    case BAKP_X_RING: return (void*)bakp_fused_kernel<KC, BAKP_X_RING, TX>;
+    default: return (void*)bakp_fused_kernel<KC, BAKP_X_DIRECT, TX>;
   }
 }
 
 // The kernel for `group` right-hand sides a step and tile source src.
+template <typename TX>
 static void* fused_pick(int group, int src) {
   switch (bakp_pick_kc(group)) {
-    case 1: return fused_kernel<1>(src);
-    case 2: return fused_kernel<2>(src);
-    case 4: return fused_kernel<4>(src);
-    default: return fused_kernel<8>(src);
+    case 1: return fused_kernel<1, TX>(src);
+    case 2: return fused_kernel<2, TX>(src);
+    case 4: return fused_kernel<4, TX>(src);
+    default: return fused_kernel<8, TX>(src);
   }
 }
 
 // Clusters of `cluster` CTAs the card holds at once with `smem` bytes a
-// CTA (at least half an SM's, so one CTA an SM whatever the tile source;
-// asked of the x_shared kernel for `k` right-hand sides a step).
+// CTA (at least half an SM's, so one CTA an SM whatever the tile source
+// and x's type; asked of the fp32 x_shared kernel for `k` right-hand sides
+// a step).
 extern "C" int bakp_fused_clusters(int k, int cluster, int smem, int* n) {
   if (cluster < 1 || cluster > BAKP_MAX_CLUSTER || k < 1) return (int)cudaErrorInvalidValue;
   size_t s = 0;
   cudaError_t err = cl_launch_smem((size_t)smem, &s);
   if (err != cudaSuccess) return (int)err;
-  return (int)cl_max_clusters((void (*)(BakpSolveParams))fused_pick(k, BAKP_X_SHARED),
+  return (int)cl_max_clusters((void (*)(BakpSolveParams))fused_pick<float>(k, BAKP_X_SHARED),
                               cluster, s, n);
 }
 
-extern "C" int bakp_fused_launch(const float* x_t, const float* inv_cn,
+template <typename TX>
+static int fused_launch(const TX* x_t, const float* inv_cn, const float* e0, const float* a0,
+                        float* coef, float* e, float* hist, float* sse_out, int* n_out,
+                        int* conv_out, void* xchg, unsigned tag0, int nvars, int obs, int k,
+                        int block, int group, int max_iter, float atol_sse, float rtol,
+                        float omega, int x_in, int regime, int ctas, int cluster, int smem,
+                        void* stream) {
+  // The plan the caller made must leave room for what the kernel carves.
+  if (x_in < BAKP_X_SHARED || x_in > BAKP_X_DIRECT || group < 1 || group > k || block < 1 ||
+      nvars % block != 0)
+    return (int)cudaErrorInvalidValue;
+  const size_t need = sizeof(float) * bakp_solve_smem_floats(x_in, nvars, obs, ctas, cluster,
+                                                             k, group, block, sizeof(TX));
+  cudaError_t err = bakp_plan_check(obs, regime, ctas, cluster, xchg, need, (size_t)smem);
+  size_t s = 0;
+  if (err == cudaSuccess) err = cl_launch_smem((size_t)smem, &s);
+  if (err != cudaSuccess) return (int)err;
+  BakpSolveParams p{x_t, inv_cn, e0, a0, coef, e, hist, sse_out, n_out, conv_out,
+                    regime == BAKP_SINGLE_CLUSTER ? nullptr : xchg, tag0, nvars, obs, k,
+                    block, group, max_iter, atol_sse, rtol, omega,
+                    cp_bytes(x_t, (long long)obs * sizeof(TX), 16)};
+  return (int)cl_launch((void (*)(BakpSolveParams))fused_pick<TX>(group, x_in), p, ctas,
+                        cluster, regime != BAKP_SINGLE_CLUSTER, s, stream);
+}
+
+extern "C" int bakp_fused_launch(const void* x_t, int x_bytes, const float* inv_cn,
                                  const float* e0, const float* a0, float* coef,
                                  float* e, float* hist, float* sse_out,
                                  int* n_out, int* conv_out, void* xchg,
@@ -84,20 +117,9 @@ extern "C" int bakp_fused_launch(const float* x_t, const float* inv_cn,
                                  float atol_sse, float rtol, float omega,
                                  int x_in, int regime, int ctas, int cluster,
                                  int smem, void* stream) {
-  // The plan the caller made must leave room for what the kernel carves.
-  if (x_in < BAKP_X_SHARED || x_in > BAKP_X_DIRECT || group < 1 || group > k || block < 1 ||
-      nvars % block != 0)
-    return (int)cudaErrorInvalidValue;
-  const size_t need = sizeof(float) * bakp_solve_smem_floats(x_in, nvars, obs, ctas, cluster,
-                                                             k, group, block);
-  cudaError_t err = bakp_plan_check(obs, regime, ctas, cluster, xchg, need, (size_t)smem);
-  size_t s = 0;
-  if (err == cudaSuccess) err = cl_launch_smem((size_t)smem, &s);
-  if (err != cudaSuccess) return (int)err;
-  const int vec16 = obs % 4 == 0 && ((uintptr_t)x_t & 15) == 0;
-  BakpSolveParams p{x_t, inv_cn, e0, a0, coef, e, hist, sse_out, n_out, conv_out,
-                    regime == BAKP_SINGLE_CLUSTER ? nullptr : xchg, tag0, nvars, obs, k,
-                    block, group, max_iter, atol_sse, rtol, omega, vec16};
-  return (int)cl_launch((void (*)(BakpSolveParams))fused_pick(group, x_in), p, ctas, cluster,
-                        regime != BAKP_SINGLE_CLUSTER, s, stream);
+  return bakp_with_x(x_t, x_bytes, [&](auto x) {
+    return fused_launch(x, inv_cn, e0, a0, coef, e, hist, sse_out, n_out, conv_out, xchg, tag0,
+                        nvars, obs, k, block, group, max_iter, atol_sse, rtol, omega, x_in,
+                        regime, ctas, cluster, smem, stream);
+  });
 }

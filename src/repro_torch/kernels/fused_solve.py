@@ -21,6 +21,14 @@ from the L2 ("ring" or "direct", the x_l2 regime), with the right-hand
 sides of a block step in groups where one exchange of all of them does not
 fit a CTA; every admitted solve is one launch with one joint stop.
 
+x_t is fp32 or bf16 (precision "bf16": the handle's ``x_bf16_for``).  The
+kernels read a bf16 x as it is stored and widen it as they load it, the
+plain version one row or block at a time; everything else is fp32, and
+the fit check and the plan count x at its itemsize, so a bf16 design twice
+as large fits.  A warm start's ``e0 = y − a0ᵀ·x_t`` is a plain matrix
+product on the widened x (``solve_init``), as the JAX package computes it
+outside its kernel.
+
 ``fused_solve`` follows the device of its tensors: CPU tensors run the
 plain version (``fused_solve_plain``, a host loop that reads the stop flag
 once per sweep), CUDA tensors launch the kernel, anything else raises.
@@ -138,6 +146,38 @@ def fused_solve_plain(x_t, inv_cn, e0, a0m, *, block, max_iter, atol_sse,
             converged)
 
 
+
+def rtol_stop(sses, sse0: float, rtol: float) -> Optional[int]:
+    """The sweep (from 1) at which the stopping rule (``sweep_stop_flags``
+    at ``rtol``, atol 0) stops on the per-sweep SSEs ``sses``, an iterable
+    read lazily, or None if it never does."""
+    prev = sse0
+    for n, sse in enumerate(sses, 1):
+        if bool(sweep_stop_flags(sse, prev, sse0, 0.0, rtol)[1]):
+            return n
+        prev = sse
+    return None
+
+
+def plain_rtol_stop(x_t, inv_cn, e0, *, block, rtol, max_iter,
+                    variant="bakp") -> Optional[int]:
+    """Where the stopping rule stops on the plain iterate's SSE summed in
+    fp64, within ``max_iter`` sweeps: the witness an rtol stop is held to.
+    At rtol 1e-7 two fp32 SSEs a sweep apart differ by about an ulp, so a
+    kernel and the plain version, each summing in its own order, can stop
+    a sweep apart near the residual's floor; this sum leaves out that
+    rounding (``tools/stop_witness.py`` prints it sweep by sweep)."""
+    def sses():
+        e = e0.float()
+        for _ in range(max_iter):
+            if variant == "bak":
+                _, e = _cd.cd_sweep_plain(x_t, e, inv_cn)
+            else:
+                _, e = _cd.bakp_sweep_plain(x_t, e, inv_cn, block=block)
+            yield float((e.double() * e.double()).sum())
+    sse0 = float(torch.dot(e0.reshape(-1), e0.reshape(-1)))
+    return rtol_stop(sses(), sse0, rtol)
+
 def _bak_fused_cuda(x_t, inv_cn, e0, a0m, *, max_iter, atol_sse, rtol):
     nvars, obs = x_t.shape
     nrhs = e0.shape[0]
@@ -145,7 +185,7 @@ def _bak_fused_cuda(x_t, inv_cn, e0, a0m, *, max_iter, atol_sse, rtol):
     lib = _build.load("bak_fused")
     dev = x_t.device
     with torch.cuda.device(dev):
-        plan = _cd.bak_grid(lib.bak_fused_grid, obs, nrhs)
+        plan = _cd.bak_grid(lib.bak_fused_grid, obs, nrhs, x_t.element_size())
         inv = inv_cn.float().contiguous()
         e0c = e0.float().contiguous()
         a0c = a0m.float().contiguous()
@@ -158,12 +198,13 @@ def _bak_fused_cuda(x_t, inv_cn, e0, a0m, *, max_iter, atol_sse, rtol):
         conv = torch.empty((1,), dtype=torch.int32, device=dev)
         xchg = _cd.bak_exchange(plan, dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
-        _build.LAUNCHES["bak_fused"] += 1
-        _build.PLANS["bak_fused"] = plan
+        key = _build.launch_key("bak_fused", x_t.element_size())
+        _build.LAUNCHES[key] += 1
+        _build.PLANS[key] = plan
         _build.check(lib.bak_fused_launch(
-            x_t.data_ptr(), inv.data_ptr(), e0c.data_ptr(), a0c.data_ptr(),
-            coef.data_ptr(), e.data_ptr(), hist.data_ptr(), sse.data_ptr(),
-            n.data_ptr(), conv.data_ptr(),
+            x_t.data_ptr(), x_t.element_size(), inv.data_ptr(),
+            e0c.data_ptr(), a0c.data_ptr(), coef.data_ptr(), e.data_ptr(),
+            hist.data_ptr(), sse.data_ptr(), n.data_ptr(), conv.data_ptr(),
             None if xchg is None else xchg.data_ptr(), nvars, obs, nrhs,
             max_iter, float(atol_sse), float(rtol),
             _cd.BAK_REGIMES.index(plan.regime), plan.ctas, plan.cluster,
@@ -191,7 +232,7 @@ def _fused_cuda(x_t, inv_cn, e0, a0m, *, block, max_iter, atol_sse, rtol,
     dev = x_t.device
     with torch.cuda.device(dev):
         plan = _cd.bakp_grid(lib.bakp_fused_clusters, "fused", obs, nrhs,
-                             block, nvars=nvars)
+                             block, nvars=nvars, itemsize=x_t.element_size())
         inv = inv_cn.float().contiguous()
         e0c = e0.float().contiguous()
         a0c = a0m.float().contiguous()
@@ -207,12 +248,13 @@ def _fused_cuda(x_t, inv_cn, e0, a0m, *, block, max_iter, atol_sse, rtol,
         steps = max_iter * (nvars // block) * -(-nrhs // plan.group)
         xchg, tag0 = _cd.bakp_exchange(plan, dev, max(steps, max_iter + 1))
         stream = torch.cuda.current_stream(dev).cuda_stream
-        _build.LAUNCHES["fused_solve"] += 1
-        _build.PLANS["fused_solve"] = plan
+        key = _build.launch_key("fused_solve", x_t.element_size())
+        _build.LAUNCHES[key] += 1
+        _build.PLANS[key] = plan
         _build.check(lib.bakp_fused_launch(
-            x_t.data_ptr(), inv.data_ptr(), e0c.data_ptr(), a0c.data_ptr(),
-            coef.data_ptr(), e.data_ptr(), hist.data_ptr(), sse.data_ptr(),
-            n.data_ptr(), conv.data_ptr(),
+            x_t.data_ptr(), x_t.element_size(), inv.data_ptr(),
+            e0c.data_ptr(), a0c.data_ptr(), coef.data_ptr(), e.data_ptr(),
+            hist.data_ptr(), sse.data_ptr(), n.data_ptr(), conv.data_ptr(),
             None if xchg is None else xchg.data_ptr(), tag0, nvars, obs,
             nrhs, block, plan.group, max_iter, float(atol_sse), float(rtol),
             float(omega), _cd.BAKP_X_IN.index(plan.x_in),

@@ -11,7 +11,8 @@ The per-sweep loop launches one sweep kernel per sweep (``bakp_sweep``, or
 ``cd_sweep`` for Algorithm 1) from a host loop; the residual goes back to
 device memory at every sweep boundary and the stop is decided off the
 card, with one host read of the stop flag per sweep, as in the JAX design.
-Both paths take CPU tensors too (the plain versions run then).
+Both paths take CPU tensors too (the plain versions run then), and an
+fp32 or a bf16 ``x_t`` (the fit checks read its itemsize).
 ``solvebakp_stream_kernel`` is the out-of-core entry: the streaming
 whole-solve kernel (``stream_solve``) when a CTA's tile ring fits
 (``stream_fits``), else the same per-sweep loop.

@@ -23,6 +23,9 @@ any host and tests may patch them there.
 On the card the wrapper plans with the card's SM count and the clusters
 the CUDA runtime says it holds, and raises if that plan does not fit.
 
+x_t is fp32 or bf16; a bf16 x halves the ring (``stream_smem_bytes`` at
+itemsize 2) and the bytes a sweep reads.
+
 ``stream_solve`` follows the device of its tensors: CPU tensors run the
 plain version (``stream_solve_plain``), CUDA tensors launch the kernel,
 anything else raises.
@@ -61,24 +64,23 @@ def stream_x_resident_bytes(block: int, obs: int, itemsize: int) -> int:
 
 
 def stream_plan(obs: int, nrhs: int = 1, *, block: int = 256,
-                ctas: Optional[int] = None,
+                itemsize: int = 4, ctas: Optional[int] = None,
                 max_clusters: Optional[int] = None) -> "_cd.BakpPlan":
-    """The launch plan (``cd_sweep.BakpPlan``) on at most ``ctas`` SMs
-    (default ``cd_sweep.MAX_CTAS``) and ``max_clusters`` clusters (default what an
-    H100 holds at once)."""
+    """The launch plan (``cd_sweep.BakpPlan``) for x of ``itemsize`` bytes
+    an element on at most ``ctas`` SMs (default ``cd_sweep.MAX_CTAS``) and
+    ``max_clusters`` clusters (default what an H100 holds at once)."""
     cap = _cd.MAX_CTAS if ctas is None else min(_cd.MAX_CTAS, ctas)
-    return _cd.bakp_plan("stream", obs, nrhs, block, max_ctas=cap,
-                         max_clusters=max_clusters)
+    return _cd.bakp_plan("stream", obs, nrhs, block, itemsize=itemsize,
+                         max_ctas=cap, max_clusters=max_clusters)
 
 
 def stream_smem_bytes(obs: int, nrhs: int, itemsize: int, *, block: int,
                       ctas: Optional[int] = None) -> int:
-    """Shared memory of one CTA: the block step's exchange arrays
-    (``cd_sweep.bakp_exchange_bytes``), the ring (2·block·L·itemsize) and
-    the residual slice (k·L·4)."""
-    plan = stream_plan(obs, nrhs, block=block, ctas=ctas)
-    return (_cd.bakp_exchange_bytes(block, nrhs, plan.cluster)
-            + 2 * block * plan.L * itemsize + nrhs * plan.L * 4)
+    """Shared memory of one CTA, the plan's own count: the block step's
+    exchange arrays (``cd_sweep.bakp_exchange_bytes``), the ring
+    (2·block·L·itemsize) and the residual slice (k·L·4)."""
+    return stream_plan(obs, nrhs, block=block, itemsize=itemsize,
+                       ctas=ctas).smem
 
 
 def stream_fits(nvars: int, obs: int, nrhs: int, itemsize: int, *,
@@ -111,7 +113,7 @@ def stream_cuda(x_t, inv_cn, e0, a0m, *, block, max_iter, atol_sse, rtol,
     dev = x_t.device
     with torch.cuda.device(dev):
         plan = _cd.bakp_grid(lib.stream_solve_clusters, "stream", obs, nrhs,
-                             block)
+                             block, itemsize=x_t.element_size())
         if plan.smem > _cd.SMEM_PER_CTA_BYTES:
             raise ValueError(
                 f"stream_solve needs {plan.smem} bytes of shared memory per "
@@ -131,12 +133,13 @@ def stream_cuda(x_t, inv_cn, e0, a0m, *, block, max_iter, atol_sse, rtol,
         xchg, tag0 = _cd.bakp_exchange(
             plan, dev, max(max_iter * (nvars // block), max_iter + 1))
         stream = torch.cuda.current_stream(dev).cuda_stream
-        _build.LAUNCHES["stream_solve"] += 1
-        _build.PLANS["stream_solve"] = plan
+        key = _build.launch_key("stream_solve", x_t.element_size())
+        _build.LAUNCHES[key] += 1
+        _build.PLANS[key] = plan
         _build.check(lib.stream_solve_launch(
-            x_t.data_ptr(), inv.data_ptr(), e0c.data_ptr(), a0c.data_ptr(),
-            coef.data_ptr(), e.data_ptr(), hist.data_ptr(), sse.data_ptr(),
-            n.data_ptr(), conv.data_ptr(),
+            x_t.data_ptr(), x_t.element_size(), inv.data_ptr(),
+            e0c.data_ptr(), a0c.data_ptr(), coef.data_ptr(), e.data_ptr(),
+            hist.data_ptr(), sse.data_ptr(), n.data_ptr(), conv.data_ptr(),
             None if xchg is None else xchg.data_ptr(), tag0, nvars, obs, nrhs,
             block, max_iter, float(atol_sse), float(rtol), float(omega),
             _cd.BAKP_REGIMES.index(plan.regime), plan.ctas, plan.cluster,

@@ -243,7 +243,7 @@ def test_spec_and_registry_match_jax():
         for f in ("consumes", "iterative", "multi_rhs", "blocked",
                   "needs_chol", "streams", "lane", "fallback"):
             assert getattr(te, f) == getattr(je, f), (m, f)
-        assert te.precisions == ("fp32",)
+        assert te.precisions == je.precisions
         assert not te.batchable and not te.shardable
     assert set(T.method_names()) == set(METHODS)
     assert T.streaming_methods() == J.spec.streaming_methods()
@@ -271,8 +271,8 @@ def test_every_fallback_resolves():
 def test_unsupported_specs_raise():
     x, _, y = _system(110, obs=64, nvars=8)
     with pytest.raises(T.UnsupportedSpecError):
-        T.prepare(x, T.SolverSpec(method="bakp_fused", precision="bf16"),
-                  device="cpu")
+        T.prepare(x, T.SolverSpec(method="bakp_stream",
+                                  precision="bf16_fp32acc"), device="cpu")
     p = T.prepare(x, _spec(T, "bakp"), device="cpu")
     with pytest.raises(T.UnsupportedSpecError):
         p.solve(y, spec=T.SolverSpec(method="bakp", precision="bf16"))

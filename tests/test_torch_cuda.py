@@ -23,7 +23,7 @@ from repro_torch.kernels.block_update import (block_update_plain,
                                               score_features_plain)
 from repro_torch.kernels.cd_sweep import bakp_sweep_plain, cd_sweep_plain
 from repro_torch.kernels.fused_solve import (fused_cuda, fused_solve_plain,
-                                             solve_init)
+                                             plain_rtol_stop, solve_init)
 from repro_torch.obs import consume_dispatch
 
 pytestmark = pytest.mark.cuda
@@ -250,8 +250,6 @@ def test_fused_kernel_rtol_stop_at_phase_1(cuda, seed, k):
     SSE summed in fp64, with a final residual whose fp64 SSE is within 2x
     of the plain version's: an update that rounds e once a column (an FMA
     chain into e) or a per-CTA SSE summed in fp32 breaks both."""
-    from repro_torch.core.types import sweep_stop_flags
-    from repro_torch.kernels.cd_sweep import bakp_block_update
     x, _, y = _system(seed, 16384, 256, k, cuda)
     x_t = x.T.contiguous()
     inv, a0m, e0 = solve_init(x_t, y, None, None, y.dim() == 2)
@@ -259,18 +257,7 @@ def test_fused_kernel_rtol_stop_at_phase_1(cuda, seed, k):
     _, ek, _, _, nk, _ = fused_cuda(x_t, inv, e0, a0m, **kw)
     assert _build.PLANS["fused_solve"].x_in == "shared"
     _, ep, _, _, np_, _ = fused_solve_plain(x_t, inv, e0, a0m, **kw)
-    # The rule on the plain iterate's SSE summed in fp64.
-    sse0 = float(torch.dot(e0.reshape(-1), e0.reshape(-1)))
-    e, prev, rule = e0, sse0, None
-    inv2 = inv.reshape(-1, 1)
-    for n in range(1, 101):
-        for b in range(0, 256, 128):
-            _, e = bakp_block_update(x_t[b:b + 128], inv2[b:b + 128], e, 1.0)
-        sse = _sse64(e)
-        if bool(sweep_stop_flags(sse, prev, sse0, 0.0, 1e-7)[1]):
-            rule = n
-            break
-        prev = sse
+    rule = plain_rtol_stop(x_t, inv, e0, block=128, rtol=1e-7, max_iter=100)
     assert rule is not None and abs(int(nk) - rule) <= 1, (int(nk), rule,
                                                            int(np_))
     assert _sse64(ek) <= 2 * _sse64(ep), (_sse64(ek), _sse64(ep))
@@ -563,3 +550,235 @@ def test_stream_handles_on_card(cuda):
     assert _within(w.coef, p.solve(y2, a0=rh.coef).coef)
     with pytest.raises(UnsupportedSpecError, match="bakp_stream"):
         h.solve(y, spec=SolverSpec(method="bakp_fused"))
+
+
+# ------------------------------------------------------------- bf16 x
+# Each kernel reads a bf16 x_t as it is stored and widens it as it loads;
+# its plain version widens one row or block at a time.  Both run on the
+# same bf16 tensor, so they agree to the same 1e-4 as in fp32.  bf16
+# launches count and record their plans under "<kernel>_bf16".
+def _bf16(t):
+    return t.to(torch.bfloat16).contiguous()
+
+
+@pytest.mark.parametrize("k,obs,nvars,block,warm,x_in,regime", [
+    (None, 2048, 256, 32, False, "shared", "single_cluster"),
+    (8, 2048, 256, 32, True, "shared", "single_cluster"),
+    (None, 16384, 256, 128, True, "shared", "multi_cluster"),   # phase 1
+    (8, 16384, 512, 128, False, "shared", "multi_cluster"),   # ring at fp32
+    (3, 4099, 96, 16, False, "shared", "multi_cluster"),    # 2-byte copies
+    (3, 4102, 96, 16, True, "shared", "multi_cluster"),     # 4-byte copies
+    (None, 2048, 4096, 32, False, "ring", "single_cluster"),
+    (8, 2048, 4096, 32, True, "ring", "single_cluster"),
+    (8, 8192, 2048, 64, False, "ring", "multi_cluster"),
+    (3, 4099, 4096, 16, True, "ring", "multi_cluster"),     # 2-byte copies
+    (3, 4102, 4096, 16, False, "ring", "multi_cluster"),    # 4-byte copies
+    (None, 8192, 2048, 2048, False, "direct", "multi_cluster"),
+    (8, 8192, 2048, 2048, True, "direct", "multi_cluster"),
+])
+def test_bf16_fused_kernel_regimes_match_plain(cuda, k, obs, nvars, block,
+                                               warm, x_in, regime):
+    x, a, y = _system(61, obs, nvars, k, cuda)
+    y = y + 0.1 * torch.randn(y.shape, device=cuda)
+    x_t = _bf16(x.T)
+    multi = y.dim() == 2
+    a0 = 0.5 * a if warm else None
+    inv, a0m, e0 = solve_init(x_t, y, None, a0, multi)
+    n0 = _build.launch_counts(2)["fused_solve_bf16"]
+    r = fused_solve(x_t, y, a0=a0, block=block, max_iter=12)
+    assert _build.launch_counts(2)["fused_solve_bf16"] == n0 + 1
+    plan = _build.PLANS["fused_solve_bf16"]
+    assert (plan.x_in, plan.regime) == (x_in, regime)
+    pc, pe, ph, _, pn, _ = fused_solve_plain(
+        x_t, inv, e0, a0m, block=block, max_iter=12, atol_sse=0.0, rtol=0.0,
+        omega=1.0)
+    assert int(r.n_sweeps) == int(pn) == 12
+    coef = r.coef if multi else r.coef[:, None]
+    res = r.residual.T if multi else r.residual[None]
+    assert _within(coef, pc) and _within(res, pe, scale=e0)
+    assert _within(r.history, ph)
+
+
+@pytest.mark.parametrize("k,block,obs,nvars,cluster,e_in", [
+    (1, 8, 2048, 256, 16, "shared"),        # one cluster
+    (2, 16, 1000, 64, 8, "shared"),         # a ragged slice, 4-byte copies
+    (3, 16, 4097, 256, 16, "shared"),       # odd obs: 2-byte copies
+    (8, 128, 16384, 256, 16, "shared"),
+    (8, 32, 200000, 64, 16, "shared"),
+    (9, 16, 200000, 32, 16, "shared"),      # two KC chunks
+    (8, 32, 1000003, 32, 16, "device"),     # e in device memory; odd obs
+])
+def test_bf16_sweep_kernel_matches_plain(cuda, monkeypatch, k, block, obs,
+                                         nvars, cluster, e_in):
+    import importlib
+    cd = importlib.import_module("repro_torch.kernels.cd_sweep")
+    monkeypatch.setitem(cd.BAKP_CLUSTER, "sweep", cluster)
+    rng = np.random.default_rng(62)
+    x_t = _bf16(torch.tensor(rng.normal(size=(nvars, obs)).astype(np.float32),
+                             device=cuda))
+    inv = 1.0 / (x_t.float() ** 2).sum(1)
+    e = torch.tensor(rng.normal(size=(k, obs)).astype(np.float32),
+                     device=cuda)
+    n0 = _build.launch_counts(2)["bakp_sweep_bf16"]
+    da, e2 = bakp_sweep(x_t, e, inv, block=block)
+    assert _build.launch_counts(2)["bakp_sweep_bf16"] == n0 + 1
+    plan = _build.PLANS["bakp_sweep_bf16"]
+    assert (plan.regime, plan.clusters) == _want_plan(obs, cluster)
+    assert plan.e_in == e_in
+    pda, pe2 = bakp_sweep_plain(x_t, e, inv, block=block)
+    assert _within(da, pda) and _within(e2, pe2, scale=e)
+
+
+@pytest.mark.parametrize("k,obs,regime,e_in", [
+    (1, 4096, "single_cluster", "registers"),
+    (3, 4098, "single_cluster", "registers"),   # 4-byte copies
+    (9, 5003, "single_cluster", "shared"),      # odd obs: 2-byte copies
+    (8, 200000, "multi_cluster", "registers"),
+    (8, 1000003, "e_device", "device"),
+    (8, 7200003, "x_device", "device")])        # a bf16 ring fits at 3.6M
+def test_bf16_cd_sweep_kernel_matches_plain(cuda, k, obs, regime, e_in):
+    rng = np.random.default_rng(63)
+    nvars = 32 if obs > 100000 else 128
+    x_t = _bf16(torch.tensor(rng.normal(size=(nvars, obs)).astype(np.float32),
+                             device=cuda))
+    inv = 1.0 / (x_t.float() ** 2).sum(1)
+    inv[-1] = 0.0
+    e = torch.tensor(rng.normal(size=(k, obs)).astype(np.float32),
+                     device=cuda)
+    n0 = _build.launch_counts(2)["bak_sweep_bf16"]
+    da, e2 = cd_sweep(x_t, e, inv, block=8)
+    assert _build.launch_counts(2)["bak_sweep_bf16"] == n0 + 1
+    plan = _build.PLANS["bak_sweep_bf16"]
+    assert (plan.regime, plan.e_in) == (regime, e_in)
+    pda, pe2 = cd_sweep_plain(x_t, e, inv)
+    assert _within(da, pda) and _within(e2, pe2, scale=e)
+    assert float(da[-1].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("k,obs,nvars,max_iter,regime,e_in", [
+    (None, 4096, 128, 6, "single_cluster", "registers"),
+    (8, 4098, 128, 6, "single_cluster", "registers"),
+    (2, 100001, 64, 6, "single_cluster", "shared"),
+    (8, 200000, 32, 6, "multi_cluster", "registers"),
+    (8, 1000003, 16, 6, "e_device", "device"),
+    (2, 7200003, 16, 3, "x_device", "device")])
+def test_bf16_bak_fused_kernel_matches_plain(cuda, monkeypatch, k, obs, nvars,
+                                             max_iter, regime, e_in):
+    import importlib
+    monkeypatch.setattr(importlib.import_module(
+        "repro_torch.kernels.cd_sweep"), "ON_CHIP_BUDGET_BYTES", 1 << 40)
+    x, _, y = _system(64, obs, nvars, k, cuda)
+    y = y + 0.1 * torch.randn(y.shape, device=cuda)
+    x_t = _bf16(x.T)
+    del x
+    multi = y.dim() == 2
+    inv, a0m, e0 = solve_init(x_t, y, None, None, multi)
+    n0 = _build.launch_counts(2)["bak_fused_bf16"]
+    r = fused_solve(x_t, y, block=16, max_iter=max_iter, variant="bak")
+    assert _build.launch_counts(2)["bak_fused_bf16"] == n0 + 1
+    plan = _build.PLANS["bak_fused_bf16"]
+    assert (plan.regime, plan.e_in) == (regime, e_in)
+    pc, pe, ph, _, pn, _ = fused_solve_plain(
+        x_t, inv, e0, a0m, block=16, max_iter=max_iter, atol_sse=0.0,
+        rtol=0.0, omega=1.0, variant="bak")
+    assert int(r.n_sweeps) == int(pn) == max_iter
+    coef = r.coef if multi else r.coef[:, None]
+    res = r.residual.T if multi else r.residual[None]
+    assert _within(coef, pc) and _within(res, pe, scale=e0)
+    assert _within(r.history, ph)
+
+
+@pytest.mark.parametrize("k,obs,nvars,block,warm,cluster", [
+    (None, 2048, 256, 32, False, 16),  # one cluster; the ring wraps every sweep
+    (8, 4096, 224, 32, True, 16),      # 7 blocks: the stage parity flips
+    (3, 4099, 96, 16, False, 8),       # odd obs: the 2-byte copies
+    (3, 4102, 96, 16, True, 8),        # obs % 8 != 0: the 4-byte copies
+    (8, 16384, 4096, 128, True, 16),   # phase 3
+    (None, 200000, 64, 8, False, 4),   # empty slices in the last cluster
+    (8, 200000, 64, 8, False, 16),
+])
+def test_bf16_stream_kernel_matches_plain(cuda, monkeypatch, k, obs, nvars,
+                                          block, warm, cluster):
+    import importlib
+    from repro_torch.kernels.stream_solve import stream_solve_plain
+    monkeypatch.setitem(importlib.import_module(
+        "repro_torch.kernels.cd_sweep").BAKP_CLUSTER, "stream", cluster)
+    x, a, y = _system(65, obs, nvars, k, cuda)
+    y = y + 0.1 * torch.randn(y.shape, device=cuda)
+    x_t = _bf16(x.T)
+    multi = y.dim() == 2
+    a0 = 0.5 * a if warm else None
+    inv, a0m, e0 = solve_init(x_t, y, None, a0, multi)
+    n0 = _build.launch_counts(2)["stream_solve_bf16"]
+    r = stream_solve(x_t, y, a0=a0, block=block, max_iter=12)
+    assert _build.launch_counts(2)["stream_solve_bf16"] == n0 + 1
+    plan = _build.PLANS["stream_solve_bf16"]
+    assert (plan.regime, plan.clusters) == _want_plan(obs, cluster)
+    pc, pe, ph, _, pn, _ = stream_solve_plain(
+        x_t, inv, e0, a0m, block=block, max_iter=12, atol_sse=0.0, rtol=0.0,
+        omega=1.0)
+    assert int(r.n_sweeps) == int(pn) == 12
+    coef = r.coef if multi else r.coef[:, None]
+    res = r.residual.T if multi else r.residual[None]
+    assert _within(coef, pc) and _within(res, pe, scale=e0)
+    assert _within(r.history, ph)
+
+
+@pytest.mark.parametrize("kernel", ["fused_solve", "bak_fused",
+                                    "stream_solve"])
+@pytest.mark.parametrize("k", [1, 8])
+def test_bf16_rtol_stop_within_a_sweep_of_the_rule(cuda, kernel, k):
+    """At rtol 1e-7 on phase 1's design (phase 3's for the streaming
+    kernel, at half its width), each whole-solve kernel on a bf16 x stops
+    within one sweep of the rule on the plain iterate's fp64 SSE."""
+    from repro_torch.kernels.stream_solve import stream_cuda
+    nvars = 2048 if kernel == "stream_solve" else 256
+    x, _, y = _system(66, 16384, nvars, k, cuda)
+    x_t = _bf16(x.T)
+    inv, a0m, e0 = solve_init(x_t, y, None, None, y.dim() == 2)
+    kw = dict(block=128, max_iter=100, atol_sse=0.0, rtol=1e-7, omega=1.0)
+    if kernel == "stream_solve":
+        out = stream_cuda(x_t, inv, e0, a0m, **kw)
+    else:
+        out = fused_cuda(x_t, inv, e0, a0m,
+                         variant="bak" if kernel == "bak_fused" else "bakp",
+                         **kw)
+    rule = plain_rtol_stop(x_t, inv, e0, block=128, rtol=1e-7, max_iter=100,
+                           variant="bak" if kernel == "bak_fused" else "bakp")
+    assert rule is not None and abs(int(out[4]) - rule) <= 1, (int(out[4]),
+                                                              rule)
+
+
+def test_bf16_handles_on_card(cuda):
+    """The handle at bf16 and bf16_fp32acc: the fused kernels on the bf16
+    copy (and the fp32 polish), the streaming kernel on it, and no fp32
+    copy of x made for the bf16 kernels."""
+    x, a, y = _system(67, 16384, 512, 8, cuda)
+    spec = SolverSpec(method="bakp_fused", thr=128, max_iter=60)
+    p = prepare(x, spec)
+    r32 = p.solve(y)
+    for method in ("bakp_fused", "bak_fused"):
+        _build.reset_launch_counts()
+        consume_dispatch()
+        rb = p.solve(y, spec=spec.replace(method=method, precision="bf16"))
+        assert consume_dispatch() == "fused"
+        name = "fused_solve" if method == "bakp_fused" else "bak_fused"
+        assert _build.launch_counts(2)[name + "_bf16"] == 1
+        assert _build.launch_counts()[name] == 0
+        if method == "bakp_fused":
+            assert _build.PLANS["fused_solve_bf16"].x_in == "shared"
+        ra = p.solve(y, spec=spec.replace(method=method,
+                                          precision="bf16_fp32acc",
+                                          refine_sweeps=8))
+        assert consume_dispatch() == "fused"
+        assert _build.launch_counts()[name] == 1      # the fp32 polish
+        assert ra.history.shape[0] == 68 and int(ra.n_sweeps) == 68
+        assert float((rb.coef - r32.coef).abs().max()) <= 1e-2
+        assert float((ra.coef - r32.coef).abs().max()) <= 1e-5
+    s = SolverSpec(method="bakp_stream", thr=128, max_iter=60,
+                   precision="bf16")
+    _build.reset_launch_counts()
+    rs = p.solve(y, spec=s)
+    assert consume_dispatch() == "stream"
+    assert _build.launch_counts(2)["stream_solve_bf16"] == 1
+    assert float((rs.coef - r32.coef).abs().max()) <= 1e-2

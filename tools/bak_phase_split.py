@@ -85,11 +85,11 @@ _SIGS = {"grid": {
                   "bak_fused_launch": [_P] * 12 + [_I] * 4 + [_F] * 2
                   + [_I] * 2 + [_P]}},
     "cluster": {
-    "bak_sweep": {"bak_sweep_grid": [_I] * 4 + [_P],
-                  "bak_sweep_launch": [_P] * 6 + [_I] * 6 + [_P]},
-    "bak_fused": {"bak_fused_grid": [_I] * 4 + [_P],
-                  "bak_fused_launch": [_P] * 11 + [_I] * 4 + [_F] * 2
-                  + [_I] * 3 + [_P]}}}
+    "bak_sweep": {"bak_sweep_grid": [_I] * 5 + [_P],
+                  "bak_sweep_launch": [_P, _I] + [_P] * 5 + [_I] * 6 + [_P]},
+    "bak_fused": {"bak_fused_grid": [_I] * 5 + [_P],
+                  "bak_fused_launch": [_P, _I] + [_P] * 10 + [_I] * 4
+                  + [_F] * 2 + [_I] * 3 + [_P]}}}
 
 
 def instrument(csrc: Path, work: Path) -> Path:
@@ -192,7 +192,7 @@ def main() -> int:
             tail = [grid.value, e_smem.value, stream]
         else:
             out = (_I * 6)()
-            if plan_fn(no, k, MIN_OBS_PER_CTA, args.cluster,
+            if plan_fn(no, k, MIN_OBS_PER_CTA, args.cluster, 4,
                        ctypes.addressof(out)):
                 raise RuntimeError(f"{name}_grid failed")
             plan = {"regime": REGIMES[out[0]], "ctas": out[1],
@@ -210,8 +210,8 @@ def main() -> int:
                     return lib.bak_sweep_launch(*ptrs, partials.data_ptr(),
                                                 nv, no, k, *tail)
                 xchg.zero_()
-                return lib.bak_sweep_launch(*ptrs, xchg.data_ptr(), nv, no,
-                                            k, *tail)
+                return lib.bak_sweep_launch(ptrs[0], 4, *ptrs[1:],
+                                            xchg.data_ptr(), nv, no, k, *tail)
         else:
             a0 = torch.zeros((nv, k), **f32)
             coef = torch.empty((nv, k), **f32)
@@ -233,8 +233,8 @@ def main() -> int:
                         no, k, FUSED_SWEEPS, 0.0, 0.0, *tail)
                 xchg.zero_()
                 return lib.bak_fused_launch(
-                    *ptrs, xchg.data_ptr(), nv, no, k, FUSED_SWEEPS, 0.0,
-                    0.0, *tail)
+                    ptrs[0], 4, *ptrs[1:], xchg.data_ptr(), nv, no, k,
+                    FUSED_SWEEPS, 0.0, 0.0, *tail)
         for _ in range(2):
             if launch():
                 raise RuntimeError(f"{name} launch failed")

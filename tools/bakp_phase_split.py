@@ -275,8 +275,9 @@ def cluster_launcher(name, x_t, inv, e, nv, no, block, k, torch,
             if zero_exchange and xchg is not None:
                 xchg.zero_()
             return lib.bakp_sweep_launch(
-                x_t.data_ptr(), inv.data_ptr(), e.data_ptr(), e_out.data_ptr(),
-                da.data_ptr(), None if xchg is None else xchg.data_ptr(),
+                x_t.data_ptr(), x_t.element_size(), inv.data_ptr(),
+                e.data_ptr(), e_out.data_ptr(), da.data_ptr(),
+                None if xchg is None else xchg.data_ptr(),
                 tag0, nv, no, k, block, 1.0, regime, plan.ctas, plan.cluster,
                 int(plan.e_in == "shared"), plan.stages, plan.smem, stream)
         if launch():

@@ -119,18 +119,6 @@ def parent_stream(lib, x_t, inv, e0, block, max_iter, rtol, torch):
     return outs[2][:n].tolist(), n
 
 
-def stops(hist, sse0):
-    """The sweep (1-based) at which the stopping rule fires on ``hist``."""
-    from repro_torch.core.types import sweep_stop_flags
-    prev = sse0
-    for i, s in enumerate(hist):
-        _, stop = sweep_stop_flags(s, prev, sse0, 0.0, RTOL)
-        if bool(stop):
-            return i + 1
-        prev = s
-    return None
-
-
 def parent_fused(lib, x_t, inv, e0, block, max_iter, rtol, torch):
     """The grid-barrier whole-solve kernel: (history, n_sweeps, e)."""
     nv, no = x_t.shape
@@ -162,7 +150,8 @@ def run_case(name, x_t, inv, y, block, torch, solver="stream",
     """One system through one whole-solve kernel (``solver``: "stream",
     "fused" or "bak_fused") and its references."""
     from repro_torch.kernels.fused_solve import (fused_cuda,
-                                                 fused_solve_plain, solve_init)
+                                                 fused_solve_plain, rtol_stop,
+                                                 solve_init)
     from repro_torch.kernels.stream_solve import stream_cuda, stream_solve_plain
     multi = y.dim() == 2
     inv_cn, a0m, e0 = solve_init(x_t, y, inv, None, multi)
@@ -214,8 +203,8 @@ def run_case(name, x_t, inv, y, block, torch, solver="stream",
         row["host_f32"] = rh.history[:int(rh.n_sweeps)].tolist()
     row["fp64"] = iterate(alg, x_t, inv_cn, e0, block, sweeps,
                           torch.float64)[1]
-    row["stop_on_plain_f64sum"] = stops(row["plain_f64sum"], sse0)
-    row["stop_on_fp64"] = stops(row["fp64"], sse0)
+    row["stop_on_plain_f64sum"] = rtol_stop(row["plain_f64sum"], sse0, RTOL)
+    row["stop_on_fp64"] = rtol_stop(row["fp64"], sse0, RTOL)
     # Residual floors: the least fp64 SSE each iterate reaches.
     row["floor"] = {"kernel": min(row["kernel_f64sum"].values()),
                     "plain": min(row["plain_f64sum"]),
