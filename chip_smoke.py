@@ -40,7 +40,29 @@ process per source, in parallel), then:
      (post-refine MAPE against fp64 lstsq, analytic x bytes, a bf16-only
      fused dispatch) beside the JAX figures in ``BENCH_precision.json``.
      Each bf16 request runs twice, its first and repeat latency printed;
-  5. each kernel against its plain torch version on the same inputs, on the
+  5. the serving engine (``repro_torch.serve.SolverServeEngine``, run after
+     the kernel rows of item 6), eight flushes on Gaussian designs from a
+     numpy seed: (1) 64 cold ``bakp`` requests, 16 tenants on each of 4
+     16,384 x 256 designs, with ``prefer_fused`` — 4 groups of k 16, 4
+     ``fused_solve`` launches; (2) the same tenants with ``y`` drifted by
+     1%, every request warm; (3) 16 4,096 x 256 ``bakp_gram`` designs (one
+     batch across designs, plain lane) beside 8 ``bak_fused`` tenants of
+     one design (one launch at k 8, fused lane); (4) 2 ``bakp_stream``
+     tenants on phase 3's design (one ``stream_solve`` launch); (5) flush
+     1 at ``precision="bf16_fp32acc"`` (``fused_solve_bf16`` and the fp32
+     polish) plus an ``lstsq`` request that downgrades to fp32; (6) flush
+     1 through an engine armed with a fault plan (a lane worker death,
+     whose group is resubmitted, and a solver raise the retry ladder
+     serves); (7) flush 3 on one serial lane, then (8) on lanes again
+     through a fresh engine (the batch's operations no longer new to the
+     process), both bit-identical to (3).  Each
+     flush's engine counters and kernel launches must be as stated, each
+     flush prints its wall time, requests/s, the split of its spans and
+     mean sweeps; every request is held to fp64 lstsq (MAPE <= 1e-4) and
+     to the handle's own solve (1e-5), and the four kernels the path ran
+     to their plain versions at its shapes and plans; a watchdog turns a
+     hang into a failed exit;
+  6. each kernel against its plain torch version on the same inputs, on the
      card, and timed with CUDA events beside its roofline bound (and beside
      the nearest single PyTorch call, where there is one); for the streaming
      kernel also the per-sweep loop on the same design, as a finding.  The
@@ -62,14 +84,16 @@ process per source, in parallel), then:
      x at the shapes of their fp32 rows and at every shape phase 4 gave
      them, there on the plan phase 4 ran (x at 2 bytes in the bound), with
      their rtol stops held to the rule on the plain iterate's fp64 SSE;
-  6. a ``kernels`` summary line (the bf16 kernels as ``<name>_bf16``), the
-     card's name and power limit, and the result line
+  7. a ``kernels`` summary line (the bf16 kernels as ``<name>_bf16``;
+     launches summed over the paths), the card's name and power limit,
+     and the result line
      ``{"ok": true, "device": {...}}``.
 
 Launch counts are reset just before each path (phases 1-2, the earlier
 slices' path; phase 3, the streaming path; phase 4, the mixed-precision
-path, where each bf16 kernel must launch) and read just after it, so they
-count that path only; each kernel must have launched on its path.  Inputs
+path, where each bf16 kernel must launch; phase 5, the serving path) and
+read just after it, so they count that path only; each kernel must have
+launched on its path.  Inputs
 are Gaussian designs with a planted ``a_true`` and ``y = x @ a_true`` from
 a fixed seed.  Any failed check, build or launch error exits non-zero
 without the result line; so does a host with no CUDA device, or a
@@ -101,6 +125,9 @@ BF16_KERNEL_TOL = 1e-5
 # (non-tensor-core) FLOP/s.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+# Phase 5's watchdog: a serving path that has not finished by then is a
+# hang, and the script exits non-zero instead of waiting on it.
+PHASE5_WATCHDOG_S = 120
 
 _failures: list = []
 
@@ -338,7 +365,10 @@ def main() -> int:
                        "score_features", "block_update"),
         "phase_3_stream": ("stream_solve",),
         "phase_4_precision": tuple(_build.launch_key(n, 2)
-                                   for n in _build.X_KERNELS)}
+                                   for n in _build.X_KERNELS),
+        "phase_5_serving": ("fused_solve", "fused_solve_bf16", "bak_fused",
+                            "stream_solve")}
+    # Launches per kernel, summed over the paths that list it.
     launches = {}
 
     def read_launches(path):
@@ -346,7 +376,7 @@ def main() -> int:
         emit({"phase": "main_path_launches", "path": path, **counts,
               "plans": {n: p._asdict() for n, p in _build.PLANS.items()}})
         for name in path_kernels[path]:
-            launches[name] = counts[name]
+            launches[name] = launches.get(name, 0) + counts[name]
             check(counts[name] > 0,
                   f"kernel {name} was not launched on its path {path}")
 
@@ -1181,6 +1211,329 @@ def main() -> int:
           f"{rows['fused_solve_bf16']['plan']['x_in']}")
     unheld = set(path_plans) - held_plans
     check(not unheld, f"precision-path plans no kernel row ran: {unheld}")
+
+    # ---------------------------------------- the serving path (phase 5)
+    # repro_torch.serve.SolverServeEngine on the card: seven flushes (see
+    # the module doc), each with the engine counters and kernel launches it
+    # must give, then every served request held to fp64 lstsq and to the
+    # port handle's own solve, and the kernels it launched held to their
+    # plain versions at its shapes.
+    import os
+    import threading
+
+    import numpy as np
+
+    from repro_torch import obs as tobs
+    from repro_torch.resilience import faults
+    from repro_torch.serve import ServeConfig, SolveRequest, SolverServeEngine
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+        timeout=60).stdout.strip().splitlines()[0]
+
+    def hung():
+        print(f"chip_smoke: phase 5 did not finish in {PHASE5_WATCHDOG_S} s "
+              f"(a hang on the serving path)", file=sys.stderr, flush=True)
+        os._exit(3)
+
+    watchdog = threading.Timer(PHASE5_WATCHDOG_S, hung)
+    watchdog.daemon = True
+    watchdog.start()
+    t_phase5 = time.perf_counter()
+    _build.reset_launch_counts()
+    reg5 = tobs.MetricsRegistry()
+    tracer = tobs.get_tracer()
+    rng5 = np.random.default_rng(SEED + 5)
+    obs5, vars5, thr5 = 16_384, 256, 128
+    knobs5 = dict(thr=thr5, rtol=1e-7, max_iter=100)
+    # Flush 1's traffic: 4 designs, 16 tenants each, planted coefficients.
+    x5 = [rng5.standard_normal((obs5, vars5), dtype=np.float32)
+          for _ in range(4)]
+    a5 = rng5.standard_normal((4, vars5, 16), dtype=np.float32)
+    a5d = a5 + 0.01 * rng5.standard_normal(a5.shape, dtype=np.float32)
+    y5 = [x5[d] @ a5[d] for d in range(4)]
+    y5d = [x5[d] @ a5d[d] for d in range(4)]
+    # Flush 3's: 16 designs of 4,096 x 256 (one bakp_gram batch across
+    # designs), and 8 bak_fused tenants on one 16,384 x 256 design.
+    x5g = [rng5.standard_normal((4_096, vars5), dtype=np.float32)
+           for _ in range(16)]
+    y5g = [x @ rng5.standard_normal(vars5, dtype=np.float32) for x in x5g]
+    x5b = rng5.standard_normal((obs5, vars5), dtype=np.float32)
+    y5b = x5b @ rng5.standard_normal((vars5, 8), dtype=np.float32)
+    # Flush 4's: 2 tenants on phase 3's 16,384 x 4,096 design.
+    y5s = (x3 @ randn(vars3, 2)).cpu().numpy()
+
+    def tenants_requests(ys):
+        return [SolveRequest(x=x5[d], y=ys[d][:, t], method="bakp",
+                             design_key=f"p5-d{d}",
+                             tenant_id=f"p5-d{d}-t{t}", **knobs5)
+                for d in range(4) for t in range(16)]
+
+    def flush3_requests():
+        return ([SolveRequest(x=x, y=y, method="bakp_gram",
+                              design_key=f"p5-g{i}", **knobs5)
+                 for i, (x, y) in enumerate(zip(x5g, y5g))]
+                + [SolveRequest(x=x5b, y=y5b[:, t], method="bak_fused",
+                                design_key="p5-b", **knobs5)
+                   for t in range(8)])
+
+    def all_counts():
+        return {**_build.launch_counts(), **_build.launch_counts(2)}
+
+    stat_keys = ("multi_rhs_groups", "multi_rhs_requests", "vmap_batches",
+                 "vmap_requests", "single_solves", "warm_starts",
+                 "failures", "retries")
+    served = []     # (flush label, engine, requests, results, a0 used)
+    flush_plans = {}
+
+    def serve_flush(label, eng, reqs, want_stats, want_launch):
+        # The warm starts the engine will read: each tenant's retained
+        # coefficients before this flush (the handle check re-runs with
+        # them).
+        a0_used = {}
+        for r in reqs:
+            entry = eng.cache.get(r.design_key, record_stats=False)
+            coef = None if entry is None else entry.warm_coef(r.tenant_id)
+            if coef is not None:
+                a0_used[r.tenant_id] = coef.cpu().numpy()
+        stats0 = eng.stats.as_dict()
+        counts0 = all_counts()
+        tracer.clear()
+        t = time.perf_counter()
+        out = eng.serve(reqs)
+        wall = time.perf_counter() - t
+        counts = all_counts()
+        d_launch = {n: counts[n] - counts0[n] for n in counts
+                    if counts[n] != counts0[n]}
+        d_stats = {k: eng.stats.as_dict()[k] - stats0[k] for k in stat_keys}
+        split = {}
+        for sp in tracer.spans():
+            name = sp.name.split(".", 1)[1]
+            if name == "solve":
+                name = f"solve[{sp.tags.get('lane')}]"
+            split[name] = split.get(name, 0.0) + sp.duration_s * 1e3
+        ok = [r for r in out if r.error is None]
+        emit({"phase": "serve", "flush": label, "card": card,
+              "requests": len(reqs), "wall_ms": wall * 1e3,
+              "requests_per_s": len(reqs) / wall, "split_ms": split,
+              "mean_sweeps": (float(np.mean([r.n_sweeps for r in ok]))
+                              if ok else None),
+              "launches": d_launch, "stats": d_stats,
+              "errors": len(out) - len(ok)})
+        check(d_stats == {k: want_stats.get(k, 0) for k in stat_keys},
+              f"phase 5 {label}: engine counters {d_stats}, want "
+              f"{want_stats}")
+        check(d_launch == want_launch,
+              f"phase 5 {label}: launches {d_launch}, want {want_launch}")
+        for name in d_launch:
+            flush_plans[name, label] = _build.PLANS[name]._asdict()
+        served.append((label, eng, reqs, out, a0_used))
+        return out
+
+    eng = SolverServeEngine(ServeConfig(prefer_fused=True), registry=reg5)
+    multi16 = dict(multi_rhs_groups=4, multi_rhs_requests=64)
+    f1 = serve_flush("1_cold_coalesced", eng, tenants_requests(y5),
+                     multi16, {"fused_solve": 4})
+    f2 = serve_flush("2_warm", eng, tenants_requests(y5d),
+                     {**multi16, "warm_starts": 64}, {"fused_solve": 4})
+    check(all(r.warm_start for r in f2), "phase 5 flush 2: a cold request")
+    check(np.mean([r.n_sweeps for r in f2])
+          < np.mean([r.n_sweeps for r in f1]),
+          "phase 5 flush 2: warm mean sweeps not below flush 1's")
+    want3 = dict(multi_rhs_groups=1, multi_rhs_requests=8, vmap_batches=1,
+                 vmap_requests=16)
+    f3 = serve_flush("3_two_lanes", eng, flush3_requests(), want3,
+                     {"bak_fused": 1})
+    serve_flush("4_stream", eng,
+                [SolveRequest(x=x3, y=torch.from_numpy(y5s[:, t]),
+                              method="bakp_stream", design_key="p5-s",
+                              **knobs5) for t in range(2)],
+                dict(multi_rhs_groups=1, multi_rhs_requests=2),
+                {"stream_solve": 1})
+    eng.shutdown()
+    eng = SolverServeEngine(ServeConfig(precision="bf16_fp32acc",
+                                        prefer_fused=True), registry=reg5)
+    fb = reg5.counter("solver_fallback_total")
+    prec0 = fb.value(reason="precision")
+    serve_flush("5_precision", eng,
+                tenants_requests(y5) + [SolveRequest(
+                    x=x5[0], y=y5[0][:, 0], method="lstsq",
+                    design_key="p5-d0")],
+                {**multi16, "single_solves": 1},
+                {"fused_solve_bf16": 4, "fused_solve": 4})
+    check(fb.value(reason="precision") == prec0 + 1,
+          "phase 5 flush 5: the lstsq request must count one precision "
+          "fallback")
+    eng.shutdown()
+    # Flush 6: flush 1 through an engine armed with a fault plan.  The
+    # fused lane's first work dies with its worker (the engine, as the JAX
+    # engine, fails that unit's requests with LaneWorkerDeath and restarts
+    # the worker); the next raises in the solver and the retry ladder
+    # serves it on the plain "bakp" rung.  The failed group is submitted
+    # again, as a client would, and is served.
+    plan = {"solver.raise": {"count": 1, "match": "bakp_fused"},
+            "lane.worker": {"count": 1, "match": "single:fused"}}
+    restarts = reg5.counter("serve_lane_restarts_total")
+    r0 = restarts.value(lane="single:fused")
+    eng = SolverServeEngine(ServeConfig(prefer_fused=True, fault_plan=plan),
+                            registry=reg5)
+    f6 = serve_flush("6_faults", eng, tenants_requests(y5),
+                     dict(multi_rhs_groups=3, multi_rhs_requests=48,
+                          failures=16, retries=1), {"fused_solve": 2})
+    dead = [i for i, r in enumerate(f6) if r.error is not None]
+    check(len(dead) == 16 and all("LaneWorkerDeath" in f6[i].error
+                                  for i in dead),
+          f"phase 5 flush 6: {len(dead)} failed requests, want the 16 of "
+          f"the unit whose worker died")
+    check(restarts.value(lane="single:fused") == r0 + 1,
+          "phase 5 flush 6: the fused lane's worker did not restart")
+    retried = [r for r in f6 if r.retries]
+    check(len(retried) == 16 and all(r.telemetry.kernel_path == "xla"
+                                     for r in retried),
+          "phase 5 flush 6: the raised group must be served by the ladder")
+    again = tenants_requests(y5)
+    serve_flush("6_resubmitted", eng, [again[i] for i in dead],
+                dict(multi_rhs_groups=1, multi_rhs_requests=16),
+                {"fused_solve": 1})
+    faults.clear()
+    eng.shutdown()
+    eng = SolverServeEngine(ServeConfig(prefer_fused=True,
+                                        lane_execution=False), registry=reg5)
+    f7 = serve_flush("7_serial", eng, flush3_requests(), want3,
+                     {"bak_fused": 1})
+    eng.shutdown()
+    eng = SolverServeEngine(ServeConfig(prefer_fused=True), registry=reg5)
+    f8 = serve_flush("8_lanes_again", eng, flush3_requests(), want3,
+                     {"bak_fused": 1})
+    eng.shutdown()
+    for label, fx in (("7", f7), ("8", f8)):
+        for a, b in zip(f3, fx):
+            check(np.array_equal(a.coef, b.coef)
+                  and np.array_equal(a.residual, b.residual)
+                  and a.n_sweeps == b.n_sweeps,
+                  f"phase 5 flush {label}: {a.request_id} ({a.batch_kind}) "
+                  f"differs from flush 3: max |dcoef| "
+                  f"{float(np.abs(a.coef - b.coef).max())}")
+    check({r.telemetry.lane for r in f3} == {"single:xla", "single:fused"}
+          and {r.telemetry.lane for r in f7} == {"serial"}
+          and {r.telemetry.lane for r in f8} == {r.telemetry.lane
+                                                 for r in f3},
+          "phase 5 flushes 3 / 7 / 8: lanes")
+    read_launches("phase_5_serving")
+    watchdog.cancel()
+    main_path_s = time.perf_counter() - t_phase5
+    emit({"phase": "serve_registry", "card": card,
+          "families": {n: {k: (v if not isinstance(v, dict)
+                               else {"count": v["count"], "sum": v["sum"]})
+                           for k, v in fam["values"].items()}
+                       for n, fam in reg5.snapshot().items()
+                       if n.startswith("serve_")}})
+
+    # Every served request: no error, MAPE against fp64 lstsq, and within
+    # 1e-5 of the port handle's own solve of the same system under the
+    # effective spec (the same stacked y and warm start for a group).
+    handles = {}
+    worst = {"mape": 0.0, "vs_handle": 0.0}
+    n_checked = 0
+    for label, eng, reqs, out, a0_used in served:
+        groups = {}
+        for req, res in zip(reqs, out):
+            if res.error is not None:
+                check(label == "6_faults", f"phase 5 {label}: "
+                      f"{req.request_id} failed: {res.error}")
+                continue
+            n_checked += 1
+            check(bool(np.isfinite(res.coef).all())
+                  and res.coef.shape == (req.x.shape[1],),
+                  f"phase 5 {label}: {req.request_id} coef")
+            groups.setdefault((req.design_key, res.batch_kind,
+                               res.telemetry.method), []).append((req, res))
+            fused_lane = res.telemetry.method in ("bakp_fused", "bak_fused")
+            check(not fused_lane or res.retries > 0
+                  or res.telemetry.kernel_path == "fused",
+                  f"phase 5 {label}: {req.request_id} on "
+                  f"{res.telemetry.method} ran {res.telemetry.kernel_path}")
+        for (key, kind, method), members in groups.items():
+            x = members[0][0].x
+            ys = np.stack([q.y for q, _ in members], 1).astype(np.float32)
+            xd = torch.as_tensor(x, device=dev)
+            ref = torch.linalg.lstsq(
+                xd.double(), torch.as_tensor(ys, device=dev).double()
+            ).solution.cpu().numpy()
+            coefs = np.stack([r.coef for _, r in members], 1)
+            denom = np.maximum(np.abs(ref), 1e-12)
+            mape = float(np.max(np.mean(np.abs(coefs - ref) / denom, 0)))
+            worst["mape"] = max(worst["mape"], mape)
+            check(mape <= 1e-4, f"phase 5 {label} {key}: MAPE vs fp64 "
+                                f"lstsq {mape}")
+            if key not in handles:
+                handles[key] = prepare(xd, device=dev)
+            h = handles[key]
+            spec = eng.spec_for(members[0][0]).replace(method=method)
+            if kind == "multi_rhs":
+                k_pad = 1 << (len(members) - 1).bit_length()
+                ypad = np.zeros((x.shape[0], k_pad), np.float32)
+                ypad[:, :len(members)] = ys
+                a0 = None
+                if any(q.tenant_id in a0_used for q, _ in members):
+                    a0 = np.zeros((x.shape[1], k_pad), np.float32)
+                    for c, (q, _) in enumerate(members):
+                        if q.tenant_id in a0_used:
+                            a0[:, c] = a0_used[q.tenant_id]
+                hr = h.solve(ypad, a0, spec=spec)
+                hcoef = hr.coef[:, :len(members)].cpu().numpy()
+                sweeps_ok = all(r.n_sweeps == int(hr.n_sweeps)
+                                for _, r in members)
+            else:
+                # A single, or one system of a batch across designs: the
+                # handle solves it alone (an rtol stop may fall a sweep
+                # apart between the batch and a single solve).
+                hrs = [h.solve(q.y, spec=spec) for q, _ in members]
+                hcoef = np.stack([hr.coef.cpu().numpy() for hr in hrs], 1)
+                sweeps_ok = all(abs(r.n_sweeps - int(hr.n_sweeps)) <= 1
+                                for (_, r), hr in zip(members, hrs))
+            err = float(np.abs(coefs - hcoef).max()
+                        / max(1.0, float(np.abs(hcoef).max())))
+            worst["vs_handle"] = max(worst["vs_handle"], err)
+            check(err <= 1e-5 and sweeps_ok,
+                  f"phase 5 {label} {key} {method}: {err} from the handle's "
+                  f"own solve (sweeps match: {sweeps_ok})")
+    handles.clear()
+    emit({"phase": "serve_checks", "card": card,
+          "requests_checked": n_checked,
+          "worst_mape_vs_fp64_lstsq": worst["mape"],
+          "worst_rel_err_vs_handle": worst["vs_handle"],
+          "main_path_s": main_path_s})
+
+    # The kernels this path launched, held to their plain versions at its
+    # shapes, on the plan the path ran.
+    def held5(row, name, flush):
+        want = flush_plans.get((name, flush))
+        check(want is not None and row["plan"] == want,
+              f"phase 5 {name}: kernel row ran {row['plan']}, flush "
+              f"{flush} ran {want}")
+
+    h5 = prepare(x5[0], device=dev)
+    x5t, inv5 = h5.x_t_for(thr5), h5.inv_cn_for(thr5)
+    y16 = torch.from_numpy(y5[0]).to(dev)
+    held5(fused_case("phase5_k16_rtol", x5t, inv5, y16, thr5, 100, 1e-7, 5),
+          "fused_solve", "1_cold_coalesced")
+    held5(fused_case("phase5_k16_rtol", h5.x_bf16_for(thr5), inv5, y16,
+                     thr5, 100, 1e-7, 5), "fused_solve_bf16", "5_precision")
+    h5b = prepare(x5b, device=dev)
+    held5(fused_case("phase5_k8_rtol", h5b.x_t_for(thr5),
+                     h5b.inv_cn_for(thr5), torch.from_numpy(y5b).to(dev),
+                     thr5, 100, 1e-7, 3, variant="bak", plain_iters=1),
+          "bak_fused", "3_two_lanes")
+    held5(fused_case("phase5_k2_rtol", x3t, inv3,
+                     torch.from_numpy(y5s).to(dev), thr3, 100, 1e-7, 3,
+                     variant="stream", plain_iters=1),
+          "stream_solve", "4_stream")
+    del h5, h5b, x5, x5g, x5b
+    emit({"phase": "serve_done", "card": card,
+          "seconds": time.perf_counter() - t_phase5})
 
     kernel_src = "src/repro_torch/kernels/csrc/"
     src_of = {

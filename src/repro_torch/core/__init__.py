@@ -10,8 +10,10 @@ Layout (mirrors ``repro.core``):
   prepare.py    prepare()/PreparedDesign, prepared_from_arrays.
   methods.py    bak / bakp / bakp_gram / bakp_fused / bak_fused /
                 bakp_stream / lstsq / normal / bakf.
-  solvebak.py   Algorithm 1, plain torch (cyclic or random order).
-  solvebakp.py  Algorithm 2 + gram mode, plain torch.
+  solvebak.py   Algorithm 1, plain torch (cyclic or random order), and
+                its batch across designs.
+  solvebakp.py  Algorithm 2 + gram mode, plain torch, and its batch
+                across designs.
   solvebakf.py  Algorithm 3 (greedy selection) + the stepwise baseline.
   precondition.py  column normalisation.
   types.py      SolveResult, SelectResult, norms, sweep_stop_flags.
@@ -22,9 +24,11 @@ from repro_torch.core.prepare import (PreparedDesign, design_fingerprint,
                                       prepare, prepared_from_arrays)
 from repro_torch.core.precondition import (ColumnScaling, normalize_columns,
                                            unscale_coef)
-from repro_torch.core.solvebak import solvebak, solvebak_onesweep
+from repro_torch.core.solvebak import (solvebak, solvebak_batched,
+                                      solvebak_onesweep)
 from repro_torch.core.solvebakf import solvebakf, stepwise_regression_baseline
-from repro_torch.core.solvebakp import block_gram_cholesky, solvebakp
+from repro_torch.core.solvebakp import (block_gram_cholesky, solvebakp,
+                                       solvebakp_batched)
 from repro_torch.core.spec import (PRECISIONS, MethodEntry, SolverSpec,
                                    UnsupportedSpecError,
                                    ensure_precision_supported, method_names,
@@ -53,9 +57,11 @@ __all__ = [
     "register_method",
     "solve",
     "solvebak",
+    "solvebak_batched",
     "solvebak_onesweep",
     "solvebakf",
     "solvebakp",
+    "solvebakp_batched",
     "solver_method",
     "stepwise_regression_baseline",
     "streaming_methods",

@@ -21,7 +21,8 @@
   * "bakf"       — Algorithm 3 run to full selection: greedy forward CD over
                    every column with a refit per step.  Single-RHS; ignores
                    warm starts.
-  * "lstsq"      — least-squares baseline (``torch.linalg.lstsq``).
+  * "lstsq"      — least-squares baseline (minimum norm through the SVD,
+                   ``lstsq_svd``, as ``jnp.linalg.lstsq``).
   * "normal"     — normal-equation Cholesky with ``SolverSpec.ridge``.
 
 Dispatch labels are the JAX package's: the plain torch family records
@@ -35,8 +36,15 @@ bf16 solve hands the kernels the handle's bf16 copy of x
 (``PreparedDesign.x_bf16_for``), which they read and widen to fp32 as
 they go; the norms, residual, coefficients and SSE stay fp32.
 "bf16_fp32acc" then polishes with up to ``refine_sweeps`` fp32 sweeps
-(``_refine_fp32``).  Multi-GPU placements and cross-design batching
-arrive with later slices, so no entry here claims them.
+(``_refine_fp32``).
+
+Batching across designs, as in the JAX registry: "bak" (cyclic order
+only), "bakp" and "bakp_gram" are ``batchable`` and carry a ``vmap_one``
+that builds the batch solver the serving engine stacks same-bucket
+designs into (``solvebak_batched`` / ``solvebakp_batched``: plain torch
+over (B, obs, vars), where the JAX package runs ``jit(vmap(one))`` of its
+XLA solvers, outside any Pallas kernel).  Multi-GPU placements arrive
+with a later slice, so no entry here claims them.
 """
 from __future__ import annotations
 
@@ -44,9 +52,9 @@ import math
 
 import torch
 
-from repro_torch.core.solvebak import solvebak
+from repro_torch.core.solvebak import solvebak, solvebak_batched
 from repro_torch.core.solvebakf import solvebakf
-from repro_torch.core.solvebakp import solvebakp
+from repro_torch.core.solvebakp import solvebakp, solvebakp_batched
 from repro_torch.core.spec import (_ITER_FIELDS, MethodEntry, SolverSpec,
                                    register_method)
 from repro_torch.core.types import SolveResult
@@ -59,6 +67,32 @@ def _bak_solve(p, y, spec: SolverSpec, *, a0=None, generator=None):
     return solvebak(p.x_pad, y, max_iter=spec.max_iter, atol=spec.atol,
                     rtol=spec.rtol, a0=a0, order=spec.order,
                     generator=generator, cn=p.cn)
+
+
+def _bak_vmap_one(spec: SolverSpec):
+    if spec.order != "cyclic":
+        # A batch carries no generator (nor does a serving request), so
+        # random order is not batchable; the single path rejects it too.
+        raise ValueError(
+            f"order={spec.order!r} requires a torch.Generator and is not "
+            f"batchable; serve it with order='cyclic'")
+
+    def batch(xs, ys, cns, atols, *, chols=None, a0s=None):
+        return solvebak_batched(xs, ys, max_iter=spec.max_iter, atols=atols,
+                                rtol=spec.rtol, cns=cns, a0s=a0s)
+    return batch
+
+
+def _bakp_vmap_one(mode: str):
+    def build(spec: SolverSpec):
+        def batch(xs, ys, cns, atols, *, chols=None, a0s=None):
+            return solvebakp_batched(
+                xs, ys, thr=spec.thr, max_iter=spec.max_iter, atols=atols,
+                rtol=spec.rtol, omega=spec.omega, mode=mode,
+                ridge=spec.ridge, cns=cns,
+                chols=chols if mode == "gram" else None, a0s=a0s)
+        return batch
+    return build
 
 
 def _prep_bak(p, spec: SolverSpec):
@@ -284,10 +318,25 @@ def _direct_result(x, y, coef, max_iter: int) -> SolveResult:
                        torch.tensor(True), hist)
 
 
+def lstsq_svd(x: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
+    """Minimum-norm least squares through the SVD, as ``jnp.linalg.lstsq``
+    computes it: singular values below ``eps·max(m, n)·s_max`` are dropped,
+    so zero columns (a serving bucket's padding) get zero coefficients.
+    ``torch.linalg.lstsq`` is no substitute: its CPU default ("gelsy")
+    returns wrong coefficients on such rank-deficient designs in about
+    half of seeded trials, and on CUDA it takes full-rank designs only."""
+    u, s, vh = torch.linalg.svd(x, full_matrices=False)
+    rcond = torch.finfo(x.dtype).eps * max(x.shape)
+    mask = (s > 0) & (s >= rcond * s[0])
+    s_inv = torch.where(mask, 1.0 / torch.where(mask, s, torch.ones_like(s)),
+                        torch.zeros_like(s))
+    return vh.mT @ (s_inv[:, None] * (u.mT @ rhs))
+
+
 def _lstsq_solve(p, y, spec: SolverSpec, *, a0=None, generator=None):
     record_dispatch("xla", method="lstsq")
     rhs = y if y.dim() == 2 else y[:, None]
-    coef = torch.linalg.lstsq(p.x_pad, rhs).solution
+    coef = lstsq_svd(p.x_pad, rhs)
     return _direct_result(p.x_pad, y, coef if y.dim() == 2 else coef[:, 0],
                           spec.max_iter)
 
@@ -306,20 +355,22 @@ def _normal_solve(p, y, spec: SolverSpec, *, a0=None, generator=None):
 # ------------------------------------------------------------- registration
 register_method(MethodEntry(
     name="bak", solve=_bak_solve, consumes=_ITER_FIELDS + ("order",),
-    iterative=True, multi_rhs=True, blocked=False, prepare=_prep_bak,
-    fallback="lstsq",
+    iterative=True, multi_rhs=True, batchable=True, blocked=False,
+    prepare=_prep_bak, vmap_one=_bak_vmap_one, fallback="lstsq",
     summary="Algorithm 1: serial cyclic coordinate descent"))
 register_method(MethodEntry(
     name="bakp", solve=_bakp_solve("jacobi"),
     consumes=_ITER_FIELDS + ("thr", "omega"),
-    iterative=True, multi_rhs=True, blocked=True, prepare=_prep_bakp,
+    iterative=True, multi_rhs=True, batchable=True, blocked=True,
+    prepare=_prep_bakp, vmap_one=_bakp_vmap_one("jacobi"),
     fallback="bakp_stream",
     summary="Algorithm 2: block-Jacobi coordinate descent"))
 register_method(MethodEntry(
     name="bakp_gram", solve=_bakp_solve("gram"),
     consumes=_ITER_FIELDS + ("thr", "omega", "ridge"),
-    iterative=True, multi_rhs=True, blocked=True, needs_chol=True,
-    prepare=_prep_bakp_gram, fallback="bakp",
+    iterative=True, multi_rhs=True, batchable=True, blocked=True,
+    needs_chol=True, prepare=_prep_bakp_gram,
+    vmap_one=_bakp_vmap_one("gram"), fallback="bakp",
     summary="exact block CD via cached block-Gram Cholesky (beyond-paper)"))
 register_method(MethodEntry(
     name="bakp_fused", solve=_fused_method("bakp"),

@@ -14,8 +14,15 @@ transposed padded copy per block width (``x_t_for``, the CUDA kernels'
 layout) and its bf16 cast (``x_bf16_for``, the quantized tier the bf16
 precisions read); block-Gram Cholesky factors per ``(thr, ridge)``; and an
 LRU of per-tenant warm-start coefficients.  All of it is built lazily
-under a per-design lock.  Mesh copies and lane residency arrive with their
-slices.
+under a per-design lock.  ``bind_home`` / ``warm_lane_state`` /
+``resident_lanes`` serve the serving engine's lanes; mesh copies arrive
+with the multi-GPU slice.
+
+Streams: a handle is built on one thread's CUDA stream and solved on
+others (each serving lane has a stream of its own).  Every tensor the
+handle caches is therefore complete on the device when its builder
+returns (``_settled``: one wait on the building stream, paid once per
+built tensor), so a reader on another stream never sees it half written.
 
 A NON-RESIDENT handle has ``x_pad=None``: its x stays in host memory and
 reaches the device block by block through ``blocks`` (a
@@ -71,6 +78,14 @@ def as_f32(v, device) -> torch.Tensor:
     return torch.tensor(np.asarray(v, np.float32), device=device)
 
 
+def _settled(t: torch.Tensor) -> torch.Tensor:
+    """``t`` once the stream that built it has finished writing it (see
+    the module doc); CPU tensors pass through."""
+    if t.is_cuda:
+        torch.cuda.current_stream(t.device).synchronize()
+    return t
+
+
 def design_fingerprint(x, *, _prefix: str = "d") -> str:
     """Content fingerprint of a design (shape + dtype + bytes); the same
     bytes give the same fingerprint as ``repro.core.prepare``."""
@@ -95,6 +110,8 @@ class PreparedDesign:
     max_tenants: int = 64
     blocks: Optional[object] = None       # StoreBlockSource of a
     # non-resident handle (shape / num_blocks(thr) / block_t(thr, j))
+    home: Optional[str] = None            # placement kind this design
+    # primarily serves from (bind_home, first wins)
     _device: Optional[torch.device] = field(default=None, repr=False)
     _cn: Optional[torch.Tensor] = field(default=None, repr=False)
     _cn_thr: Dict[int, torch.Tensor] = field(default_factory=dict, repr=False)
@@ -159,10 +176,25 @@ class PreparedDesign:
         """Retain a copy of a tenant's solved coefficients, LRU-bounded."""
         if tenant_id is None:
             return
-        coef = as_f32(coef, self.device).clone()
+        coef = _settled(as_f32(coef, self.device).clone())
         with self._lock:
             self._warm[tenant_id] = coef
             self._warm.move_to_end(tenant_id)
+            while len(self._warm) > self.max_tenants:
+                self._warm.popitem(last=False)
+
+    def store_coefs(self, tenant_ids, coefs: torch.Tensor) -> None:
+        """Retain the coefficients of a coalesced group: column ``c`` of
+        ``coefs`` (vars, k) for ``tenant_ids[c]`` (None skips a column),
+        in one copy on the device and one settle for the whole group."""
+        cols = [c for c, t in enumerate(tenant_ids) if t is not None]
+        if not cols:
+            return
+        rows = _settled(as_f32(coefs, self.device).T[cols].contiguous())
+        with self._lock:
+            for row, c in enumerate(cols):
+                self._warm[tenant_ids[c]] = rows[row]
+                self._warm.move_to_end(tenant_ids[c])
             while len(self._warm) > self.max_tenants:
                 self._warm.popitem(last=False)
 
@@ -172,7 +204,8 @@ class PreparedDesign:
         """Squared column norms (vars,), computed on first use."""
         with self._lock:
             if self._cn is None:
-                self._cn = column_norms_sq(self._require_x("column norms"))
+                self._cn = _settled(column_norms_sq(
+                    self._require_x("column norms")))
             return self._cn
 
     def cn_for_thr(self, thr: int) -> torch.Tensor:
@@ -183,8 +216,8 @@ class PreparedDesign:
             return self.cn
         with self._lock:
             if thr not in self._cn_thr:
-                self._cn_thr[thr] = torch.cat(
-                    [self.cn, self.cn.new_zeros((pad,))])
+                self._cn_thr[thr] = _settled(torch.cat(
+                    [self.cn, self.cn.new_zeros((pad,))]))
             return self._cn_thr[thr]
 
     def inv_cn_for(self, thr: int) -> torch.Tensor:
@@ -192,7 +225,7 @@ class PreparedDesign:
         padded columns, which pins their updates to 0)."""
         with self._lock:
             if thr not in self._inv_cn:
-                self._inv_cn[thr] = safe_inv(self.cn_for_thr(thr))
+                self._inv_cn[thr] = _settled(safe_inv(self.cn_for_thr(thr)))
             return self._inv_cn[thr]
 
     def x_t_for(self, thr: int) -> torch.Tensor:
@@ -205,7 +238,7 @@ class PreparedDesign:
                 pad = -(-vars_p // thr) * thr - vars_p
                 if pad:
                     x_t = torch.nn.functional.pad(x_t, (0, 0, 0, pad))
-                self._x_t[thr] = x_t.contiguous()
+                self._x_t[thr] = _settled(x_t.contiguous())
             return self._x_t[thr]
 
     def x_bf16_for(self, thr: int) -> torch.Tensor:
@@ -216,8 +249,8 @@ class PreparedDesign:
         cached beside it for fp32 solves and the fp32 polish."""
         with self._lock:
             if thr not in self._x_bf16:
-                self._x_bf16[thr] = self.x_t_for(thr).to(
-                    torch.bfloat16).contiguous()
+                self._x_bf16[thr] = _settled(self.x_t_for(thr).to(
+                    torch.bfloat16).contiguous())
             return self._x_bf16[thr]
 
     def chol_for(self, thr: int, ridge: float) -> torch.Tensor:
@@ -229,8 +262,8 @@ class PreparedDesign:
             if key not in self.chol:
                 x, _, nblocks = _pad_cols(self._require_x("chol_for"),
                                           thr)
-                self.chol[key] = block_gram_cholesky(
-                    x.reshape(self.shape[0], nblocks, thr), ridge)
+                self.chol[key] = _settled(block_gram_cholesky(
+                    x.reshape(self.shape[0], nblocks, thr), ridge))
             return self.chol[key]
 
     def warm_method_state(self, spec: SolverSpec) -> None:
@@ -239,6 +272,38 @@ class PreparedDesign:
         entry = solver_method(spec.method)
         if entry.prepare is not None:
             entry.prepare(self, spec)
+
+    # ------------------------------------------------------ lane residency
+    def bind_home(self, placement=None) -> str:
+        """Bind (first wins) and return this design's home placement kind:
+        ``"single"`` on the port, whose placements are single-device until
+        the multi-GPU slice."""
+        kind = placement.kind if placement is not None else "single"
+        with self._lock:
+            if self.home is None:
+                self.home = kind
+            return self.home
+
+    def warm_lane_state(self, spec: SolverSpec, placement=None) -> None:
+        """Warm every resident tier a (spec, placement) solve needs — the
+        method's prepare hook (thr-padded norms, Gram factors, the
+        kernels' transposed and bf16 copies) — and bind the design's home.
+        Idempotent; the serving cache calls it on the flush thread, so the
+        lanes find their state built and settled."""
+        self.bind_home(placement)
+        self.warm_method_state(spec)
+
+    def resident_lanes(self) -> Tuple[str, ...]:
+        """Which per-lane resident tiers this design holds: ``"single"``
+        (``x_pad``) for a resident handle, plus ``"fused"`` (the kernels'
+        transposed layout) and ``"fused_bf16"`` (the quantized tier)."""
+        with self._lock:
+            out = ["single"] if self.x_pad is not None else []
+            if self._x_t:
+                out.append("fused")
+            if self._x_bf16:
+                out.append("fused_bf16")
+            return tuple(out)
 
     # ---------------------------------------------------------------- solve
     def solve(
@@ -333,7 +398,7 @@ def prepare(
     x = as_f32(x, dev)
     if x.dim() != 2:
         raise ValueError(f"x must be 2D (obs, vars), got {tuple(x.shape)}")
-    prepared = PreparedDesign(x_pad=x.contiguous(), spec=spec,
+    prepared = PreparedDesign(x_pad=_settled(x.contiguous()), spec=spec,
                               fingerprint=fingerprint,
                               max_tenants=max_tenants)
     if spec is not None:
@@ -382,10 +447,11 @@ def prepared_from_arrays(
         p = PreparedDesign(x_pad=None, fingerprint=fingerprint,
                            max_tenants=max_tenants,
                            blocks=StoreBlockSource(host), _device=dev,
-                           _cn=host.cn.to(dev))
+                           _cn=_settled(host.cn.to(dev)))
     p.spec = spec
     for (thr, ridge), factors in (chol or {}).items():
-        p.chol[(int(thr), float(ridge))] = as_f32(factors, p.device)
+        p.chol[(int(thr), float(ridge))] = _settled(as_f32(factors,
+                                                           p.device))
     for tenant, coef in (warm or {}).items():
         p.store_coef(tenant, np.asarray(coef))
     if spec is not None:

@@ -126,3 +126,57 @@ def solvebak_onesweep(x: torch.Tensor, y: torch.Tensor, a: torch.Tensor,
         a[j] += da
         e = e - xj * da
     return a, e
+
+
+def solvebak_batched(
+    xs: torch.Tensor,
+    ys: torch.Tensor,
+    *,
+    max_iter: int = 50,
+    atols=(),
+    rtol: float = 0.0,
+    cns: Optional[torch.Tensor] = None,
+    a0s: Optional[torch.Tensor] = None,
+) -> SolveResult:
+    """Algorithm 1 (cyclic order) on a batch of B single-RHS systems with
+    designs of one shape: the port's counterpart of ``jax.vmap`` over
+    ``solvebak``.  Plain torch over stacked tensors, the stopping rule per
+    system (``solvebakp.run_batched_sweeps``).
+
+    Args:
+      xs: (B, obs, vars) designs; ys: (B, obs) right-hand sides.
+      atols: B absolute tolerances (empty: 0 for all).
+      cns: optional (B, vars) squared column norms; a0s: optional (B, vars)
+        warm starts.
+    Returns:
+      ``SolveResult`` with a leading batch axis on every field.
+    """
+    from repro_torch.core.solvebakp import batch_atol_sse, run_batched_sweeps
+
+    if xs.dim() != 3 or ys.shape != xs.shape[:2]:
+        raise ValueError(f"xs must be (B, obs, vars) and ys (B, obs), got "
+                         f"{tuple(xs.shape)} and {tuple(ys.shape)}")
+    bsz, obs, nvars = xs.shape
+    xf = xs.float()
+    if cns is None:
+        cns = torch.einsum("bov,bov->bv", xf, xf)
+    inv_cn = safe_inv(cns.float())
+    a = torch.zeros((bsz, nvars, 1), dtype=torch.float32, device=xs.device)
+    if a0s is not None:
+        a[:, :, 0] = a0s.float()
+    e = ys.float().reshape(bsz, obs, 1) - torch.bmm(xf, a)
+
+    def sweep(a, e):
+        a = a.clone()
+        for j in range(nvars):
+            xj = xf[:, :, j]                                # (B, obs)
+            da = (torch.bmm(xj[:, None, :], e)[:, 0, :]
+                  * inv_cn[:, j, None])                     # (B, 1)
+            e = e - xj[:, :, None] * da[:, None, :]
+            a[:, j] += da
+        return a, e
+
+    atol_sse = batch_atol_sse(obs, atols if len(atols) else [0.0] * bsz)
+    a, e, sse, n, conv, hist = run_batched_sweeps(
+        sweep, a, e, max_iter=max_iter, atol_sse=atol_sse, rtol=rtol)
+    return SolveResult(a[:, :, 0], e[:, :, 0], sse, n, conv, hist)

@@ -137,3 +137,135 @@ def solvebakp(
         coef, e = coef[:, 0], e[:, 0]
     return SolveResult(coef, e, sse, torch.tensor(n, dtype=torch.int32),
                        converged, history)
+
+
+def batch_atol_sse(obs: int, atols) -> torch.Tensor:
+    """Per-system SSE thresholds ``f32(obs)·f32(atol_i)²`` of a batch of
+    single-RHS systems, in fp32 as ``atol_to_sse`` computes one."""
+    return torch.tensor([atol_to_sse(obs, 1, float(a)) for a in atols],
+                        dtype=torch.float32)
+
+
+def run_batched_sweeps(sweep, a, e, *, max_iter, atol_sse, rtol):
+    """The sweep loop of a batch of systems, as ``jax.vmap`` runs a
+    ``lax.while_loop`` over one.
+
+    ``sweep(a, e) -> (a', e')`` advances every system one sweep (a (B, n,
+    1), e (B, obs, 1)).  The loop runs while any system is live; a system
+    stops by ``sweep_stop_flags`` on its own SSE history and
+    ``atol_sse[i]``, and from then on its carry (coefficients, residual,
+    SSE, history, ``converged``, sweep count) is frozen with
+    ``torch.where``, so each system ends exactly where its single solve
+    would.  One host read per sweep for the whole batch (``live.any()``).
+    Returns ``(a, e, sse, n_sweeps, converged, history)``, each (B, ...).
+    """
+    bsz = a.shape[0]
+    dev = e.device
+    sse0 = torch.einsum("bok,bok->b", e, e)
+    history = torch.full((bsz, max_iter), math.nan, dtype=torch.float32,
+                         device=dev)
+    atol_sse = atol_sse.to(dev)
+    sse = sse0
+    n = torch.zeros((bsz,), dtype=torch.int32, device=dev)
+    converged = torch.zeros((bsz,), dtype=torch.bool, device=dev)
+    live = torch.ones((bsz,), dtype=torch.bool, device=dev)
+    it = 0
+    while it < max_iter and (it == 0 or bool(live.any())):
+        a_new, e_new = sweep(a, e)
+        sse_new = torch.einsum("bok,bok->b", e_new, e_new)
+        conv_i, stop_i = sweep_stop_flags(sse_new, sse, sse0, atol_sse, rtol)
+        col = live[:, None, None]
+        a = torch.where(col, a_new, a)
+        e = torch.where(col, e_new, e)
+        history[:, it] = torch.where(live, sse_new, history[:, it])
+        converged = torch.where(live, conv_i, converged)
+        sse = torch.where(live, sse_new, sse)
+        n = n + live.to(torch.int32)
+        live = live & ~stop_i
+        it += 1
+    return a, e, sse, n, converged, history
+
+
+def solvebakp_batched(
+    xs: torch.Tensor,
+    ys: torch.Tensor,
+    *,
+    thr: int = 128,
+    max_iter: int = 50,
+    atols=(),
+    rtol: float = 0.0,
+    omega: float = 1.0,
+    mode: str = "jacobi",
+    ridge: float = 1e-6,
+    cns: Optional[torch.Tensor] = None,
+    chols: Optional[torch.Tensor] = None,
+    a0s: Optional[torch.Tensor] = None,
+) -> SolveResult:
+    """Algorithm 2 on a batch of B single-RHS systems with designs of one
+    shape: the port's counterpart of ``jax.vmap`` over ``solvebakp``.
+
+    Plain torch over stacked tensors: ``bmm`` for the block products,
+    batched ``torch.cholesky_solve`` for ``mode="gram"``, and the stopping
+    rule per system (``run_batched_sweeps``).
+
+    Args:
+      xs: (B, obs, vars) designs.
+      ys: (B, obs) right-hand sides.
+      atols: B absolute tolerances, one a system (the serving engine's
+        padding-corrected ones); empty means 0 for all.
+      cns: optional (B, nblocks·thr) squared column norms (thr-padded).
+      chols: optional (B, nblocks, thr, thr) block-Gram factors.
+      a0s: optional (B, vars) warm starts (zero rows start cold).
+      thr / max_iter / rtol / omega / mode / ridge: as ``solvebakp``.
+    Returns:
+      ``SolveResult`` with a leading batch axis on every field: coef
+      (B, vars), residual (B, obs), sse / n_sweeps / converged (B,),
+      history (B, max_iter).
+    """
+    if xs.dim() != 3 or ys.shape != xs.shape[:2]:
+        raise ValueError(f"xs must be (B, obs, vars) and ys (B, obs), got "
+                         f"{tuple(xs.shape)} and {tuple(ys.shape)}")
+    if mode not in ("jacobi", "gram"):
+        raise ValueError(f"unknown mode {mode!r}")
+    bsz, obs, nvars = xs.shape
+    nblocks = -(-nvars // thr)
+    pad = nblocks * thr - nvars
+    x_pad = xs.float()
+    if pad:
+        x_pad = torch.nn.functional.pad(x_pad, (0, pad))
+    mask = (torch.arange(nblocks * thr, device=xs.device) < nvars).float()
+    if cns is None:
+        cns = torch.einsum("bov,bov->bv", x_pad, x_pad)
+    inv_cn = safe_inv(cns.float()) * mask
+    if mode == "gram" and chols is None:
+        xb = x_pad.reshape(bsz, obs, nblocks, thr)
+        gram = torch.einsum("bont,bons->bnts", xb, xb)
+        gram = gram + ridge * torch.eye(thr, dtype=torch.float32,
+                                        device=xs.device)
+        chols = torch.linalg.cholesky(gram)
+    a = torch.zeros((bsz, nblocks * thr, 1), dtype=torch.float32,
+                    device=xs.device)
+    if a0s is not None:
+        a[:, :nvars, 0] = a0s.float()
+    e = ys.float().reshape(bsz, obs, 1) - torch.bmm(x_pad, a)
+
+    def sweep(a, e):
+        a = a.clone()
+        for b in range(nblocks):
+            cols = slice(b * thr, (b + 1) * thr)
+            xblk = x_pad[:, :, cols]                        # (B, obs, thr)
+            g = torch.bmm(xblk.transpose(1, 2), e)          # (B, thr, 1)
+            if mode == "jacobi":
+                da = g * inv_cn[:, cols, None]
+            else:
+                da = (torch.cholesky_solve(g, chols[:, b])
+                      * mask[cols][None, :, None])
+            da = omega * da
+            e = e - torch.bmm(xblk, da)
+            a[:, cols] += da
+        return a, e
+
+    atol_sse = batch_atol_sse(obs, atols if len(atols) else [0.0] * bsz)
+    a, e, sse, n, conv, hist = run_batched_sweeps(
+        sweep, a, e, max_iter=max_iter, atol_sse=atol_sse, rtol=rtol)
+    return SolveResult(a[:, :nvars, 0], e[:, :, 0], sse, n, conv, hist)

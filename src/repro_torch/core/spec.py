@@ -116,7 +116,8 @@ class MethodEntry:
       consumes:  SolverSpec fields that change this method's result.
       iterative: consumes ``max_iter``/``atol``/``rtol`` and honours ``a0``.
       multi_rhs: accepts ``y`` of shape (obs, k).
-      batchable: batchable across designs (the serving slice adds it).
+      batchable: batchable across designs (``vmap_one`` builds the batch
+                 solver the serving engine stacks same-bucket designs into).
       shardable: has multi-GPU backends (the multi-GPU slice adds them).
       blocked:   consumes ``thr`` (SolveBakP family).
       needs_chol: wants block-Gram Cholesky factors (``chol_for``).
@@ -128,9 +129,12 @@ class MethodEntry:
                  "stream" for the streaming one).
       prepare:   optional ``(prepared, spec) -> None`` warming the
                  per-design state this method reuses.
-      fallback:  the method a failed solve degrades to (as in the JAX
-                 registry; the retry ladder arrives with the resilience
-                 slice).
+      vmap_one:  optional ``spec -> batch`` where ``batch(xs, ys, cns,
+                 atols, *, chols=None, a0s=None)`` solves B stacked
+                 single-RHS systems (the port's counterpart of the JAX
+                 registry's per-system callable under ``jax.vmap``).
+      fallback:  the method a failed solve degrades to (the retry ladder,
+                 ``repro_torch.resilience.ladder``, walks these).
       summary:   one-line description.
     """
 
@@ -147,6 +151,7 @@ class MethodEntry:
     precisions: Tuple[str, ...] = ("fp32",)
     lane: str = "xla"
     prepare: Optional[Callable] = None
+    vmap_one: Optional[Callable] = None
     fallback: Optional[str] = None
     summary: str = ""
 

@@ -10,11 +10,19 @@ headers it includes (followed transitively), so editing a source rebuilds
 exactly the libraries that compile it and the rest load as they are.
 
 Launch counts also live here: every wrapper adds one to
-``LAUNCHES[launch_key(name, itemsize)]`` where it launches its kernel, and
-nowhere else; the five kernels that read x count their launches on a bf16
-x apart (``"<name>_bf16"``).  A kernel whose launch plan varies with the
-shape (the cluster kernels' regimes) records the plan of its last launch
-under the same key in ``PLANS``.
+``LAUNCHES[launch_key(name, itemsize)]`` through ``count_launch`` once its
+kernel launched, and nowhere else; the five kernels that read x count
+their launches on a bf16 x apart (``"<name>_bf16"``).  A kernel whose
+launch plan varies with the shape (the cluster kernels' regimes) records
+the plan of its last launch under the same key in ``PLANS``.  The serving
+engine's lanes launch from several threads at once, so the count is taken
+under a lock of its own (``_count_lock``; ``_lock`` is held for a whole
+nvcc build).
+
+A kernel that fails to build, load or launch raises ``KernelError``: the
+serving engine's retry ladder steps past injected faults and diverged
+solves, never past this, so no plain version stands in for a kernel
+that is broken on the card.
 """
 from __future__ import annotations
 
@@ -81,8 +89,23 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
 X_KERNELS = ("bakp_sweep", "fused_solve", "bak_sweep", "bak_fused",
              "stream_solve")
 
+class KernelError(RuntimeError):
+    """A CUDA kernel failed to build, load or launch."""
+
+
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+
+
+def count_launch(key: str, plan=None) -> None:
+    """Add one launch of ``key`` and record ``plan`` as its last plan.
+    ``LAUNCHES[key] += 1`` is a read-modify-write: concurrent lane threads
+    would lose counts without the lock."""
+    with _count_lock:
+        LAUNCHES[key] += 1
+        if plan is not None:
+            PLANS[key] = plan
 
 
 def launch_key(name: str, itemsize: int = 4) -> str:
@@ -97,12 +120,14 @@ def launch_counts(itemsize: int = 4) -> Dict[str, int]:
     """Launches per kernel on an x of ``itemsize`` bytes an element, by
     ``launch_key``: every kernel for fp32, the x-reading ones for bf16."""
     names = SIGNATURES if itemsize == 4 else X_KERNELS
-    return {launch_key(n, itemsize): LAUNCHES[launch_key(n, itemsize)]
-            for n in names}
+    with _count_lock:
+        return {launch_key(n, itemsize): LAUNCHES[launch_key(n, itemsize)]
+                for n in names}
 
 
 def reset_launch_counts() -> None:
-    LAUNCHES.clear()
+    with _count_lock:
+        LAUNCHES.clear()
 
 
 def _nvcc() -> str:
@@ -111,7 +136,7 @@ def _nvcc() -> str:
                               "bin", "nvcc")):
         if cand and os.path.exists(cand):
             return cand
-    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+    raise KernelError("nvcc not found: the CUDA kernels need the CUDA "
                        "toolkit (set CUDA_HOME or put nvcc on PATH)")
 
 
@@ -150,7 +175,7 @@ def _start(name: str) -> subprocess.Popen:
 def build_all(names: Optional[List[str]] = None) -> Dict[str, str]:
     """Compile every (or the named) missing library in parallel; returns the
     compiler's output (``-Xptxas -v`` register and shared-memory report) per
-    library built.  Raises ``RuntimeError`` if any build fails."""
+    library built.  Raises ``KernelError`` if any build fails."""
     names = list(SIGNATURES) if names is None else names
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with _lock:
@@ -166,7 +191,7 @@ def build_all(names: Optional[List[str]] = None) -> Dict[str, str]:
                 os.replace(tmp, _lib_path(n))
                 (BUILD_DIR / f"{n}.log").write_text(logs[n])
     if failed:
-        raise RuntimeError("nvcc failed for " + ", ".join(failed) + ":\n"
+        raise KernelError("nvcc failed for " + ", ".join(failed) + ":\n"
                            + "\n".join(logs[n] for n in failed))
     return logs
 
@@ -179,7 +204,10 @@ def load(name: str) -> ctypes.CDLL:
     build_all([name])
     with _lock:
         if name not in _libs:
-            lib = ctypes.CDLL(str(_lib_path(name)))
+            try:
+                lib = ctypes.CDLL(str(_lib_path(name)))
+            except OSError as exc:
+                raise KernelError(f"cannot load lib{name}: {exc}") from exc
             for fn, argtypes in SIGNATURES[name].items():
                 getattr(lib, fn).argtypes = argtypes
                 getattr(lib, fn).restype = ctypes.c_int
@@ -188,6 +216,6 @@ def load(name: str) -> ctypes.CDLL:
 
 
 def check(err: int, what: str) -> None:
-    """Raise if a C entry returned a CUDA error code."""
+    """Raise ``KernelError`` if a C entry returned a CUDA error code."""
     if err != 0:
-        raise RuntimeError(f"{what} failed with cudaError_t {err}")
+        raise KernelError(f"{what} failed with cudaError_t {err}")

@@ -61,10 +61,10 @@ def _block_update_cuda(x_t_blk, e2, da2):
         da = da2.float().contiguous()
         e_out = torch.empty_like(e_in)
         stream = torch.cuda.current_stream(dev).cuda_stream
-        _build.LAUNCHES["block_update"] += 1
         _build.check(lib.block_update_launch(
             x.data_ptr(), da.data_ptr(), e_in.data_ptr(), e_out.data_ptr(),
             cb, obs, nrhs, stream), "block_update_launch")
+        _build.count_launch("block_update")
     return e_out
 
 
@@ -127,11 +127,11 @@ def _score_features_cuda(x_t, e, inv_cn):
         part = torch.empty((nchunks if nchunks > 1 else 0, nvars),
                            dtype=torch.float32, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
-        _build.LAUNCHES["score_features"] += 1
         _build.check(lib.score_features_launch(
             x.data_ptr(), ev.data_ptr(), inv.data_ptr(), out.data_ptr(),
             part.data_ptr(), nvars, obs, chunk, nchunks, stream),
             "score_features_launch")
+        _build.count_launch("score_features")
     return out
 
 

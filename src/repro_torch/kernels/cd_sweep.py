@@ -26,6 +26,7 @@ the plans takes x's itemsize.  The residual, norms and increments are fp32.
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import NamedTuple
 
 import torch
@@ -102,8 +103,11 @@ X_DTYPES = (torch.float32, torch.bfloat16)
 
 _grid_cache: dict = {}
 # Exchange words of the Algorithm-2 kernels by (device, stream): (words,
-# the next launch's first tag).  Tags are 32 bits.
+# the next launch's first tag).  Tags are 32 bits.  Lanes launch from
+# several threads, each on its own stream: the table's read-and-replace
+# runs under ``_xchg_lock``.
 _xchg: dict = {}
+_xchg_lock = threading.Lock()
 _TAG_LIMIT = 1 << 32
 
 
@@ -357,7 +361,7 @@ def bakp_grid(lib_fn, kind: str, obs: int, k: int, block: int, *,
         _build.check(lib_fn(plan.group, plan.cluster, plan.smem,
                             ctypes.addressof(out)), lib_fn.__name__)
         if out.value < 1:
-            raise RuntimeError(
+            raise _build.KernelError(
                 f"{lib_fn.__name__}: the card holds no cluster of "
                 f"{plan.cluster} CTAs with {plan.smem} bytes of shared "
                 f"memory each")
@@ -380,13 +384,15 @@ def bakp_exchange(plan: BakpPlan, device, tags: int):
         raise ValueError(f"a launch of {tags} exchange steps overflows the "
                          f"kernels' 32-bit tags")
     key = (device, torch.cuda.current_stream(device).cuda_stream)
-    words, tag0 = _xchg.get(key, (None, 0))
-    if (words is None or words.numel() < plan.xchg_words
-            or tag0 + tags >= _TAG_LIMIT):
-        size = max(plan.xchg_words, 0 if words is None else words.numel())
-        words, tag0 = torch.zeros((size,), dtype=torch.int32,
-                                  device=device), 0
-    _xchg[key] = (words, tag0 + tags)
+    with _xchg_lock:
+        words, tag0 = _xchg.get(key, (None, 0))
+        if (words is None or words.numel() < plan.xchg_words
+                or tag0 + tags >= _TAG_LIMIT):
+            size = max(plan.xchg_words,
+                       0 if words is None else words.numel())
+            words, tag0 = torch.zeros((size,), dtype=torch.int32,
+                                      device=device), 0
+        _xchg[key] = (words, tag0 + tags)
     return words, tag0
 
 
@@ -497,8 +503,6 @@ def _bakp_sweep_launch(x_t, e_in, inv, block, omega):
         xchg, tag0 = bakp_exchange(plan, dev, nvars // block)
         stream = torch.cuda.current_stream(dev).cuda_stream
         key = _build.launch_key("bakp_sweep", x_t.element_size())
-        _build.LAUNCHES[key] += 1
-        _build.PLANS[key] = plan
         _build.check(lib.bakp_sweep_launch(
             x_t.data_ptr(), x_t.element_size(), inv.data_ptr(),
             e_in.data_ptr(), e_out.data_ptr(), da.data_ptr(),
@@ -507,6 +511,7 @@ def _bakp_sweep_launch(x_t, e_in, inv, block, omega):
             BAKP_REGIMES.index(plan.regime), plan.ctas, plan.cluster,
             int(plan.e_in == "shared"), plan.stages, plan.smem, stream),
         "bakp_sweep_launch")
+        _build.count_launch(key, plan)
     return da, e_out
 
 
@@ -525,14 +530,13 @@ def _cd_sweep_cuda(x_t, e2, inv_cn):
         xchg = bak_exchange(plan, dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         key = _build.launch_key("bak_sweep", x_t.element_size())
-        _build.LAUNCHES[key] += 1
-        _build.PLANS[key] = plan
         _build.check(lib.bak_sweep_launch(
             x_t.data_ptr(), x_t.element_size(), inv.data_ptr(),
             e_in.data_ptr(), e_out.data_ptr(), da.data_ptr(),
             None if xchg is None else xchg.data_ptr(), nvars,
             obs, nrhs, BAK_REGIMES.index(plan.regime), plan.ctas,
             plan.cluster, stream), "bak_sweep_launch")
+        _build.count_launch(key, plan)
     return da, e_out
 
 

@@ -199,8 +199,6 @@ def _bak_fused_cuda(x_t, inv_cn, e0, a0m, *, max_iter, atol_sse, rtol):
         xchg = _cd.bak_exchange(plan, dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         key = _build.launch_key("bak_fused", x_t.element_size())
-        _build.LAUNCHES[key] += 1
-        _build.PLANS[key] = plan
         _build.check(lib.bak_fused_launch(
             x_t.data_ptr(), x_t.element_size(), inv.data_ptr(),
             e0c.data_ptr(), a0c.data_ptr(), coef.data_ptr(), e.data_ptr(),
@@ -209,6 +207,7 @@ def _bak_fused_cuda(x_t, inv_cn, e0, a0m, *, max_iter, atol_sse, rtol):
             max_iter, float(atol_sse), float(rtol),
             _cd.BAK_REGIMES.index(plan.regime), plan.ctas, plan.cluster,
             stream), "bak_fused_launch")
+        _build.count_launch(key, plan)
     return coef, e, hist, sse[0], n[0], conv[0] != 0
 
 
@@ -249,8 +248,6 @@ def _fused_cuda(x_t, inv_cn, e0, a0m, *, block, max_iter, atol_sse, rtol,
         xchg, tag0 = _cd.bakp_exchange(plan, dev, max(steps, max_iter + 1))
         stream = torch.cuda.current_stream(dev).cuda_stream
         key = _build.launch_key("fused_solve", x_t.element_size())
-        _build.LAUNCHES[key] += 1
-        _build.PLANS[key] = plan
         _build.check(lib.bakp_fused_launch(
             x_t.data_ptr(), x_t.element_size(), inv.data_ptr(),
             e0c.data_ptr(), a0c.data_ptr(), coef.data_ptr(), e.data_ptr(),
@@ -260,6 +257,7 @@ def _fused_cuda(x_t, inv_cn, e0, a0m, *, block, max_iter, atol_sse, rtol,
             float(omega), _cd.BAKP_X_IN.index(plan.x_in),
             _cd.BAKP_REGIMES.index(plan.regime), plan.ctas, plan.cluster,
             plan.smem, stream), "bakp_fused_launch")
+        _build.count_launch(key, plan)
     return coef, e, hist, sse[0], n[0], conv[0] != 0
 
 

@@ -134,8 +134,6 @@ def stream_cuda(x_t, inv_cn, e0, a0m, *, block, max_iter, atol_sse, rtol,
             plan, dev, max(max_iter * (nvars // block), max_iter + 1))
         stream = torch.cuda.current_stream(dev).cuda_stream
         key = _build.launch_key("stream_solve", x_t.element_size())
-        _build.LAUNCHES[key] += 1
-        _build.PLANS[key] = plan
         _build.check(lib.stream_solve_launch(
             x_t.data_ptr(), x_t.element_size(), inv.data_ptr(),
             e0c.data_ptr(), a0c.data_ptr(), coef.data_ptr(), e.data_ptr(),
@@ -144,6 +142,7 @@ def stream_cuda(x_t, inv_cn, e0, a0m, *, block, max_iter, atol_sse, rtol,
             block, max_iter, float(atol_sse), float(rtol), float(omega),
             _cd.BAKP_REGIMES.index(plan.regime), plan.ctas, plan.cluster,
             plan.smem, stream), "stream_solve_launch")
+        _build.count_launch(key, plan)
     return coef, e, hist, sse[0], n[0], conv[0] != 0
 
 

@@ -8,6 +8,7 @@
 The tiered ``DesignStore`` of ``repro.store`` (device / host / disk tiers,
 CRC-checked tiles, quarantine) is not ported yet.
 """
-from repro_torch.store.store import HostDesign, StoreBlockSource
+from repro_torch.store.store import (HostDesign, StoreBlockSource,
+                                     TileCorruptionError)
 
-__all__ = ["HostDesign", "StoreBlockSource"]
+__all__ = ["HostDesign", "StoreBlockSource", "TileCorruptionError"]

@@ -71,6 +71,12 @@ class HostDesign:
         return out
 
 
+class TileCorruptionError(RuntimeError):
+    """A design tile failed its integrity check (the tiered store's error,
+    defined here so the serving engine's retry ladder can name it before
+    the store is ported; nothing in the port raises it yet)."""
+
+
 class StoreBlockSource:
     """Per-block fetch interface of a non-resident design: ``shape``
     (obs, vars), ``num_blocks(thr)`` and ``block_t(thr, j)``, the (thr, obs)

@@ -244,7 +244,8 @@ def test_spec_and_registry_match_jax():
                   "needs_chol", "streams", "lane", "fallback"):
             assert getattr(te, f) == getattr(je, f), (m, f)
         assert te.precisions == je.precisions
-        assert not te.batchable and not te.shardable
+        assert te.batchable == je.batchable and not te.shardable
+        assert (te.vmap_one is None) == (je.vmap_one is None)
     assert set(T.method_names()) == set(METHODS)
     assert T.streaming_methods() == J.spec.streaming_methods()
     with pytest.raises(ValueError, match="method must be one of"):

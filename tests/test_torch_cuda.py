@@ -782,3 +782,186 @@ def test_bf16_handles_on_card(cuda):
     assert consume_dispatch() == "stream"
     assert _build.launch_counts(2)["stream_solve_bf16"] == 1
     assert float((rs.coef - r32.coef).abs().max()) <= 1e-2
+
+
+# ------------------------------------------------------- the serving engine
+def test_fused_launches_counted_across_threads(cuda):
+    """4 threads, each on a CUDA stream of its own, launch ``fused_solve``
+    50 times each: the launch count is exactly 200 and every result equals
+    the single-thread one bit for bit."""
+    import threading
+
+    x, _, y = _system(71, 16384, 256, 8, cuda)
+    p = prepare(x)
+    x_t, inv = p.x_t_for(128), p.inv_cn_for(128)
+    inv_cn, a0m, e0 = solve_init(x_t, y, inv, None, True)
+    kw = dict(block=128, max_iter=20, atol_sse=0.0, rtol=0.0, omega=1.0)
+    ref = [t.clone() for t in fused_cuda(x_t, inv_cn, e0, a0m, **kw)[:2]]
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    bad, errors = [], []
+
+    def worker():
+        try:
+            stream = torch.cuda.Stream(device=cuda)
+            with torch.cuda.stream(stream):
+                for _ in range(50):
+                    coef, e = fused_cuda(x_t, inv_cn, e0, a0m, **kw)[:2]
+                    stream.synchronize()
+                    if not (torch.equal(coef, ref[0])
+                            and torch.equal(e, ref[1])):
+                        bad.append(float((coef - ref[0]).abs().max()))
+        except Exception as exc:  # surfaced below
+            errors.append(exc)
+
+    threads = [threading.Thread(target=worker) for _ in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    assert not any(t.is_alive() for t in threads)
+    assert not errors, errors
+    assert _build.launch_counts()["fused_solve"] == 200
+    assert not bad, bad
+
+
+def _serve_mix(device, seed, *, lanes=True, obs_=2048, nvars=128):
+    """A small phase-5 mix: a coalesced bakp group (fused lane with
+    prefer_fused), a bakp_gram batch across designs (plain lane) and a
+    bak_fused group; fixed sweeps (rtol 0)."""
+    from repro_torch import obs as tobs
+    from repro_torch.serve import ServeConfig, SolveRequest, SolverServeEngine
+
+    rng = np.random.default_rng(seed)
+    xf = rng.normal(size=(obs_, nvars)).astype(np.float32)
+    xg = [rng.normal(size=(obs_ // 4, nvars)).astype(np.float32)
+          for _ in range(4)]
+    xb = rng.normal(size=(obs_, nvars)).astype(np.float32)
+    knobs = dict(thr=64, max_iter=12)
+    reqs = ([SolveRequest(x=xf, y=xf @ rng.normal(size=nvars).astype(
+        np.float32), method="bakp", design_key="f", tenant_id=f"f{t}",
+        **knobs) for t in range(4)]
+        + [SolveRequest(x=x, y=x @ rng.normal(size=nvars).astype(
+            np.float32), method="bakp_gram", design_key=f"g{i}", **knobs)
+           for i, x in enumerate(xg)]
+        + [SolveRequest(x=xb, y=xb @ rng.normal(size=nvars).astype(
+            np.float32), method="bak_fused", design_key="b", **knobs)
+           for _ in range(2)])
+    eng = SolverServeEngine(ServeConfig(prefer_fused=True,
+                                        lane_execution=lanes),
+                            registry=tobs.MetricsRegistry(), device=device)
+    try:
+        return eng.serve(reqs), eng.stats.as_dict()
+    finally:
+        eng.shutdown()
+
+
+def test_engine_on_card_matches_cpu_engine(cuda):
+    """Phase 5's mix at a small size: the engine on the card (the CUDA
+    kernels, plain torch on the card) against the engine on the CPU (the
+    kernels' plain versions), request by request."""
+    _build.reset_launch_counts()
+    card, card_stats = _serve_mix(cuda, 5)
+    counts = _build.launch_counts()
+    host, host_stats = _serve_mix("cpu", 5)
+    assert card_stats == host_stats
+    assert counts["fused_solve"] == 1 and counts["bak_fused"] == 1
+    for c, h in zip(card, host):
+        assert c.error is None and h.error is None
+        assert (c.batch_kind, c.n_sweeps, c.telemetry.kernel_path,
+                c.telemetry.lane) == (h.batch_kind, h.n_sweeps,
+                                      h.telemetry.kernel_path,
+                                      h.telemetry.lane)
+        scale = max(1.0, float(np.abs(h.coef).max()))
+        assert float(np.abs(c.coef - h.coef).max()) <= 1e-5 * scale
+
+
+def test_engine_lanes_bitwise_match_serial_on_card(cuda):
+    """Flush 3 of phase 5 at a small size: a plain-torch batch on one
+    lane's stream beside the fused kernels on another's, against the same
+    flush on one serial lane: every coefficient bit-identical."""
+    lanes, _ = _serve_mix(cuda, 6, lanes=True)
+    serial, _ = _serve_mix(cuda, 6, lanes=False)
+    assert {r.telemetry.lane for r in lanes} == {"single:fused",
+                                                 "single:xla"}
+    for a, b in zip(lanes, serial):
+        assert a.error is None and b.error is None
+        assert np.array_equal(a.coef, b.coef), a.request_id
+        assert a.n_sweeps == b.n_sweeps
+
+
+def test_engine_fused_and_stream_lanes_in_flight(cuda):
+    """A fused-lane group and a stream-lane group, each a multi-cluster
+    launch, in one flush: both lanes' kernels in flight at once neither
+    hang nor change a bit against the serial lane."""
+    from repro_torch import obs as tobs
+    from repro_torch.serve import ServeConfig, SolveRequest, SolverServeEngine
+
+    rng = np.random.default_rng(8)
+    xf = rng.normal(size=(16384, 256)).astype(np.float32)
+    xs = rng.normal(size=(16384, 1024)).astype(np.float32)
+
+    def reqs():
+        r = np.random.default_rng(9)
+        return ([SolveRequest(x=xf, y=xf @ r.normal(size=256).astype(
+            np.float32), method="bakp_fused", design_key="f", thr=128,
+            max_iter=20) for _ in range(4)]
+            + [SolveRequest(x=xs, y=xs @ r.normal(size=1024).astype(
+                np.float32), method="bakp_stream", design_key="s",
+                thr=128, max_iter=20) for _ in range(4)])
+
+    out = {}
+    for lanes in (True, False):
+        _build.reset_launch_counts()
+        eng = SolverServeEngine(ServeConfig(lane_execution=lanes),
+                                registry=tobs.MetricsRegistry(),
+                                device=cuda)
+        out[lanes] = eng.serve(reqs())
+        eng.shutdown()
+        counts = _build.launch_counts()
+        assert counts["fused_solve"] == 1 and counts["stream_solve"] == 1
+        assert _build.PLANS["fused_solve"].regime == "multi_cluster"
+        assert _build.PLANS["stream_solve"].regime == "multi_cluster"
+    for a, b in zip(out[True], out[False]):
+        assert a.error is None and b.error is None
+        assert np.array_equal(a.coef, b.coef)
+
+
+def test_engine_broken_launch_fails_the_request(cuda, monkeypatch):
+    """A ``fused_solve`` launch that returns a CUDA error fails its
+    requests with ``KernelError``: the retry ladder does not serve them on
+    the plain "bakp" rung, and no launch is counted."""
+    from repro_torch import obs as tobs
+    from repro_torch.serve import ServeConfig, SolveRequest, SolverServeEngine
+
+    lib = _build.load("fused_solve")
+
+    class Broken:
+        """The library, with a launch entry that reports an error."""
+
+        def __getattr__(self, name):
+            return getattr(lib, name)
+
+        @staticmethod
+        def bakp_fused_launch(*args):
+            return 98  # cudaErrorInvalidDeviceFunction
+
+    monkeypatch.setitem(_build._libs, "fused_solve", Broken())
+    rng = np.random.default_rng(12)
+    x = rng.normal(size=(2048, 128)).astype(np.float32)
+    reqs = [SolveRequest(x=x, y=x @ rng.normal(size=128).astype(np.float32),
+                         method="bakp", design_key="broken", thr=64,
+                         max_iter=12) for _ in range(2)]
+    eng = SolverServeEngine(ServeConfig(prefer_fused=True),
+                            registry=tobs.MetricsRegistry(), device=cuda)
+    _build.reset_launch_counts()
+    plain0 = tobs.dispatch_counts().get(("xla", "bakp"), 0)
+    try:
+        out = eng.serve(reqs)
+    finally:
+        eng.shutdown()
+    assert all(r.error is not None and "KernelError" in r.error
+               and r.retries == 0 and r.batch_kind == "error" for r in out)
+    assert eng.stats.retries == 0 and eng.stats.failures == 2
+    assert _build.launch_counts()["fused_solve"] == 0
+    assert tobs.dispatch_counts().get(("xla", "bakp"), 0) == plain0
