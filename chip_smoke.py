@@ -41,7 +41,7 @@ process per source, in parallel), then:
      fused dispatch) beside the JAX figures in ``BENCH_precision.json``.
      Each bf16 request runs twice, its first and repeat latency printed;
   5. the serving engine (``repro_torch.serve.SolverServeEngine``, run after
-     the kernel rows of item 6), eight flushes on Gaussian designs from a
+     the kernel rows of item 7), eight flushes on Gaussian designs from a
      numpy seed: (1) 64 cold ``bakp`` requests, 16 tenants on each of 4
      16,384 x 256 designs, with ``prefer_fused`` — 4 groups of k 16, 4
      ``fused_solve`` launches; (2) the same tenants with ``y`` drifted by
@@ -62,7 +62,31 @@ process per source, in parallel), then:
      to the handle's own solve (1e-5), and the four kernels the path ran
      to their plain versions at its shapes and plans; a watchdog turns a
      hang into a failed exit;
-  6. each kernel against its plain torch version on the same inputs, on the
+  6. the tiered design store and the async dispatcher (after phase 5), on
+     an engine with ``store_device_bytes`` = 4 built 16,384 x 256 handles,
+     a pinned host tier of 4 designs' layouts and a disk tier in a
+     temporary directory of the checkout: (6a) 24 such designs, 4 tenants
+     each, ``bakp`` with ``prefer_fused``, served twice in flushes of 4
+     designs (pass 2 in reverse order with y drifted 1%, so it meets the
+     device, host and disk tiers) — every pass must promote from host and
+     disk, warm-start every request with fewer mean sweeps, keep the
+     device tier within its budget after every flush and launch one
+     ``fused_solve`` a resident group; (6b) phase 3's 16,384 x 4,096
+     design through the same engine, rerouted to ``bakp_stream``
+     (``over_hbm``) and solved from its host / disk tier on the host-block
+     loop, beside seconds a sweep from each tier, the CRC check of a tile
+     and one pinned copy of x; (6c) a tile corrupted once through the
+     fault site and once by a flipped byte on disk: quarantined, rebuilt
+     from the request's x with the tenants' warm state; (6d) an
+     ``AsyncDispatcher`` over the same engine, 256 requests from 4
+     submitter threads at 600 requests/s Poisson, deadline 50 ms,
+     ``max_batch`` 16 (warm mean sweeps <= 0.7 x cold, promotions on the
+     dispatch thread), then the same trace on the synchronous engine;
+     (6e) a broken ``fused_solve`` launch through the dispatcher fails its
+     tickets with ``KernelError``.  Every request is held to fp64 lstsq
+     (MAPE <= 1e-4) and 6a's to a storeless engine (1e-5, same sweeps);
+     a watchdog turns a hang into a failed exit;
+  7. each kernel against its plain torch version on the same inputs, on the
      card, and timed with CUDA events beside its roofline bound (and beside
      the nearest single PyTorch call, where there is one); for the streaming
      kernel also the per-sweep loop on the same design, as a finding.  The
@@ -84,15 +108,15 @@ process per source, in parallel), then:
      x at the shapes of their fp32 rows and at every shape phase 4 gave
      them, there on the plan phase 4 ran (x at 2 bytes in the bound), with
      their rtol stops held to the rule on the plain iterate's fp64 SSE;
-  7. a ``kernels`` summary line (the bf16 kernels as ``<name>_bf16``;
+  8. a ``kernels`` summary line (the bf16 kernels as ``<name>_bf16``;
      launches summed over the paths), the card's name and power limit,
      and the result line
      ``{"ok": true, "device": {...}}``.
 
 Launch counts are reset just before each path (phases 1-2, the earlier
 slices' path; phase 3, the streaming path; phase 4, the mixed-precision
-path, where each bf16 kernel must launch; phase 5, the serving path) and
-read just after it, so they count that path only; each kernel must have
+path, where each bf16 kernel must launch; phase 5, the serving path;
+phase 6, the store and dispatcher path) and read just after it, so they count that path only; each kernel must have
 launched on its path.  Inputs
 are Gaussian designs with a planted ``a_true`` and ``y = x @ a_true`` from
 a fixed seed.  Any failed check, build or launch error exits non-zero
@@ -128,6 +152,8 @@ FP32_FLOP_PER_S = 67e12
 # Phase 5's watchdog: a serving path that has not finished by then is a
 # hang, and the script exits non-zero instead of waiting on it.
 PHASE5_WATCHDOG_S = 120
+# Phase 6's (the store and the dispatcher, disk writes included).
+PHASE6_WATCHDOG_S = 420
 
 _failures: list = []
 
@@ -174,6 +200,7 @@ def main() -> int:
                                                  plain_rtol_stop, solve_init)
     from repro_torch.kernels.stream_solve import (stream_cuda, stream_fits,
                                                   stream_solve_plain)
+    from repro_torch.core.prepare import host_copy
     from repro_torch.core.types import (atol_to_sse, column_norms_sq_t,
                                         safe_inv)
     from repro_torch.obs import (consume_dispatch, fallback_counts,
@@ -367,7 +394,8 @@ def main() -> int:
         "phase_4_precision": tuple(_build.launch_key(n, 2)
                                    for n in _build.X_KERNELS),
         "phase_5_serving": ("fused_solve", "fused_solve_bf16", "bak_fused",
-                            "stream_solve")}
+                            "stream_solve"),
+        "phase_6_store": ("fused_solve",)}
     # Launches per kernel, summed over the paths that list it.
     launches = {}
 
@@ -446,8 +474,8 @@ def main() -> int:
     # the host-block loop copies one tile at a time on a side stream.
     h3 = prepared_from_arrays(x3, resident=False, spec=spec3,
                               fingerprint="phase3-host")
-    check(not h3.resident and h3.blocks.host.x_t.is_pinned(),
-          "the non-resident handle must hold a pinned host copy")
+    check(not h3.resident and h3.blocks.block_t(thr3, 0).is_pinned(),
+          "the non-resident handle must read a pinned host copy")
     cold_h = request("stream_host_tenant_cold", "bakp_stream",
                      lambda: h3.solve(y3, tenant_id="tenant-3"), a3,
                      "stream_host")
@@ -469,7 +497,7 @@ def main() -> int:
 
     # One plain pinned host-to-device copy of the whole design, the rate
     # the host-block loop is held to.
-    x3_host = h3.blocks.host.x_t
+    x3_host = host_copy(x3.T, pin=True)
     x3_dev = torch.empty_like(x3_host, device=dev)
     h2d = []
     for _ in range(3):
@@ -1534,6 +1562,504 @@ def main() -> int:
     del h5, h5b, x5, x5g, x5b
     emit({"phase": "serve_done", "card": card,
           "seconds": time.perf_counter() - t_phase5})
+
+    # ---------------------- the design store and the dispatcher (phase 6)
+    # A fleet of designs whose bytes exceed a device budget behind the
+    # tiered DesignStore (device -> pinned host -> CRC-checked disk tiles),
+    # an over-budget design on the host-block loop, corrupt tiles
+    # quarantined and rebuilt, and the async dispatcher in front (see the
+    # module doc).  Launch counts are reset here and read after 6d; the
+    # storeless engine, the synchronous run of 6d's trace and 6e are
+    # comparisons and checks run after that read.
+    import tempfile
+
+    from repro_torch.kernels._build import KernelError
+    from repro_torch.kernels.stream_solve import stream_x_resident_bytes
+    from repro_torch.serve import AsyncDispatcher, DispatchConfig
+    from repro_torch.store import DesignStore
+    from repro_torch.store.store import _TILE_HEADER, _entry_device_bytes
+
+    def hung6():
+        print(f"chip_smoke: phase 6 did not finish in {PHASE6_WATCHDOG_S} s "
+              f"(a hang on the store or dispatcher path)", file=sys.stderr,
+              flush=True)
+        os._exit(3)
+
+    watchdog = threading.Timer(PHASE6_WATCHDOG_S, hung6)
+    watchdog.daemon = True
+    watchdog.start()
+    t_phase6 = time.perf_counter()
+    tiles_root = tempfile.TemporaryDirectory(
+        prefix="chip_smoke_store_", dir=Path(__file__).resolve().parent)
+    tiles = Path(tiles_root.name)
+    obs6, vars6, thr6, ten6, n6 = 16_384, 256, 128, 4, 24
+    knobs6 = dict(thr=thr6, rtol=1e-7, max_iter=100)
+    # 24 designs of 16 MiB, made on the card from the seed and handed to
+    # the engine as host arrays, as a client sends them.
+    x6 = [randn(obs6, vars6) for _ in range(n6)]
+    a6 = randn(n6, vars6, ten6)
+    a6d = a6 + 0.01 * randn(n6, vars6, ten6)
+    y6 = [(x6[d] @ a6[d]).cpu().numpy() for d in range(n6)]
+    y6d = [(x6[d] @ a6d[d]).cpu().numpy() for d in range(n6)]
+    x6 = [x.cpu().numpy() for x in x6]
+    probe = prepare(x6[0], SolverSpec(method="bakp_fused", thr=thr6))
+    entry_bytes = _entry_device_bytes(probe)
+    snap_bytes = probe.x_t_for(thr6).nbytes
+    del probe
+    budget6 = 4 * entry_bytes
+    reg6 = tobs.MetricsRegistry()
+    cfg6 = dict(prefer_fused=True, store_device_bytes=budget6,
+                store_host_bytes=4 * snap_bytes)
+    eng6 = SolverServeEngine(ServeConfig(store_dir=str(tiles / "a"),
+                                         **cfg6), registry=reg6)
+    st6 = eng6.store
+    emit({"phase": "store_config", "card": card, "entry_bytes": entry_bytes,
+          "device_budget": budget6, "host_budget": 4 * snap_bytes})
+
+    # Device -> host and host -> disk demotions, timed by wrapping the
+    # store's own calls (a device demotion that cascades to disk is
+    # counted without the disk write).
+    move_s = {"device_to_host": [], "host_to_disk": []}
+
+    def timed_demotions(st):
+        demote, to_disk = st.demote, st._demote_to_disk
+        nested = []
+
+        def demote_t(key):
+            nested.append(0.0)
+            t = time.perf_counter()
+            out = demote(key)
+            move_s["device_to_host"].append(time.perf_counter() - t
+                                            - nested.pop())
+            return out
+
+        def to_disk_t(key):
+            t = time.perf_counter()
+            to_disk(key)
+            dt = time.perf_counter() - t
+            move_s["host_to_disk"].append(dt)
+            if nested:
+                nested[-1] += dt
+
+        st.demote, st._demote_to_disk = demote_t, to_disk_t
+
+    timed_demotions(st6)
+    # Promotions by the thread that ran them (6d: the dispatch thread).
+    promo_threads = {}
+    promote6 = st6.promote
+
+    def promote_counted(key):
+        with st6._lock:
+            before = (st6.stats.promotions_host, st6.stats.promotions_disk)
+            out = promote6(key)
+            moved = (st6.stats.promotions_host - before[0]
+                     + st6.stats.promotions_disk - before[1])
+        if moved:
+            name = threading.current_thread().name
+            promo_threads[name] = promo_threads.get(name, 0) + moved
+        return out
+
+    st6.promote = promote_counted
+
+    def split_ms():
+        split = {}
+        for sp in tracer.spans():
+            name = sp.name.split(".", 1)[1]
+            if name == "solve":
+                name = f"solve[{sp.tags.get('lane')}]"
+            split[name] = split.get(name, 0.0) + sp.duration_s * 1e3
+        tracer.clear()
+        return split
+
+    def fetch_hist():
+        h = reg6.get("store_fetch_latency_seconds")
+        return {t: (h.count(tier=t), h.sum(tier=t)) for t in ("host", "disk")}
+
+    def tenants6(d, ys, tag="t"):
+        return [SolveRequest(x=x6[d], y=ys[d][:, t], method="bakp",
+                             design_key=f"p6-d{d}",
+                             tenant_id=f"p6-d{d}-{tag}{t}", **knobs6)
+                for t in range(ten6)]
+
+    # 6a: two passes of 24 designs x 4 tenants, in flushes of 4 designs;
+    # pass 2 (y drifted 1%) in reverse order, so it meets designs on the
+    # device, the host and the disk tiers.
+    _build.reset_launch_counts()
+    served6 = []        # (pass, requests, results)
+    plan6 = None
+    for pas, order, ys in ((1, range(n6), y6),
+                           (2, range(n6 - 1, -1, -1), y6d)):
+        order = list(order)
+        stats0, hist0 = st6.stats.as_dict(), fetch_hist()
+        moves0 = {k: len(v) for k, v in move_s.items()}
+        tracer.clear()
+        wall, split, outs = 0.0, {}, []
+        for lo in range(0, n6, 4):
+            reqs = [r for d in order[lo:lo + 4] for r in tenants6(d, ys)]
+            n0 = all_counts().get("fused_solve", 0)
+            t = time.perf_counter()
+            out = eng6.serve(reqs)
+            wall += time.perf_counter() - t
+            for name, v in split_ms().items():
+                split[name] = split.get(name, 0.0) + v
+            launched = all_counts().get("fused_solve", 0) - n0
+            resident = len({r.design_key for r, o in zip(reqs, out)
+                            if o.telemetry.kernel_path == "fused"})
+            check(launched == resident == 4,
+                  f"phase 6a pass {pas}: {launched} fused_solve launches "
+                  f"for {resident} groups solved resident")
+            check(st6.device_used() <= budget6,
+                  f"phase 6a pass {pas}: device tier {st6.device_used()} "
+                  f"bytes over its budget {budget6}")
+            plan6 = _build.PLANS["fused_solve"]._asdict()
+            outs.append((reqs, out))
+        d_stats = {k: v - stats0[k] for k, v in st6.stats.as_dict().items()}
+        hist = fetch_hist()
+        fetch = {t: {"count": hist[t][0] - hist0[t][0],
+                     "mean_ms": ((hist[t][1] - hist0[t][1])
+                                 / max(1, hist[t][0] - hist0[t][0]) * 1e3)}
+                 for t in hist}
+        moves = {k: v[moves0[k]:] for k, v in move_s.items()}
+        res = [o for _, out in outs for o in out]
+        emit({"phase": "store_pass", "pass": pas, "card": card,
+              "requests": len(res), "wall_ms": wall * 1e3,
+              "requests_per_s": len(res) / wall, "split_ms": split,
+              "mean_sweeps": float(np.mean([r.n_sweeps for r in res])),
+              "warm_starts": sum(r.warm_start for r in res),
+              "store": d_stats, "promotion_ms_by_tier": fetch,
+              "demotion_ms": {k: {"count": len(v), "mean_ms":
+                                  float(np.mean(v)) * 1e3 if v else None}
+                              for k, v in moves.items()},
+              "errors": sum(r.error is not None for r in res)})
+        served6.extend((pas, reqs, out) for reqs, out in outs)
+    check(st6.stats.promotions_host >= 1 and st6.stats.promotions_disk >= 1,
+          f"phase 6a pass 2 must promote from host and disk: "
+          f"{st6.stats.as_dict()}")
+    sweeps6 = {p: np.mean([o.n_sweeps for q, rr, oo in served6 if q == p
+                           for o in oo]) for p in (1, 2)}
+    check(sweeps6[2] < sweeps6[1],
+          f"phase 6a: pass 2 mean sweeps {sweeps6[2]} not below pass 1's "
+          f"{sweeps6[1]} (warm state lost in demotion)")
+    check(all(o.warm_start for q, rr, oo in served6 if q == 2 for o in oo),
+          "phase 6a pass 2: a request served cold")
+
+    # 6b: phase 3's 16,384 x 4,096 design (256 MiB) in the same engine:
+    # over the device budget, so rerouted to bakp_stream and served from
+    # the host / disk tier through the host-block loop.
+    fb6 = reg6.counter("solver_fallback_total")
+    hbm0 = fb6.value(reason="over_hbm")
+    a6b = randn(vars3, 2)
+    y6b = (x3 @ a6b).cpu().numpy()
+    big = [SolveRequest(x=x3, y=y6b[:, t], method="bakp",
+                        design_key="p6-big", **knobs6) for t in range(2)]
+    check(eng6.spec_for(big[0]).method == "bakp_stream",
+          "phase 6b: the over-budget design must be rerouted to bakp_stream")
+    tracer.clear()
+    t = time.perf_counter()
+    out6b = eng6.serve(big)
+    wall6b = time.perf_counter() - t
+    check(fb6.value(reason="over_hbm") - hbm0 >= 1,
+          "phase 6b: solver_fallback_total{reason=over_hbm} did not count")
+    check(all(o.error is None and o.telemetry.kernel_path == "stream_host"
+              for o in out6b),
+          f"phase 6b: paths {[o.telemetry.kernel_path for o in out6b]} "
+          f"errors {[o.error for o in out6b]}")
+    ref6b = torch.linalg.lstsq(x3.double(), torch.from_numpy(y6b).to(
+        dev).double()).solution.cpu().numpy()
+    mape6b = max(float(np.mean(np.abs(o.coef - ref6b[:, t])
+                               / np.maximum(np.abs(ref6b[:, t]), 1e-12)))
+                 for t, o in enumerate(out6b))
+    check(mape6b <= 1e-4, f"phase 6b: MAPE vs fp64 lstsq {mape6b}")
+    x_res = stream_x_resident_bytes(thr6, obs3, 4)
+    check(x_res < 0.25 * x3.numel() * 4,
+          f"phase 6b: resident x {x_res} bytes, not under 0.25x the matrix")
+    emit({"phase": "store_over_hbm", "card": card, "wall_ms": wall6b * 1e3,
+          "split_ms": split_ms(), "tier": st6.tier("p6-big"),
+          "n_sweeps": [o.n_sweeps for o in out6b], "mape": mape6b,
+          "x_resident_bytes": x_res,
+          "x_resident_ratio": x_res / (x3.numel() * 4)})
+    # Seconds a sweep from each tier, through the store's block source,
+    # beside one pinned copy of x (10 fixed sweeps a solve).
+    st_r = DesignStore(device_bytes=budget6, disk_dir=str(tiles / "rate"),
+                       registry=tobs.MetricsRegistry())
+    t = time.perf_counter()
+    h_r = st_r.build("p6-rate", x3)
+    build_ms = (time.perf_counter() - t) * 1e3
+    spec_r = SolverSpec(method="bakp_stream", thr=thr6, max_iter=10)
+    yr = torch.from_numpy(y6b[:, 0]).to(dev)
+
+    def sweep_s(h=None):
+        sync()
+        t = time.perf_counter()
+        r = (h or h_r).solve(yr, spec=spec_r)
+        sync()
+        check(int(r.n_sweeps) == 10, "phase 6b rate: 10 fixed sweeps")
+        return (time.perf_counter() - t) / 10
+
+    host_x = next(iter(st_r._host["p6-rate"].x_t.values()))
+    check(host_x.is_pinned(), "phase 6b: the host tier must be pinned")
+    x_dev = torch.empty_like(host_x, device=dev)
+    h2d = []
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        x_dev.copy_(host_x, non_blocking=True)
+        end.record()
+        sync()
+        h2d.append(start.elapsed_time(end))
+    del x_dev, host_x
+    # In turns with phase 3's non-resident handle (the same host tier).
+    host_sweeps, p3_sweeps = [], []
+    for _ in range(2):
+        host_sweeps.append(sweep_s())
+        p3_sweeps.append(sweep_s(h3))
+    t = time.perf_counter()
+    st_r._demote_to_disk("p6-rate")
+    to_disk_ms = (time.perf_counter() - t) * 1e3
+    disk_sweeps = [sweep_s() for _ in range(2)]   # the first verifies CRCs
+    rec = st_r._disk["p6-rate"]
+    verify_ms = []
+    for j in range(3):
+        t = time.perf_counter()
+        rec.verify_tile(j)
+        verify_ms.append((time.perf_counter() - t) * 1e3)
+    emit({"phase": "store_tier_rates", "card": card,
+          "bytes": x3.numel() * 4, "tile_bytes": _TILE_HEADER.size
+          + thr6 * obs3 * 4, "host_build_ms": build_ms,
+          "host_to_disk_ms": to_disk_ms,
+          "s_per_sweep_host": host_sweeps,
+          "s_per_sweep_host_phase3_handle": p3_sweeps,
+          "s_per_sweep_disk": disk_sweeps,
+          "crc_verify_ms_per_tile": verify_ms, "h2d_pinned_ms": h2d,
+          "h2d_pinned_gb_per_s": x3.numel() * 4 / (min(h2d) / 1e3) / 1e9})
+    st_r.close()
+    del h_r, st_r
+
+    # 6c: corruption, once through the fault site and once by a byte
+    # flipped in a tile file: the design is quarantined, rebuilt from the
+    # request's x with its tenants' warm state, and served.
+    corr = reg6.counter("store_tile_corruption_total")
+    on_disk = [d for d in range(n6) if st6.tier(f"p6-d{d}") == "disk"]
+    check(len(on_disk) >= 2, f"phase 6c: designs on disk {on_disk}")
+    for how, d in zip(("fault_site", "flipped_byte"), on_disk):
+        key = f"p6-d{d}"
+        c0 = corr.value()
+        if how == "flipped_byte":
+            path = st6._disk[key].tile_path(1)
+            raw = bytearray(path.read_bytes())
+            raw[_TILE_HEADER.size + 7] ^= 0xFF
+            path.write_bytes(bytes(raw))
+            out = eng6.serve(tenants6(d, y6d))
+        else:
+            with faults.installed({"store.tile_corrupt": {"count": 1,
+                                                          "match": key}}):
+                out = eng6.serve(tenants6(d, y6d))
+        check(corr.value() == c0 + 1,
+              f"phase 6c {how}: store_tile_corruption_total rose by "
+              f"{corr.value() - c0}")
+        check(all(o.error is None for o in out),
+              f"phase 6c {how}: {[o.error for o in out]}")
+        check(all(o.warm_start for o in out),
+              f"phase 6c {how}: the tenants' warm state did not survive")
+        served6.append((f"6c_{how}", tenants6(d, y6d), out))
+        emit({"phase": "store_corruption", "case": how, "design": key,
+              "card": card, "tier_after": st6.tier(key),
+              "warm_starts": sum(o.warm_start for o in out),
+              "quarantined": st6.stats.tile_corruptions})
+
+    # 6d: the async dispatcher over this store engine: 256 requests from 4
+    # submitter threads, Poisson arrivals at 600 requests/s, deadline 50
+    # ms, max_batch 16; 16 of the designs, 8 new tenants each, each
+    # tenant twice (y drifted by 0.01% the second time: a warm start).
+    rate6, dl6, mb6, nd6, nt6 = 600.0, 0.05, 16, 16, 8
+    rng6 = np.random.default_rng(SEED + 6)
+    b6 = rng6.standard_normal((nd6, nt6, vars6), dtype=np.float32)
+    b6d = b6 + 1e-4 * rng6.standard_normal(b6.shape, dtype=np.float32)
+    arrivals6 = np.cumsum(rng6.exponential(1.0 / rate6, size=2 * nd6 * nt6))
+
+    def trace6(tag):
+        return [SolveRequest(
+            x=x6[d], y=x6[d] @ b[d, t], method="bakp",
+            design_key=f"p6-d{d}", tenant_id=f"p6{tag}-d{d}-t{t}",
+            **knobs6) for b in (b6, b6d) for d in range(nd6)
+            for t in range(nt6)]
+
+    dcfg6 = DispatchConfig(max_queue=1024, backpressure="block",
+                           max_batch=mb6, deadline_margin_s=dl6 / 4,
+                           idle_timeout_s=4.0 / rate6)
+    reqs6d = trace6("a")
+    tickets6 = [None] * len(reqs6d)
+    errs6 = []
+    promo_threads.clear()
+    with AsyncDispatcher(eng6, dcfg6) as disp6:
+        t0 = time.perf_counter()
+
+        def submitter(s):
+            try:
+                for i in range(s, len(reqs6d), 4):
+                    wait = arrivals6[i] - (time.perf_counter() - t0)
+                    if wait > 0:
+                        time.sleep(wait)
+                    tickets6[i] = disp6.submit(reqs6d[i], deadline_s=dl6)
+            except Exception as exc:   # surfaced as a failed check
+                errs6.append(exc)
+
+        subs = [threading.Thread(target=submitter, args=(s,))
+                for s in range(4)]
+        for th in subs:
+            th.start()
+        for th in subs:
+            th.join(timeout=120)
+        check(not errs6 and not any(th.is_alive() for th in subs),
+              f"phase 6d submitters: {errs6}")
+        check(disp6.drain(timeout=120), "phase 6d: drain timed out")
+        async_wall = time.perf_counter() - t0
+        out6d = [tk.result(timeout=60) for tk in tickets6]
+        dstats6 = disp6.stats.as_dict()
+    lat6 = np.array([tk.latency_s for tk in tickets6])
+    qw6 = np.array([tk.queue_wait_s for tk in tickets6])
+    check(all(o.error is None for o in out6d),
+          f"phase 6d: {sum(o.error is not None for o in out6d)} errors")
+    warm6 = [o.n_sweeps for o in out6d if o.warm_start]
+    cold6 = [o.n_sweeps for o in out6d if not o.warm_start]
+    check(len(warm6) >= nd6 * nt6 // 2 and cold6
+          and np.mean(warm6) <= 0.7 * np.mean(cold6),
+          f"phase 6d: {len(warm6)} warm starts, mean sweeps warm "
+          f"{np.mean(warm6) if warm6 else None} cold "
+          f"{np.mean(cold6) if cold6 else None} (gate: warm <= 0.7 x cold)")
+    served6.append(("6d_async", reqs6d, out6d))
+    dispatch_promotions = dict(promo_threads)
+    read_launches("phase_6_store")
+    main6_s = time.perf_counter() - t_phase6
+
+    # The same trace through the synchronous engine (new tenants, the same
+    # designs and arrival times), flushed every max_batch arrivals.
+    reqs6s = trace6("s")
+    t0 = time.perf_counter()
+    pending, sync_lat = [], []
+    for i, req in enumerate(reqs6s):
+        wait = arrivals6[i] - (time.perf_counter() - t0)
+        if wait > 0:
+            time.sleep(wait)
+        pending.append((arrivals6[i], req))
+        if len(pending) >= mb6 or i == len(reqs6s) - 1:
+            out = eng6.serve([r for _, r in pending])
+            done = time.perf_counter() - t0
+            check(all(o.error is None for o in out), "phase 6d sync: errors")
+            sync_lat.extend(done - arr for arr, _ in pending)
+            pending = []
+    sync_wall = time.perf_counter() - t0
+    sync_lat = np.array(sync_lat)
+    emit({"phase": "store_async", "card": card, "requests": len(out6d),
+          "rate_per_s": rate6, "deadline_ms": dl6 * 1e3,
+          "async_wall_s": async_wall,
+          "async_requests_per_s": len(out6d) / async_wall,
+          "sync_wall_s": sync_wall,
+          "sync_requests_per_s": len(reqs6s) / sync_wall,
+          "latency_ms_p50": float(np.percentile(lat6, 50)) * 1e3,
+          "latency_ms_p95": float(np.percentile(lat6, 95)) * 1e3,
+          "queue_wait_ms_p50": float(np.percentile(qw6, 50)) * 1e3,
+          "queue_wait_ms_p95": float(np.percentile(qw6, 95)) * 1e3,
+          "sync_latency_ms_p50": float(np.percentile(sync_lat, 50)) * 1e3,
+          "sync_latency_ms_p95": float(np.percentile(sync_lat, 95)) * 1e3,
+          "deadline_hit_rate": dstats6["deadline_hit_rate"],
+          "fired": {k: dstats6[f"fired_{k}"]
+                    for k in ("full", "deadline", "idle", "drain")},
+          "warm_starts": len(warm6), "mean_sweeps_warm": float(
+              np.mean(warm6)), "mean_sweeps_cold": float(np.mean(cold6)),
+          "promotions_by_thread": dispatch_promotions,
+          "store": st6.stats.as_dict()})
+    check(dispatch_promotions.get("serve-dispatch", 0) >= 1,
+          f"phase 6d: no promotion ran on the dispatch thread "
+          f"{dispatch_promotions}")
+
+    # 6a's traffic through a storeless engine: every request within 1e-5
+    # of it (same kernels, same warm starts).
+    base6 = SolverServeEngine(ServeConfig(prefer_fused=True),
+                              registry=tobs.MetricsRegistry())
+    worst6 = {"mape": 0.0, "vs_storeless": 0.0}
+    for label, reqs, out in served6:
+        if label in (1, 2):
+            for o, b in zip(out, base6.serve(reqs)):
+                err = float(np.abs(o.coef - b.coef).max()
+                            / max(1.0, float(np.abs(b.coef).max())))
+                worst6["vs_storeless"] = max(worst6["vs_storeless"], err)
+                check(err <= 1e-5 and o.n_sweeps == b.n_sweeps,
+                      f"phase 6a {o.request_id}: {err} from the storeless "
+                      f"engine, sweeps {o.n_sweeps} vs {b.n_sweeps}")
+        groups = {}
+        for q, o in zip(reqs, out):
+            check(o.error is None and o.coef.shape == (vars6,)
+                  and bool(np.isfinite(o.coef).all()),
+                  f"phase 6 {label} {o.request_id}: {o.error}")
+            groups.setdefault(q.design_key, []).append((q, o))
+        for key, members in groups.items():
+            xd = torch.as_tensor(members[0][0].x, device=dev).double()
+            ys = torch.as_tensor(np.stack([q.y for q, _ in members], 1),
+                                 device=dev).double()
+            ref = torch.linalg.lstsq(xd, ys).solution.cpu().numpy()
+            coefs = np.stack([o.coef for _, o in members], 1)
+            mape = float(np.max(np.mean(
+                np.abs(coefs - ref) / np.maximum(np.abs(ref), 1e-12), 0)))
+            worst6["mape"] = max(worst6["mape"], mape)
+            check(mape <= 1e-4, f"phase 6 {label} {key}: MAPE vs fp64 "
+                                f"lstsq {mape}")
+    base6.shutdown()
+
+    # 6e: a fused_solve launch that returns a CUDA error, through the
+    # dispatcher: each ticket fails with KernelError; nothing is served on
+    # the plain "bakp" rung.
+    lib6 = _build.load("fused_solve")
+
+    class BrokenFused:
+        def __getattr__(self, name):
+            return getattr(lib6, name)
+
+        @staticmethod
+        def bakp_fused_launch(*args):
+            return 98  # cudaErrorInvalidDeviceFunction
+
+    solves6 = reg6.counter("serve_solves_total")
+    plain0 = solves6.value(method="bakp")
+    _build._libs["fused_solve"] = BrokenFused()
+    try:
+        with AsyncDispatcher(eng6, DispatchConfig(idle_timeout_s=0.01)) as d:
+            tks = [d.submit(SolveRequest(
+                x=x6[0], y=y6[0][:, t], method="bakp",
+                design_key="p6-broken", **knobs6)) for t in range(2)]
+            failed6 = 0
+            for tk in tks:
+                try:
+                    tk.result(timeout=60)
+                except KernelError:
+                    failed6 += 1
+    finally:
+        _build._libs["fused_solve"] = lib6
+    check(failed6 == 2, f"phase 6e: {failed6} of 2 tickets failed with "
+                        f"KernelError")
+    check(solves6.value(method="bakp") == plain0,
+          "phase 6e: a request was served on the plain bakp rung")
+    eng6.shutdown()
+    watchdog.cancel()
+    emit({"phase": "store_checks", "card": card,
+          "requests_checked": sum(len(o) for _, _, o in served6),
+          "worst_mape_vs_fp64_lstsq": worst6["mape"],
+          "worst_rel_err_vs_storeless": worst6["vs_storeless"],
+          "kernel_error_tickets": failed6, "main_path_s": main6_s})
+
+    # The kernel this path launched, at 6a's shape and plan.
+    h6 = prepare(x6[0], device=dev)
+    row6 = fused_case("phase6_k4_rtol", h6.x_t_for(thr6),
+                      h6.inv_cn_for(thr6),
+                      torch.from_numpy(y6[0]).to(dev), thr6, 100, 1e-7, 5)
+    check(row6["plan"] == plan6,
+          f"phase 6 fused_solve: kernel row ran {row6['plan']}, 6a ran "
+          f"{plan6}")
+    del h6, x6, eng6, st6
+    tiles_root.cleanup()
+    emit({"phase": "store_done", "card": card,
+          "seconds": time.perf_counter() - t_phase6})
 
     kernel_src = "src/repro_torch/kernels/csrc/"
     src_of = {

@@ -14,7 +14,9 @@ transposed padded copy per block width (``x_t_for``, the CUDA kernels'
 layout) and its bf16 cast (``x_bf16_for``, the quantized tier the bf16
 precisions read); block-Gram Cholesky factors per ``(thr, ridge)``; and an
 LRU of per-tenant warm-start coefficients.  All of it is built lazily
-under a per-design lock.  ``bind_home`` / ``warm_lane_state`` /
+under a per-design lock.  ``snapshot_state`` / ``restore_state`` are what
+the tiered design store reads from a handle it demotes and writes back to
+one it promotes.  ``bind_home`` / ``warm_lane_state`` /
 ``resident_lanes`` serve the serving engine's lanes; mesh copies arrive
 with the multi-GPU slice.
 
@@ -24,11 +26,12 @@ handle caches is therefore complete on the device when its builder
 returns (``_settled``: one wait on the building stream, paid once per
 built tensor), so a reader on another stream never sees it half written.
 
-A NON-RESIDENT handle has ``x_pad=None``: its x stays in host memory and
-reaches the device block by block through ``blocks`` (a
-``repro_torch.store.StoreBlockSource``), with an explicit ``device`` for
-the solve.  Only methods registered ``streams=True`` (``bakp_stream``)
-solve it; every accessor that needs x raises ``UnsupportedSpecError``.
+A NON-RESIDENT handle has ``x_pad=None``: its x stays in a
+``repro_torch.store.DesignStore``'s host or disk tier and reaches the
+device block by block through ``blocks`` (a ``StoreBlockSource``), with an
+explicit ``device`` for the solve.  Only methods registered
+``streams=True`` (``bakp_stream``) solve it; every accessor that needs x
+raises ``UnsupportedSpecError``.
 
 Device rule: ``prepare`` puts the design on ``device``, which defaults to
 ``"cuda"``; with no GPU present it raises unless the caller passes
@@ -84,6 +87,21 @@ def _settled(t: torch.Tensor) -> torch.Tensor:
     if t.is_cuda:
         torch.cuda.current_stream(t.device).synchronize()
     return t
+
+
+def host_copy(t: torch.Tensor, *, pin: bool) -> torch.Tensor:
+    """A CPU copy of ``t`` (on any device), in pinned memory when ``pin``;
+    a device tensor is copied on the calling thread's stream."""
+    out = torch.empty(tuple(t.shape), dtype=t.dtype, pin_memory=pin)
+    out.copy_(t)
+    return out
+
+
+def device_copy(t: torch.Tensor, device) -> torch.Tensor:
+    """``t`` on ``device``, settled: a pinned host tensor is copied
+    asynchronously on the calling thread's stream, then waited for (see
+    ``_settled``); a tensor already there is returned as it is."""
+    return _settled(t.to(device, non_blocking=t.is_pinned()))
 
 
 def design_fingerprint(x, *, _prefix: str = "d") -> str:
@@ -273,6 +291,51 @@ class PreparedDesign:
         if entry.prepare is not None:
             entry.prepare(self, spec)
 
+    # ------------------------------------------------ tier snapshot/restore
+    def snapshot_state(self, *, pin: bool) -> dict:
+        """What the design store keeps of this handle when it leaves the
+        device, as CPU tensors: the kernels' per-thr transposed fp32 / bf16
+        layouts (``x_t`` / ``x_bf16``, pinned when ``pin``), the column
+        norms (``cn``), the Cholesky factors (``chol``), the per-tenant
+        warm coefficients (``warm``, least recently used first) and the
+        home lane (``home``).  The copies run on the calling thread's
+        stream."""
+        with self._lock:
+            return dict(
+                x_t={t: host_copy(a, pin=pin) for t, a in self._x_t.items()},
+                x_bf16={t: host_copy(a, pin=pin)
+                        for t, a in self._x_bf16.items()},
+                cn=None if self._cn is None else host_copy(self._cn,
+                                                           pin=False),
+                chol={k: host_copy(v, pin=False)
+                      for k, v in self.chol.items()},
+                warm=OrderedDict((t, host_copy(c, pin=False))
+                                 for t, c in self._warm.items()),
+                home=self.home)
+
+    def restore_state(self, *, cn=None, chol=(), warm=(), home=None,
+                      x_t=(), x_bf16=()) -> None:
+        """Install state a ``snapshot_state`` took (CPU or device tensors,
+        keyed as it keys them): each tensor is copied to this handle's
+        device and settled before it is published.  Layouts already built
+        are kept; a bound home stays bound (first wins)."""
+        dev = self.device
+        with self._lock:
+            if cn is not None:
+                self._cn = device_copy(cn, dev)
+            for k, v in dict(chol).items():
+                self.chol[k] = device_copy(v, dev)
+            for t, c in dict(warm).items():
+                self._warm[t] = device_copy(c, dev)
+            for t, a in dict(x_t).items():
+                if t not in self._x_t:
+                    self._x_t[t] = device_copy(a, dev)
+            for t, a in dict(x_bf16).items():
+                if t not in self._x_bf16:
+                    self._x_bf16[t] = device_copy(a, dev)
+            if home is not None and self.home is None:
+                self.home = home
+
     # ------------------------------------------------------ lane residency
     def bind_home(self, placement=None) -> str:
         """Bind (first wins) and return this design's home placement kind:
@@ -427,9 +490,10 @@ def prepared_from_arrays(
       chol: block-Gram Cholesky factors keyed by ``(thr, ridge)``.
       warm: per-tenant warm-start coefficients, least recently used first.
       spec / device / max_tenants: as ``prepare``.
-      resident: False builds a NON-RESIDENT handle: ``x_pad`` is copied to
-        host memory (pinned when ``device`` is a GPU) in the transposed
-        layout, and solves fetch it block by block (``bakp_stream``).
+      resident: False builds a NON-RESIDENT handle: ``x_pad`` goes to the
+        host tier of a ``DesignStore`` of its own (the transposed layout,
+        pinned when ``device`` is a GPU), and solves fetch it block by
+        block (``bakp_stream``).
       cn: the source's squared column norms (vars,); computed from the
         host copy when omitted.
     """
@@ -437,17 +501,17 @@ def prepared_from_arrays(
         p = prepare(x_pad, None, device=device, fingerprint=fingerprint,
                     max_tenants=max_tenants)
     else:
-        from repro_torch.store.store import HostDesign, StoreBlockSource
+        from repro_torch.obs import MetricsRegistry
+        from repro_torch.store.store import DesignStore
 
-        dev = resolve_device(device)
-        host = HostDesign.from_design(x_pad, key=fingerprint or "",
-                                      pin=dev.type == "cuda")
+        # A store of its own with no device budget: the design lands on
+        # its host tier, and the handle streams blocks from there.
+        store = DesignStore(device_bytes=0, device=device,
+                            registry=MetricsRegistry())
+        p = store.build(fingerprint or "", x_pad, max_tenants=max_tenants)
+        p.fingerprint = fingerprint
         if cn is not None:
-            host.cn = as_f32(cn, "cpu")
-        p = PreparedDesign(x_pad=None, fingerprint=fingerprint,
-                           max_tenants=max_tenants,
-                           blocks=StoreBlockSource(host), _device=dev,
-                           _cn=_settled(host.cn.to(dev)))
+            p._cn = device_copy(as_f32(cn, "cpu"), p.device)
     p.spec = spec
     for (thr, ridge), factors in (chol or {}).items():
         p.chol[(int(thr), float(ridge))] = _settled(as_f32(factors,

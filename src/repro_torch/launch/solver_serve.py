@@ -2,11 +2,25 @@
 multi-tenant request stream through ``repro_torch.serve`` and report
 throughput.
 
-Counterpart of ``repro.launch.solver_serve``, synchronous windows only:
+Counterpart of ``repro.launch.solver_serve``.  Synchronous windows:
 
     PYTHONPATH=src python -m repro_torch.launch.solver_serve \\
         --requests 256 --obs 2048 --vars 256 --designs 8 \\
         --method bakp_gram --flush-every 32 --check
+
+Async deadline-aware dispatch (Poisson arrivals through AsyncDispatcher):
+
+    PYTHONPATH=src python -m repro_torch.launch.solver_serve --mode async \\
+        --requests 256 --rate 200 --deadline-ms 500 --max-batch 16 \\
+        --tenants 32 --check
+
+A fleet over a device budget (the tiered design store: demotion to pinned
+host memory and CRC-checked disk tiles, promotion back, over-budget
+designs on the streaming method):
+
+    PYTHONPATH=src python -m repro_torch.launch.solver_serve \\
+        --designs 16 --store-device-bytes 8388608 \\
+        --store-host-bytes 4194304 --store-dir /path/to/tiles --check
 
 On the CPU pass ``--device cpu`` (the default device is the GPU, and the
 engine raises without one).  ``--designs D`` controls design reuse:
@@ -15,11 +29,12 @@ same-design groups (coalesced into multi-RHS solves) and, across windows,
 design-cache hits.  ``--designs`` equal to ``--requests`` gives an
 all-unique stream (batches across designs); ``--designs 1`` puts
 everything on one multi-RHS solve.  ``--tenants T`` tags requests with
-recurring tenant ids, so repeated (design, tenant) pairs warm-start.
+recurring tenant ids, so repeated (design, tenant) pairs warm-start; in
+async mode each request also carries a deadline and the command reports
+the deadline hit rate.
 
-Not in this slice: ``--mode async`` (the async dispatcher), ``--mesh``
-(mesh placements) and ``--store-*`` (the tiered design store) exit with a
-message naming the slice that brings them.
+Not in this slice: ``--mesh`` (mesh placements) exits with a message
+naming the slice that brings it.
 """
 from __future__ import annotations
 
@@ -30,20 +45,13 @@ import numpy as np
 
 from repro_torch import obs
 
-# Flags of the JAX command line that this slice does not serve, and the
-# slice that brings each.
-_LATER = {
-    "mode": "--mode async needs the async dispatcher, a later slice of "
-            "the PyTorch port",
-    "mesh": "--mesh needs mesh placements, which arrive with the PyTorch "
-            "port's multi-GPU slice",
-    "store": "--store-* needs the tiered DesignStore, which arrives with "
-             "the PyTorch port's design-store slice",
-}
+# The flag of the JAX command line that this slice does not serve.
+_MESH_LATER = ("--mesh needs mesh placements, which arrive with the "
+               "PyTorch port's multi-GPU slice")
 
 
 def build_requests(rng, xs, n, method, max_iter, rtol, thr, tenants=0,
-                   precision="fp32", refine_sweeps=None):
+                   deadline_s=None, precision="fp32", refine_sweeps=None):
     """Requests cycling over the shared design matrices ``xs``
     (``design_key`` is trusted identity, reused only for the same
     matrix)."""
@@ -61,7 +69,8 @@ def build_requests(rng, xs, n, method, max_iter, rtol, thr, tenants=0,
         reqs.append(SolveRequest(
             x=xs[d], y=xs[d] @ a, spec=spec,
             design_key=f"design-{d}", request_id=f"req-{i}",
-            tenant_id=f"tenant-{i % tenants}" if tenants else None))
+            tenant_id=f"tenant-{i % tenants}" if tenants else None,
+            deadline_s=deadline_s))
     return reqs
 
 
@@ -76,6 +85,16 @@ def report_engine(engine):
     c = engine.cache.stats
     print(f"design cache: {c.hits} hits / {c.misses} misses "
           f"(hit rate {c.hit_rate:.1%}), {len(engine.cache)} resident")
+    if engine.store is not None:
+        st = engine.store.stats
+        print(f"design store: {st.demotions_device} device->host / "
+              f"{st.demotions_disk} host->disk demotions, "
+              f"{st.promotions_host} host / {st.promotions_disk} disk "
+              f"promotions, {st.builds_nonresident} non-resident builds, "
+              f"{st.tile_corruptions} quarantined; tiers "
+              f"device={engine.store.device_used()}B "
+              f"host={engine.store.host_used()}B "
+              f"disk={engine.store.disk_used()}B")
     lanes = engine.lanes.stats()
     if lanes:
         mix = "; ".join(
@@ -103,13 +122,67 @@ def run_sync(args, engine, reqs):
           f"max={lat.max()*1e3:.2f}ms (batch wall time per request)")
     print(f"batch mix: {kinds}")
     report_engine(engine)
-    return results
+    return reqs, results
+
+
+def run_async(args, engine, reqs):
+    """Poisson arrival stream through the deadline-aware dispatcher."""
+    from repro_torch.serve import AsyncDispatcher, DispatchConfig
+
+    rng = np.random.default_rng(args.seed + 1)
+    arrivals = np.cumsum(rng.exponential(1.0 / args.rate, size=len(reqs)))
+    cfg = DispatchConfig(
+        max_queue=args.max_queue,
+        backpressure=args.backpressure,
+        max_batch=args.max_batch,
+        deadline_margin_s=args.deadline_margin_ms / 1e3,
+        idle_timeout_s=args.idle_timeout_ms / 1e3,
+        default_deadline_s=args.deadline_ms / 1e3,
+    )
+    tickets = []
+    rejected = 0
+    with AsyncDispatcher(engine, cfg) as disp:
+        t0 = time.perf_counter()
+        base = obs.now()  # same clock as every SolveTicket timestamp
+        for i, req in enumerate(reqs):
+            now = time.perf_counter() - t0
+            if arrivals[i] > now:
+                time.sleep(arrivals[i] - now)
+            try:
+                tickets.append((i, disp.submit(req)))
+            except Exception:  # QueueFullError under "reject"
+                rejected += 1
+        disp.drain()
+        wall = time.perf_counter() - t0
+        results = [t.result(timeout=60.0) for _, t in tickets]
+        stats = disp.stats
+
+    lat = np.array([t.completed_at - base - arrivals[i]
+                    for i, t in tickets])
+    misses = sum(t.deadline_met is False for _, t in tickets)
+    served = len(tickets)
+    print(f"served {served}/{len(reqs)} requests in {wall:.3f}s "
+          f"-> {served/wall:.1f} solves/s on {engine.device} "
+          f"(arrival rate {args.rate:.0f}/s, {rejected} rejected)")
+    print(f"request latency p50={np.percentile(lat, 50)*1e3:.2f}ms "
+          f"p95={np.percentile(lat, 95)*1e3:.2f}ms "
+          f"max={lat.max()*1e3:.2f}ms (arrival -> completion)")
+    print(f"deadlines: {misses} missed / {served} "
+          f"(hit rate {1 - misses/served:.1%} at "
+          f"{args.deadline_ms:.0f}ms)")
+    print(f"batches fired: full={stats.fired_full} "
+          f"deadline={stats.fired_deadline} idle={stats.fired_idle} "
+          f"drain={stats.fired_drain}; max inflight={stats.max_inflight}")
+    report_engine(engine)
+    # Pair results with the requests actually accepted: under "reject"
+    # backpressure some submissions never got a ticket.
+    return [reqs[i] for i, _ in tickets], results
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         description="serve a synthetic request stream through "
-                    "repro_torch.serve (synchronous windows)")
+                    "repro_torch.serve")
     ap.add_argument("--mode", choices=["sync", "async"], default="sync")
     ap.add_argument("--device", default=None,
                     help="torch device for designs and solves (default: "
@@ -125,7 +198,7 @@ def main(argv=None) -> int:
     ap.add_argument("--rtol", type=float, default=1e-10)
     ap.add_argument("--thr", type=int, default=128)
     ap.add_argument("--flush-every", type=int, default=32,
-                    help="requests per flush window")
+                    help="sync mode: requests per flush window")
     ap.add_argument("--tenants", type=int, default=0,
                     help="recurring tenant ids (0 = off; enables warm starts)")
     ap.add_argument("--precision", default="fp32",
@@ -153,22 +226,35 @@ def main(argv=None) -> int:
                     help="write the final metrics-registry snapshot to PATH")
     ap.add_argument("--trace-dir", default=None, metavar="DIR",
                     help="capture a torch.profiler trace of the run into DIR")
-    ap.add_argument("--mesh", default=None, help=_LATER["mesh"])
+    ap.add_argument("--mesh", default=None, help=_MESH_LATER)
     ap.add_argument("--store-device-bytes", type=int, default=None,
-                    help=_LATER["store"])
+                    help="device-tier byte budget of the tiered design "
+                         "store (repro_torch.store): eviction demotes "
+                         "designs to pinned host memory / disk instead of "
+                         "deleting them, and over-budget designs serve via "
+                         "the streaming 'bakp_stream' method.  Unset (with "
+                         "the other --store-* flags) = plain LRU cache")
     ap.add_argument("--store-host-bytes", type=int, default=None,
-                    help=_LATER["store"])
-    ap.add_argument("--store-dir", default=None, help=_LATER["store"])
+                    help="host-tier byte budget; overflow spills LRU host "
+                         "records to --store-dir (or drops x bytes, "
+                         "keeping warm/Cholesky state, when unset)")
+    ap.add_argument("--store-dir", default=None, metavar="DIR",
+                    help="disk-tier directory for the CRC-checked design "
+                         "tile files (unset = no disk tier)")
+    # async-mode knobs
+    ap.add_argument("--rate", type=float, default=200.0,
+                    help="async: Poisson arrival rate (requests/s)")
+    ap.add_argument("--deadline-ms", type=float, default=500.0)
+    ap.add_argument("--deadline-margin-ms", type=float, default=100.0)
+    ap.add_argument("--idle-timeout-ms", type=float, default=20.0)
+    ap.add_argument("--max-batch", type=int, default=16)
+    ap.add_argument("--max-queue", type=int, default=1024)
+    ap.add_argument("--backpressure", choices=["reject", "block"],
+                    default="block")
     args = ap.parse_args(argv)
 
-    if args.mode != "sync":
-        raise SystemExit(_LATER["mode"])
     if args.mesh is not None:
-        raise SystemExit(_LATER["mesh"])
-    if (args.store_device_bytes is not None
-            or args.store_host_bytes is not None
-            or args.store_dir is not None):
-        raise SystemExit(_LATER["store"])
+        raise SystemExit(_MESH_LATER)
 
     from repro_torch.core import method_names
     from repro_torch.serve import ServeConfig, SolverServeEngine
@@ -182,6 +268,9 @@ def main(argv=None) -> int:
                     lane_execution=not args.no_lanes,
                     precision=(args.precision if args.precision != "fp32"
                                else None),
+                    store_device_bytes=args.store_device_bytes,
+                    store_host_bytes=args.store_host_bytes,
+                    store_dir=args.store_dir,
                     fault_plan=args.fault_plan),
         device=args.device)
     xs = [rng.normal(size=(args.obs, args.vars)).astype(np.float32)
@@ -189,19 +278,32 @@ def main(argv=None) -> int:
     req_kw = dict(tenants=args.tenants, precision=args.precision,
                   refine_sweeps=args.refine_sweeps)
     reqs = build_requests(rng, xs, args.requests, args.method, args.max_iter,
-                          args.rtol, args.thr, **req_kw)
-    # Warm-up window: builds the kernels on first use, the design cache
-    # and the (design, tenant) warm state, so the timed stream measures
-    # steady serving.
-    for _ in range(2 if args.tenants else 1):
-        engine.serve(build_requests(
-            rng, xs, min(args.flush_every, args.requests), args.method,
-            args.max_iter, args.rtol, args.thr, **req_kw))
+                          args.rtol, args.thr,
+                          deadline_s=(args.deadline_ms / 1e3
+                                      if args.mode == "async" else None),
+                          **req_kw)
+    # Warm-up: builds the kernels on first use, the design cache and the
+    # (design, tenant) warm state, so the timed stream measures steady
+    # serving.  Async batch sizes vary with arrival timing, so that mode
+    # warms a range of window sizes.
+    if args.mode == "sync":
+        warm_sizes = [min(args.flush_every, args.requests)]
+    else:
+        warm_sizes = sorted({1, 2, 4, args.max_batch, args.designs,
+                             2 * args.designs})
+    for n in warm_sizes:
+        for _ in range(2 if args.tenants else 1):
+            engine.serve(build_requests(
+                rng, xs, min(n, args.requests), args.method, args.max_iter,
+                args.rtol, args.thr, **req_kw))
 
     if args.trace_dir:
         obs.start_profiling(args.trace_dir)
     try:
-        results = run_sync(args, engine, reqs)
+        if args.mode == "sync":
+            served_reqs, results = run_sync(args, engine, reqs)
+        else:
+            served_reqs, results = run_async(args, engine, reqs)
     finally:
         if args.trace_dir:
             obs.stop_profiling()
@@ -229,7 +331,7 @@ def main(argv=None) -> int:
         print(f"{len(failed)} requests failed, first: {failed[0].error}")
     if args.check:
         mapes = []
-        for r, q in zip(results, reqs):
+        for r, q in zip(results, served_reqs):
             ref = np.linalg.lstsq(np.asarray(q.x, np.float64),
                                   np.asarray(q.y, np.float64), rcond=None)[0]
             denom = np.maximum(np.abs(ref), 1e-12)

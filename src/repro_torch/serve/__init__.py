@@ -1,29 +1,34 @@
 """repro_torch.serve — the batched multi-tenant solver-serving engine.
 
-Counterpart of ``repro.serve`` (synchronous path): requests are bucketed
+Counterpart of ``repro.serve``: requests are bucketed
 by padded power-of-two shape, same-design requests coalesce into one
 multi-RHS solve (one pass over ``x`` serves every tenant that shares it;
 on the whole-solve CUDA kernel, one launch), remaining same-bucket
 requests of a batchable method are solved as one batch across designs,
-per-design state lives on ``PreparedDesign`` handles in an LRU cache, and
-the solves run on execution lanes — a thread and a CUDA stream per kernel
-path.  Every entry point runs on the GPU unless the caller passes
+per-design state lives on ``PreparedDesign`` handles in an LRU cache (a
+view over the tiered ``repro_torch.store.DesignStore`` when
+``ServeConfig.store_*`` is set), the solves run on execution lanes — a
+thread and a CUDA stream per kernel path — and ``AsyncDispatcher`` puts a
+deadline-aware async front end over the engine.  Every entry point runs on the GPU unless the caller passes
 ``device="cpu"``.
 
 Layout:
   types.py     SolveRequest / ServedSolve records.
   batching.py  pow-2 shape buckets, exact zero padding, design
                fingerprints, deterministic request grouping.
-  cache.py     LRU DesignCache of PreparedDesign handles.
+  cache.py     LRU DesignCache of PreparedDesign handles, or a view over
+               a DesignStore's device tier.
   placement.py Placement / PlacementPolicy, single-device (mesh
                placements raise until the multi-GPU slice).
   lanes.py     execution lanes — one executor thread and CUDA stream per
                (device, kernel path), supervised, with a circuit breaker
                onto a serial fallback lane.
   engine.py    SolverServeEngine — submit / serve / flush.
+  dispatch.py  AsyncDispatcher — intake queue, dispatch thread (on a CUDA
+               stream of its own), flush policy (full / deadline margin /
+               idle), backpressure, cancel, drain.
 
-Later slices: the tiered design store (``ServeConfig.store_*`` raises),
-the async dispatcher, mesh placements.
+A later slice: mesh placements.
 """
 from repro_torch.core.prepare import PreparedDesign
 from repro_torch.core.spec import SolverSpec, UnsupportedSpecError
@@ -32,6 +37,10 @@ from repro_torch.serve.batching import (bucket_shape, design_fingerprint,
                                         group_requests, next_pow2, pad_x,
                                         pad_y, prepare_request)
 from repro_torch.serve.cache import CacheStats, DesignCache, DesignEntry
+from repro_torch.serve.dispatch import (AsyncDispatcher, DispatchConfig,
+                                        DispatcherStopped, DispatchStats,
+                                        QueueFullError, SolveTicket,
+                                        TicketCancelled)
 from repro_torch.serve.engine import ServeConfig, ServeStats, SolverServeEngine
 from repro_torch.serve.lanes import (LaneExecutor, LaneKey, LanePool,
                                      LaneShutdown, LaneStats, LaneWork,
@@ -41,11 +50,17 @@ from repro_torch.serve.placement import (Placement, PlacementPolicy,
                                          placement_for_bucket,
                                          placement_for_group)
 from repro_torch.serve.types import ServedSolve, SolveRequest
+from repro_torch.store import DesignStore, StoreStats
 
 __all__ = [
+    "AsyncDispatcher",
     "CacheStats",
     "DesignCache",
     "DesignEntry",
+    "DesignStore",
+    "DispatchConfig",
+    "DispatchStats",
+    "DispatcherStopped",
     "LaneExecutor",
     "LaneKey",
     "LanePool",
@@ -56,14 +71,18 @@ __all__ = [
     "Placement",
     "PlacementPolicy",
     "PreparedDesign",
+    "QueueFullError",
     "ServeConfig",
     "ServeMesh",
     "ServeStats",
     "ServedSolve",
     "SolveRequest",
     "SolveTelemetry",
+    "SolveTicket",
     "SolverServeEngine",
     "SolverSpec",
+    "StoreStats",
+    "TicketCancelled",
     "UnsupportedSpecError",
     "bucket_shape",
     "build_serve_mesh",

@@ -17,7 +17,13 @@ device (the card by default):
      counterpart of the JAX engine's ``jit(vmap(one))``).
   4. **Design caching** — everything that depends only on ``x`` lives on a
      ``repro_torch.core.PreparedDesign`` handle, memoised across flushes in
-     an LRU ``DesignCache`` and warmed on the flush thread.
+     an LRU ``DesignCache`` and warmed on the flush thread.  With
+     ``ServeConfig.store_*`` set, the cache is a view over a tiered
+     ``repro_torch.store.DesignStore``: eviction demotes (device → pinned
+     host → disk tiles) and a miss promotes, and a BAK-family bucket whose
+     padded x exceeds the device budget is rerouted to ``bakp_stream``
+     (``solver_fallback_total{reason="over_hbm"}``) and served from the
+     host or disk tier through the host-block loop.
   5. **Warm starts** — a request may carry ``a0``, or name a ``tenant_id``
      whose last coefficients the design cache retained.  Cold members of
      a coalesced group ride a zero column of the stacked ``a0``.
@@ -42,9 +48,9 @@ an error result and the remaining batches still run.  A CUDA kernel that
 fails to build or launch (``kernels._build.KernelError``) fails its batch
 at once: the ladder never serves such a request on a plain rung.
 
-Not in this slice (each raises ``UnsupportedSpecError`` naming its slice):
-the tiered design store (``ServeConfig.store_*``) and mesh placements
-(``mesh=``).  The async dispatcher is a later slice too.
+Not in this slice: mesh placements (``mesh=`` raises
+``UnsupportedSpecError`` naming the multi-GPU slice).  The async front end
+is ``repro_torch.serve.dispatch.AsyncDispatcher``.
 
 Example::
 
@@ -80,7 +86,14 @@ from repro_torch.serve.batching import (design_fingerprint, group_requests,
 from repro_torch.serve.cache import DesignCache
 from repro_torch.serve.lanes import LaneKey, LanePool, LaneWork, current_lane
 from repro_torch.serve.types import ServedSolve, SolveRequest
-from repro_torch.store.store import TileCorruptionError
+from repro_torch.store.store import DesignStore, TileCorruptionError
+
+# BAK-family methods a store-backed engine rewrites to "bakp_stream" when a
+# request's bucket exceeds the device byte budget (spec_for): the same
+# block-Jacobi mathematics, served through the store's streaming path
+# instead of a resident x copy that could never be admitted.
+_STREAM_REROUTE = frozenset(
+    {"bak", "bakp", "bakp_gram", "bakp_fused", "bak_fused"})
 
 
 @dataclass
@@ -112,11 +125,19 @@ class ServeConfig:
     lane_execution: bool = True  # per-kernel-path lanes, each a thread and
     # a CUDA stream; False puts every batch on ONE serial lane.  Results
     # are bit-identical either way.
-    store_device_bytes: Optional[int] = None  # the tiered design store's
-    # budgets and directory: the store is a later slice of the port, and
-    # setting any of the three raises UnsupportedSpecError.
-    store_host_bytes: Optional[int] = None
-    store_dir: Optional[str] = None
+    store_device_bytes: Optional[int] = None  # device-tier byte budget of
+    # the design store (repro_torch.store).  With any store_* knob set, the
+    # design cache becomes a view over a DesignStore: eviction demotes
+    # designs to pinned host memory / disk instead of deleting them
+    # (per-tenant warm starts survive), and a bucket whose padded x alone
+    # exceeds this budget is served by the streaming "bakp_stream" method
+    # (solver_fallback_total{reason="over_hbm"}).  All three None = no
+    # store: the plain LRU cache.
+    store_host_bytes: Optional[int] = None    # host-tier budget; overflow
+    # spills to store_dir (or drops x bytes, keeping warm/Cholesky state,
+    # when store_dir is unset)
+    store_dir: Optional[str] = None           # disk-tier directory for the
+    # CRC-checked design tile files (None = no disk tier)
     fault_plan: Optional[object] = None  # chaos harness
     # (repro_torch.resilience): a FaultPlan, a {site: rule} dict, inline
     # JSON text or a JSON file path, installed process-wide at
@@ -178,13 +199,6 @@ class SolverServeEngine:
             raise UnsupportedSpecError(
                 "mesh placements arrive with the PyTorch port's multi-GPU "
                 "slice; the port's engine serves on one device")
-        if (cfg.store_device_bytes is not None
-                or cfg.store_host_bytes is not None
-                or cfg.store_dir is not None):
-            raise UnsupportedSpecError(
-                "ServeConfig.store_* needs the tiered DesignStore, which "
-                "arrives with the PyTorch port's design-store slice; leave "
-                "store_device_bytes / store_host_bytes / store_dir unset")
         self.device = resolve_device(device)
         # One registry for the whole serving stack: the cache and the
         # lanes record into this same instance.
@@ -192,9 +206,19 @@ class SolverServeEngine:
         if cfg.fault_plan is not None:
             faults.install(faults.FaultPlan.coerce(cfg.fault_plan))
         self.store = None
+        if (cfg.store_device_bytes is not None
+                or cfg.store_host_bytes is not None
+                or cfg.store_dir is not None):
+            self.store = DesignStore(device_bytes=cfg.store_device_bytes,
+                                     host_bytes=cfg.store_host_bytes,
+                                     disk_dir=cfg.store_dir,
+                                     max_entries=cfg.cache_entries,
+                                     registry=self.registry,
+                                     device=self.device)
         self.cache = DesignCache(max_entries=cfg.cache_entries,
                                  max_tenants=cfg.warm_tenants,
-                                 registry=self.registry, device=self.device)
+                                 registry=self.registry, device=self.device,
+                                 store=self.store)
         self.lanes = LanePool(registry=self.registry,
                               serial=not cfg.lane_execution,
                               max_restarts=cfg.lane_max_restarts,
@@ -247,7 +271,12 @@ class SolverServeEngine:
 
         An explicit ``SolveRequest.spec`` is authoritative; legacy
         per-field requests get the engine-level ``omega``/``ridge``/
-        ``precision`` applied.  ``prefer_fused`` upgrades ``"bakp"`` to
+        ``precision`` applied.  On a store-backed engine a BAK-family
+        request whose padded bucket alone exceeds the device budget is
+        rewritten to ``"bakp_stream"`` (the store builds it non-resident),
+        counting ``solver_fallback_total{reason="over_hbm"}`` under
+        ``record=True``, before ``prefer_fused`` could move it onto a
+        resident-only path.  ``prefer_fused`` upgrades ``"bakp"`` to
         ``"bakp_fused"`` where the bucket fits the card's on-chip budget
         at nrhs 1 (``fused_fits``; the method re-checks with the real
         coalesced k and falls back itself).  A precision the effective
@@ -262,6 +291,15 @@ class SolverServeEngine:
             if (self.config.precision is not None
                     and spec.precision != self.config.precision):
                 spec = spec.replace(precision=self.config.precision)
+        if (self.store is not None and self.store.device_bytes is not None
+                and spec.method in _STREAM_REROUTE):
+            bucket = request_bucket(req, min_obs=self.config.min_obs,
+                                    min_vars=self.config.min_vars)
+            if bucket[0] * bucket[1] * 4 > self.store.device_bytes:
+                if record:
+                    self._m_fallback.inc(1, method=spec.method,
+                                         reason="over_hbm")
+                spec = spec.replace(method="bakp_stream")
         # The bf16 X stream halves the resident itemsize, so the fit check
         # (and therefore the upgrade) sees twice the headroom.
         itemsize = 2 if spec.precision != "fp32" else 4
@@ -436,7 +474,10 @@ class SolverServeEngine:
             return entry, hit
 
     def _fail(self, requests, idxs, bucket, exc, results):
-        """Error results for a poisoned batch (engine keeps serving)."""
+        """Error results for a poisoned batch (engine keeps serving).  A
+        ``KernelError`` also rides on each result as
+        ``extra["kernel_error"]``, so the async dispatcher fails those
+        tickets with it."""
         exc_type = type(exc).__name__
         msg = f"{exc_type}: {exc}"
         obs.consume_dispatch()  # drop any path a partial dispatch recorded
@@ -461,6 +502,8 @@ class SolverServeEngine:
                 batch_kind="error",
                 group_size=len(idxs),
                 error=msg,
+                extra=({"kernel_error": exc}
+                       if isinstance(exc, KernelError) else {}),
                 telemetry=tel,
             )
             with self._stats_lock:

@@ -539,7 +539,7 @@ def test_stream_handles_on_card(cuda):
     assert r.coef.shape == (200,) and _within(r.coef, a)
     h = prepared_from_arrays(x, resident=False, spec=spec)
     assert h.device.type == "cuda" and not h.resident
-    assert h.blocks.host.x_t.is_pinned()
+    assert h.blocks.block_t(64, 0).is_pinned()   # a view of the host tier
     rh = h.solve(y, tenant_id="t")
     assert consume_dispatch() == "stream_host"
     assert rh.coef.device.type == "cuda"
@@ -962,6 +962,184 @@ def test_engine_broken_launch_fails_the_request(cuda, monkeypatch):
         eng.shutdown()
     assert all(r.error is not None and "KernelError" in r.error
                and r.retries == 0 and r.batch_kind == "error" for r in out)
+    assert eng.stats.retries == 0 and eng.stats.failures == 2
+    assert _build.launch_counts()["fused_solve"] == 0
+    assert tobs.dispatch_counts().get(("xla", "bakp"), 0) == plain0
+
+
+# ------------------------------------------- the design store and dispatcher
+def _store_requests(x, seed, key, n=4, thr=128, max_iter=40):
+    from repro_torch.serve import SolveRequest
+
+    rng = np.random.default_rng(seed)
+    return [SolveRequest(x=x, y=x @ rng.normal(size=x.shape[1]).astype(
+        np.float32), method="bakp", design_key=key, tenant_id=f"{key}-{t}",
+        thr=thr, max_iter=max_iter) for t in range(n)]
+
+
+def _store_engine(cuda, **cfg):
+    from repro_torch import obs as tobs
+    from repro_torch.serve import ServeConfig, SolverServeEngine
+
+    return SolverServeEngine(ServeConfig(prefer_fused=True, **cfg),
+                             registry=tobs.MetricsRegistry(), device=cuda)
+
+
+def test_store_demotion_during_inflight_fused_solve(cuda, monkeypatch):
+    """The store demotes a design while a lane's ``fused_solve`` on it is
+    in flight, and the freed pool is refilled with NaN on another stream:
+    the lane holds its handle until its stream is synchronised, so every
+    coefficient is bit-identical to the same flush on a storeless
+    engine."""
+    import threading
+
+    rng = np.random.default_rng(30)
+    x = rng.normal(size=(16384, 256)).astype(np.float32)
+    ref_eng = _store_engine(cuda)
+    ref = ref_eng.serve(_store_requests(x, 31, "d", max_iter=400))
+    ref_eng.shutdown()
+    eng = _store_engine(cuda, store_device_bytes=1 << 30)
+    launched, go = threading.Event(), threading.Event()
+    real = eng._call_solver
+
+    def call_and_hold(*args, **kw):
+        res = real(*args, **kw)         # the kernel is queued, not done
+        launched.set()
+        assert go.wait(60.0)
+        return res
+
+    monkeypatch.setattr(eng, "_call_solver", call_and_hold)
+    _build.reset_launch_counts()
+    out = {}
+    t = threading.Thread(target=lambda: out.update(
+        r=eng.serve(_store_requests(x, 31, "d", max_iter=400))))
+    t.start()
+    try:
+        assert launched.wait(60.0)
+        assert eng.store.demote("d") is not None
+        assert eng.store.tier("d") == "host"
+        torch.cuda.empty_cache()
+        junk = [torch.full((1 << 22,), float("nan"), device=cuda)
+                for _ in range(16)]
+        torch.cuda.synchronize()
+        del junk
+    finally:
+        go.set()
+        t.join(timeout=120)
+    assert not t.is_alive()
+    eng.shutdown()
+    assert _build.launch_counts()["fused_solve"] == 1
+    for a, b in zip(out["r"], ref):
+        assert a.error is None and b.error is None
+        assert a.telemetry.kernel_path == "fused"
+        assert np.array_equal(a.coef, b.coef), a.request_id
+
+
+def test_store_promotion_on_dispatch_stream_matches_resident(cuda):
+    """A design demoted to the pinned host tier is promoted by the async
+    dispatcher's pre-warm, on the dispatch thread's own stream, and solved
+    on the fused lane's stream: bit-identical to a storeless engine (the
+    tenants' warm starts restored too)."""
+    import threading
+
+    from repro_torch.serve import AsyncDispatcher, DispatchConfig
+
+    rng = np.random.default_rng(40)
+    x = rng.normal(size=(16384, 256)).astype(np.float32)
+    ref_eng = _store_engine(cuda)
+    eng = _store_engine(cuda, store_device_bytes=1 << 30)
+    for e in (ref_eng, eng):
+        assert all(r.error is None
+                   for r in e.serve(_store_requests(x, 41, "d")))
+    eng.store.demote("d")
+    assert eng.store.tier("d") == "host"
+    assert next(iter(eng.store._host["d"].x_t.values())).is_pinned()
+    threads = []
+    real = eng.store.promote
+
+    def promote(key):
+        threads.append(threading.current_thread().name)
+        return real(key)
+
+    eng.store.promote = promote
+    with AsyncDispatcher(eng, DispatchConfig(idle_timeout_s=0.01,
+                                             max_batch=4)) as disp:
+        tickets = [disp.submit(r) for r in _store_requests(x, 42, "d")]
+        out = [t.result(timeout=120) for t in tickets]
+    ref = ref_eng.serve(_store_requests(x, 42, "d"))
+    ref_eng.shutdown()
+    eng.shutdown()
+    assert threads[0] == "serve-dispatch"
+    assert eng.store.stats.promotions_host == 1
+    for a, b in zip(out, ref):
+        assert a.error is None and b.error is None
+        assert a.warm_start and b.warm_start
+        assert a.telemetry.lane == "single:fused"
+        assert np.array_equal(a.coef, b.coef), a.request_id
+
+
+def test_store_disk_promotion_into_solve(cuda, tmp_path):
+    """A design demoted through the host tier to CRC-checked disk tiles
+    comes back on the next request (every tile verified, copied from a
+    pinned buffer) and solves bit-identically to a storeless engine."""
+    rng = np.random.default_rng(50)
+    xs = [rng.normal(size=(16384, 256)).astype(np.float32) for _ in range(2)]
+    ref_eng = _store_engine(cuda)
+    # One design's x and x_t (32 MiB) fit the device tier; none fits the
+    # host tier, so the first design goes on to disk.
+    eng = _store_engine(cuda, store_device_bytes=1 << 25,
+                        store_host_bytes=1, store_dir=str(tmp_path))
+    for e in (ref_eng, eng):
+        for i, x in enumerate(xs):
+            assert all(r.error is None
+                       for r in e.serve(_store_requests(x, 51 + i, f"d{i}")))
+    assert eng.store.tier("d0") == "disk"
+    _build.reset_launch_counts()
+    out = eng.serve(_store_requests(xs[0], 53, "d0"))
+    assert _build.launch_counts()["fused_solve"] == 1
+    ref = ref_eng.serve(_store_requests(xs[0], 53, "d0"))
+    ref_eng.shutdown()
+    eng.shutdown()
+    assert eng.store.stats.promotions_disk == 1
+    for a, b in zip(out, ref):
+        assert a.error is None and a.warm_start == b.warm_start
+        assert np.array_equal(a.coef, b.coef), a.request_id
+
+
+def test_dispatcher_broken_launch_fails_the_ticket(cuda, monkeypatch):
+    """A ``fused_solve`` launch that returns a CUDA error, reached through
+    the async dispatcher: each ticket fails with ``KernelError``, nothing
+    is retried or served on the plain "bakp" rung."""
+    from repro_torch import obs as tobs
+    from repro_torch.kernels._build import KernelError
+    from repro_torch.serve import AsyncDispatcher, DispatchConfig
+
+    lib = _build.load("fused_solve")
+
+    class Broken:
+        """The library, with a launch entry that reports an error."""
+
+        def __getattr__(self, name):
+            return getattr(lib, name)
+
+        @staticmethod
+        def bakp_fused_launch(*args):
+            return 98  # cudaErrorInvalidDeviceFunction
+
+    monkeypatch.setitem(_build._libs, "fused_solve", Broken())
+    rng = np.random.default_rng(60)
+    x = rng.normal(size=(2048, 128)).astype(np.float32)
+    eng = _store_engine(cuda)
+    _build.reset_launch_counts()
+    plain0 = tobs.dispatch_counts().get(("xla", "bakp"), 0)
+    with AsyncDispatcher(eng, DispatchConfig(idle_timeout_s=0.01)) as disp:
+        tickets = [disp.submit(r)
+                   for r in _store_requests(x, 61, "broken", n=2, thr=64)]
+        for t in tickets:
+            with pytest.raises(KernelError, match="cudaError_t 98"):
+                t.result(timeout=120)
+    eng.shutdown()
+    assert disp.stats.completed == 2 and disp.inflight == 0
     assert eng.stats.retries == 0 and eng.stats.failures == 2
     assert _build.launch_counts()["fused_solve"] == 0
     assert tobs.dispatch_counts().get(("xla", "bakp"), 0) == plain0

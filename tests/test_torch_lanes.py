@@ -1,14 +1,17 @@
 """Execution lanes of the port: routing, executor semantics, and the
 engine's lanes against its serial lane.
 
-Mirrors ``tests/test_lanes.py`` (all but the dispatcher classes — the
-async dispatcher is a later slice — and the mesh cases: mesh placements
-raise until the multi-GPU slice, which is what ``TestMeshRaises`` holds).
+Mirrors ``tests/test_lanes.py`` (all but the mesh cases: mesh placements
+raise until the multi-GPU slice, which is what ``TestMeshRaises`` holds;
+``TestDispatcherLanes`` drives the port's async dispatcher over the lanes,
+its answers held to the planted coefficients and its lane labels to JAX's
+dispatcher's).
 Lane labels and routing are held to ``repro.serve``'s; the engine runs
 with ``device="cpu"``, where a lane is a thread (on the card it is a
 thread and a CUDA stream: ``tests/test_torch_cuda.py``).
 """
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -17,8 +20,10 @@ import repro.serve as J
 from conftest import make_system
 from repro_torch import obs
 from repro_torch.core.spec import UnsupportedSpecError, solver_method
-from repro_torch.serve import (LaneKey, LanePool, LaneShutdown, LaneWork,
-                               Placement, PlacementPolicy, ServeConfig,
+from repro_torch.serve import (AsyncDispatcher, DispatchConfig,
+                               DispatcherStopped, LaneKey, LanePool,
+                               LaneShutdown, LaneWork, Placement,
+                               PlacementPolicy, QueueFullError, ServeConfig,
                                SolveRequest, SolverServeEngine,
                                build_serve_mesh, current_lane, lane_for,
                                placement_for_bucket, placement_for_group)
@@ -260,6 +265,155 @@ class TestEngineLaneParity:
             scale = max(1.0, float(np.abs(j.coef).max()))
             assert float(np.abs(t.coef - j.coef).max()) <= 1e-5 * scale
         t_eng.shutdown()
+
+
+# ------------------------------------------------- the dispatcher on lanes
+def _cpu_engine(**cfg):
+    return SolverServeEngine(ServeConfig(**cfg), device="cpu",
+                             registry=obs.MetricsRegistry())
+
+
+class TestDispatcherLanes:
+    def test_concurrent_submitters_mixed_lanes(self, rng):
+        """Racing submitters over single:xla, single:fused and batch
+        traffic: every ticket lands, per-lane stats populate, answers stay
+        correct."""
+        eng = _cpu_engine()
+        cfg = DispatchConfig(max_batch=8, idle_timeout_s=0.005,
+                             prewarm_cache=True)
+        n_sub, per = 4, 12
+        systems = {}
+        r = np.random.default_rng(21)
+        for s in range(n_sub):
+            for i in range(per):
+                method = "bakp_fused" if (s + i) % 3 == 0 else "bakp_gram"
+                x = r.normal(size=(80, 10)).astype(np.float32)
+                a = r.normal(size=(10,)).astype(np.float32)
+                systems[(s, i)] = (x, x @ a, a, method)
+        tickets = {}
+        tlock = threading.Lock()
+        errs = []
+
+        def submitter(s, disp):
+            try:
+                for i in range(per):
+                    x, y, _, method = systems[(s, i)]
+                    t = disp.submit(_req(
+                        x, y, method=method, thr=8,
+                        design_key=f"d-{s}-{i}", request_id=f"q-{s}-{i}"))
+                    with tlock:
+                        tickets[(s, i)] = t
+            except Exception as exc:  # surfaced below
+                errs.append(exc)
+
+        with AsyncDispatcher(eng, cfg) as disp:
+            threads = [threading.Thread(target=submitter, args=(s, disp))
+                       for s in range(n_sub)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=120.0)
+            assert not any(t.is_alive() for t in threads)
+            assert not errs
+            results = {k: t.result(timeout=120.0)
+                       for k, t in tickets.items()}
+        assert len(results) == n_sub * per
+        for (s, i), res in results.items():
+            _, _, a, method = systems[(s, i)]
+            denom = np.maximum(np.abs(a), 1e-12)
+            assert float(np.mean(np.abs(res.coef - a) / denom)) <= 1e-4
+            assert res.telemetry.lane == (
+                "single:fused" if method == "bakp_fused" else "single:xla")
+        assert disp.inflight == 0
+        # both single-device lanes fired, and the dispatcher + engine agree
+        assert {"single:xla", "single:fused"} <= set(disp.stats.lane_batches)
+        lanes = eng.lanes.stats()
+        assert {"single:xla", "single:fused"} <= set(lanes)
+        assert (sum(ls["requests"] for ls in lanes.values())
+                >= n_sub * per)
+        eng.shutdown()
+
+    def test_stop_no_drain_orphans_nothing(self, rng):
+        eng = _cpu_engine()
+        # Huge idle timeout: batches only fire on the drain/stop path, so
+        # tickets are still pending when stop(drain=False) lands.
+        cfg = DispatchConfig(idle_timeout_s=1e9, max_batch=1000,
+                             prewarm_cache=False)
+        disp = AsyncDispatcher(eng, cfg).start()
+        x, y, _ = make_system(rng, 40, 8)
+        tickets = [disp.submit(_req(x, y, thr=8, design_key="d",
+                                    request_id=f"s-{i}"))
+                   for i in range(8)]
+        disp.stop(drain=False)
+        for t in tickets:
+            assert t.done(), "orphaned ticket after stop(drain=False)"
+            with pytest.raises(DispatcherStopped):
+                t.result(timeout=0)
+        assert disp.inflight == 0
+        eng.shutdown()
+
+    def test_stop_drain_serves_everything(self, rng):
+        eng = _cpu_engine()
+        cfg = DispatchConfig(idle_timeout_s=1e9, max_batch=1000,
+                             prewarm_cache=False)
+        disp = AsyncDispatcher(eng, cfg).start()
+        x, y, a = make_system(rng, 40, 8)
+        tickets = [disp.submit(_req(x, y, thr=8, design_key="d",
+                                    request_id=f"t-{i}"))
+                   for i in range(4)]
+        disp.stop(drain=True)
+        for t in tickets:
+            assert t.done()
+            assert t.result(timeout=0).ok  # served, not failed
+        assert disp.stats.fired_drain == 1
+        eng.shutdown()
+
+    def test_fires_without_polling(self, rng):
+        """Idle and deadline firing rely on the computed wakeup: with the
+        unused poll interval set absurdly high, batches still fire on
+        time."""
+        eng = _cpu_engine()
+        x, y, _ = make_system(rng, 40, 8)
+        eng.serve([_req(x, y, thr=8, design_key="w")])
+        cfg = DispatchConfig(idle_timeout_s=0.01, max_batch=1000,
+                             poll_interval_s=1e6, prewarm_cache=False)
+        with AsyncDispatcher(eng, cfg) as disp:
+            t0 = time.perf_counter()
+            t = disp.submit(_req(x, y, thr=8, design_key="w"))
+            t.result(timeout=30.0)
+            assert time.perf_counter() - t0 < 5.0
+        cfg = DispatchConfig(idle_timeout_s=1e9, max_batch=1000,
+                             deadline_margin_s=0.25,
+                             poll_interval_s=1e6, prewarm_cache=False)
+        with AsyncDispatcher(eng, cfg) as disp:
+            t0 = time.perf_counter()
+            t = disp.submit(_req(x, y, thr=8, design_key="w"),
+                            deadline_s=0.3)
+            t.result(timeout=30.0)
+            assert time.perf_counter() - t0 < 5.0
+        eng.shutdown()
+
+    def test_per_lane_backpressure_rejects(self, rng):
+        eng = _cpu_engine()
+        cfg = DispatchConfig(idle_timeout_s=1e9, max_batch=1000,
+                             max_lane_inflight=2, backpressure="reject",
+                             prewarm_cache=False)
+        disp = AsyncDispatcher(eng, cfg).start()
+        x, y, _ = make_system(rng, 40, 8)
+        for i in range(2):
+            disp.submit(_req(x, y, thr=8, design_key="bp",
+                             request_id=f"bp-{i}"))
+        # the lane JAX's dispatcher names for the same request
+        jlane = J.AsyncDispatcher(J.SolverServeEngine())._lane_label_of(
+            J.SolveRequest(x=x, y=y, thr=8, max_iter=40, rtol=1e-12))
+        assert jlane == "single:xla"
+        with pytest.raises(QueueFullError, match=f"lane {jlane}"):
+            disp.submit(_req(x, y, thr=8, design_key="bp",
+                             request_id="bp-over"))
+        disp.stop(drain=True)
+        # completions released the lane budget
+        assert disp._lane_inflight == {}
+        eng.shutdown()
 
 
 # ----------------------------------------------- prefer_fused on one device

@@ -1,13 +1,14 @@
 """repro_torch.obs against repro.obs: metrics registry, exporters, tracing,
 the kernel-path relay, profiler regions and the engine's telemetry.
 
-Mirrors ``tests/test_obs.py`` (all but its dispatcher classes: the async
-dispatcher is a later slice of the port).  The metric primitives are held
-to the JAX package's by running the same operations on both registries and
-comparing ``snapshot()`` and ``render_prometheus()`` exactly; the engine
-telemetry runs the port's engine with ``device="cpu"``.  The concurrency
-hammer drives ``engine.serve`` from several threads (lane threads record
-concurrently) where the JAX test drove the dispatcher.
+Mirrors ``tests/test_obs.py``.  The metric primitives are held to the JAX
+package's by running the same operations on both registries and comparing
+``snapshot()`` and ``render_prometheus()`` exactly; the engine and
+dispatcher telemetry run the port's engine with ``device="cpu"``, the
+dispatcher's families held to those JAX's dispatcher records for the same
+requests.  The concurrency hammer drives ``engine.serve`` from several
+threads (lane threads record concurrently) and, as the JAX test does,
+the dispatcher from several submitters.
 """
 import json
 import math
@@ -20,10 +21,12 @@ import numpy as np
 import pytest
 
 import repro.obs as jobs
+import repro.serve as J
 from conftest import make_system
 from repro_torch import obs
 from repro_torch.obs.metrics import _env_disabled
-from repro_torch.serve import ServeConfig, SolveRequest, SolverServeEngine
+from repro_torch.serve import (AsyncDispatcher, DispatchConfig, ServeConfig,
+                               SolveRequest, SolverServeEngine)
 
 
 @pytest.fixture(autouse=True)
@@ -401,6 +404,57 @@ class TestEngineTelemetry:
         eng.shutdown()
 
 
+# ------------------------------------------------------ dispatcher telemetry
+_DISPATCH_FAMILIES = ("serve_dispatch_submitted_total",
+                      "serve_dispatch_completed_total",
+                      "serve_dispatch_fired_total",
+                      "serve_dispatch_inflight",
+                      "serve_dispatch_deadline_misses_total")
+
+
+class TestDispatcherTelemetry:
+    def test_queue_wait_and_deadline_margin_backfilled(self, rng):
+        x, y, _ = make_system(rng, 40, 8)
+        values = []
+        for Disp, Cfg, eng, Req in (
+                (AsyncDispatcher, DispatchConfig, _engine(), SolveRequest),
+                (J.AsyncDispatcher, J.DispatchConfig,
+                 J.SolverServeEngine(J.ServeConfig(),
+                                     registry=jobs.MetricsRegistry()),
+                 J.SolveRequest)):
+            reg = eng.registry
+            with Disp(eng, Cfg(idle_timeout_s=0.005)) as d:
+                t = d.submit(Req(x=x, y=y, method="bakp", max_iter=15),
+                             deadline_s=30.0)
+                res = t.result(timeout=30.0)
+            assert res.ok
+            tel = res.telemetry
+            assert tel is t.telemetry
+            assert tel.queue_wait_s is not None and tel.queue_wait_s >= 0
+            assert tel.queue_wait_s == pytest.approx(t.queue_wait_s)
+            assert tel.deadline_margin_s == pytest.approx(
+                t.deadline - t.completed_at)
+            assert tel.deadline_margin_s > 0  # 30s deadline was met
+            assert reg.get("serve_queue_wait_seconds").count() == 1
+            assert reg.get("serve_request_latency_seconds").count() == 1
+            values.append([reg.get(f).value() for f in _DISPATCH_FAMILIES])
+            eng.shutdown()
+        assert values[0] == values[1] == [1, 1, 1, 0, 0]
+
+    def test_ticket_clock_is_obs_now(self, rng):
+        x, y, _ = make_system(rng, 40, 8)
+        before = obs.now()
+        eng = _engine()
+        with AsyncDispatcher(eng, DispatchConfig()) as d:
+            t = d.submit(_req(x, y))
+            t.result(timeout=30.0)
+        after = obs.now()
+        # Same epoch as obs.now(): composes with engine/queue timings.
+        assert before <= t.submitted_at <= t.fired_at <= t.completed_at
+        assert t.completed_at <= after
+        eng.shutdown()
+
+
 # ------------------------------------------------------------ concurrency
 class TestHammer:
     def test_hammer_counts_consistent_and_snapshot_safe(self, rng):
@@ -453,6 +507,69 @@ class TestHammer:
         assert reg.get("serve_requests_served_total").value() == total
         assert reg.get("serve_sweeps").count() == total
         assert reg.get("serve_lane_inflight").value(lane="single:xla") == 0
+        eng.shutdown()
+
+    def test_dispatcher_hammer_counts_consistent_and_snapshot_safe(self,
+                                                                  rng):
+        """The JAX test's hammer: submitters racing through the dispatcher
+        while a reader snapshots the registry; its totals agree with what
+        the callers received."""
+        x, y, _ = make_system(rng, 40, 8)
+        x2, y2, _ = make_system(rng, 40, 8)
+        eng = _engine()
+        reg = eng.registry
+        n_threads, per_thread = 6, 12
+        results = [[] for _ in range(n_threads)]
+        errors = []
+        stop = threading.Event()
+
+        def snapshotter():
+            while not stop.wait(0.001):
+                try:
+                    json.dumps(reg.snapshot())
+                    reg.render_prometheus()
+                except Exception as exc:  # pragma: no cover
+                    errors.append(exc)
+
+        cfg = DispatchConfig(max_queue=512, idle_timeout_s=0.005,
+                             max_batch=8)
+        with AsyncDispatcher(eng, cfg) as disp:
+            def worker(slot):
+                try:
+                    tickets = [
+                        disp.submit(_req(
+                            x if i % 2 else x2, y if i % 2 else y2,
+                            design_key="da" if i % 2 else "db",
+                            tenant_id=f"w{slot}"))
+                        for i in range(per_thread)]
+                    results[slot] = [t.result(timeout=60.0) for t in tickets]
+                except Exception as exc:  # pragma: no cover
+                    errors.append(exc)
+
+            snap_t = threading.Thread(target=snapshotter, daemon=True)
+            snap_t.start()
+            threads = [threading.Thread(target=worker, args=(i,))
+                       for i in range(n_threads)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=120.0)
+            stop.set()
+            snap_t.join(timeout=10.0)
+        assert not any(t.is_alive() for t in threads + [snap_t])
+        assert not errors, errors
+        delivered = [r for slot in results for r in slot]
+        total = n_threads * per_thread
+        assert len(delivered) == total
+        assert all(r.ok and r.telemetry is not None for r in delivered)
+        assert reg.get("serve_dispatch_submitted_total").value() == total
+        assert reg.get("serve_dispatch_completed_total").value() == total
+        assert reg.get("serve_requests_served_total").value() == total
+        assert reg.get("serve_request_latency_seconds").count() == total
+        assert reg.get("serve_queue_wait_seconds").count() == total
+        assert reg.get("serve_sweeps").count() == total
+        assert 1 <= reg.get("serve_dispatch_fired_total").value() <= total
+        assert reg.get("serve_dispatch_inflight").value() == 0
         eng.shutdown()
 
 

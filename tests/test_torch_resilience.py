@@ -2,37 +2,50 @@
 JAX package's: the fault harness, the ladder policy, supervised lanes and
 the engine's retry ladder.
 
-Mirrors ``tests/test_resilience.py`` (all but ``TestTicketCancel`` — the
-async dispatcher — and ``TestCrashSafeStore`` — the tiered store; both are
-later slices of the port).  The harness and ladder are held to
-``repro.resilience`` on the same inputs; the engine runs with
-``device="cpu"``.
+Mirrors ``tests/test_resilience.py``, ``TestTicketCancel`` (the async
+dispatcher's ticket hygiene) and ``TestCrashSafeStore`` (CRC-headered tile
+files, quarantine, rebuild) included.  The harness and ladder are held to
+``repro.resilience`` on the same inputs, the crash-safe store to JAX's
+``DesignStore`` driven alike (the same tiers, stats and counters); the
+engine runs with ``device="cpu"``.
 """
 import json
 import time
+import zlib
 
 import numpy as np
 import pytest
 
 import repro.resilience as jres
+import repro.serve as J
 from conftest import make_system
+from repro import obs as jobs
 from repro.core.spec import SolverSpec as JSpec
+from repro.store import DesignStore as JDesignStore
+from repro.store.store import TileCorruptionError as JTileCorruptionError
 from repro_torch import obs
 from repro_torch.core.spec import SolverSpec, method_names
 from repro_torch.resilience import (FaultInjected, FaultPlan, backoff_s,
                                     faults, installed, next_rung, rungs)
-from repro_torch.serve import (LaneKey, LanePool, LaneShutdown, LaneWork,
+from repro_torch.serve import (AsyncDispatcher, DispatchConfig, LaneKey,
+                               LanePool, LaneShutdown, LaneWork,
                                LaneWorkerDeath, ServeConfig, SolveRequest,
-                               SolverServeEngine)
+                               SolverServeEngine, TicketCancelled)
 from repro_torch.serve.lanes import SERIAL_LANE
+from repro_torch.store import DesignStore
+from repro_torch.store.store import (TileCorruptionError, _TILE_HEADER,
+                                     _TILE_MAGIC)
 
 
 @pytest.fixture(autouse=True)
 def _disarmed():
-    """Never leak an armed plan into (or out of) a test."""
+    """Never leak an armed plan into (or out of) a test (either
+    package's)."""
     faults.clear()
+    jres.faults.clear()
     yield
     faults.clear()
+    jres.faults.clear()
 
 
 def _req(x, y, **kw):
@@ -373,4 +386,224 @@ class TestRetryLadder:
                                 design_key="cfg")])
         assert res.ok and res.retries == 1
         assert faults.active().counts()["solver.raise"]["fired"] == 1
+        eng.shutdown()
+
+
+# ------------------------------------------------------------ ticket hygiene
+class TestTicketCancel:
+    def test_cancel_unfired_ticket_and_drain(self, rng):
+        eng = _engine()
+        # huge idle timeout: the batch never fires on its own, so an
+        # uncancelled leaked ticket would hang drain() forever.
+        cfg = DispatchConfig(idle_timeout_s=1e9, max_batch=1000,
+                             prewarm_cache=False)
+        disp = AsyncDispatcher(eng, cfg).start()
+        x, y, _ = make_system(rng, 40, 8)
+        t = disp.submit(_req(x, y, thr=8, design_key="c0"))
+        with pytest.raises(TimeoutError):
+            t.result(timeout=0.01)      # the leak pattern under test
+        assert t.cancel()
+        assert not t.cancel()           # idempotent: already settled
+        with pytest.raises(TicketCancelled):
+            t.result(timeout=1.0)
+        t0 = time.perf_counter()
+        assert disp.drain(timeout=5.0)
+        assert time.perf_counter() - t0 < 2.0
+        assert disp.stats.cancelled == 1
+        assert disp.stats.deadline_misses == 0   # a cancel is not a miss
+        assert disp.inflight == 0
+        assert eng.registry.get("serve_dispatch_cancelled_total").value() \
+            == 1
+        disp.stop()
+        eng.shutdown()
+
+    def test_cancel_after_completion_returns_false(self, rng):
+        eng = _engine()
+        cfg = DispatchConfig(idle_timeout_s=0.005, prewarm_cache=False)
+        with AsyncDispatcher(eng, cfg) as disp:
+            x, y, _ = make_system(rng, 40, 8)
+            t = disp.submit(_req(x, y, thr=8, design_key="c1"))
+            res = t.result(timeout=60.0)
+            assert res.ok
+            assert not t.cancel()
+        eng.shutdown()
+
+    def test_drain_survives_dead_lane(self, rng):
+        """A worker death mid-dispatch settles the fired tickets through
+        the work's failure hook — drain() completes, nothing hangs."""
+        eng = _engine()
+        cfg = DispatchConfig(idle_timeout_s=0.005, prewarm_cache=False)
+        disp = AsyncDispatcher(eng, cfg).start()
+        x, y, _ = make_system(rng, 64, 16)
+        with installed({"lane.worker": {"count": 1, "match": "single:"}}):
+            tickets = [disp.submit(_req(x, y, method="bakp_gram", thr=8,
+                                        design_key="dd",
+                                        request_id=f"dd{i}"))
+                       for i in range(4)]
+            assert disp.drain(timeout=60.0)
+            failed = 0
+            for t in tickets:
+                assert t.done(), "ticket orphaned by the dead lane"
+                try:
+                    t.result(timeout=0)
+                except LaneWorkerDeath:
+                    failed += 1         # failed units surface typed errors
+            assert failed >= 1
+        # dispatcher and engine both keep serving afterwards
+        t = disp.submit(_req(x, y, method="bakp_gram", thr=8,
+                             design_key="dd"))
+        assert t.result(timeout=60.0).ok
+        assert disp.inflight == 0
+        disp.stop()
+        eng.shutdown()
+
+
+# --------------------------------------------------------- crash-safe store
+class TestCrashSafeStore:
+    """Each case on the port's store and on JAX's, driven alike."""
+
+    def _to_disk(self, rng, tmp_path, key="d1"):
+        x = rng.normal(size=(64, 48)).astype(np.float32)
+        self.regs = (obs.MetricsRegistry(), jobs.MetricsRegistry())
+        stores = []
+        for Store, reg, sub, kw in ((DesignStore, self.regs[0], "t",
+                                     {"device": "cpu"}),
+                                    (JDesignStore, self.regs[1], "j", {})):
+            st = Store(device_bytes=None, host_bytes=1,
+                       disk_dir=str(tmp_path / sub / "tiles"),
+                       registry=reg, **kw)
+            entry = st.build(key, x)
+            entry.x_t_for(16)
+            entry.store_coef("tenant", np.ones(48, np.float32))
+            st.demote(key)
+            assert st.tier(key) == "disk"
+            stores.append(st)
+        return stores, x
+
+    def test_tile_format_and_atomic_writes(self, rng, tmp_path):
+        (st, jst), x = self._to_disk(rng, tmp_path)
+        disk, jdisk = st._disk["d1"], jst._disk["d1"]
+        assert not list(disk.tile_dir.glob("*.tmp")), \
+            "temp files must never survive a tile write"
+        assert disk.nblocks == jdisk.nblocks == 3
+        for j in range(disk.nblocks):
+            raw = disk.tile_path(j).read_bytes()
+            assert raw == jdisk.tile_path(j).read_bytes()
+            magic, crc, nbytes = _TILE_HEADER.unpack_from(raw)
+            payload = raw[_TILE_HEADER.size:]
+            assert magic == _TILE_MAGIC
+            assert nbytes == len(payload)
+            assert crc == zlib.crc32(payload)
+            np.testing.assert_array_equal(
+                disk.verify_tile(j).numpy(),
+                np.frombuffer(payload, np.float32).reshape(16, 64))
+
+    def test_corrupt_tile_quarantined_and_rebuilt(self, rng, tmp_path):
+        stores, x = self._to_disk(rng, tmp_path)
+        for st, reg, sub in zip(stores, self.regs, ("t", "j")):
+            path = st._disk["d1"].tile_path(1)
+            raw = bytearray(path.read_bytes())
+            raw[_TILE_HEADER.size + 5] ^= 0xFF    # flip one payload byte
+            path.write_bytes(bytes(raw))
+            assert st.promote("d1") is None       # detected, not served
+            assert st.tier("d1") == "none"        # X bytes are gone...
+            qdir = tmp_path / sub / "tiles" / "d1.quarantine"
+            assert qdir.exists()
+            assert not (tmp_path / sub / "tiles" / "d1").exists()
+            assert st.stats.tile_corruptions == 1
+            assert reg.get("store_tile_corruption_total").value() == 1
+            # ...but a rebuild from the design source restores tenant state
+            fresh = st.build("d1", x)
+            assert fresh.warm_coef("tenant") is not None
+            assert np.allclose(np.asarray(fresh.x_pad), x)
+        assert stores[0].stats.as_dict() == stores[1].stats.as_dict()
+
+    def test_fault_site_corrupts_without_touching_disk(self, rng, tmp_path):
+        (st, jst), x = self._to_disk(rng, tmp_path, key="d2")
+        plan = {"store.tile_corrupt": {"count": 1, "match": "d2"}}
+        for s, inst, err in ((st, installed, TileCorruptionError),
+                             (jst, jres.installed, JTileCorruptionError)):
+            with inst(plan):
+                with pytest.raises(err, match="CRC32"):
+                    s._disk["d2"].verify_tile(0)
+            # the on-disk bytes were never mutated: a clean retry verifies
+            s._disk["d2"].verify_tile(0)
+            assert s.promote("d2") is not None
+        assert st.stats.as_dict() == jst.stats.as_dict()
+
+    def test_engine_recovers_from_corruption(self, rng, tmp_path):
+        """Store-backed engine: a design demoted to disk gets its tiles
+        corrupted; the next request quarantines it and rebuilds from the
+        request's design source — served, counted, no error — in step with
+        JAX's store engine."""
+        design_bytes = 64 * 32 * 4
+        systems = [make_system(np.random.default_rng(80 + i), 48, 24)
+                   for i in range(4)]
+        outs = []
+        for Eng, Cfg, Req, reg, sub, kw in (
+                (SolverServeEngine, ServeConfig, SolveRequest,
+                 obs.MetricsRegistry(), "t", {"device": "cpu"}),
+                (J.SolverServeEngine, J.ServeConfig, J.SolveRequest,
+                 jobs.MetricsRegistry(), "j", {})):
+            eng = Eng(Cfg(store_device_bytes=2 * design_bytes,
+                          store_host_bytes=1,
+                          store_dir=str(tmp_path / sub), cache_entries=256),
+                      registry=reg, **kw)
+            reqs = [Req(x=x, y=y, method="bakp", thr=8, max_iter=150,
+                        rtol=1e-12, design_key=f"cq{i}",
+                        request_id=f"cq{i}")
+                    for i, (x, y, _) in enumerate(systems)]
+            eng.serve(reqs)              # churns the early designs to disk
+            victims = [k for k in ("cq0", "cq1", "cq2", "cq3")
+                       if eng.store.tier(k) == "disk"]
+            assert victims, "workload must demote a design to disk"
+            disk = eng.store._disk[victims[0]]
+            for j in range(disk.nblocks):
+                p = disk.tile_path(j)
+                raw = bytearray(p.read_bytes())
+                raw[-1] ^= 0xFF
+                p.write_bytes(bytes(raw))
+            out = eng.serve(reqs)        # hits the corrupt tiles
+            assert not [r.error for r in out if r.error]
+            assert eng.store.stats.tile_corruptions >= 1
+            assert reg.get("store_tile_corruption_total").value() >= 1
+            for (x, y, a), res in zip(systems, out):
+                assert _mape(res.coef, a) <= 1e-4
+            outs.append((victims, eng.store.stats.as_dict(), out))
+            eng.shutdown()
+        (tv, tst, tout), (jv, jst, jout) = outs
+        assert tv == jv and tst == jst
+        for t, j in zip(tout, jout):
+            scale = max(1.0, float(np.abs(j.coef).max()))
+            assert float(np.abs(t.coef - j.coef).max()) <= 1e-5 * scale
+
+    def test_dispatcher_promotion_quarantines_and_rebuilds(self, rng,
+                                                            tmp_path):
+        """The promotion runs on the dispatch thread (pre-warm): a corrupt
+        tile there quarantines the design, the pre-warm rebuilds it from
+        the request's x with the stub's warm state, and the tenant is
+        served warm with no error."""
+        design_bytes = 64 * 32 * 4
+        eng = _engine(store_device_bytes=design_bytes, store_host_bytes=1,
+                      store_dir=str(tmp_path / "t"))
+        systems = [make_system(np.random.default_rng(90 + i), 48, 24)
+                   for i in range(2)]
+        for i, (x, y, _) in enumerate(systems):
+            [r] = eng.serve([_req(x, y, method="bakp", thr=8, max_iter=150,
+                                  design_key=f"pq{i}", tenant_id="t")])
+            assert r.ok
+        assert eng.store.tier("pq0") == "disk"
+        x, y, a = systems[0]
+        with installed({"store.tile_corrupt": {"count": 1,
+                                               "match": "pq0"}}):
+            cfg = DispatchConfig(idle_timeout_s=0.005, prewarm_cache=True)
+            with AsyncDispatcher(eng, cfg) as disp:
+                res = disp.submit(_req(x, y, method="bakp", thr=8,
+                                       max_iter=150, design_key="pq0",
+                                       tenant_id="t")).result(timeout=60.0)
+        assert res.ok and res.warm_start
+        assert _mape(res.coef, a) <= 1e-4
+        assert eng.store.stats.tile_corruptions == 1
+        assert eng.registry.get("store_tile_corruption_total").value() == 1
+        assert eng.store.tier("pq0") == "device"
         eng.shutdown()

@@ -175,11 +175,20 @@ class TestDispatchErrors:
         assert res.ok
         eng.shutdown()
 
-    def test_later_slices_raise(self):
+    def test_later_slices_raise(self, tmp_path):
+        # The tiered design store is ported: each store_* knob builds one,
+        # as in the JAX engine.  Mesh placements still raise.
         for knob in (dict(store_device_bytes=1 << 20),
-                     dict(store_host_bytes=1 << 20), dict(store_dir="d")):
-            with pytest.raises(UnsupportedSpecError, match="design-store"):
-                SolverServeEngine(ServeConfig(**knob), device="cpu")
+                     dict(store_host_bytes=1 << 20),
+                     dict(store_dir=str(tmp_path))):
+            eng = SolverServeEngine(ServeConfig(**knob), device="cpu")
+            jeng = J.SolverServeEngine(J.ServeConfig(**knob),
+                                       registry=jobs.MetricsRegistry())
+            assert eng.store is not None and eng.cache.store is eng.store
+            assert (eng.store.device_bytes, eng.store.host_bytes) == (
+                jeng.store.device_bytes, jeng.store.host_bytes)
+            eng.shutdown()
+            jeng.shutdown()
         with pytest.raises(UnsupportedSpecError, match="multi-GPU"):
             SolverServeEngine(mesh=object(), device="cpu")
 

@@ -37,6 +37,8 @@ from repro_torch.kernels import (fused_solve, solvebakp_stream_kernel,
                                  stream_solve_blocks, stream_x_resident_bytes)
 from repro_torch.kernels.stream_solve import stream_smem_bytes
 from repro_torch.obs import consume_dispatch, fallback_counts
+from repro_torch import obs
+from repro_torch.store import DesignStore as TDesignStore
 from repro_torch.store import HostDesign, StoreBlockSource
 
 TOL = 1e-5
@@ -347,15 +349,23 @@ def test_host_design_tiles_match_jax_read_cols():
     x, _, _ = _system(209, obs=50, nvars=20)
     host = HostDesign.from_design(x, key="h", pin=False)
     jhost = JHostDesign(key="h", shape=x.shape, x_pad=x)
-    src = StoreBlockSource(host)
+    assert host.shape == (50, 20) and list(host.x_t) == [20]
+    for lo, hi in ((0, 8), (8, 16), (16, 24), (4, 20)):
+        _close(host.read_cols(lo, hi), jhost.read_cols(lo, hi), tol=0.0)
+    _close(host.cn, np.einsum("ij,ij->j", x, x), scale=host.cn)
+    # A non-resident handle's source serves the same tiles off the store's
+    # host tier: a whole tile is a view of the record.
+    st = TDesignStore(device_bytes=0, device="cpu",
+                      registry=obs.MetricsRegistry())
+    src = st.build("h", x).blocks
+    assert isinstance(src, StoreBlockSource)
     assert src.shape == (50, 20) and src.num_blocks(8) == 3
     for j in range(3):
         tile = src.block_t(8, j)
         assert tile.shape == (8, 50) and tile.dtype == torch.float32
         _close(tile, jhost.read_cols(8 * j, 8 * (j + 1)), tol=0.0)
     full = src.block_t(8, 1)
-    assert full.data_ptr() == host.x_t[8:16].data_ptr()   # a view
-    _close(host.cn, np.einsum("ij,ij->j", x, x), scale=host.cn)
+    assert full.data_ptr() == st._host["h"].x_t[20][8:16].data_ptr()
 
 
 def test_stream_host_matches_resident_stream():
