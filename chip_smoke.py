@@ -41,7 +41,7 @@ process per source, in parallel), then:
      fused dispatch) beside the JAX figures in ``BENCH_precision.json``.
      Each bf16 request runs twice, its first and repeat latency printed;
   5. the serving engine (``repro_torch.serve.SolverServeEngine``, run after
-     the kernel rows of item 7), eight flushes on Gaussian designs from a
+     the kernel rows of item 8), eight flushes on Gaussian designs from a
      numpy seed: (1) 64 cold ``bakp`` requests, 16 tenants on each of 4
      16,384 x 256 designs, with ``prefer_fused`` — 4 groups of k 16, 4
      ``fused_solve`` launches; (2) the same tenants with ``y`` drifted by
@@ -86,7 +86,31 @@ process per source, in parallel), then:
      tickets with ``KernelError``.  Every request is held to fp64 lstsq
      (MAPE <= 1e-4) and 6a's to a storeless engine (1e-5, same sweeps);
      a watchdog turns a hang into a failed exit;
-  7. each kernel against its plain torch version on the same inputs, on the
+  7. the sharded path (after phase 6) on *virtual shards*: every shard of
+     a mesh on ``cuda:0``, so the sharded arithmetic, routing, copies and
+     mesh lanes run on one card (copies between cards do not).  (7a) the
+     four sharded solvers of ``repro_torch.core.distributed`` against
+     ``solvebakp`` at the same shape, each timed to ``synchronize()``
+     beside it and beside the bytes of its sharded copy: obs-sharded on
+     (4,) over phase 2's 262,144 x 1,024 design at k 8 (5 sweeps' history
+     within rtol 1e-4 + 1e-7 |y|², coef within 1e-5 at 20), rhs-sharded on
+     (4,) over 16,384 x 256 at k 64 (coef within 1e-5, sweeps equal at
+     rtol 0 and within one at rtol 1e-7), vars- on (1, 4) and 2-D on
+     (2, 2) over 65,536 x 1,024 at omega 0.5 (within 1e-3 of a_true);
+     (7b) the engine on ``build_serve_mesh("4", devices=[cuda:0] * 4)``
+     with the default policy, two rounds (round 2 warm through
+     ``tenant_id``): 3 designs of 65,536 x 512 x 4 tenants
+     (``obs_sharded``), one 4,096 x 256 design x 32 tenants
+     (``rhs_sharded``), 4 designs of 4,096 x 64 (the batch across designs,
+     single-device) — placements, batch kinds, mesh lanes, sharded solves
+     and warm starts as stated, every request within MAPE 1e-5 of a
+     mesh-less engine and 1e-4 of fp64 lstsq, no kernel launched, the
+     flush split by spans; with ``prefer_fused`` the ``bakp`` requests
+     stay ``bakp``, counted ``unshardable_fused`` and logged once; (7c) a
+     store engine with a budget of two designs and their sharded copies:
+     the copies count in the device tier, a demotion frees them, and the
+     tier holds its budget after every flush;
+  8. each kernel against its plain torch version on the same inputs, on the
      card, and timed with CUDA events beside its roofline bound (and beside
      the nearest single PyTorch call, where there is one); for the streaming
      kernel also the per-sweep loop on the same design, as a finding.  The
@@ -108,7 +132,7 @@ process per source, in parallel), then:
      x at the shapes of their fp32 rows and at every shape phase 4 gave
      them, there on the plan phase 4 ran (x at 2 bytes in the bound), with
      their rtol stops held to the rule on the plain iterate's fp64 SSE;
-  8. a ``kernels`` summary line (the bf16 kernels as ``<name>_bf16``;
+  9. a ``kernels`` summary line (the bf16 kernels as ``<name>_bf16``;
      launches summed over the paths), the card's name and power limit,
      and the result line
      ``{"ok": true, "device": {...}}``.
@@ -116,8 +140,9 @@ process per source, in parallel), then:
 Launch counts are reset just before each path (phases 1-2, the earlier
 slices' path; phase 3, the streaming path; phase 4, the mixed-precision
 path, where each bf16 kernel must launch; phase 5, the serving path;
-phase 6, the store and dispatcher path) and read just after it, so they count that path only; each kernel must have
-launched on its path.  Inputs
+phase 6, the store and dispatcher path; phase 7b, the sharded serving
+path) and read just after it, so they count that path only; each kernel
+must have launched on its path, and none on the sharded path.  Inputs
 are Gaussian designs with a planted ``a_true`` and ``y = x @ a_true`` from
 a fixed seed.  Any failed check, build or launch error exits non-zero
 without the result line; so does a host with no CUDA device, or a
@@ -154,6 +179,8 @@ FP32_FLOP_PER_S = 67e12
 PHASE5_WATCHDOG_S = 120
 # Phase 6's (the store and the dispatcher, disk writes included).
 PHASE6_WATCHDOG_S = 420
+# Phase 7's (the sharded solvers, engine and store on virtual shards).
+PHASE7_WATCHDOG_S = 300
 
 _failures: list = []
 
@@ -2060,6 +2087,315 @@ def main() -> int:
     tiles_root.cleanup()
     emit({"phase": "store_done", "card": card,
           "seconds": time.perf_counter() - t_phase6})
+
+    # ------------------------------ sharded, on virtual shards (phase 7)
+    # The mesh path on one card: every shard of a mesh sits on cuda:0
+    # (virtual shards), so the sharded arithmetic, the routing, the sharded
+    # copies' bytes and the mesh lanes run here; copies between cards do
+    # not (tests/test_torch_cuda.py::test_sharded_solvers_on_distinct_cards
+    # waits for a machine with two).  This slice launches no hand-written
+    # kernel: JAX's sharded solvers are plain XLA, and so are these.
+    import logging
+
+    import repro_torch.core as tcore
+    from repro_torch.core.distributed import shard_x
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.serve import build_serve_mesh
+
+    def hung7():
+        print(f"chip_smoke: phase 7 did not finish in {PHASE7_WATCHDOG_S} s "
+              f"(a hang on the sharded path)", file=sys.stderr, flush=True)
+        os._exit(3)
+
+    watchdog = threading.Timer(PHASE7_WATCHDOG_S, hung7)
+    watchdog.daemon = True
+    watchdog.start()
+    t_phase7 = time.perf_counter()
+
+    def timed(fn):
+        sync()
+        t = time.perf_counter()
+        out = fn()
+        sync()
+        return out, (time.perf_counter() - t) * 1e3
+
+    # 7a: the four solvers against the single-device solver at one shape.
+    virtual = {"obs": make_mesh((4,), ("data",), [dev] * 4),
+               "rhs": make_mesh((4,), ("data",), [dev] * 4),
+               "vars": make_mesh((1, 4), ("data", "model"), [dev] * 4),
+               "2d": make_mesh((2, 2), ("data", "model"), [dev] * 4)}
+    fns7 = {"obs": tcore.solvebakp_obs_sharded,
+            "rhs": tcore.solvebakp_rhs_sharded,
+            "vars": tcore.solvebakp_vars_sharded, "2d": tcore.solvebakp_2d}
+
+    def case7(kind, x, y, a_true, knobs, hist_sweeps=None):
+        mesh = virtual[kind]
+        xs, layout_ms = timed(lambda: shard_x(x, mesh, kind,
+                                              model_axis="model"))
+        fn = fns7[kind]
+        fn(xs, y, mesh, **dict(knobs, max_iter=1))      # warm-up
+        tcore.solvebakp(x, y, **dict(knobs, max_iter=1))
+        res, ms = timed(lambda: fn(xs, y, mesh, **knobs))
+        ref, ms1 = timed(lambda: tcore.solvebakp(x, y, **knobs))
+        row = {"phase": "sharded_solver", "case": kind, "card": card,
+               "mesh": dict(mesh.shape), "shape": list(x.shape),
+               "k": y.shape[1], "knobs": knobs, "ms": ms,
+               "sweeps": int(res.n_sweeps),
+               "ms_per_sweep": ms / max(1, int(res.n_sweeps)),
+               "single_ms": ms1, "single_sweeps": int(ref.n_sweeps),
+               "single_ms_per_sweep": ms1 / max(1, int(ref.n_sweeps)),
+               "sharded_copy_bytes": xs.nbytes, "layout_ms": layout_ms,
+               "coef_err_vs_single": rel(res.coef, ref.coef),
+               "coef_err_vs_truth": rel(res.coef, a_true)}
+        if hist_sweeps is not None:
+            kw = dict(knobs, max_iter=hist_sweeps)
+            h = fn(xs, y, mesh, **kw).history
+            h1 = tcore.solvebakp(x, y, **kw).history
+            sse0 = float((y * y).sum())
+            row["history_max_abs_diff"] = float((h - h1).abs().max())
+            check(bool(((h - h1).abs() <= 1e-4 * h1.abs() + 1e-7 * sse0)
+                       .all()),
+                  f"phase 7a {kind}: the first {hist_sweeps} sweeps' "
+                  f"history differs from solvebakp's: {h.tolist()} vs "
+                  f"{h1.tolist()}")
+        first = mesh.devices.flat[0]
+        check(res.coef.device == first and res.residual.device == first,
+              f"phase 7a {kind}: result on {res.coef.device}, not on the "
+              f"first shard's device {first}")
+        emit(row)
+        del xs
+        return res, ref, row
+
+    gram = dict(thr=128, mode="gram")
+    # obs: phase 2's 262,144 x 1,024 design (1 GiB; its copy another 1 GiB).
+    x7 = randn(262_144, 1_024)
+    a7 = randn(1_024, 8)
+    y7 = x7 @ a7
+    res, ref, row = case7("obs", x7, y7, a7, dict(gram, max_iter=20),
+                          hist_sweeps=5)
+    check(row["sharded_copy_bytes"] == x7.numel() * 4,
+          f"phase 7a obs: sharded copy {row['sharded_copy_bytes']} bytes")
+    check(row["coef_err_vs_single"] <= 1e-5,
+          f"phase 7a obs: coef {row['coef_err_vs_single']} from solvebakp")
+    del x7, y7, res, ref
+    # rhs: 16,384 x 256 at k 64: the single-device multi-RHS solve's
+    # iterates, its sweep count at rtol 0 and within one at rtol 1e-7.
+    x7 = randn(16_384, 256)
+    a7 = randn(256, 64)
+    y7 = x7 @ a7
+    res, ref, row = case7("rhs", x7, y7, a7, dict(gram, max_iter=30))
+    check(row["coef_err_vs_single"] <= 1e-5,
+          f"phase 7a rhs: coef {row['coef_err_vs_single']} from solvebakp")
+    check(row["sweeps"] == row["single_sweeps"],
+          "phase 7a rhs: sweeps differ at rtol 0")
+    res, ref, row = case7("rhs", x7, y7, a7,
+                          dict(gram, max_iter=200, rtol=1e-7))
+    check(abs(row["sweeps"] - row["single_sweeps"]) <= 1,
+          f"phase 7a rhs rtol 1e-7: {row['sweeps']} sweeps against "
+          f"{row['single_sweeps']}")
+    # vars and 2-D: 65,536 x 1,024, omega 0.5 (their cross-shard Jacobi
+    # block changes the iterates): JAX's 1e-3 against a_true.
+    x7 = randn(65_536, 1_024)
+    a7 = randn(1_024, 1)
+    y7 = x7 @ a7
+    for kind in ("vars", "2d"):
+        res, ref, row = case7(kind, x7, y7, a7,
+                              dict(gram, omega=0.5, max_iter=100,
+                                   rtol=1e-7))
+        check(row["coef_err_vs_truth"] <= 1e-3,
+              f"phase 7a {kind}: coef error {row['coef_err_vs_truth']}")
+    del x7, y7, a7, res, ref
+
+    # 7b: the serving engine on four virtual shards, default policy.
+    rng7 = np.random.default_rng(SEED + 7)
+    knobs7 = dict(method="bakp", thr=128, max_iter=40, rtol=0.0)
+    big7 = [rng7.standard_normal((65_536, 512), dtype=np.float32)
+            for _ in range(3)]
+    big7a = rng7.standard_normal((3, 512, 4), dtype=np.float32)
+    # 4,096 x 256 = 2^20 cells: a single-device bucket under the default
+    # 2^21 threshold, whose 32-tenant group upgrades to rhs_sharded.
+    grp7 = rng7.standard_normal((4_096, 256), dtype=np.float32)
+    grp7a = rng7.standard_normal((256, 32), dtype=np.float32)
+    sm7 = [rng7.standard_normal((4_096, 64), dtype=np.float32)
+           for _ in range(4)]
+    sm7a = rng7.standard_normal((4, 64), dtype=np.float32)
+
+    def workload7():
+        reqs = [SolveRequest(x=big7[d], y=big7[d] @ big7a[d, :, t],
+                             design_key=f"p7-big{d}", tenant_id=f"b{d}-{t}",
+                             request_id=f"big{d}-{t}", **knobs7)
+                for d in range(3) for t in range(4)]
+        reqs += [SolveRequest(x=grp7, y=grp7 @ grp7a[:, t],
+                              design_key="p7-grp", tenant_id=f"g{t}",
+                              request_id=f"grp-{t}", **knobs7)
+                 for t in range(32)]
+        reqs += [SolveRequest(x=sm7[i], y=sm7[i] @ sm7a[i],
+                              design_key=f"p7-sm{i}", request_id=f"sm-{i}",
+                              **knobs7) for i in range(4)]
+        return reqs
+
+    want7 = {**{f"big{d}-{t}": ("obs_sharded", "multi_rhs")
+                for d in range(3) for t in range(4)},
+             **{f"grp-{t}": ("rhs_sharded", "multi_rhs") for t in range(32)},
+             **{f"sm-{i}": ("single", "vmap") for i in range(4)}}
+    smesh7 = build_serve_mesh("4", devices=[dev] * 4)
+    reg7 = tobs.MetricsRegistry()
+    eng7 = SolverServeEngine(ServeConfig(), mesh=smesh7, registry=reg7)
+    base7 = SolverServeEngine(ServeConfig(), registry=tobs.MetricsRegistry())
+    _build.reset_launch_counts()
+    out7 = []
+    for rnd in (1, 2):      # round 2 warm through tenant_id
+        reqs = workload7()
+        tracer.clear()
+        t = time.perf_counter()
+        out = eng7.serve(reqs)
+        wall = time.perf_counter() - t
+        split = {}
+        for sp in tracer.spans():
+            name = sp.name.split(".", 1)[1]
+            if name == "solve":
+                name = f"solve[{sp.tags.get('lane')}]"
+            split[name] = split.get(name, 0.0) + sp.duration_s * 1e3
+        emit({"phase": "sharded_serve", "round": rnd, "card": card,
+              "requests": len(reqs), "wall_ms": wall * 1e3,
+              "requests_per_s": len(reqs) / wall, "split_ms": split,
+              "mean_sweeps": float(np.mean([r.n_sweeps for r in out])),
+              "placements": {p: sum(r.placement == p for r in out)
+                             for p in ("obs_sharded", "rhs_sharded",
+                                       "single")}})
+        out7.append((reqs, out))
+    counts7 = {**_build.launch_counts(), **_build.launch_counts(2)}
+    emit({"phase": "main_path_launches", "path": "phase_7_sharded",
+          **counts7})
+    check(not any(counts7.values()),
+          f"phase 7b: the sharded path launched kernels {counts7}")
+    worst7 = {"vs_meshless": 0.0, "vs_lstsq": 0.0}
+    for rnd, (reqs, out) in enumerate(out7, 1):
+        ref_out = base7.serve(workload7())
+        for q, o, b in zip(reqs, out, ref_out):
+            check(o.error is None, f"phase 7b {o.request_id}: {o.error}")
+            if o.error is not None:
+                continue
+            check((o.placement, o.batch_kind) == want7[q.request_id],
+                  f"phase 7b {q.request_id}: {o.placement} / "
+                  f"{o.batch_kind}, want {want7[q.request_id]}")
+            m = float(np.mean(np.abs(o.coef - b.coef)
+                              / np.maximum(np.abs(b.coef), 1e-12)))
+            lst = np.linalg.lstsq(np.asarray(q.x, np.float64),
+                                  np.asarray(q.y, np.float64),
+                                  rcond=None)[0]
+            m2 = float(np.mean(np.abs(o.coef - lst)
+                               / np.maximum(np.abs(lst), 1e-12)))
+            worst7["vs_meshless"] = max(worst7["vs_meshless"], m)
+            worst7["vs_lstsq"] = max(worst7["vs_lstsq"], m2)
+    check(worst7["vs_meshless"] <= 1e-5,
+          f"phase 7b: MAPE vs the mesh-less engine {worst7['vs_meshless']}")
+    check(worst7["vs_lstsq"] <= 1e-4,
+          f"phase 7b: MAPE vs fp64 lstsq {worst7['vs_lstsq']}")
+    lanes7 = eng7.lanes.stats()
+    check(eng7.stats.sharded_solves >= 8,
+          f"phase 7b: {eng7.stats.sharded_solves} sharded solves")
+    check(eng7.stats.warm_starts > 0, "phase 7b: no warm start")
+    check({"mesh:obs_sharded", "mesh:rhs_sharded"} <= set(lanes7),
+          f"phase 7b: lanes {sorted(lanes7)}")
+    # prefer_fused on a mesh engine does nothing, audibly: counted once a
+    # request, logged once an engine.
+    logged = []
+
+    class _Catch(logging.Handler):
+        def emit(self, record):
+            logged.append(record.getMessage())
+
+    catch = _Catch(level=logging.WARNING)
+    logging.getLogger("repro_torch.serve.engine").addHandler(catch)
+    regf = tobs.MetricsRegistry()
+    engf = SolverServeEngine(ServeConfig(prefer_fused=True), mesh=smesh7,
+                             registry=regf)
+    outf = engf.serve(workload7()[:12])
+    logging.getLogger("repro_torch.serve.engine").removeHandler(catch)
+    unshard = regf.get("solver_fallback_total").value(
+        reason="unshardable_fused")
+    check(all(o.error is None and o.telemetry.method == "bakp"
+              and o.placement == "obs_sharded" for o in outf),
+          "phase 7b prefer_fused: a bakp request left bakp on the mesh")
+    check(unshard >= 1, "phase 7b prefer_fused: unshardable_fused not "
+                        "counted")
+    check(sum("prefer_fused" in m for m in logged) == 1,
+          f"phase 7b prefer_fused: {len(logged)} warnings, want 1")
+    emit({"phase": "sharded_checks", "card": card,
+          "requests_checked": sum(len(o) for _, o in out7),
+          "worst_mape_vs_meshless": worst7["vs_meshless"],
+          "worst_mape_vs_fp64_lstsq": worst7["vs_lstsq"],
+          "sharded_solves": eng7.stats.sharded_solves,
+          "warm_starts": eng7.stats.warm_starts,
+          "lanes": {k: {f: v[f] for f in ("batches", "requests", "busy_s")}
+                    for k, v in lanes7.items()},
+          "unshardable_fused": unshard})
+    for e in (eng7, base7, engf):
+        e.shutdown()
+
+    # 7c: a store engine of a 2-design budget (x and its sharded copy) on
+    # the same mesh: the copies count in store_bytes, a demotion frees
+    # them, and the device tier holds its budget after every flush.
+    design7 = 65_536 * 512 * 4
+    budget7 = 2 * 2 * design7
+    reg7c = tobs.MetricsRegistry()
+    eng7c = SolverServeEngine(ServeConfig(store_device_bytes=budget7),
+                              mesh=smesh7, registry=reg7c)
+    st7 = eng7c.store
+    freed7 = []
+    demote7 = st7.demote
+
+    def demote_freed(key):
+        with st7._lock:
+            entry = st7._device.get(key)
+            copies = (sum(sh.nbytes for sh in entry._sharded.values())
+                      if entry is not None else 0)
+            del entry
+            sync()
+            before = torch.cuda.memory_allocated(dev)
+            out = demote7(key)
+            sync()
+            freed7.append((key, copies,
+                           before - torch.cuda.memory_allocated(dev)))
+            return out
+
+    st7.demote = demote_freed
+    rows7c = []
+    for rnd in (1, 2):
+        for d in range(3):
+            reqs = [r for r in workload7() if r.design_key == f"p7-big{d}"]
+            out = eng7c.serve(reqs)
+            check(all(o.error is None and o.placement == "obs_sharded"
+                      for o in out),
+                  f"phase 7c round {rnd} design {d}: "
+                  f"{[(o.placement, o.error) for o in out]}")
+            used = st7.device_used()
+            gauge = reg7c.get("store_bytes").value(tier="device")
+            entry = st7.get(f"p7-big{d}")
+            copy = sum(sh.nbytes for sh in entry._sharded.values())
+            rows7c.append({"round": rnd, "design": d, "device_used": used,
+                           "store_bytes_gauge": gauge, "copy_bytes": copy})
+            check(used <= budget7,
+                  f"phase 7c: device tier {used} bytes over {budget7}")
+            check(gauge == used,
+                  f"phase 7c: store_bytes{{tier=device}} {gauge}, the tier "
+                  f"holds {used}")
+            check(copy == design7 and used >= 2 * design7,
+                  f"phase 7c: the sharded copy ({copy} bytes) must count "
+                  f"in the device tier ({used})")
+            del entry
+    check(len(freed7) >= 4 and all(c == design7 and f >= c
+                                   for _, c, f in freed7),
+          f"phase 7c: demotions (key, copy bytes, bytes freed) {freed7}")
+    emit({"phase": "sharded_store", "card": card, "budget": budget7,
+          "flushes": rows7c, "demotions": freed7,
+          "stats": st7.stats.as_dict()})
+    eng7c.shutdown()
+    del eng7c, st7
+    watchdog.cancel()
+    emit({"phase": "sharded_done", "card": card,
+          "seconds": time.perf_counter() - t_phase7})
 
     kernel_src = "src/repro_torch/kernels/csrc/"
     src_of = {

@@ -15,11 +15,19 @@ Layout (mirrors ``repro.core``):
   solvebakp.py  Algorithm 2 + gram mode, plain torch, and its batch
                 across designs.
   solvebakf.py  Algorithm 3 (greedy selection) + the stepwise baseline.
+  distributed.py  SolveBakP sharded over a device mesh (obs / vars / 2-D /
+                rhs), one controller with explicit collectives.
   precondition.py  column normalisation.
   types.py      SolveResult, SelectResult, norms, sweep_stop_flags.
   api.py        solve, fit_linear_probe.
 """
 from repro_torch.core.api import fit_linear_probe, solve
+from repro_torch.core.distributed import (
+    solvebakp_2d,
+    solvebakp_obs_sharded,
+    solvebakp_rhs_sharded,
+    solvebakp_vars_sharded,
+)
 from repro_torch.core.prepare import (PreparedDesign, design_fingerprint,
                                       prepare, prepared_from_arrays)
 from repro_torch.core.precondition import (ColumnScaling, normalize_columns,
@@ -33,7 +41,8 @@ from repro_torch.core.spec import (PRECISIONS, MethodEntry, SolverSpec,
                                    UnsupportedSpecError,
                                    ensure_precision_supported, method_names,
                                    methods_for_precision, register_method,
-                                   solver_method, streaming_methods)
+                                   shardable_methods, solver_method,
+                                   streaming_methods)
 from repro_torch.core.types import SelectResult, SolveResult
 
 __all__ = [
@@ -55,13 +64,18 @@ __all__ = [
     "prepare",
     "prepared_from_arrays",
     "register_method",
+    "shardable_methods",
     "solve",
     "solvebak",
     "solvebak_batched",
     "solvebak_onesweep",
     "solvebakf",
     "solvebakp",
+    "solvebakp_2d",
     "solvebakp_batched",
+    "solvebakp_obs_sharded",
+    "solvebakp_rhs_sharded",
+    "solvebakp_vars_sharded",
     "solver_method",
     "stepwise_regression_baseline",
     "streaming_methods",

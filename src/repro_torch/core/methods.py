@@ -43,8 +43,13 @@ only), "bakp" and "bakp_gram" are ``batchable`` and carry a ``vmap_one``
 that builds the batch solver the serving engine stacks same-bucket
 designs into (``solvebak_batched`` / ``solvebakp_batched``: plain torch
 over (B, obs, vars), where the JAX package runs ``jit(vmap(one))`` of its
-XLA solvers, outside any Pallas kernel).  Multi-GPU placements arrive
-with a later slice, so no entry here claims them.
+XLA solvers, outside any Pallas kernel).
+
+Mesh placements, as in the JAX registry: "bakp" and "bakp_gram" are
+``shardable``.  Handed a sharded ``placement`` and its ``ServeMesh``, they
+run the ``repro_torch.core.distributed`` backend of that placement
+(``obs_sharded``, ``rhs_sharded``, ``mesh_2d``) on the handle's sharded
+copy (``PreparedDesign.x_for_placement``), recorded ``sharded``.
 """
 from __future__ import annotations
 
@@ -52,6 +57,9 @@ import math
 
 import torch
 
+from repro_torch.core.distributed import (solvebakp_2d,
+                                          solvebakp_obs_sharded,
+                                          solvebakp_rhs_sharded)
 from repro_torch.core.solvebak import solvebak, solvebak_batched
 from repro_torch.core.solvebakf import solvebakf
 from repro_torch.core.solvebakp import solvebakp, solvebakp_batched
@@ -60,6 +68,10 @@ from repro_torch.core.spec import (_ITER_FIELDS, MethodEntry, SolverSpec,
 from repro_torch.core.types import SolveResult
 from repro_torch.obs import record_dispatch
 
+_SHARDED_BACKENDS = {
+    "obs_sharded": solvebakp_obs_sharded,
+    "rhs_sharded": solvebakp_rhs_sharded,
+}
 
 # --------------------------------------------------------------- BAK family
 def _bak_solve(p, y, spec: SolverSpec, *, a0=None, generator=None):
@@ -102,7 +114,27 @@ def _prep_bak(p, spec: SolverSpec):
 def _bakp_solve(mode: str):
     method_name = "bakp" if mode == "jacobi" else "bakp_gram"
 
-    def kernel(p, y, spec: SolverSpec, *, a0=None, generator=None):
+    def kernel(p, y, spec: SolverSpec, *, a0=None, generator=None,
+               placement=None, mesh=None):
+        if placement is not None and placement.sharded:
+            if mesh is None:
+                raise ValueError(
+                    f"placement {placement.kind!r} needs a ServeMesh")
+            record_dispatch("sharded", method=method_name)
+            x_dev = p.x_for_placement(placement, mesh)
+            kw = dict(thr=spec.thr, max_iter=spec.max_iter, atol=spec.atol,
+                      rtol=spec.rtol, omega=spec.omega, mode=mode,
+                      ridge=spec.ridge, a0=a0)
+            if placement.kind == "mesh_2d":
+                return solvebakp_2d(x_dev, y, mesh.mesh,
+                                    data_axes=mesh.data_axes,
+                                    model_axis=mesh.model_axis, **kw)
+            backend = _SHARDED_BACKENDS.get(placement.kind)
+            if backend is None:
+                raise ValueError(
+                    f"unknown placement kind {placement.kind!r}")
+            return backend(x_dev, y, mesh.mesh, data_axes=mesh.data_axes,
+                           **kw)
         record_dispatch("xla", method=method_name)
         return solvebakp(
             p.x_pad, y, thr=spec.thr, max_iter=spec.max_iter, atol=spec.atol,
@@ -361,15 +393,15 @@ register_method(MethodEntry(
 register_method(MethodEntry(
     name="bakp", solve=_bakp_solve("jacobi"),
     consumes=_ITER_FIELDS + ("thr", "omega"),
-    iterative=True, multi_rhs=True, batchable=True, blocked=True,
-    prepare=_prep_bakp, vmap_one=_bakp_vmap_one("jacobi"),
+    iterative=True, multi_rhs=True, batchable=True, shardable=True,
+    blocked=True, prepare=_prep_bakp, vmap_one=_bakp_vmap_one("jacobi"),
     fallback="bakp_stream",
     summary="Algorithm 2: block-Jacobi coordinate descent"))
 register_method(MethodEntry(
     name="bakp_gram", solve=_bakp_solve("gram"),
     consumes=_ITER_FIELDS + ("thr", "omega", "ridge"),
-    iterative=True, multi_rhs=True, batchable=True, blocked=True,
-    needs_chol=True, prepare=_prep_bakp_gram,
+    iterative=True, multi_rhs=True, batchable=True, shardable=True,
+    blocked=True, needs_chol=True, prepare=_prep_bakp_gram,
     vmap_one=_bakp_vmap_one("gram"), fallback="bakp",
     summary="exact block CD via cached block-Gram Cholesky (beyond-paper)"))
 register_method(MethodEntry(

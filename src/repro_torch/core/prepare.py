@@ -12,13 +12,15 @@ Counterpart of ``repro.core.prepare``:
 thr-padded layouts and inverses (``cn_for_thr``, ``inv_cn_for``); the
 transposed padded copy per block width (``x_t_for``, the CUDA kernels'
 layout) and its bf16 cast (``x_bf16_for``, the quantized tier the bf16
-precisions read); block-Gram Cholesky factors per ``(thr, ridge)``; and an
-LRU of per-tenant warm-start coefficients.  All of it is built lazily
-under a per-design lock.  ``snapshot_state`` / ``restore_state`` are what
-the tiered design store reads from a handle it demotes and writes back to
-one it promotes.  ``bind_home`` / ``warm_lane_state`` /
-``resident_lanes`` serve the serving engine's lanes; mesh copies arrive
-with the multi-GPU slice.
+precisions read); block-Gram Cholesky factors per ``(thr, ridge)``; the
+per-placement sharded copies a mesh solve reads (``x_for_placement``: a
+``core.distributed.ShardedDesign`` on the mesh's devices); and an LRU of
+per-tenant warm-start coefficients.  All of it is built lazily under a
+per-design lock.  ``snapshot_state`` / ``restore_state`` are what the
+tiered design store reads from a handle it demotes and writes back to one
+it promotes (the sharded copies are not kept: the next warm rebuilds
+them).  ``bind_home`` / ``warm_lane_state`` / ``resident_lanes`` serve the
+serving engine's lanes.
 
 Streams: a handle is built on one thread's CUDA stream and solved on
 others (each serving lane has a stream of its own).  Every tensor the
@@ -59,6 +61,10 @@ from repro_torch.core.spec import (SolverSpec, UnsupportedSpecError,
                                    streaming_methods)
 from repro_torch.core.types import (SolveResult, column_norms_sq, safe_inv,
                                     warm_retention_ok)
+
+
+# Sharded placement kind → the ``core.distributed`` layout it reads.
+_SHARD_KINDS = {"obs_sharded": "obs", "rhs_sharded": "rhs", "mesh_2d": "2d"}
 
 
 def resolve_device(device=None) -> torch.device:
@@ -130,6 +136,8 @@ class PreparedDesign:
     # non-resident handle (shape / num_blocks(thr) / block_t(thr, j))
     home: Optional[str] = None            # placement kind this design
     # primarily serves from (bind_home, first wins)
+    mesh: Optional[object] = None         # serve.placement.ServeMesh bound
+    # as the default for placement-routed solves
     _device: Optional[torch.device] = field(default=None, repr=False)
     _cn: Optional[torch.Tensor] = field(default=None, repr=False)
     _cn_thr: Dict[int, torch.Tensor] = field(default_factory=dict, repr=False)
@@ -139,6 +147,7 @@ class PreparedDesign:
                                              repr=False)
     _warm: "OrderedDict[str, torch.Tensor]" = field(default_factory=OrderedDict,
                                                     repr=False)
+    _sharded: Dict[object, object] = field(default_factory=dict, repr=False)
     _lock: threading.RLock = field(default_factory=threading.RLock,
                                    repr=False, compare=False)
 
@@ -284,6 +293,41 @@ class PreparedDesign:
                     x.reshape(self.shape[0], nblocks, thr), ridge))
             return self.chol[key]
 
+    def x_for_placement(self, placement, smesh):
+        """``x_pad`` laid out for a sharded placement on ``smesh`` (a
+        ``serve.placement.ServeMesh``): a ``ShardedDesign`` of row blocks
+        (``obs_sharded``), one replica a distinct device, shared by the
+        shards on it (``rhs_sharded``), or (row, column) blocks
+        (``mesh_2d``), each a copy on its shard's device.  Built once per
+        placement under the lock, each tensor settled before it is
+        published; a single-device placement returns ``x_pad``."""
+        if placement is None or not placement.sharded:
+            return self.x_pad
+        from repro_torch.core.distributed import shard_grid, shard_x
+
+        kind = _SHARD_KINDS.get(placement.kind)
+        if kind is None:
+            raise ValueError(f"unknown placement kind {placement.kind!r}")
+        with self._lock:
+            grid = shard_grid(smesh.mesh, kind, smesh.data_axes,
+                              smesh.model_axis)
+            sharded = self._sharded.get(placement)
+            if sharded is None or sharded.grid != grid:
+                sharded = shard_x(self._require_x("x_for_placement"),
+                                  smesh.mesh, kind,
+                                  data_axes=smesh.data_axes,
+                                  model_axis=smesh.model_axis)
+                for t in set(sharded.parts):
+                    _settled(t)
+                self._sharded[placement] = sharded
+            return sharded
+
+    def drop_sharded(self) -> None:
+        """Forget the sharded copies (the design store's demotion: a solve
+        in flight keeps the copy it holds)."""
+        with self._lock:
+            self._sharded.clear()
+
     def warm_method_state(self, spec: SolverSpec) -> None:
         """Run ``spec.method``'s prepare hook (norm layouts, Gram factors,
         the transposed copy)."""
@@ -339,33 +383,43 @@ class PreparedDesign:
     # ------------------------------------------------------ lane residency
     def bind_home(self, placement=None) -> str:
         """Bind (first wins) and return this design's home placement kind:
-        ``"single"`` on the port, whose placements are single-device until
-        the multi-GPU slice."""
+        ``"single"`` or a sharded placement's kind.  A design warmed for an
+        obs-sharded bucket keeps that home when single-device leftovers
+        later solve against it too."""
         kind = placement.kind if placement is not None else "single"
         with self._lock:
             if self.home is None:
                 self.home = kind
             return self.home
 
-    def warm_lane_state(self, spec: SolverSpec, placement=None) -> None:
+    def warm_lane_state(self, spec: SolverSpec, placement=None,
+                        mesh=None) -> None:
         """Warm every resident tier a (spec, placement) solve needs — the
         method's prepare hook (thr-padded norms, Gram factors, the
-        kernels' transposed and bf16 copies) — and bind the design's home.
-        Idempotent; the serving cache calls it on the flush thread, so the
-        lanes find their state built and settled."""
+        kernels' transposed and bf16 copies) plus a sharded placement's
+        copy on ``mesh`` (default: the one bound at ``prepare``) — and bind
+        the design's home.  Idempotent; the serving cache calls it on the
+        flush thread (the dispatcher on its own), so the lanes find their
+        state built and settled."""
         self.bind_home(placement)
         self.warm_method_state(spec)
+        mesh = mesh if mesh is not None else self.mesh
+        if (placement is not None and placement.sharded and mesh is not None
+                and self.x_pad is not None):
+            self.x_for_placement(placement, mesh)
 
     def resident_lanes(self) -> Tuple[str, ...]:
         """Which per-lane resident tiers this design holds: ``"single"``
         (``x_pad``) for a resident handle, plus ``"fused"`` (the kernels'
-        transposed layout) and ``"fused_bf16"`` (the quantized tier)."""
+        transposed layout), ``"fused_bf16"`` (the quantized tier) and each
+        sharded placement kind with a copy on its mesh."""
         with self._lock:
             out = ["single"] if self.x_pad is not None else []
             if self._x_t:
                 out.append("fused")
             if self._x_bf16:
                 out.append("fused_bf16")
+            out.extend(sorted({p.kind for p in self._sharded}))
             return tuple(out)
 
     # ---------------------------------------------------------------- solve
@@ -378,6 +432,7 @@ class PreparedDesign:
         generator: Optional[torch.Generator] = None,
         tenant_id: Optional[str] = None,
         placement=None,
+        mesh=None,
     ) -> SolveResult:
         """Solve ``x @ a ≈ y`` against this design.
 
@@ -391,8 +446,11 @@ class PreparedDesign:
           tenant_id: when set and ``a0`` is None, warm-start from the
             tenant's last stored coefficients and store the new solution
             back afterwards (unless the solve diverged).
-          placement: only single-device placements run here; a sharded one
-            raises ``UnsupportedSpecError`` until the multi-GPU slice.
+          placement / mesh: mesh-sharded execution (the serving placement
+            layer; ``mesh`` defaults to the one bound at ``prepare``).  A
+            sharded placement runs the method's sharded backend; a method
+            registered without one (``shardable=False``) raises
+            ``UnsupportedSpecError``.
         """
         spec = spec if spec is not None else self.spec
         if spec is None:
@@ -404,11 +462,14 @@ class PreparedDesign:
                 f"method {spec.method!r} cannot solve a non-resident design "
                 f"(x blocks stay in host memory, not on the device); use a "
                 f"streaming method {streaming_methods()}")
-        if placement is not None and getattr(placement, "sharded", False):
-            raise UnsupportedSpecError(
-                f"placement {getattr(placement, 'kind', placement)!r} is "
-                f"sharded; the PyTorch port runs on one device until its "
-                f"multi-GPU slice")
+        shard_kw = {}
+        if placement is not None and placement.sharded:
+            if not entry.shardable:
+                raise UnsupportedSpecError(
+                    f"method {spec.method!r} has no sharded backend for "
+                    f"placement {placement.kind!r}")
+            shard_kw = dict(placement=placement,
+                            mesh=mesh if mesh is not None else self.mesh)
         y = as_f32(y, self.device)
         if y.dim() == 2 and not entry.multi_rhs:
             raise ValueError(
@@ -429,7 +490,8 @@ class PreparedDesign:
             a0 = None
         if a0 is not None:
             a0 = as_f32(a0, self.device)
-        res = entry.solve(self, y, spec, a0=a0, generator=generator)
+        res = entry.solve(self, y, spec, a0=a0, generator=generator,
+                          **shard_kw)
         if store_tenant is not None and warm_retention_ok(res):
             self.store_coef(store_tenant, res.coef)
         return res
@@ -438,6 +500,7 @@ class PreparedDesign:
 def prepare(
     x,
     spec: Optional[SolverSpec] = None,
+    mesh=None,
     *,
     device=None,
     fingerprint: Optional[str] = None,
@@ -450,6 +513,8 @@ def prepare(
         already on ``device`` is used without a copy).
       spec: default ``SolverSpec``; when given, the method's prepare hook
         runs now so the first ``solve`` is as cheap as a repeat one.
+      mesh: optional ``repro_torch.serve.placement.ServeMesh`` bound as
+        the default for placement-routed solves.
       device: where the design lives; default ``"cuda"`` (raises when no
         GPU is present — pass ``"cpu"`` for the plain path).
       fingerprint: caller-known identity for ``x`` (skips hashing).
@@ -462,7 +527,7 @@ def prepare(
     if x.dim() != 2:
         raise ValueError(f"x must be 2D (obs, vars), got {tuple(x.shape)}")
     prepared = PreparedDesign(x_pad=_settled(x.contiguous()), spec=spec,
-                              fingerprint=fingerprint,
+                              fingerprint=fingerprint, mesh=mesh,
                               max_tenants=max_tenants)
     if spec is not None:
         prepared.warm_method_state(spec)

@@ -112,13 +112,16 @@ class MethodEntry:
 
     Attributes:
       name:      registry key (``SolverSpec.method``).
-      solve:     ``(prepared, y, spec, *, a0, generator) -> SolveResult``.
+      solve:     ``(prepared, y, spec, *, a0, generator) -> SolveResult``
+                 (plus ``placement``, ``mesh`` where ``shardable``).
       consumes:  SolverSpec fields that change this method's result.
       iterative: consumes ``max_iter``/``atol``/``rtol`` and honours ``a0``.
       multi_rhs: accepts ``y`` of shape (obs, k).
       batchable: batchable across designs (``vmap_one`` builds the batch
                  solver the serving engine stacks same-bucket designs into).
-      shardable: has multi-GPU backends (the multi-GPU slice adds them).
+      shardable: has mesh-sharded backends (``core.distributed``; serving
+                 placement eligibility): ``solve`` takes ``placement=`` and
+                 ``mesh=`` keywords.
       blocked:   consumes ``thr`` (SolveBakP family).
       needs_chol: wants block-Gram Cholesky factors (``chol_for``).
       streams:   can solve a non-resident handle (x in host memory,
@@ -179,6 +182,15 @@ def solver_method(name: str) -> MethodEntry:
 def method_names() -> Tuple[str, ...]:
     """Registered method names, in registration order."""
     return tuple(_REGISTRY)
+
+
+def is_registered(name: str) -> bool:
+    return name in _REGISTRY
+
+
+def shardable_methods() -> Tuple[str, ...]:
+    """Methods with a mesh-sharded backend (serving placement eligibility)."""
+    return tuple(n for n, e in _REGISTRY.items() if e.shardable)
 
 
 def streaming_methods() -> Tuple[str, ...]:

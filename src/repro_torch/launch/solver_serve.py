@@ -22,6 +22,14 @@ designs on the streaming method):
         --designs 16 --store-device-bytes 8388608 \\
         --store-host-bytes 4194304 --store-dir /path/to/tiles --check
 
+Mesh-sharded placement (big buckets and large same-design groups on the
+sharded SolveBakP backends; with ``--device cpu`` the mesh's shards are
+virtual CPU shards, on the card it needs that many cards):
+
+    PYTHONPATH=src python -m repro_torch.launch.solver_serve --mesh 4x2 \
+        --requests 256 --obs 2048 --vars 256 --designs 4 \
+        --shard-min-cells 65536 --rhs-shard-min-k 32
+
 On the CPU pass ``--device cpu`` (the default device is the GPU, and the
 engine raises without one).  ``--designs D`` controls design reuse:
 requests cycle over D distinct matrices, so every flush window sees
@@ -32,9 +40,6 @@ everything on one multi-RHS solve.  ``--tenants T`` tags requests with
 recurring tenant ids, so repeated (design, tenant) pairs warm-start; in
 async mode each request also carries a deadline and the command reports
 the deadline hit rate.
-
-Not in this slice: ``--mesh`` (mesh placements) exits with a message
-naming the slice that brings it.
 """
 from __future__ import annotations
 
@@ -44,10 +49,6 @@ import time
 import numpy as np
 
 from repro_torch import obs
-
-# The flag of the JAX command line that this slice does not serve.
-_MESH_LATER = ("--mesh needs mesh placements, which arrive with the "
-               "PyTorch port's multi-GPU slice")
 
 
 def build_requests(rng, xs, n, method, max_iter, rtol, thr, tenants=0,
@@ -81,7 +82,8 @@ def report_engine(engine):
           f"covering {s.multi_rhs_requests} reqs; "
           f"vmap batches={s.vmap_batches} covering {s.vmap_requests} reqs; "
           f"singles={s.single_solves}; warm starts={s.warm_starts}; "
-          f"failures={s.failures}; retries={s.retries})")
+          f"failures={s.failures}; retries={s.retries}; "
+          f"sharded={s.sharded_solves})")
     c = engine.cache.stats
     print(f"design cache: {c.hits} hits / {c.misses} misses "
           f"(hit rate {c.hit_rate:.1%}), {len(engine.cache)} resident")
@@ -102,6 +104,9 @@ def report_engine(engine):
             f"busy {ls['busy_s']*1e3:.0f}ms"
             for label, ls in sorted(lanes.items()))
         print(f"execution lanes: {mix}")
+    if engine.mesh is not None:
+        print(f"mesh: {engine.mesh.describe()} on "
+              f"{', '.join(engine.mesh.mesh.device_ids())}")
 
 
 def run_sync(args, engine, reqs):
@@ -226,7 +231,16 @@ def main(argv=None) -> int:
                     help="write the final metrics-registry snapshot to PATH")
     ap.add_argument("--trace-dir", default=None, metavar="DIR",
                     help="capture a torch.profiler trace of the run into DIR")
-    ap.add_argument("--mesh", default=None, help=_MESH_LATER)
+    ap.add_argument("--mesh", default=None, metavar="DxM",
+                    help="route big buckets onto a device mesh, e.g. '4' or "
+                         "'4x2' (data[xmodel]): that many cards, or virtual "
+                         "CPU shards with --device cpu")
+    ap.add_argument("--shard-min-cells", type=int, default=None,
+                    help="bucket obs_p*vars_p at which solves go obs-sharded "
+                         "(default: PlacementPolicy's 2^21)")
+    ap.add_argument("--rhs-shard-min-k", type=int, default=32,
+                    help="same-design group size at which the k axis shards "
+                         "across the data shards")
     ap.add_argument("--store-device-bytes", type=int, default=None,
                     help="device-tier byte budget of the tiered design "
                          "store (repro_torch.store): eviction demotes "
@@ -253,18 +267,29 @@ def main(argv=None) -> int:
                     default="block")
     args = ap.parse_args(argv)
 
-    if args.mesh is not None:
-        raise SystemExit(_MESH_LATER)
-
     from repro_torch.core import method_names
-    from repro_torch.serve import ServeConfig, SolverServeEngine
+    from repro_torch.serve import (PlacementPolicy, ServeConfig,
+                                   SolverServeEngine, build_serve_mesh)
 
     if args.method not in method_names():
         raise SystemExit(
             f"--method must be one of {method_names()}, got {args.method!r}")
     rng = np.random.default_rng(args.seed)
+    smesh, policy = None, None
+    if args.mesh:
+        try:
+            smesh = build_serve_mesh(args.mesh, device=args.device)
+        except ValueError as exc:
+            raise SystemExit(f"--mesh {args.mesh}: {exc}")
+        defaults = PlacementPolicy()
+        policy = PlacementPolicy(
+            obs_shard_min_cells=(args.shard_min_cells
+                                 if args.shard_min_cells is not None
+                                 else defaults.obs_shard_min_cells),
+            rhs_shard_min_k=args.rhs_shard_min_k)
     engine = SolverServeEngine(
-        ServeConfig(prefer_fused=args.prefer_fused,
+        ServeConfig(placement_policy=policy,
+                    prefer_fused=args.prefer_fused,
                     lane_execution=not args.no_lanes,
                     precision=(args.precision if args.precision != "fp32"
                                else None),
@@ -272,7 +297,7 @@ def main(argv=None) -> int:
                     store_host_bytes=args.store_host_bytes,
                     store_dir=args.store_dir,
                     fault_plan=args.fault_plan),
-        device=args.device)
+        mesh=smesh, device=args.device)
     xs = [rng.normal(size=(args.obs, args.vars)).astype(np.float32)
           for _ in range(args.designs)]
     req_kw = dict(tenants=args.tenants, precision=args.precision,
@@ -314,7 +339,7 @@ def main(argv=None) -> int:
                 extra={"mode": args.mode, "method": args.method,
                        "requests": args.requests, "obs": args.obs,
                        "vars": args.vars, "designs": args.designs,
-                       "device": str(engine.device)})
+                       "device": str(engine.device), "mesh": args.mesh})
             print(f"metrics snapshot written to {args.metrics_json}")
         engine.shutdown()
 

@@ -8,8 +8,11 @@ requests of a batchable method are solved as one batch across designs,
 per-design state lives on ``PreparedDesign`` handles in an LRU cache (a
 view over the tiered ``repro_torch.store.DesignStore`` when
 ``ServeConfig.store_*`` is set), the solves run on execution lanes — a
-thread and a CUDA stream per kernel path — and ``AsyncDispatcher`` puts a
-deadline-aware async front end over the engine.  Every entry point runs on the GPU unless the caller passes
+thread and a CUDA stream per kernel path — an engine built with a device
+mesh routes big buckets and large same-design groups onto the
+mesh-sharded solvers (placements, each on a mesh lane), and
+``AsyncDispatcher`` puts a deadline-aware async front end over the
+engine.  Every entry point runs on the GPU unless the caller passes
 ``device="cpu"``.
 
 Layout:
@@ -18,17 +21,16 @@ Layout:
                fingerprints, deterministic request grouping.
   cache.py     LRU DesignCache of PreparedDesign handles, or a view over
                a DesignStore's device tier.
-  placement.py Placement / PlacementPolicy, single-device (mesh
-               placements raise until the multi-GPU slice).
+  placement.py Placement / PlacementPolicy / ServeMesh — where a bucket
+               solves: single-device, obs-, rhs-sharded or 2-D on a mesh.
   lanes.py     execution lanes — one executor thread and CUDA stream per
-               (device, kernel path), supervised, with a circuit breaker
-               onto a serial fallback lane.
+               (device, kernel path), a stream a distinct card for a mesh
+               lane, supervised, with a circuit breaker onto a serial
+               fallback lane.
   engine.py    SolverServeEngine — submit / serve / flush.
   dispatch.py  AsyncDispatcher — intake queue, dispatch thread (on a CUDA
                stream of its own), flush policy (full / deadline margin /
                idle), backpressure, cancel, drain.
-
-A later slice: mesh placements.
 """
 from repro_torch.core.prepare import PreparedDesign
 from repro_torch.core.spec import SolverSpec, UnsupportedSpecError
@@ -47,6 +49,7 @@ from repro_torch.serve.lanes import (LaneExecutor, LaneKey, LanePool,
                                      LaneWorkerDeath, current_lane, lane_for)
 from repro_torch.serve.placement import (Placement, PlacementPolicy,
                                          ServeMesh, build_serve_mesh,
+                                         mesh_device_count,
                                          placement_for_bucket,
                                          placement_for_group)
 from repro_torch.serve.types import ServedSolve, SolveRequest
@@ -90,6 +93,7 @@ __all__ = [
     "design_fingerprint",
     "group_requests",
     "lane_for",
+    "mesh_device_count",
     "next_pow2",
     "pad_x",
     "pad_y",

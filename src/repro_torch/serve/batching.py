@@ -162,9 +162,9 @@ def request_bucket(req: SolveRequest, *, min_obs: int = 8,
     return bucket_shape(obs, nvars, min_obs=min_obs, min_vars=min_vars)
 
 
-def config_key(req: SolveRequest, bucket: Bucket,
+def config_key(req: SolveRequest, bucket: Bucket, placement=None,
                spec: Optional[SolverSpec] = None) -> Tuple:
-    """Outer grouping key: ``(bucket, method, canonical spec)``.
+    """Outer grouping key: ``(bucket, method, canonical spec[, placement])``.
 
     The canonical spec (``SolverSpec.canonical``) resets every field the
     method's registry entry does not consume, so only knob differences that
@@ -175,16 +175,22 @@ def config_key(req: SolveRequest, bucket: Bucket,
 
     ``spec`` overrides the spec derived from the request — the engine passes
     its effective spec (engine-level omega/ridge applied) so grouping always
-    matches what will actually be solved.  (The JAX key's trailing mesh
-    placement arrives with the port's multi-GPU slice.)
+    matches what will actually be solved.
+
+    ``placement`` (a ``repro_torch.serve.placement.Placement``, or None for
+    the mesh-less engine) trails the key: requests routed to different
+    placements never share a batch even if every solver knob matches.
     """
     spec = spec if spec is not None else req.solver_spec()
-    return (bucket, spec.method, spec.canonical())
+    key: Tuple = (bucket, spec.method, spec.canonical())
+    if placement is not None:
+        key = key + (placement,)
+    return key
 
 
 def group_requests(
     requests: List[SolveRequest], *, min_obs: int = 8, min_vars: int = 8,
-    spec_fn=None,
+    placement_fn=None, spec_fn=None,
 ) -> Dict[Tuple, Dict[str, List[int]]]:
     """Group request indices: (bucket, method-config) → design key → [idx].
 
@@ -194,15 +200,18 @@ def group_requests(
     (or caller-supplied ``design_key``).  Insertion order of both levels
     follows first occurrence in ``requests``.
 
-    ``spec_fn(request) -> SolverSpec`` (optional) supplies the effective
-    spec (the engine passes ``SolverServeEngine.spec_for``) — see
-    ``config_key``.
+    ``placement_fn(bucket, method) -> Placement`` (optional) appends the
+    mesh placement to the outer key; ``spec_fn(request) -> SolverSpec``
+    (optional) supplies the effective spec (the engine passes
+    ``SolverServeEngine.spec_for``) — see ``config_key``.
     """
     groups: Dict[Tuple, Dict[str, List[int]]] = {}
     for i, req in enumerate(requests):
         bucket = request_bucket(req, min_obs=min_obs, min_vars=min_vars)
         spec = spec_fn(req) if spec_fn is not None else req.solver_spec()
+        placement = (placement_fn(bucket, spec.method)
+                     if placement_fn is not None else None)
         key = req.design_key or design_fingerprint(req.x)
-        groups.setdefault(config_key(req, bucket, spec),
+        groups.setdefault(config_key(req, bucket, placement, spec),
                           {}).setdefault(key, []).append(i)
     return groups

@@ -7,8 +7,8 @@ that depends only on ``x`` lives on one ``repro_torch.core.PreparedDesign``
 per design, cached across requests and keyed by the design fingerprint:
 the padded device copy of ``x``, the column norms and their per-``thr``
 layouts, the kernels' transposed and bf16 copies, the block-Gram Cholesky
-factors, and each tenant's last solved coefficients (warm starts),
-LRU-bounded.
+factors, the sharded copies a mesh placement reads, and each tenant's
+last solved coefficients (warm starts), LRU-bounded.
 
 Entries are LRU-evicted so memory is bounded by ``max_entries`` designs.
 The cache-level lock only covers the LRU map; the per-design state has the
@@ -159,7 +159,8 @@ class DesignCache:
 
     def get_or_build(self, key: str, build_x_pad,
                      spec: Optional[SolverSpec] = None,
-                     record_stats: bool = True
+                     record_stats: bool = True,
+                     placement=None, mesh=None
                      ) -> Tuple[PreparedDesign, bool]:
         """Fetch the ``PreparedDesign`` for ``key``, preparing it on miss.
 
@@ -169,8 +170,10 @@ class DesignCache:
         device entirely.  ``spec`` (optional)
         additionally warms the method's derived state (thr-padded norms,
         block-Gram Cholesky, the kernels' transposed / bf16 copies) on hit
-        AND miss, and binds the entry's home placement ("single";
-        ``PreparedDesign.warm_lane_state``).  Returns (entry, cache_hit).
+        AND miss (``PreparedDesign.warm_lane_state``).  ``placement`` /
+        ``mesh`` extend the warm to the placement's sharded copy on the
+        mesh and bind the entry's home placement (first wins).  Returns
+        (entry, cache_hit).
 
         Store-backed: a device-tier miss first tries ``store.promote`` —
         a design climbing back from its host or disk record (warm
@@ -203,7 +206,12 @@ class DesignCache:
                                 max_tenants=self.max_tenants)
                 entry = self.put(key, built)
         if spec is not None:
-            entry.warm_lane_state(spec)
+            entry.warm_lane_state(spec, placement=placement, mesh=mesh)
         else:
-            entry.bind_home()
+            entry.bind_home(placement)
+            if (placement is not None and placement.sharded
+                    and mesh is not None and entry.x_pad is not None):
+                entry.x_for_placement(placement, mesh)
+        if self.store is not None:
+            self.store.refresh_gauges()
         return entry, hit

@@ -73,8 +73,8 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from repro_torch import obs
-from repro_torch.serve.batching import (config_key, pad_x, prepare_request,
-                                        request_bucket)
+from repro_torch.serve.batching import (bucket_shape, config_key, pad_x,
+                                        prepare_request, request_bucket)
 from repro_torch.serve.engine import ServeConfig, SolverServeEngine
 from repro_torch.serve.lanes import LaneKey, LaneWork
 from repro_torch.serve.types import ServedSolve, SolveRequest
@@ -481,8 +481,13 @@ class AsyncDispatcher:
             if shape is None or len(shape) != 2:
                 return None
             eng = self.engine
+            bucket = bucket_shape(int(shape[0]), int(shape[1]),
+                                  min_obs=eng.config.min_obs,
+                                  min_vars=eng.config.min_vars)
             spec = eng.spec_for(req)
-            return eng.lanes.lane_for(spec.method).label
+            placement = eng.placement_for(bucket, spec.method)
+            return eng.lanes.lane_for(spec.method, placement,
+                                      eng.mesh).label
         except Exception:
             return None
 
@@ -589,6 +594,10 @@ class AsyncDispatcher:
         bucket = request_bucket(req, min_obs=ecfg.min_obs,
                                 min_vars=ecfg.min_vars)
         spec = self.engine.spec_for(req)
+        # Placement- and spec-aware key: batches the dispatcher accumulates
+        # line up with the engine's flush grouping, so a sharded bucket's
+        # requests never share a pending batch with single-device ones.
+        placement = self.engine.placement_for(bucket, spec.method)
         if self.config.prewarm_cache:
             try:
                 # record_stats=False: the flush-time lookup is the one cache
@@ -596,21 +605,23 @@ class AsyncDispatcher:
                 # synchronous path ("hit" = design state resident at flush).
                 # Passing the effective spec also warms the method's derived
                 # design state (thr-padded column norms, Cholesky factors,
-                # the kernels' transposed copies) here, overlapping whatever
-                # solves are in flight on the lanes.  On a store-backed
-                # engine this is also the async tier *promotion*: a design
-                # demoted to host/disk climbs back to device here, while
-                # its request still waits in the intake queue.
+                # the kernels' transposed copies) here, and the placement
+                # binds the entry's home lane and builds its sharded copy,
+                # all overlapping whatever solves are in flight on the
+                # lanes.  On a store-backed engine this is also the async
+                # tier *promotion*: a design demoted to host/disk climbs
+                # back to device here, while its request still waits in
+                # the intake queue.
                 self.engine.cache.get_or_build(
                     req.design_key, lambda: pad_x(req.x, bucket),
-                    spec=spec, record_stats=False)
+                    spec=spec, record_stats=False, placement=placement,
+                    mesh=self.engine.mesh)
             except Exception:
                 pass  # engine flush will surface the failure per-request
-        # Spec-aware key: batches the dispatcher accumulates line up with
-        # the engine's flush grouping.
         batch = self._pending.setdefault(
-            config_key(req, bucket, spec),
-            _PendingBatch(lane=self.engine.lanes.lane_for(spec.method)))
+            config_key(req, bucket, placement, spec),
+            _PendingBatch(lane=self.engine.lanes.lane_for(
+                spec.method, placement, self.engine.mesh)))
         batch.tickets.append(ticket)
         batch.last_join = obs.now()
 

@@ -27,10 +27,20 @@ device (the card by default):
   5. **Warm starts** — a request may carry ``a0``, or name a ``tenant_id``
      whose last coefficients the design cache retained.  Cold members of
      a coalesced group ride a zero column of the stacked ``a0``.
-  6. **Execution lanes** — ``flush()`` groups, resolves design entries and
+  6. **Mesh placement** — an engine constructed with a ``ServeMesh`` routes
+     buckets onto the mesh-sharded SolveBakP backends
+     (``repro_torch.serve.placement``, ``repro_torch.core.distributed``):
+     big buckets shard rows over the data axes (``obs_sharded``), large
+     same-design multi-RHS groups shard the k axis instead
+     (``rhs_sharded``), and opted-in pod-scale buckets go 2-D.  The
+     placement is part of the grouping key; the batch across designs stays
+     single-device, so sharded buckets solve their leftovers one by one.
+  7. **Execution lanes** — ``flush()`` groups, resolves design entries and
      routes each batch to its lane (``repro_torch.serve.lanes``: a thread
      and a CUDA stream per kernel path — the plain torch family, the
-     whole-solve kernels, the streaming kernel), then waits for all units.
+     whole-solve kernels, the streaming kernel — and a mesh lane per
+     sharded placement, with a stream a distinct card of its mesh), then
+     waits for all units.
      Batches on different lanes overlap on the card; batches on one lane
      keep their submission order, so results match the serial engine
      (``ServeConfig.lane_execution=False``: one lane, one stream) bit for
@@ -48,9 +58,7 @@ an error result and the remaining batches still run.  A CUDA kernel that
 fails to build or launch (``kernels._build.KernelError``) fails its batch
 at once: the ladder never serves such a request on a plain rung.
 
-Not in this slice: mesh placements (``mesh=`` raises
-``UnsupportedSpecError`` naming the multi-GPU slice).  The async front end
-is ``repro_torch.serve.dispatch.AsyncDispatcher``.
+The async front end is ``repro_torch.serve.dispatch.AsyncDispatcher``.
 
 Example::
 
@@ -64,6 +72,7 @@ from __future__ import annotations
 
 import functools
 import itertools
+import logging
 import math
 import threading
 import time
@@ -75,8 +84,7 @@ import torch
 
 from repro_torch import obs
 from repro_torch.core.prepare import PreparedDesign, resolve_device
-from repro_torch.core.spec import (SolverSpec, UnsupportedSpecError,
-                                   solver_method)
+from repro_torch.core.spec import SolverSpec, solver_method
 from repro_torch.kernels._build import KernelError
 from repro_torch.kernels.fused_solve import fused_fits
 from repro_torch.resilience import faults, ladder
@@ -84,7 +92,11 @@ from repro_torch.serve.batching import (design_fingerprint, group_requests,
                                         next_pow2, pad_x, pad_y,
                                         prepare_request, request_bucket)
 from repro_torch.serve.cache import DesignCache
+from repro_torch.launch.mesh import Mesh
 from repro_torch.serve.lanes import LaneKey, LanePool, LaneWork, current_lane
+from repro_torch.serve.placement import (Placement, PlacementPolicy,
+                                         ServeMesh, placement_for_bucket,
+                                         placement_for_group)
 from repro_torch.serve.types import ServedSolve, SolveRequest
 from repro_torch.store.store import DesignStore, TileCorruptionError
 
@@ -95,13 +107,13 @@ from repro_torch.store.store import DesignStore, TileCorruptionError
 _STREAM_REROUTE = frozenset(
     {"bak", "bakp", "bakp_gram", "bakp_fused", "bak_fused"})
 
+_log = logging.getLogger(__name__)
+
 
 @dataclass
 class ServeConfig:
     """Engine-level knobs (per-request solver knobs live on SolveRequest);
-    the JAX engine's fields and defaults, less the mesh placement's
-    (``placement_policy``, ``omega_2d``), which arrive with the multi-GPU
-    slice."""
+    the JAX engine's fields and defaults."""
 
     omega: float = 1.0
     ridge: float = 1e-6
@@ -116,7 +128,12 @@ class ServeConfig:
     prefer_fused: bool = False   # upgrade "bakp" requests to the
     # whole-solve kernel ("bakp_fused") when the bucket fits the card's
     # on-chip budget (kernels.fused_solve.fused_fits): same algorithm and
-    # results, one launch a solve, no batching across designs.
+    # results, one launch a solve, no batching across designs.  A no-op on
+    # a mesh engine (the kernel is single-device; counted as
+    # solver_fallback_total{reason="unshardable_fused"}).
+    placement_policy: Optional[PlacementPolicy] = None  # None → defaults
+    omega_2d: float = 0.5        # damping for the 2-D mesh placement (its
+    # cross-shard Jacobi block is model-size·thr wide)
     precision: Optional[str] = None  # engine-level X-stream precision policy
     # ("bf16"/"bf16_fp32acc"): applied to legacy per-field requests exactly
     # like omega/ridge (an explicit SolveRequest.spec stays authoritative).
@@ -167,7 +184,7 @@ class ServeStats:
     single_solves: int = 0
     warm_starts: int = 0
     failures: int = 0
-    sharded_solves: int = 0      # always 0 until the multi-GPU slice
+    sharded_solves: int = 0      # solver calls routed to a mesh placement
     retries: int = 0             # retry-ladder steps taken (all reasons)
 
     def as_dict(self) -> dict:
@@ -184,10 +201,15 @@ def _host(v) -> np.ndarray:
 class SolverServeEngine:
     """Multi-tenant batched serving front-end for the BAK solver family.
 
-    ``device``: where designs and solves live — default ``"cuda"``
-    (``core.prepare.resolve_device``: raises without a GPU); pass
-    ``device="cpu"`` for the plain torch path.  ``mesh`` must be None (mesh
-    placements arrive with the multi-GPU slice).
+    ``device``: where designs and single-device solves live — default
+    ``"cuda"`` (``core.prepare.resolve_device``: raises without a GPU), or
+    the mesh's first device when there is a mesh; pass ``device="cpu"`` for
+    the plain torch path.  ``mesh`` (optional) is a
+    ``repro_torch.serve.placement.ServeMesh`` or a raw
+    ``repro_torch.launch.mesh.Mesh`` (wrapped with a ``"model"`` axis as
+    the model axis and the others as data); with one, the placement policy
+    routes big buckets and groups onto the mesh-sharded solvers.  Anything
+    else raises ``TypeError``.
     """
 
     def __init__(self, config: Optional[ServeConfig] = None, mesh=None,
@@ -195,10 +217,19 @@ class SolverServeEngine:
                  device=None):
         self.config = config or ServeConfig()
         cfg = self.config
-        if mesh is not None:
-            raise UnsupportedSpecError(
-                "mesh placements arrive with the PyTorch port's multi-GPU "
-                "slice; the port's engine serves on one device")
+        if isinstance(mesh, Mesh):
+            axes = tuple(mesh.axis_names)
+            model = "model" if "model" in axes and len(axes) > 1 else None
+            data = tuple(a for a in axes if a != model)
+            mesh = ServeMesh(mesh=mesh, data_axes=data, model_axis=model)
+        elif mesh is not None and not isinstance(mesh, ServeMesh):
+            raise TypeError(
+                f"mesh must be a ServeMesh or a repro_torch.launch.mesh.Mesh, "
+                f"got {type(mesh).__name__}")
+        self.mesh: Optional[ServeMesh] = mesh
+        self.policy = cfg.placement_policy or PlacementPolicy()
+        if device is None and mesh is not None:
+            device = mesh.mesh.devices.flat[0]
         self.device = resolve_device(device)
         # One registry for the whole serving stack: the cache and the
         # lanes record into this same instance.
@@ -264,6 +295,14 @@ class SolverServeEngine:
         self._c_solve: dict = {}
         self._pending: List[SolveRequest] = []
         self._seq = itertools.count()
+        self._warned_unshardable_fused = False
+
+    def placement_for(self, bucket, method: str) -> Optional[Placement]:
+        """Bucket-level placement (None when the engine has no mesh, so
+        mesh-less grouping keys stay the single-device ones)."""
+        if self.mesh is None:
+            return None
+        return placement_for_bucket(bucket, method, self.policy, self.mesh)
 
     def spec_for(self, req: SolveRequest, *, record: bool = False
                  ) -> SolverSpec:
@@ -279,8 +318,12 @@ class SolverServeEngine:
         resident-only path.  ``prefer_fused`` upgrades ``"bakp"`` to
         ``"bakp_fused"`` where the bucket fits the card's on-chip budget
         at nrhs 1 (``fused_fits``; the method re-checks with the real
-        coalesced k and falls back itself).  A precision the effective
-        method cannot run downgrades to "fp32", counting
+        coalesced k and falls back itself); on a mesh engine it does
+        nothing (the kernel is single-device and the upgrade would defeat
+        sharded placement) and counts
+        ``solver_fallback_total{reason="unshardable_fused"}`` under
+        ``record=True``, logging a warning once per engine.  A precision
+        the effective method cannot run downgrades to "fp32", counting
         ``solver_fallback_total{reason="precision"}`` under
         ``record=True`` (the once-per-request grouping pass).
         """
@@ -305,12 +348,25 @@ class SolverServeEngine:
         itemsize = 2 if spec.precision != "fp32" else 4
         if (self.config.prefer_fused and spec.method == "bakp"
                 and spec.max_iter >= 1):
-            bucket = request_bucket(req, min_obs=self.config.min_obs,
-                                    min_vars=self.config.min_vars)
-            vars_pb = -(-bucket[1] // spec.thr) * spec.thr
-            if fused_fits(vars_pb, bucket[0], 1, itemsize,
-                          max_iter=spec.max_iter):
-                spec = spec.replace(method="bakp_fused")
+            if self.mesh is not None:
+                if record:
+                    self._m_fallback.inc(1, method="bakp_fused",
+                                         reason="unshardable_fused")
+                    if not self._warned_unshardable_fused:
+                        self._warned_unshardable_fused = True
+                        _log.warning(
+                            "prefer_fused is a no-op on this mesh engine: "
+                            "the whole-solve kernel is single-device, so "
+                            "'bakp' requests keep their sharded-eligible "
+                            "method (counted as solver_fallback_total"
+                            "{reason=\"unshardable_fused\"})")
+            else:
+                bucket = request_bucket(req, min_obs=self.config.min_obs,
+                                        min_vars=self.config.min_vars)
+                vars_pb = -(-bucket[1] // spec.thr) * spec.thr
+                if fused_fits(vars_pb, bucket[0], 1, itemsize,
+                              max_iter=spec.max_iter):
+                    spec = spec.replace(method="bakp_fused")
         if (spec.precision != "fp32"
                 and spec.precision not in
                 solver_method(spec.method).precisions):
@@ -383,30 +439,43 @@ class SolverServeEngine:
         with obs.span("engine.group"):
             groups = group_requests(
                 requests, min_obs=cfg.min_obs, min_vars=cfg.min_vars,
+                placement_fn=self.placement_for,
                 spec_fn=lambda r: self.spec_for(r, record=True))
         for outer, designs in groups.items():
             bucket = outer[0]
             method = outer[1]
             mentry = solver_method(method)
+            placement = self.placement_for(bucket, method)
             singles = []  # (idx, entry, cache_hit, design_key)
             for key, idxs in designs.items():
                 try:
                     entry, hit = self._design_entry(
                         key, requests[idxs[0]], bucket,
-                        self.spec_for(requests[idxs[0]]))
+                        self.spec_for(requests[idxs[0]]), placement)
                 except Exception as exc:  # bad design: fail just this group
                     self._fail(requests, idxs, bucket, exc, results)
                     continue
                 if cfg.coalesce and len(idxs) > 1 and mentry.multi_rhs:
-                    unit(self.lanes.lane_for(method), idxs, bucket,
-                         len(idxs),
+                    # The k-sharded group upgrade is decided here (k is
+                    # known after coalescing), so the unit routes to its
+                    # real lane, not the bucket's.
+                    gplacement = placement
+                    if self.mesh is not None and mentry.shardable:
+                        gplacement = placement_for_group(
+                            placement or Placement(), next_pow2(len(idxs)),
+                            self.policy, self.mesh)
+                    unit(self.lanes.lane_for(method, gplacement, self.mesh),
+                         idxs, bucket, len(idxs),
                          functools.partial(self._solve_multi_rhs, requests,
                                            idxs, entry, hit, bucket,
-                                           results, key))
+                                           results, gplacement, key))
                 else:
                     singles.extend((i, entry, hit, key) for i in idxs)
+            # The batch across designs is single-device; sharded buckets
+            # solve their leftovers one by one.
             use_vmap = (cfg.vmap_batch and len(singles) > 1
-                        and mentry.batchable)
+                        and mentry.batchable
+                        and (placement is None or not placement.sharded))
             if use_vmap:
                 for lo in range(0, len(singles), cfg.max_vmap_batch):
                     chunk = singles[lo:lo + cfg.max_vmap_batch]
@@ -419,16 +488,19 @@ class SolverServeEngine:
                                                results))
                     else:
                         idx, entry, hit, key = chunk[0]
-                        unit(self.lanes.lane_for(method), [idx], bucket, 1,
+                        unit(self.lanes.lane_for(method, placement,
+                                                 self.mesh),
+                             [idx], bucket, 1,
                              functools.partial(self._solve_one, requests,
                                                idx, entry, hit, bucket,
-                                               results, key))
+                                               results, placement, key))
             else:
                 for idx, entry, hit, key in singles:
-                    unit(self.lanes.lane_for(method), [idx], bucket, 1,
+                    unit(self.lanes.lane_for(method, placement, self.mesh),
+                         [idx], bucket, 1,
                          functools.partial(self._solve_one, requests, idx,
                                            entry, hit, bucket, results,
-                                           key))
+                                           placement, key))
         self._run_units(units, requests, results)
         assert all(r is not None for r in results)
         return results
@@ -463,12 +535,14 @@ class SolverServeEngine:
         self.lanes.shutdown(drain=drain)
 
     # ---------------------------------------------------------- internals
-    def _design_entry(self, key, req, bucket, spec=None):
+    def _design_entry(self, key, req, bucket, spec=None, placement=None):
         """The design's cached handle, built (pad, copy to the device) on
-        a miss and warmed for ``spec`` on this thread."""
+        a miss and warmed for ``spec`` — and a sharded ``placement``'s copy
+        on the engine's mesh — on this thread."""
         with obs.span("engine.design", key=key) as sp:
             entry, hit = self.cache.get_or_build(
-                key, lambda: pad_x(req.x, bucket), spec=spec)
+                key, lambda: pad_x(req.x, bucket), spec=spec,
+                placement=placement, mesh=self.mesh)
             if sp is not None:
                 sp.tags["hit"] = hit
             return entry, hit
@@ -544,14 +618,28 @@ class SolverServeEngine:
         return atol * math.sqrt(n_real / n_padded)
 
     def _call_solver(self, spec: SolverSpec, entry: PreparedDesign, y,
-                     atol: float, a0=None):
+                     atol: float, a0=None, placement=None):
         """One (possibly multi-RHS) solve on the prepared design, with the
-        padding-corrected ``atol`` (``spec.atol`` itself must not be used).
-        ``y`` / ``a0`` are host arrays; the handle copies them to the
-        device on the lane's stream."""
+        padding-corrected ``atol`` (``spec.atol`` itself must not be used)
+        and, on a 2-D mesh placement, the engine's ``omega_2d``.  ``y`` /
+        ``a0`` are host arrays; the handle copies them to the device on the
+        lane's stream."""
         eff = spec.replace(atol=atol)
+        if placement is not None and placement.kind == "mesh_2d":
+            eff = eff.replace(omega=self.config.omega_2d)
         with obs.profile_region(f"solve/{eff.method}"):
-            return entry.solve(y, a0, spec=eff)
+            return entry.solve(y, a0, spec=eff, placement=placement,
+                               mesh=self.mesh)
+
+    def _sync(self, entry: PreparedDesign, placement) -> None:
+        """Wait for a solve's device work: the entry's device, or every
+        distinct device of the mesh for a sharded placement."""
+        if (placement is not None and placement.sharded
+                and self.mesh is not None):
+            for d in self.mesh.mesh.distinct_devices():
+                obs.sync_device(d)
+        else:
+            obs.sync_device(entry.device)
 
     # ------------------------------------------------------- retry ladder
     @staticmethod
@@ -603,33 +691,37 @@ class SolverServeEngine:
         return True
 
     def _attempt_solve(self, spec: SolverSpec, entry, y, atol: float, a0,
-                       *, deadline_at: Optional[float] = None,
+                       placement=None, *,
+                       deadline_at: Optional[float] = None,
                        rebuild=None, sse0: Optional[float] = None,
                        need_multi: bool = False):
         """One solve with the retry/degradation ladder wrapped around it
         (the JAX engine's order: store corruption → rebuild and retry the
         same rung; a warm start present → cold retry on the same rung;
         reduced precision → fp32; then ``MethodEntry.fallback`` hops,
-        skipping rungs the entry/batch cannot run).  Bounded by
-        ``max_retries``, ``deadline_at`` and the ladder floor; each step
-        sleeps a jittered backoff and counts
+        skipping rungs the entry/batch cannot run; a method change drops
+        the mesh placement, since the fallback may not be shardable).
+        Bounded by ``max_retries``, ``deadline_at`` and the ladder floor;
+        each step sleeps a jittered backoff and counts
         ``solver_retries_total{reason,from_path,to_path}``.  A solve is
         complete on the device before it is judged (``obs.sync_device``
-        on the lane's stream).  ``KernelError`` (a CUDA kernel that failed
-        to build or launch) is raised at once, never retried.
+        on the lane's streams).  ``KernelError`` (a CUDA kernel that
+        failed to build or launch) is raised at once, never retried.
 
-        Returns ``(res, spec, entry, retries, diverged, a0_used)``.
+        Returns ``(res, spec, entry, placement, retries, diverged,
+        a0_used)``.
         """
         cfg = self.config
-        cur, cur_entry, cur_a0 = spec, entry, a0
+        cur, cur_entry, cur_a0, cur_place = spec, entry, a0, placement
         retries = 0
         while True:
             exc = None
             res = None
             try:
                 faults.maybe_raise("solver.raise", cur.method)
-                res = self._call_solver(cur, cur_entry, y, atol, a0=cur_a0)
-                obs.sync_device(cur_entry.device)
+                res = self._call_solver(cur, cur_entry, y, atol, a0=cur_a0,
+                                        placement=cur_place)
+                self._sync(cur_entry, cur_place)
             except KernelError:
                 raise  # a broken kernel is a fault, not a rung to step past
             except Exception as e:
@@ -639,14 +731,16 @@ class SolverServeEngine:
                       is not None)
             diverged = forced or (exc is None and self._diverged(res, sse0))
             if exc is None and not diverged:
-                return (res, cur, cur_entry, retries, False, cur_a0)
+                return (res, cur, cur_entry, cur_place, retries, False,
+                        cur_a0)
             out_of_time = (deadline_at is not None
                            and obs.now() >= deadline_at)
             if (not cfg.retry_ladder or retries >= cfg.max_retries
                     or out_of_time):
                 if exc is not None:
                     raise exc
-                return (res, cur, cur_entry, retries, True, cur_a0)
+                return (res, cur, cur_entry, cur_place, retries, True,
+                        cur_a0)
             frm = self._rung_label(cur, cur_a0 is not None)
             if (exc is not None and self._is_corruption(exc)
                     and rebuild is not None):
@@ -667,7 +761,10 @@ class SolverServeEngine:
                 if nxt is None:  # ladder floor reached
                     if exc is not None:
                         raise exc
-                    return (res, cur, cur_entry, retries, True, cur_a0)
+                    return (res, cur, cur_entry, cur_place, retries, True,
+                            cur_a0)
+                if nxt.method != cur.method:
+                    cur_place = None  # the fallback may not be shardable
             retries += 1
             self._m_retries.inc(1, reason=reason, from_path=frm,
                                 to_path=self._rung_label(
@@ -681,21 +778,27 @@ class SolverServeEngine:
                 time.sleep(delay)
             cur = nxt
 
-    def _record_solve(self, spec: SolverSpec, kind: str,
+    def _record_solve(self, spec: SolverSpec, placement, kind: str,
                       group_size: int, dt: float, path=None) -> str:
         """Record one solver call's metrics; returns the kernel path that
         actually executed (off the dispatch relay, or ``path``)."""
         if path is None:
-            path = obs.consume_dispatch("xla")
+            path = obs.consume_dispatch(
+                "sharded" if placement is not None and placement.sharded
+                else "xla")
         if obs.enabled():
+            placement_kind = (placement.kind if placement is not None
+                              else "single")
             lk = current_lane()
             lane = lk.label if lk is not None else "inline"
-            ck = (kind, spec.method, path, spec.precision, lane)
+            ck = (kind, spec.method, path, placement_kind, spec.precision,
+                  lane)
             bound = self._c_solve.get(ck)
             if bound is None:
                 bound = self._c_solve[ck] = (
                     self._m_solves.labels(kind=kind, method=spec.method,
-                                          path=path, placement="single"),
+                                          path=path,
+                                          placement=placement_kind),
                     self._m_latency.labels(kind=kind, method=spec.method,
                                            path=path,
                                            precision=spec.precision,
@@ -721,7 +824,7 @@ class SolverServeEngine:
 
     def _strip(self, req: SolveRequest, coef, residual, *, bucket, kind,
                group_size, latency, hit, n_sweeps, converged,
-               warm=False, method="", path="xla",
+               warm=False, placement=None, method="", path="xla",
                retries=0) -> ServedSolve:
         """One request's result with the padding stripped (``coef`` /
         ``residual`` are host arrays)."""
@@ -734,6 +837,7 @@ class SolverServeEngine:
         sse = float(np.dot(residual, residual))
         n_sweeps = int(n_sweeps)
         converged = bool(converged)
+        placement_kind = placement.kind if placement is not None else "single"
         lk = current_lane()
         lane = lk.label if lk is not None else "inline"
         tel = None
@@ -753,7 +857,7 @@ class SolverServeEngine:
             tel = obs.SolveTelemetry(
                 request_id=req.request_id, tenant_id=req.tenant_id,
                 bucket=bucket, method=method or req.method,
-                kernel_path=path, placement="single", lane=lane,
+                kernel_path=path, placement=placement_kind, lane=lane,
                 batch_kind=kind,
                 group_size=group_size, batch_size=group_size,
                 warm_start=warm, cache_hit=hit, n_sweeps=n_sweeps, sse=sse,
@@ -771,16 +875,18 @@ class SolverServeEngine:
             latency_s=latency,
             cache_hit=hit,
             warm_start=warm,
-            placement="single",
+            placement=placement_kind,
             retries=retries,
             telemetry=tel,
         )
 
     def _solve_multi_rhs(self, requests, idxs, entry, hit, bucket, results,
-                         key=None):
+                         placement=None, key=None):
         """Coalesce same-design requests into one (obs, k_pad) solve; warm
         and cold members coalesce (cold columns of the stacked ``a0`` are
-        zero, identical to those members' cold path)."""
+        zero, identical to those members' cold path).  ``placement`` is
+        final here (``_flush`` decided the k-sharded group upgrade), except
+        that the retry ladder drops it when a rung changes the method."""
         obs_p, vars_p = bucket
         k = len(idxs)
         k_pad = next_pow2(k)
@@ -812,18 +918,18 @@ class SolverServeEngine:
         rebuild = None
         if key is not None:
             rebuild = lambda: self._design_entry(  # noqa: E731
-                key, req0, bucket, spec)[0]
+                key, req0, bucket, spec, placement)[0]
         lane = current_lane()
         with obs.span("engine.solve", kind="multi_rhs", method=spec.method,
                       lane=lane.label if lane is not None else "inline"):
             t0 = obs.now()
-            res, fspec, fentry, retries, diverged, a0_used = \
+            res, fspec, fentry, fplace, retries, diverged, a0_used = \
                 self._attempt_solve(
-                    spec, entry, ys, atol, a0_mat,
+                    spec, entry, ys, atol, a0_mat, placement,
                     deadline_at=min(deadlines) if deadlines else None,
                     rebuild=rebuild, sse0=sse0, need_multi=True)
             dt = obs.now() - t0
-        path = self._record_solve(fspec, "multi_rhs", k, dt)
+        path = self._record_solve(fspec, fplace, "multi_rhs", k, dt)
         with obs.span("engine.strip", kind="multi_rhs", k=k):
             coef = _host(res.coef)
             resid = _host(res.residual)
@@ -836,11 +942,14 @@ class SolverServeEngine:
                     kind="multi_rhs", group_size=k, latency=dt, hit=hit,
                     n_sweeps=n_sweeps, converged=converged,
                     warm=a0_used is not None and a0s[c] is not None,
-                    method=fspec.method, path=path, retries=retries)
+                    placement=fplace, method=fspec.method, path=path,
+                    retries=retries)
         with self._stats_lock:
             self.stats.solver_calls += 1
             self.stats.multi_rhs_groups += 1
             self.stats.multi_rhs_requests += k
+            if fplace is not None and fplace.sharded:
+                self.stats.sharded_solves += 1
 
     def _solve_vmapped(self, requests, singles, bucket, results):
         """Stack same-bucket single-design requests into one batch solve.
@@ -929,7 +1038,7 @@ class SolverServeEngine:
         # The batch solve runs the plain solvers' batch form, not the
         # dispatch shims: its path is "vmap" by construction.
         obs.consume_dispatch()
-        path = self._record_solve(spec, "vmap", b, dt, path="vmap")
+        path = self._record_solve(spec, None, "vmap", b, dt, path="vmap")
         with obs.span("engine.strip", kind="vmap", b=b):
             coef = _host(res.coef)
             resid = _host(res.residual)
@@ -961,7 +1070,7 @@ class SolverServeEngine:
             self.stats.vmap_requests += b
 
     def _solve_one(self, requests, idx, entry, hit, bucket, results,
-                   key=None):
+                   placement=None, key=None):
         req = requests[idx]
         spec = self.spec_for(req)
         with obs.span("engine.pad", kind="single", k=1):
@@ -977,18 +1086,19 @@ class SolverServeEngine:
         rebuild = None
         if key is not None:
             rebuild = lambda: self._design_entry(  # noqa: E731
-                key, req, bucket, spec)[0]
+                key, req, bucket, spec, placement)[0]
         lane = current_lane()
         with obs.span("engine.solve", kind="single", method=spec.method,
                       lane=lane.label if lane is not None else "inline"):
             t0 = obs.now()
-            res, fspec, fentry, retries, diverged, a0_used = \
+            res, fspec, fentry, fplace, retries, diverged, a0_used = \
                 self._attempt_solve(spec, entry, y_pad, atol, a0_pad,
+                                    placement,
                                     deadline_at=req.deadline_at,
                                     rebuild=rebuild,
                                     sse0=float(np.dot(y_real, y_real)))
             dt = obs.now() - t0
-        path = self._record_solve(fspec, "single", 1, dt)
+        path = self._record_solve(fspec, fplace, "single", 1, dt)
         with obs.span("engine.strip", kind="single", k=1):
             if not diverged:
                 self._retain(fentry, [req], res.coef[:, None])
@@ -996,8 +1106,10 @@ class SolverServeEngine:
                 req, _host(res.coef), _host(res.residual), bucket=bucket,
                 kind="single", group_size=1, latency=dt, hit=hit,
                 n_sweeps=int(res.n_sweeps), converged=bool(res.converged),
-                warm=a0_used is not None,
+                warm=a0_used is not None, placement=fplace,
                 method=fspec.method, path=path, retries=retries)
         with self._stats_lock:
             self.stats.solver_calls += 1
             self.stats.single_solves += 1
+            if fplace is not None and fplace.sharded:
+                self.stats.sharded_solves += 1

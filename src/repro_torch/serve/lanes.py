@@ -16,10 +16,11 @@ on the device too.
 Routing is one table lookup (``lane_for``): a method lands on its
 registry-declared single-device lane (``MethodEntry.lane`` — "xla" for
 the plain torch family, "fused" for the whole-solve CUDA kernels,
-"stream" for ``"bakp_stream"``) on the engine's device.
-``Placement.lane_key`` supplies the kind half of the identity;
-``LaneKey.devices`` the device half.  Sharded placements (mesh lanes)
-arrive with the multi-GPU slice.
+"stream" for ``"bakp_stream"``) on the engine's device; a sharded
+placement with a mesh lands on its mesh lane (``"mesh:<kind>"``), which
+owns the mesh's whole device set and one CUDA stream per distinct card of
+it, all current on its thread.  ``Placement.lane_key`` supplies the kind
+half of the identity; ``LaneKey.devices`` the device half.
 
 Concurrency contract:
 
@@ -55,6 +56,7 @@ forever, the fallback of last resort).
 """
 from __future__ import annotations
 
+import contextlib
 import heapq
 import random
 import threading
@@ -65,9 +67,8 @@ from typing import Callable, Dict, List, Optional, Tuple
 import torch
 
 from repro_torch import obs
-from repro_torch.core.spec import UnsupportedSpecError
 from repro_torch.resilience import faults
-from repro_torch.serve.placement import Placement
+from repro_torch.serve.placement import Placement, ServeMesh
 
 _SINGLE = Placement()
 
@@ -81,9 +82,10 @@ def _device_ids(device=None) -> Tuple[str, ...]:
 @dataclass(frozen=True)
 class LaneKey:
     """Identity of one execution lane: the placement/kernel-path kind
-    (``Placement.lane_key`` string, e.g. ``"single:xla"``, ``"single:fused"``)
-    plus the device it owns (``("cuda:0",)``).  Frozen/hashable: keys the
-    pool's executor map and the per-lane metric labels."""
+    (``Placement.lane_key`` string, e.g. ``"single:xla"``, ``"single:fused"``,
+    ``"mesh:obs_sharded"``) plus the devices it owns (``("cuda:0",)``, or a
+    mesh's ``device_ids()``).  Frozen/hashable: keys the pool's executor
+    map and the per-lane metric labels."""
 
     label: str
     devices: Tuple[str, ...] = ()
@@ -94,15 +96,13 @@ SERIAL_LANE = LaneKey("serial", ())
 
 
 def lane_for(method: str, placement: Optional[Placement] = None,
-             device=None) -> LaneKey:
-    """spec→lane routing: one registry/placement table lookup.  Methods
+             device=None, smesh: Optional[ServeMesh] = None) -> LaneKey:
+    """spec→lane routing: one registry/placement table lookup.  A sharded
+    placement with a mesh owns the mesh's device set; methods otherwise
     land on ``device`` (default ``"cuda"``) under their registry
-    ``MethodEntry.lane`` kind; a sharded placement raises until the
-    multi-GPU slice."""
-    if placement is not None and placement.sharded:
-        raise UnsupportedSpecError(
-            f"placement {placement.kind!r} needs a mesh lane, which arrives "
-            f"with the PyTorch port's multi-GPU slice")
+    ``MethodEntry.lane`` kind."""
+    if placement is not None and placement.sharded and smesh is not None:
+        return LaneKey(placement.lane_key(method), smesh.mesh.device_ids())
     return LaneKey((placement or _SINGLE).lane_key(method),
                    _device_ids(device))
 
@@ -186,7 +186,9 @@ def current_lane() -> Optional[LaneKey]:
 
 class LaneExecutor:
     """One lane: a supervised daemon thread draining a most-urgent-first
-    work heap, on its own CUDA stream when ``device`` is a GPU.
+    work heap, with a CUDA stream of its own on each distinct card of
+    ``devices`` (one for a single-device lane, the mesh's for a mesh lane),
+    all current on the lane's thread.
 
     Supervision knobs (instance attributes, patchable in tests):
     ``max_restarts`` — consecutive crashes before the circuit breaker
@@ -202,14 +204,17 @@ class LaneExecutor:
 
     def __init__(self, key: LaneKey,
                  registry: Optional[obs.MetricsRegistry] = None,
-                 max_restarts: Optional[int] = None, device=None):
+                 max_restarts: Optional[int] = None, devices=()):
         self.key = key
-        self.device = None if device is None else torch.device(device)
-        #: The lane's CUDA stream (None off the GPU); every worker thread
-        #: of this lane, restarts included, runs inside it.
-        self.stream = (torch.cuda.Stream(device=self.device)
-                       if self.device is not None
-                       and self.device.type == "cuda" else None)
+        devs = list(dict.fromkeys(torch.device(d) for d in devices
+                                  if d is not None))
+        self.device = devs[0] if devs else None
+        #: The lane's CUDA streams, one a distinct card (none off the GPU);
+        #: every worker thread of this lane, restarts included, runs inside
+        #: them.  ``stream`` is the first card's.
+        self.streams = [torch.cuda.Stream(device=d) for d in devs
+                        if d.type == "cuda"]
+        self.stream = self.streams[0] if self.streams else None
         self.stats = LaneStats()
         if max_restarts is not None:
             self.max_restarts = int(max_restarts)
@@ -287,12 +292,12 @@ class LaneExecutor:
         """
         _lane_local.current = self.key
         try:
-            if self.stream is None:
+            with contextlib.ExitStack() as ctx:
+                if self.streams:
+                    ctx.enter_context(torch.cuda.device(self.stream.device))
+                for s in self.streams:
+                    ctx.enter_context(torch.cuda.stream(s))
                 self._loop()
-            else:
-                with torch.cuda.device(self.device), \
-                        torch.cuda.stream(self.stream):
-                    self._loop()
             return
         except BaseException as exc:
             if not self._handle_crash(exc):
@@ -447,8 +452,9 @@ class LaneExecutor:
 class LanePool:
     """Lazily-created ``LaneExecutor`` map, keyed by ``LaneKey``.
 
-    ``device`` is the engine's device: its lanes run on it, each on a CUDA
-    stream of its own when it is a GPU (None: plain threads, no device).
+    ``device`` is the engine's device: its single-device lanes run on it,
+    each on a CUDA stream of its own when it is a GPU (None: plain threads,
+    no device); a mesh lane runs on its key's devices.
     ``serial=True`` collapses every key to ``SERIAL_LANE`` — one executor
     thread and one stream for everything
     (``ServeConfig.lane_execution=False``).
@@ -472,19 +478,20 @@ class LanePool:
         self._lanes: Dict[LaneKey, LaneExecutor] = {}
 
     # ----------------------------------------------------------- routing
-    def lane_for(self, method: str,
-                 placement: Optional[Placement] = None) -> LaneKey:
+    def lane_for(self, method: str, placement: Optional[Placement] = None,
+                 smesh: Optional[ServeMesh] = None) -> LaneKey:
         if self.serial:
             return SERIAL_LANE
-        return lane_for(method, placement, self.device)
+        return lane_for(method, placement, self.device, smesh)
 
     def executor(self, key: LaneKey) -> LaneExecutor:
         with self._lock:
             ex = self._lanes.get(key)
             if ex is None:
+                mesh_lane = key.label.startswith("mesh:") and key.devices
                 ex = self._lanes[key] = LaneExecutor(
                     key, self.registry, max_restarts=self.max_restarts,
-                    device=self.device)
+                    devices=key.devices if mesh_lane else [self.device])
                 if key != SERIAL_LANE:
                     ex.on_trip = self._reroute_serial
             return ex

@@ -114,7 +114,8 @@ class ServedSolve:
     whole flush — check ``ok`` before trusting ``coef``.
 
     ``placement`` records which backend the solve ran on: "single" (one
-    device) — the only placement until the port's multi-GPU slice.
+    device), "obs_sharded", "rhs_sharded" or "mesh_2d" (a mesh engine's
+    sharded solvers).
 
     ``retries`` counts the retry-ladder steps the solve took before this
     result (``repro_torch.resilience``): 0 = first attempt; the ``batch_kind``/

@@ -9,7 +9,8 @@ holds is bounded by disk, not by the card's memory.
 Tiers, hottest first:
 
   * **device** — a ``PreparedDesign`` with ``x_pad`` (and its lazily built
-    ``x_t_for`` / ``x_bf16_for`` copies) on the card.  Bounded by
+    ``x_t_for`` / ``x_bf16_for`` copies and mesh-sharded copies,
+    ``x_for_placement``) on the card.  Bounded by
     ``device_bytes`` (storage bytes, ``_entry_device_bytes``) and
     ``max_entries``.
   * **host** — a ``HostDesign`` record in host memory: the per-thr
@@ -76,8 +77,10 @@ record and any streaming handle are dropped, and a state-only stub keeps
 the warm coefficients, Cholesky factors and norms, so the next ``build``
 from the request's design restores the tenants' state.
 
-Mesh copies (the JAX store's sharded layouts) arrive with the port's
-multi-GPU slice.
+Mesh copies: a resident design's sharded copies (one a placement, on the
+mesh's devices) count as device bytes.  A demotion drops them, with the
+handle's other device state; a promotion does not rebuild them (the next
+warm for the placement does).
 """
 from __future__ import annotations
 
@@ -146,16 +149,19 @@ def _write_tile_atomic(path: Path, tile) -> None:
 
 def _entry_device_bytes(entry: PreparedDesign) -> int:
     """Device bytes a resident ``PreparedDesign`` holds: the storage of
-    ``x_pad`` and of every built kernel layout (transposed fp32, bf16),
-    each storage counted once however many views share it.  The small
-    vectors (norms, Cholesky factors) are O(vars) and ignored."""
+    ``x_pad``, of every built kernel layout (transposed fp32, bf16) and of
+    every sharded copy (on any device of its mesh), each storage counted
+    once however many views or shards share it (the replicas of an
+    rhs-sharded copy on a virtual mesh).  The small vectors (norms,
+    Cholesky factors) are O(vars) and ignored."""
     with entry._lock:
         storages = {}
         for t in (entry.x_pad, *entry._x_t.values(),
-                  *entry._x_bf16.values()):
+                  *entry._x_bf16.values(),
+                  *(p for sh in entry._sharded.values() for p in sh.parts)):
             if t is not None:
                 s = t.untyped_storage()
-                storages[s.data_ptr()] = s.nbytes()
+                storages[(str(t.device), s.data_ptr())] = s.nbytes()
     return sum(storages.values())
 
 
@@ -491,6 +497,13 @@ class DesignStore:
         self._g_res["host"].set(len(self._host))
         self._g_res["disk"].set(len(self._disk))
 
+    def refresh_gauges(self) -> None:
+        """Re-read the tiers' bytes into the gauges: a resident design
+        grows after admission (its kernel layouts, its sharded copies), and
+        the serving cache calls this once it has warmed one."""
+        with self._lock:
+            self._update_gauges()
+
     def _move(self, src: str, dst: str) -> None:
         self._m_moves.inc(1, **{"from": src, "to": dst})
 
@@ -538,15 +551,17 @@ class DesignStore:
                 self._demote_lru()
 
     def _demote_lru(self) -> None:
-        key, _ = next(iter(self._device.items()))
-        self.demote(key)
+        # The key alone: a reference held here would keep the demoted
+        # handle's device tensors alive until this returns.
+        self.demote(next(iter(self._device)))
 
     # -------------------------------------------------------------- demotion
     def demote(self, key: str) -> Optional[HostDesign]:
         """Device → host: copy every reusable piece of the resident handle
         (kernel layouts, norms, Cholesky factors, the warm-coefficient
-        LRU, its home) into a ``HostDesign``, then drop the device entry.
-        Enforces the host budget afterwards (host → disk)."""
+        LRU, its home) into a ``HostDesign``, then drop the device entry
+        and its sharded copies.  Enforces the host budget afterwards (host
+        → disk)."""
         with self._lock:
             entry = self._device.pop(key, None)
             if entry is None:
@@ -554,6 +569,7 @@ class DesignStore:
             snap = HostDesign(key=key, shape=tuple(entry.x_pad.shape),
                               max_tenants=entry.max_tenants,
                               **entry.snapshot_state(pin=self._pin))
+            entry.drop_sharded()
             if not snap.x_t:
                 snap.x_pad = host_copy(entry.x_pad, pin=self._pin)
             self._host[key] = snap

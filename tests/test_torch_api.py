@@ -244,10 +244,12 @@ def test_spec_and_registry_match_jax():
                   "needs_chol", "streams", "lane", "fallback"):
             assert getattr(te, f) == getattr(je, f), (m, f)
         assert te.precisions == je.precisions
-        assert te.batchable == je.batchable and not te.shardable
+        assert te.batchable == je.batchable
+        assert te.shardable == je.shardable, m
         assert (te.vmap_one is None) == (je.vmap_one is None)
     assert set(T.method_names()) == set(METHODS)
     assert T.streaming_methods() == J.spec.streaming_methods()
+    assert T.shardable_methods() == J.spec.shardable_methods()
     with pytest.raises(ValueError, match="method must be one of"):
         T.SolverSpec(method="bakp_unregistered")
 
@@ -278,11 +280,20 @@ def test_unsupported_specs_raise():
     with pytest.raises(T.UnsupportedSpecError):
         p.solve(y, spec=T.SolverSpec(method="bakp", precision="bf16"))
 
-    class Sharded:
-        sharded, kind = True, "obs_sharded"
+    # A sharded placement runs the method's sharded backend (here on a
+    # one-shard CPU mesh, where it is the single-device solve); a method
+    # registered without one raises.
+    from repro_torch.serve.placement import OBS_SHARDED, build_serve_mesh
 
+    smesh = build_serve_mesh("1", device="cpu")
+    res = p.solve(y, placement=OBS_SHARDED, mesh=smesh)
+    ref = p.solve(y)
+    np.testing.assert_allclose(res.coef.numpy(), ref.coef.numpy(),
+                               rtol=1e-5, atol=1e-6)
+    assert "obs_sharded" in p.resident_lanes()
     with pytest.raises(T.UnsupportedSpecError, match="sharded"):
-        p.solve(y, placement=Sharded())
+        p.solve(y, spec=_spec(T, "lstsq"), placement=OBS_SHARDED,
+                mesh=smesh)
     with pytest.raises(ValueError, match="no SolverSpec"):
         T.prepare(x, device="cpu").solve(y)
 

@@ -1143,3 +1143,92 @@ def test_dispatcher_broken_launch_fails_the_ticket(cuda, monkeypatch):
     assert eng.stats.retries == 0 and eng.stats.failures == 2
     assert _build.launch_counts()["fused_solve"] == 0
     assert tobs.dispatch_counts().get(("xla", "bakp"), 0) == plain0
+
+
+# ------------------------------------------------------ sharded solvers
+_SHARDED = [("obs", "solvebakp_obs_sharded", "4", {}),
+            ("vars", "solvebakp_vars_sharded", "1x4", {"omega": 0.5}),
+            ("2d", "solvebakp_2d", "2x2", {"omega": 0.5}),
+            ("rhs", "solvebakp_rhs_sharded", "4", {})]
+
+
+@pytest.mark.parametrize("kind,fn,spec,kw", _SHARDED,
+                         ids=[s[0] for s in _SHARDED])
+def test_sharded_solvers_on_virtual_shards_match_cpu(cuda, kind, fn, spec,
+                                                     kw):
+    """Each sharded solver on four virtual shards of the card against the
+    same solve on four virtual CPU shards (the same block order; the sums
+    run in another order), cold and warm."""
+    import repro_torch.core as T
+    from repro_torch.serve import build_serve_mesh
+
+    x, a, y = _system(41, 4096, 256, 8, "cpu")
+    m_gpu = build_serve_mesh(spec, devices=[cuda] * 4).mesh
+    m_cpu = build_serve_mesh(spec, device="cpu").mesh
+    for a0 in (None, 0.5 * a):
+        knobs = dict(thr=64, max_iter=12, mode="gram", a0=a0, **kw)
+        rg = getattr(T, fn)(x.to(cuda), y.to(cuda), m_gpu,
+                            **dict(knobs, a0=None if a0 is None
+                                   else a0.to(cuda)))
+        rc = getattr(T, fn)(x, y, m_cpu, **knobs)
+        assert rg.coef.device.type == "cuda"
+        assert _within(rg.coef.cpu(), rc.coef)
+        assert _within(rg.residual.cpu(), rc.residual, y)
+        assert int(rg.n_sweeps) == int(rc.n_sweeps)
+        h = rc.history
+        assert ((rg.history.cpu() - h).abs()
+                <= 1e-4 * h + 1e-7 * h[0]).all()
+
+
+def test_sharded_solvers_on_distinct_cards(cuda):
+    """The mesh on two distinct cards (the copies between cards) against
+    the same mesh as virtual shards of one card: the only check of the
+    path between cards, so it skips below two."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    import repro_torch.core as T
+    from repro_torch.serve import build_serve_mesh
+
+    x, a, y = _system(42, 4096, 256, 8, cuda)
+    two = build_serve_mesh("2x1").mesh
+    assert [d.index for d in two.devices.flat] == [0, 1]
+    one = build_serve_mesh("2x1", devices=[cuda] * 2).mesh
+    for kind, fn, kw in (("obs", "solvebakp_obs_sharded", {}),
+                         ("rhs", "solvebakp_rhs_sharded", {}),
+                         ("2d", "solvebakp_2d", {"omega": 0.5})):
+        r2 = getattr(T, fn)(x, y, two, thr=64, max_iter=12, **kw)
+        r1 = getattr(T, fn)(x, y, one, thr=64, max_iter=12, **kw)
+        assert r2.coef.device == x.device
+        assert _within(r2.coef, r1.coef), kind
+        assert int(r2.n_sweeps) == int(r1.n_sweeps)
+
+
+def test_mesh_engine_on_virtual_shards_of_the_card(cuda):
+    """The engine on a mesh of four virtual shards of the card: sharded
+    placements run on their mesh lanes and match the mesh-less engine."""
+    from repro_torch import obs
+    from repro_torch.serve import (PlacementPolicy, ServeConfig,
+                                   SolveRequest, SolverServeEngine,
+                                   build_serve_mesh)
+
+    rng = np.random.default_rng(43)
+    x = rng.normal(size=(2048, 64)).astype(np.float32)
+    A = rng.normal(size=(64, 32)).astype(np.float32)
+    reqs = [SolveRequest(x=x, y=x @ A[:, t], method="bakp", thr=32,
+                         max_iter=60, rtol=1e-10, design_key="d",
+                         tenant_id=f"t{t}") for t in range(32)]
+    eng = SolverServeEngine(
+        ServeConfig(placement_policy=PlacementPolicy(
+            obs_shard_min_cells=1 << 20, rhs_shard_min_k=32)),
+        mesh=build_serve_mesh("4", devices=[cuda] * 4),
+        registry=obs.MetricsRegistry())
+    ref = SolverServeEngine(ServeConfig(), device=cuda,
+                            registry=obs.MetricsRegistry())
+    out, base = eng.serve(reqs), ref.serve(reqs)
+    assert {r.placement for r in out} == {"rhs_sharded"}
+    assert "mesh:rhs_sharded" in eng.lanes.stats()
+    for o, b in zip(out, base):
+        assert o.error is None
+        assert np.abs(o.coef - b.coef).max() <= 1e-5 * np.abs(b.coef).max()
+    eng.shutdown()
+    ref.shutdown()

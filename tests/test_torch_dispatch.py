@@ -325,6 +325,61 @@ class TestAsyncEndToEnd:
             _agree(t, j, y)
 
 
+    def test_mesh_engine_sends_sharded_bucket_to_mesh_lane(self, rng):
+        """A mesh engine's dispatcher keys a sharded bucket's batch by its
+        placement, pre-warms its sharded copy on the dispatch thread while
+        the batch waits, and fires it on the mesh lane; the single-device
+        bucket rides the single lane.  Held to JAX's dispatcher over a
+        one-device mesh (the same placements and lanes)."""
+        from repro_torch.serve import PlacementPolicy, build_serve_mesh
+
+        big = [make_system(rng, 200, 16) for _ in range(2)]
+        small = [make_system(rng, 40, 8) for _ in range(2)]
+        reqs = ([(x, y, f"big-{i}") for i, (x, y, _) in enumerate(big)]
+                + [(x, y, f"small-{i}") for i, (x, y, _) in enumerate(small)])
+        out = {}
+        for Disp, Cfg, eng, Req in (
+                (AsyncDispatcher, DispatchConfig, SolverServeEngine(
+                    ServeConfig(placement_policy=PlacementPolicy(
+                        obs_shard_min_cells=128 * 16)),
+                    mesh=build_serve_mesh("4", device="cpu"),
+                    registry=obs.MetricsRegistry()), SolveRequest),
+                (J.AsyncDispatcher, J.DispatchConfig, J.SolverServeEngine(
+                    J.ServeConfig(placement_policy=J.PlacementPolicy(
+                        obs_shard_min_cells=128 * 16)),
+                    mesh=J.build_serve_mesh("1"),
+                    registry=jobs.MetricsRegistry()), J.SolveRequest)):
+            with Disp(eng, Cfg(max_batch=16, idle_timeout_s=0.5)) as disp:
+                tickets = [disp.submit(_req(x, y, Req, design_key=k))
+                           for x, y, k in reqs]
+                if Req is SolveRequest:
+                    # The batch waits out its idle timeout: the pre-warm
+                    # has built the sharded copy before it fires.
+                    deadline = time.monotonic() + 5.0
+                    entry = None
+                    while entry is None and time.monotonic() < deadline:
+                        entry = eng.cache.get("big-1", record_stats=False)
+                        time.sleep(0.005)
+                    assert entry is not None
+                    assert entry.home == "obs_sharded"
+                    assert "obs_sharded" in entry.resident_lanes()
+                    assert not any(t.done() for t in tickets)
+                out[Req] = [t.result(timeout=120) for t in tickets]
+            if Req is SolveRequest:
+                assert set(eng.lanes.stats()) == {"mesh:obs_sharded",
+                                                  "single:xla"}
+                assert eng.stats.sharded_solves == 2
+                assert eng.cache.stats.hits == len(reqs)  # pre-warmed
+            eng.shutdown()
+        for t, j, (_, y, _) in zip(out[SolveRequest], out[J.SolveRequest],
+                                   reqs):
+            assert t.placement == j.placement
+            assert t.telemetry.lane == j.telemetry.lane
+            _agree(t, j, y)
+        assert [t.placement for t in out[SolveRequest]] == [
+            "obs_sharded", "obs_sharded", "single", "single"]
+
+
 # -------------------------------------------------------------- warm starts
 class TestWarmStart:
     """The engine's warm-start paths the dispatcher relies on, against the

@@ -1,11 +1,11 @@
 """Execution lanes of the port: routing, executor semantics, and the
 engine's lanes against its serial lane.
 
-Mirrors ``tests/test_lanes.py`` (all but the mesh cases: mesh placements
-raise until the multi-GPU slice, which is what ``TestMeshRaises`` holds;
-``TestDispatcherLanes`` drives the port's async dispatcher over the lanes,
-its answers held to the planted coefficients and its lane labels to JAX's
-dispatcher's).
+Mirrors ``tests/test_lanes.py``, its mesh cases on one-shard CPU meshes
+(``TestMeshLanes``, ``TestUnshardableFusedFallback``); ``TestMeshRaises``
+holds what a mesh refuses; ``TestDispatcherLanes`` drives the port's async
+dispatcher over the lanes, its answers held to the planted coefficients
+and its lane labels to JAX's dispatcher's.
 Lane labels and routing are held to ``repro.serve``'s; the engine runs
 with ``device="cpu"``, where a lane is a thread (on the card it is a
 thread and a CUDA stream: ``tests/test_torch_cuda.py``).
@@ -19,7 +19,7 @@ import pytest
 import repro.serve as J
 from conftest import make_system
 from repro_torch import obs
-from repro_torch.core.spec import UnsupportedSpecError, solver_method
+from repro_torch.core.spec import solver_method
 from repro_torch.serve import (AsyncDispatcher, DispatchConfig,
                                DispatcherStopped, LaneKey, LanePool,
                                LaneShutdown, LaneWork, Placement,
@@ -57,6 +57,21 @@ class TestLaneRouting:
         assert (Placement("obs_sharded").lane_key("bakp")
                 == "mesh:obs_sharded")
 
+    def test_mesh_lane_owns_the_mesh_devices(self):
+        smesh = build_serve_mesh("4x2", device="cpu")
+        key = lane_for("bakp", Placement("obs_sharded"), device="cpu",
+                       smesh=smesh)
+        assert key.label == "mesh:obs_sharded"
+        assert key.devices == ("cpu",) * 8
+        # without a mesh a sharded placement keeps its label, on the device
+        assert lane_for("bakp", Placement("obs_sharded"),
+                        device="cpu").devices == ("cpu",)
+        pool = LanePool(device="cpu")
+        assert pool.lane_for("bakp", Placement("rhs_sharded"), smesh) == \
+            LaneKey("mesh:rhs_sharded", ("cpu",) * 8)
+        assert pool.executor(pool.lane_for(
+            "bakp", Placement("rhs_sharded"), smesh)).streams == []
+
     def test_lane_for_labels_and_devices(self):
         xla = lane_for("bakp_gram", device="cpu")
         fused = lane_for("bakp_fused", device="cpu")
@@ -73,17 +88,20 @@ class TestLaneRouting:
 
 
 class TestMeshRaises:
-    def test_sharded_placements_raise(self):
-        with pytest.raises(UnsupportedSpecError, match="multi-GPU"):
-            lane_for("bakp", Placement("obs_sharded"), device="cpu")
-        with pytest.raises(UnsupportedSpecError, match="multi-GPU"):
+    def test_sharded_placements_raise(self, monkeypatch):
+        # A mesh of distinct cards needs that many: it never falls back to
+        # the CPU or repeats a device it was not given.
+        import torch
+
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(ValueError, match="needs 8 CUDA devices"):
             build_serve_mesh("4x2")
-        with pytest.raises(UnsupportedSpecError, match="multi-GPU"):
-            placement_for_bucket((64, 8), "bakp", PlacementPolicy(),
-                                 smesh=object())
-        with pytest.raises(UnsupportedSpecError, match="multi-GPU"):
-            placement_for_group(Placement(), 64, PlacementPolicy(),
-                                smesh=object())
+        with pytest.raises(ValueError, match="'D' or 'DxM'"):
+            build_serve_mesh("2x2x2", device="cpu")
+        with pytest.raises(ValueError, match="needs 4 devices, got 2"):
+            build_serve_mesh("4", devices=["cpu", "cpu"])
+        with pytest.raises(TypeError, match="ServeMesh"):
+            SolverServeEngine(mesh=object(), device="cpu")
 
     def test_single_device_placements(self):
         assert placement_for_bucket((1 << 12, 1 << 10), "bakp",
@@ -267,6 +285,52 @@ class TestEngineLaneParity:
         t_eng.shutdown()
 
 
+# ------------------------------------------------------------- mesh lanes
+class TestMeshLanes:
+    def test_one_device_mesh_lane(self, rng):
+        """A one-shard CPU mesh runs the mesh lane (and the handle's
+        sharded copy) against the serial single-device engine."""
+        policy = PlacementPolicy(obs_shard_min_cells=128 * 16)
+        mesh_eng = SolverServeEngine(
+            ServeConfig(placement_policy=policy),
+            mesh=build_serve_mesh("1", device="cpu"),
+            registry=obs.MetricsRegistry())
+        serial_eng = SolverServeEngine(ServeConfig(), device="cpu",
+                                       registry=obs.MetricsRegistry())
+        assert mesh_eng.device.type == "cpu"  # the mesh's first device
+
+        def work(seed):
+            r = np.random.default_rng(seed)
+            reqs = []
+            for i in range(2):  # big bucket -> obs_sharded on the mesh
+                x, y, _ = make_system(r, 200, 16)
+                reqs.append(_req(x, y, method="bakp_gram", thr=16,
+                                 design_key=f"big-{i}",
+                                 request_id=f"big-{i}"))
+            for i in range(2):  # small bucket -> single lane
+                x, y, _ = make_system(r, 40, 8)
+                reqs.append(_req(x, y, method="bakp_gram", thr=8,
+                                 design_key=f"small-{i}",
+                                 request_id=f"small-{i}"))
+            return reqs
+
+        r_mesh = mesh_eng.serve(work(11))
+        r_single = serial_eng.serve(work(11))
+        assert not [r.error for r in r_mesh + r_single if r.error]
+        assert {r.placement for r in r_mesh} == {"obs_sharded", "single"}
+        for m, s in zip(r_mesh, r_single):
+            denom = np.maximum(np.abs(s.coef), 1e-12)
+            assert float(np.mean(np.abs(m.coef - s.coef) / denom)) <= 1e-5
+        assert "mesh:obs_sharded" in mesh_eng.lanes.stats()
+        assert mesh_eng.stats.sharded_solves == 2
+        # the design entries remember their home + resident lanes
+        entry = mesh_eng.cache.get("big-0", record_stats=False)
+        assert entry.home == "obs_sharded"
+        assert "obs_sharded" in entry.resident_lanes()
+        mesh_eng.shutdown()
+        serial_eng.shutdown()
+
+
 # ------------------------------------------------- the dispatcher on lanes
 def _cpu_engine(**cfg):
     return SolverServeEngine(ServeConfig(**cfg), device="cpu",
@@ -439,6 +503,28 @@ class TestPreferFused:
         x, y, _ = make_system(rng, 40, 8)
         spec = eng.spec_for(_req(x, y, method="bakp", thr=8, max_iter=4))
         assert spec.method == "bakp"
+        eng.shutdown()
+
+
+# ----------------------------------------------- prefer_fused mesh fallback
+class TestUnshardableFusedFallback:
+    # (the single-device engine's upgrade: TestPreferFused)
+    def test_mesh_engine_counts_and_logs_once(self, rng, caplog):
+        eng = SolverServeEngine(ServeConfig(prefer_fused=True),
+                                mesh=build_serve_mesh("1", device="cpu"),
+                                registry=obs.MetricsRegistry())
+        x, y, _ = make_system(rng, 40, 8)
+        req = _req(x, y, method="bakp", thr=8, max_iter=4)
+        with caplog.at_level("WARNING",
+                             logger="repro_torch.serve.engine"):
+            s1 = eng.spec_for(req, record=True)
+            s2 = eng.spec_for(req, record=True)
+        assert s1.method == "bakp" and s2.method == "bakp"  # no upgrade
+        ctr = eng.registry.get("solver_fallback_total")
+        assert ctr.value(reason="unshardable_fused") == 2
+        warnings = [r for r in caplog.records
+                    if "prefer_fused" in r.getMessage()]
+        assert len(warnings) == 1  # one-time log
         eng.shutdown()
 
 

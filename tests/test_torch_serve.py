@@ -28,7 +28,6 @@ from conftest import make_system
 from repro.core import solvebak as j_solvebak
 from repro_torch import obs
 from repro_torch.core import solve, solvebak, solvebakp
-from repro_torch.core.spec import UnsupportedSpecError
 from repro_torch.serve import (ServeConfig, ServedSolve, SolveRequest,
                                SolverServeEngine, bucket_shape,
                                design_fingerprint, group_requests, next_pow2)
@@ -177,7 +176,8 @@ class TestDispatchErrors:
 
     def test_later_slices_raise(self, tmp_path):
         # The tiered design store is ported: each store_* knob builds one,
-        # as in the JAX engine.  Mesh placements still raise.
+        # as in the JAX engine.  A mesh is a ServeMesh or a Mesh; anything
+        # else is a TypeError.
         for knob in (dict(store_device_bytes=1 << 20),
                      dict(store_host_bytes=1 << 20),
                      dict(store_dir=str(tmp_path))):
@@ -189,7 +189,7 @@ class TestDispatchErrors:
                 jeng.store.device_bytes, jeng.store.host_bytes)
             eng.shutdown()
             jeng.shutdown()
-        with pytest.raises(UnsupportedSpecError, match="multi-GPU"):
+        with pytest.raises(TypeError, match="ServeMesh"):
             SolverServeEngine(mesh=object(), device="cpu")
 
 

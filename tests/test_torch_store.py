@@ -1,6 +1,7 @@
 """repro_torch.store against repro.store: the tiered design store.
 
-Mirrors ``tests/test_store.py`` — ``TestRegistry``, ``TestTierTransitions``,
+Mirrors ``tests/test_store.py`` — ``TestRegistry``, ``TestTierTransitions``
+(with the mesh copies' bytes),
 ``TestWarmSurvivesEviction``, ``TestStoreEngine`` and the store-backed
 cases of ``TestStreamParity`` that ``tests/test_torch_stream.py`` lacks —
 plus the tile format, read across the two stores.  Every operation runs on
@@ -95,9 +96,9 @@ class TestRegistry:
         for name in ("bakp_stream", "bakp", "bakp_fused"):
             t, j = solver_method(name), j_solver_method(name)
             assert (t.streams, t.iterative, t.multi_rhs, t.batchable,
-                    t.lane) == (j.streams, j.iterative, j.multi_rhs,
-                                j.batchable, j.lane)
-        # (the port's "shardable" waits for its multi-GPU slice)
+                    t.shardable, t.lane) == (j.streams, j.iterative,
+                                             j.multi_rhs, j.batchable,
+                                             j.shardable, j.lane)
         entry = solver_method("bakp_stream")
         assert entry.streams and entry.lane == "stream"
         assert not entry.shardable and not j_solver_method(
@@ -144,6 +145,33 @@ class TestTierTransitions:
         with tb._lock:
             assert 32 in tb._x_t
         _close(tb.x_t_for(32), jb.x_t_for(32), tol=0.0)
+
+    def test_sharded_copies_count_and_demotion_drops_them(self, rng):
+        """A design's mesh copies are device bytes (each storage once: the
+        rhs replica four virtual shards share counts once); a demotion
+        drops them and a promotion does not rebuild them.  JAX's store on a
+        one-device mesh counts the same bytes."""
+        from repro_torch.serve import Placement, build_serve_mesh
+
+        st = _Pair(device_bytes=None)
+        x = _design(rng)
+        je, te = st("build", "a", x)
+        jsm, tsm = J.build_serve_mesh("1"), build_serve_mesh("4",
+                                                             device="cpu")
+        for kind in ("obs_sharded", "rhs_sharded"):
+            je.x_for_placement(J.Placement(kind), jsm)
+            te.x_for_placement(Placement(kind), tsm)
+        st.agree("a")
+        assert st.t.device_used() == 3 * x.nbytes
+        assert te.resident_lanes() == ("single", "obs_sharded",
+                                       "rhs_sharded")
+        st("demote", "a")
+        assert not te._sharded
+        st("promote", "a")
+        st.agree("a")
+        assert st.t.device_used() == x.nbytes
+        tb = st.t.get("a")
+        assert tb.resident_lanes() == ("single",)
 
     def test_byte_budget_demotes_lru_not_mru(self, rng):
         x = _design(rng)
@@ -515,6 +543,48 @@ class TestStoreEngine:
                 == j_eng.cache.stats.as_dict())
         for eng in (store_eng, base_eng, j_eng):
             eng.shutdown()
+
+    def test_mesh_store_engine_holds_sharded_copies_in_budget(self):
+        """A store engine on a mesh: obs-sharded designs bring their sharded
+        copy into the device tier's bytes, the tier stays within a budget
+        of two designs (x + copy) after every flush while a third demotes
+        and promotes, and every request matches the mesh-less engine."""
+        from repro_torch.serve import PlacementPolicy, build_serve_mesh
+
+        obs_n, vars_n = 128, 32
+        budget = 2 * 2 * obs_n * vars_n * 4
+        policy = PlacementPolicy(obs_shard_min_cells=obs_n * vars_n)
+        store_eng = SolverServeEngine(
+            ServeConfig(store_device_bytes=budget, placement_policy=policy),
+            mesh=build_serve_mesh("4", device="cpu"),
+            registry=obs.MetricsRegistry())
+        base_eng = SolverServeEngine(ServeConfig(), device="cpu",
+                                     registry=obs.MetricsRegistry())
+        systems = [make_system(np.random.default_rng(2000 + i), obs_n,
+                               vars_n) for i in range(3)]
+        for rnd in range(2):
+            for i, (x, y, _) in enumerate(systems):
+                reqs = [SolveRequest(x=x, y=y * (1 + t), method="bakp",
+                                     thr=8, max_iter=80, rtol=1e-12,
+                                     design_key=f"d{i}",
+                                     tenant_id=f"d{i}-t{t}")
+                        for t in range(2)]
+                r_store = store_eng.serve(reqs)
+                r_base = base_eng.serve(reqs)
+                assert [r.placement for r in r_store] == ["obs_sharded"] * 2
+                for s_, b_ in zip(r_store, r_base):
+                    assert s_.error is None
+                    _close(s_.coef, b_.coef)
+                st = store_eng.store
+                assert st.device_used() <= budget
+                entry = st.get(f"d{i}")
+                assert "obs_sharded" in entry.resident_lanes()
+                assert st.device_used() >= 2 * x.nbytes
+        assert store_eng.store.stats.demotions_device >= 3
+        assert store_eng.store.stats.promotions_host >= 1
+        assert store_eng.stats.warm_starts > 0
+        store_eng.shutdown()
+        base_eng.shutdown()
 
     def test_over_hbm_requests_reroute_to_stream(self, rng):
         design_bytes = 64 * 32 * 4
