@@ -41,7 +41,7 @@ process per source, in parallel), then:
      fused dispatch) beside the JAX figures in ``BENCH_precision.json``.
      Each bf16 request runs twice, its first and repeat latency printed;
   5. the serving engine (``repro_torch.serve.SolverServeEngine``, run after
-     the kernel rows of item 8), eight flushes on Gaussian designs from a
+     the kernel rows of item 9), eight flushes on Gaussian designs from a
      numpy seed: (1) 64 cold ``bakp`` requests, 16 tenants on each of 4
      16,384 x 256 designs, with ``prefer_fused`` — 4 groups of k 16, 4
      ``fused_solve`` launches; (2) the same tenants with ``y`` drifted by
@@ -110,7 +110,24 @@ process per source, in parallel), then:
      store engine with a budget of two designs and their sharded copies:
      the copies count in the device tier, a demotion frees them, and the
      tier holds its budget after every flush;
-  8. each kernel against its plain torch version on the same inputs, on the
+  8. the LM serving path (after phase 7): qwen3-8b at full width and depth
+     (36 layers, d_model 4,096, 32 heads and 8 KV heads of 128, d_ff
+     12,288, vocab 151,936, bf16) with random weights from the seed.
+     (8a) the build: ``count_params`` against ``n_params()``, weight
+     bytes, init seconds, peak memory; (8b) 4 prompts of 512 tokens
+     through ``launch/steps``' prefill and 32 greedy decode steps on a
+     32,768-slot cache (19.3 GB): prefill seconds, decode tokens/s, cache
+     bytes, lengths 544, finite logits; decoding token 512 from the cache
+     against one full forward over 513 tokens, printed in bf16 beside two
+     full forwards' own difference, and held at JAX's bound (rtol = atol
+     = 2e-2) on the same model in fp32; (8c) the 16,384 x 4,096 fp32
+     features of 4 x 4,096 tokens (embedding in fp32), their condition
+     number, and planted readouts at k 1 and 8 fitted with ``bakp_gram``
+     (warm-started chunks until |coef - w|/|w| < 1e-2) and with
+     ``bakp_stream`` on the streaming kernel at omega 1 and 1 / lambda_max
+     (the latter's coef within 1e-5 of ``stream_solve_plain`` at the same
+     sweeps), each beside fp64 lstsq;
+  9. each kernel against its plain torch version on the same inputs, on the
      card, and timed with CUDA events beside its roofline bound (and beside
      the nearest single PyTorch call, where there is one); for the streaming
      kernel also the per-sweep loop on the same design, as a finding.  The
@@ -132,7 +149,7 @@ process per source, in parallel), then:
      x at the shapes of their fp32 rows and at every shape phase 4 gave
      them, there on the plan phase 4 ran (x at 2 bytes in the bound), with
      their rtol stops held to the rule on the plain iterate's fp64 SSE;
-  9. a ``kernels`` summary line (the bf16 kernels as ``<name>_bf16``;
+ 10. a ``kernels`` summary line (the bf16 kernels as ``<name>_bf16``;
      launches summed over the paths), the card's name and power limit,
      and the result line
      ``{"ok": true, "device": {...}}``.
@@ -141,8 +158,9 @@ Launch counts are reset just before each path (phases 1-2, the earlier
 slices' path; phase 3, the streaming path; phase 4, the mixed-precision
 path, where each bf16 kernel must launch; phase 5, the serving path;
 phase 6, the store and dispatcher path; phase 7b, the sharded serving
-path) and read just after it, so they count that path only; each kernel
-must have launched on its path, and none on the sharded path.  Inputs
+path; phase 8, the LM path, whose probes launch the streaming kernel)
+and read just after it, so they count that path only; each kernel must
+have launched on its path, and none on the sharded path.  Inputs
 are Gaussian designs with a planted ``a_true`` and ``y = x @ a_true`` from
 a fixed seed.  Any failed check, build or launch error exits non-zero
 without the result line; so does a host with no CUDA device, or a
@@ -181,6 +199,14 @@ PHASE5_WATCHDOG_S = 120
 PHASE6_WATCHDOG_S = 420
 # Phase 7's (the sharded solvers, engine and store on virtual shards).
 PHASE7_WATCHDOG_S = 300
+# Phase 8's (qwen3-8b: build, serve, probes).
+PHASE8_WATCHDOG_S = 700
+# Phase 8c: bakp_gram runs in warm-started chunks of this many sweeps until
+# it recovers the planted readout, at most this many in all.
+GRAM_CHUNK = 2_000
+PROBE_GRAM_MAX_SWEEPS = 48_000
+# Phase 8c's bakp_stream at omega = 1 / lambda_max: sweeps at most.
+STREAM_PROBE_ITERS = 200
 
 _failures: list = []
 
@@ -422,7 +448,8 @@ def main() -> int:
                                    for n in _build.X_KERNELS),
         "phase_5_serving": ("fused_solve", "fused_solve_bf16", "bak_fused",
                             "stream_solve"),
-        "phase_6_store": ("fused_solve",)}
+        "phase_6_store": ("fused_solve",),
+        "phase_8_lm": ("stream_solve",)}
     # Launches per kernel, summed over the paths that list it.
     launches = {}
 
@@ -2396,6 +2423,303 @@ def main() -> int:
     watchdog.cancel()
     emit({"phase": "sharded_done", "card": card,
           "seconds": time.perf_counter() - t_phase7})
+
+    # ------------------------------------ the LM serving path (phase 8)
+    # qwen3-8b at full width and depth, random bf16 weights from SEED:
+    # (8a) the build, (8b) serving through launch/steps and the decode-
+    # versus-forward check, (8c) linear probes of its activations on the
+    # gram-mode solver and on the streaming kernel.
+    import dataclasses
+
+    from repro_torch.configs.registry import get as get_arch
+    from repro_torch.core import fit_linear_probe
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models.kvcache import cache_bytes, init_cache
+    from repro_torch.models.model import (forward_logits, init_model,
+                                          make_smoke_batch, model_defs,
+                                          probe_features)
+    from repro_torch.models.params import count_params, tree_items
+
+    def hung8():
+        print(f"chip_smoke: phase 8 did not finish in {PHASE8_WATCHDOG_S} s "
+              f"(a hang on the LM path)", file=sys.stderr, flush=True)
+        os._exit(3)
+
+    watchdog = threading.Timer(PHASE8_WATCHDOG_S, hung8)
+    watchdog.daemon = True
+    watchdog.start()
+    t_phase8 = time.perf_counter()
+
+    cfg8 = get_arch("qwen3-8b")
+    shape8 = (cfg8.n_layers, cfg8.d_model, cfg8.n_heads, cfg8.n_kv_heads,
+              cfg8.resolved_head_dim, cfg8.d_ff, cfg8.vocab_size)
+    check(shape8 == (36, 4096, 32, 8, 128, 12288, 151936),
+          f"phase 8: qwen3-8b is {shape8}")
+
+    # 8a: the build.
+    _build.reset_launch_counts()
+    torch.cuda.empty_cache()
+    held8 = torch.cuda.memory_allocated()       # the earlier phases' tensors
+    torch.cuda.reset_peak_memory_stats()
+    params8, init_ms = timed(lambda: init_model(cfg8, seed=SEED))
+    n8 = count_params(model_defs(cfg8))
+    wbytes8 = sum(t.numel() * t.element_size()
+                  for _, t in tree_items(params8))
+    # n_params() leaves out the padded vocab rows of both tables and the
+    # norm weights; count_params has them.
+    d8, hd8 = cfg8.d_model, cfg8.resolved_head_dim
+    extra8 = (2 * (cfg8.padded_vocab - cfg8.vocab_size) * d8 + d8
+              + cfg8.n_layers * (2 * d8 + 2 * hd8))
+    check(n8 == cfg8.n_params() + extra8,
+          f"phase 8a: count_params {n8}, n_params() {cfg8.n_params()} + "
+          f"{extra8}")
+    check(wbytes8 == 2 * n8, f"phase 8a: {wbytes8} bytes of weights for "
+                             f"{n8} bf16 parameters")
+    emit({"phase": "lm_build", "card": card, "arch": cfg8.name,
+          "layers": cfg8.n_layers, "d_model": d8, "heads": cfg8.n_heads,
+          "kv_heads": cfg8.n_kv_heads, "head_dim": hd8, "d_ff": cfg8.d_ff,
+          "vocab": cfg8.vocab_size, "padded_vocab": cfg8.padded_vocab,
+          "dtype": cfg8.dtype, "params": n8,
+          "n_params_formula": cfg8.n_params(), "weight_bytes": wbytes8,
+          "init_s": init_ms / 1e3, "reduced": [],
+          "max_memory_allocated": torch.cuda.max_memory_allocated(),
+          "held_before_phase": held8})
+
+    # 8b: serve 4 prompts of 512 tokens, 32 greedy steps, through
+    # launch/steps with launch/serve's cache length (32,768 slots).
+    b8, s8, g8 = 4, 512, 32
+    smax8 = max(cfg8.max_cache_len, s8 + g8)
+    prompt8 = make_smoke_batch(cfg8, seed=SEED + 8, batch=b8, seq=s8)
+    prompt8.pop("labels")
+    prefill8, decode8 = make_prefill_step(cfg8), make_decode_step(cfg8)
+    cache8 = init_cache(cfg8, b8, smax8)
+    cbytes8 = cache_bytes(cfg8, b8, smax8)
+    check(cbytes8 == sum(t.numel() * t.element_size()
+                         for t in cache8.values()),
+          f"phase 8b: cache_bytes {cbytes8} is not the cache's")
+    (logits8, cache8), prefill_ms = timed(
+        lambda: prefill8(params8, prompt8, cache8))
+    # Again, warm (the first call also pays cuBLAS's start-up).
+    (logits8, cache8), prefill_warm_ms = timed(
+        lambda: prefill8(params8, prompt8, cache8))
+    tok8 = first_tok8 = logits8.argmax(-1)[:, None].to(torch.int32)
+    ids8, first8 = [], None
+    sync()
+    t = time.perf_counter()
+    for i in range(g8):
+        ids8.append(tok8)
+        logits8, cache8 = decode8(params8, tok8, cache8)
+        first8 = logits8.clone() if i == 0 else first8
+        tok8 = logits8.argmax(-1)[:, None].to(torch.int32)
+    sync()
+    decode_s = time.perf_counter() - t
+    lengths8 = cache8["lengths"].tolist()
+    check(lengths8 == [s8 + g8] * b8, f"phase 8b: lengths {lengths8}")
+    check(bool(torch.isfinite(first8).all())
+          and bool(torch.isfinite(logits8).all()),
+          "phase 8b: decode logits not finite")
+    peak8b = torch.cuda.max_memory_allocated()
+    # One more step under torch.profiler: its device time by operation
+    # (self time of each aten op's kernels), against the steps' mean wall.
+    prof8 = torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA])
+    with prof8:
+        decode8(params8, tok8, cache8)
+        sync()
+    step_ops = {}
+    for ev in prof8.key_averages():
+        us = getattr(ev, "self_device_time_total", None)
+        us = ev.self_cuda_time_total if us is None else us
+        if str(ev.device_type).endswith("CPU") and us > 0:
+            step_ops[ev.key] = us / 1e3
+    step_dev_ms = sum(step_ops.values())
+    step_ops = dict(sorted(step_ops.items(), key=lambda kv: -kv[1])[:8])
+    del cache8
+
+    def against(a, b):
+        """a against the reference b: errors, the count outside JAX's bound
+        (rtol = atol = 2e-2), argmax agreement."""
+        d = (a - b).abs()
+        return {"max_abs_err": d.max().item(),
+                "rel_to_max_logit": d.max().item() / b.abs().max().item(),
+                "outside_jax_bound": int((d > 2e-2 + 2e-2 * b.abs()).sum()),
+                "logits": d.numel(),
+                "argmax_agreement": (a.argmax(-1) == b.argmax(-1)).float()
+                .mean().item()}
+
+    # Decoding token S from the cache against one full forward over S + 1
+    # tokens at position S.  In bf16 two full forwards of S + 1 and S + 2
+    # tokens differ at position S too (the rounding of a random 36-layer
+    # model under another GEMM and chunk shape): that is printed beside
+    # it.  JAX's bound is held on the same model in fp32, JAX's test's
+    # dtype (cache of 2,048 slots, the 1,535 past the prompt masked).
+    full8 = torch.cat([prompt8["tokens"], first_tok8], 1)
+    with torch.no_grad():
+        ref8 = forward_logits(cfg8, params8, full8)[:, s8]
+        floor8 = forward_logits(cfg8, params8,
+                                torch.cat([full8, first_tok8], 1))[:, s8]
+    bf16_check = against(first8, ref8)
+    bf16_floor = against(floor8, ref8)
+    cfg32 = dataclasses.replace(cfg8, dtype="float32")
+    params32 = init_model(cfg32, seed=SEED)
+    cache32 = init_cache(cfg32, b8, 2_048)
+    _, cache32 = make_prefill_step(cfg32)(params32, prompt8, cache32)
+    dec32, cache32 = make_decode_step(cfg32)(params32, first_tok8, cache32)
+    with torch.no_grad():
+        ref32 = forward_logits(cfg32, params32, full8)[:, s8]
+    fp32_check = against(dec32, ref32)
+    check(fp32_check["outside_jax_bound"] == 0,
+          f"phase 8b: fp32 decode against the full forward {fp32_check}")
+    del params32, cache32, dec32, ref32, ref8, floor8
+    torch.cuda.empty_cache()
+    emit({"phase": "lm_serve", "card": card, "batch": b8, "prompt": s8,
+          "gen": g8, "cache_slots": smax8, "cache_bytes": cbytes8,
+          "prefill_s": prefill_ms / 1e3,
+          "prefill_warm_s": prefill_warm_ms / 1e3,
+          "decode_s": decode_s, "decode_tokens_per_s": g8 * b8 / decode_s,
+          "decode_ms_per_step": decode_s * 1e3 / g8, "lengths": lengths8,
+          "profiled_step_device_ms": step_dev_ms,
+          "profiled_step_device_ms_by_op": step_ops,
+          "decode_idle_share": 1.0 - step_dev_ms / (decode_s * 1e3 / g8),
+          "max_memory_allocated": peak8b,
+          "generated_ids_row0": [int(t[0]) for t in ids8],
+          "decode_vs_forward_bf16": bf16_check,
+          "forward_vs_forward_bf16": bf16_floor,
+          "decode_vs_forward_fp32": fp32_check})
+
+    # 8c: linear probes of the activations (4 x 4,096 tokens: a 16,384 x
+    # 4,096 fp32 design, the embedding in fp32 as the JAX package's probe).
+    ptok8 = make_smoke_batch(cfg8, seed=SEED + 9, batch=4, seq=4096)[
+        "tokens"]
+    with torch.no_grad():
+        feats8, feat_ms = timed(lambda: probe_features(cfg8, params8,
+                                                       ptok8))
+    del params8
+    torch.cuda.empty_cache()
+    check(tuple(feats8.shape) == (16_384, 4_096)
+          and feats8.dtype == torch.float32
+          and bool(torch.isfinite(feats8).all()),
+          f"phase 8c: features {tuple(feats8.shape)} {feats8.dtype}")
+    f64 = feats8.double()
+    sv8 = torch.linalg.svdvals(f64)
+    thr8 = 128
+    # Algorithm 2 moves a block's columns at once (Jacobi within the
+    # block): with omega * lambda_max(D^-1/2 G_b D^-1/2) over 2 a block
+    # step raises the SSE.  The probe runs the paper's omega 1, and
+    # omega = 1 / lambda_max, the largest over blocks.
+    xb8 = f64.view(f64.shape[0], -1, thr8)
+    lam8 = 0.0
+    for blk in range(xb8.shape[1]):
+        g = xb8[:, blk].T @ xb8[:, blk]
+        dn = g.diagonal().rsqrt()
+        lam8 = max(lam8, torch.linalg.eigvalsh(dn[:, None] * g * dn[None])
+                   .max().item())
+    del xb8
+    omega8 = 1.0 / lam8
+    h8 = prepare(feats8, SolverSpec(method="bakp_stream", thr=thr8))
+    x_t8, inv8 = h8.x_t_for(thr8), h8.inv_cn_for(thr8)
+    emit({"phase": "lm_probe_design", "card": card,
+          "shape": list(feats8.shape), "features_s": feat_ms / 1e3,
+          "singular_value_max": sv8[0].item(),
+          "singular_value_min": sv8[-1].item(),
+          "condition_number": (sv8[0] / sv8[-1]).item(),
+          "block_jacobi_lambda_max": lam8, "omega": omega8,
+          "mean_direction_energy": (feats8.mean(0).norm() ** 2
+                                    * feats8.shape[0]
+                                    / feats8.norm() ** 2).item()})
+
+    def relnorm(a, b):
+        return ((a.double() - b.double()).norm() / b.double().norm()).item()
+
+    def probe_fit(target, **kw):
+        consume_dispatch()
+        res, ms = timed(lambda: fit_linear_probe(feats8, target, **kw))
+        return res, ms, consume_dispatch()
+
+    def stream_vs_plain(res, target, omega):
+        """The streaming kernel's coef against stream_solve_plain on the
+        same operands at the same sweeps."""
+        inv_cn, a0m, e0 = solve_init(x_t8, target, inv8, None,
+                                     target.dim() == 2)
+        cp, *_ = stream_solve_plain(
+            x_t8, inv_cn, e0, a0m, block=thr8, max_iter=int(res.n_sweeps),
+            atol_sse=0.0, rtol=0.0, omega=omega)
+        ck = res.coef.reshape(cp.shape)
+        fin = torch.isfinite(ck)
+        same = torch.equal(fin, torch.isfinite(cp))
+        if bool(fin.all()) and same:
+            return rel(ck, cp), same
+        return None, same
+
+    rng8 = np.random.default_rng(SEED + 10)
+    probe_rows = []
+    for k8 in (1, 8):
+        w8 = torch.tensor(rng8.standard_normal(
+            (d8,) if k8 == 1 else (d8, k8)).astype(np.float32), device=dev)
+        target8 = feats8 @ w8
+        ls8 = torch.linalg.lstsq(f64, target8.double()).solution
+        # bakp_gram (plain torch, cuBLAS Cholesky): warm-started chunks of
+        # GRAM_CHUNK sweeps until the planted readout is recovered to
+        # JAX's bound, at most PROBE_GRAM_MAX_SWEEPS.
+        coef, sweeps, gram_ms, trail = None, 0, 0.0, []
+        while sweeps < PROBE_GRAM_MAX_SWEEPS:
+            res, ms, path_g = probe_fit(target8, method="bakp_gram",
+                                        thr=thr8, max_iter=GRAM_CHUNK,
+                                        a0=coef)
+            coef = res.coef
+            sweeps += int(res.n_sweeps)
+            gram_ms += ms
+            trail.append([sweeps, relnorm(coef, w8)])
+            # Recovered, or the solver's own stopping rule fired.
+            if trail[-1][1] < 1e-2 or int(res.n_sweeps) < GRAM_CHUNK:
+                break
+        err_gram = relnorm(coef, w8)
+        check(err_gram < 1e-2,
+              f"phase 8c k {k8}: bakp_gram |coef - w|/|w| {err_gram} after "
+              f"{sweeps} sweeps")
+        check(path_g == "xla", f"phase 8c k {k8}: bakp_gram path {path_g}")
+        row = {"phase": "lm_probe", "card": card, "k": k8,
+               "lstsq_fp64_err_vs_w": relnorm(ls8, w8),
+               "bakp_gram": {"path": path_g, "sweeps": sweeps,
+                             "ms": gram_ms, "err_vs_w": err_gram,
+                             "err_vs_lstsq": relnorm(coef, ls8),
+                             "err_vs_w_by_sweeps": trail}}
+        # bakp_stream (the streaming kernel) at the paper's omega 1 and at
+        # omega = 1 / lambda_max.
+        for label, omega, kw in (
+                ("bakp_stream_omega_1", 1.0, dict(method="bakp_stream",
+                                                  thr=thr8)),
+                ("bakp_stream_omega_inv_lambda", omega8, dict(
+                    spec=SolverSpec(method="bakp_stream", thr=thr8,
+                                    omega=omega8, max_iter=STREAM_PROBE_ITERS,
+                                    rtol=1e-7)))):
+            res, ms, path = probe_fit(target8, **kw)
+            check(path == "stream", f"phase 8c k {k8} {label}: path {path}")
+            err_plain, same_finite = stream_vs_plain(res, target8, omega)
+            finite = bool(torch.isfinite(res.coef).all())
+            row[label] = {"path": path, "omega": omega,
+                          "sweeps": int(res.n_sweeps),
+                          "converged": bool(res.converged), "ms": ms,
+                          "finite": finite,
+                          "rel_err_vs_plain": err_plain,
+                          "finite_where_plain_is": same_finite,
+                          "err_vs_w": relnorm(res.coef, w8) if finite
+                          else None,
+                          "err_vs_lstsq": relnorm(res.coef, ls8) if finite
+                          else None}
+            if omega != 1.0:
+                check(err_plain is not None and err_plain <= 1e-5,
+                      f"phase 8c k {k8} {label}: coef {err_plain} from "
+                      f"stream_solve_plain at {int(res.n_sweeps)} sweeps")
+        emit(row)
+        probe_rows.append(row)
+    read_launches("phase_8_lm")
+    del feats8, f64, h8, x_t8
+    torch.cuda.empty_cache()
+    watchdog.cancel()
+    emit({"phase": "lm_done", "card": card,
+          "seconds": time.perf_counter() - t_phase8})
 
     kernel_src = "src/repro_torch/kernels/csrc/"
     src_of = {

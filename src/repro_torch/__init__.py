@@ -6,8 +6,12 @@ The port of ``repro`` (JAX + Pallas on a TPU), laid out the same way:
 C++ kernels with their plain torch versions), ``store`` (host-memory
 designs for non-resident handles), ``obs`` (metrics, spans, the dispatch
 relay, profiler regions), ``resilience`` (fault injection, the retry
-ladder), ``serve`` (the serving engine and its lanes) and ``launch``
-(the serving CLI).  It imports neither JAX nor ``repro``.
+ladder), ``serve`` (the serving engine and its lanes), ``configs`` (the
+architecture registry), ``models`` (the LM stack's serving path for the
+dense GQA family: parameters, attention, the KV cache, prefill and
+decode) and ``launch`` (the solver-serving and LM-serving CLIs, the
+prefill / decode steps, the device mesh).  It imports neither JAX nor
+``repro``.
 """
 from repro_torch.core import (PreparedDesign, SolveResult, SolverSpec,
                               UnsupportedSpecError, fit_linear_probe,

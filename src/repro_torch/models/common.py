@@ -1,0 +1,115 @@
+"""Shared model components: RMSNorm, RoPE, the SwiGLU MLP, embeddings.
+
+The port of the JAX package's ``models/common.py`` for the dense GQA
+family.  Every module follows the defs/apply pattern: ``*_defs`` returns a
+tree of ``ParamDef``, the functions take a matching tree of tensors.
+Activations stay in their dtype; norms and rope compute in fp32.
+
+Matmuls follow JAX's dtype promotion: ``x @ w`` with an fp32 ``x`` and a
+bf16 ``w`` computes in fp32 (``matmul``), where ``torch.matmul`` would
+raise on the mixed dtypes.  M-RoPE, the gated norm (Mamba2) and the
+training loss wait for their families and for training (ROADMAP queue 1).
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.params import ParamDef, tree_map
+
+
+def stacked(defs, n: int, axis_name: str = "layers"):
+    """Prepend a stacking dim (the layer loop's) to every ParamDef."""
+    return tree_map(lambda d: ParamDef((n,) + d.shape, (axis_name,) + d.axes,
+                                       d.init, d.scale), defs)
+
+
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` in the promoted dtype of the two, as JAX computes it."""
+    dt = torch.promote_types(x.dtype, w.dtype)
+    return x.to(dt) @ w.to(dt)
+
+
+# ---------------------------------------------------------------------------
+# RMSNorm
+# ---------------------------------------------------------------------------
+
+def rmsnorm_def(dim: int) -> ParamDef:
+    return ParamDef((dim,), (None,), "ones")
+
+
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6
+            ) -> torch.Tensor:
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * w.float()).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    """(head_dim//2,) inverse frequencies."""
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
+               ) -> torch.Tensor:
+    """Rotate pairs (x[..., :d/2], x[..., d/2:]) — half-split, not
+    interleaved.  x: (B, S, H, D); positions: (B, S) int."""
+    d = x.shape[-1]
+    inv = rope_freqs(d, theta, x.device)                    # (D/2,)
+    ang = positions.float()[..., None] * inv                # (B, S, D/2)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# SwiGLU MLP
+# ---------------------------------------------------------------------------
+
+def mlp_defs(d_model: int, d_ff: int) -> Dict[str, ParamDef]:
+    return {
+        "w_gate": ParamDef((d_model, d_ff), ("embed", "model")),
+        "w_up": ParamDef((d_model, d_ff), ("embed", "model")),
+        "w_down": ParamDef((d_ff, d_model), ("model", "embed")),
+    }
+
+
+def apply_mlp(p, x: torch.Tensor) -> torch.Tensor:
+    h = F.silu(matmul(x, p["w_gate"])) * matmul(x, p["w_up"])
+    return matmul(h, p["w_down"])
+
+
+# ---------------------------------------------------------------------------
+# Embedding / unembedding
+# ---------------------------------------------------------------------------
+
+def embedding_defs(vocab: int, d_model: int, tie: bool
+                   ) -> Dict[str, ParamDef]:
+    defs = {"tok": ParamDef((vocab, d_model), ("model", "embed"), "small")}
+    if not tie:
+        defs["out"] = ParamDef((d_model, vocab), ("embed", "model"), "small")
+    return defs
+
+
+def embed_tokens(p, tokens: torch.Tensor, dtype) -> torch.Tensor:
+    return p["tok"][tokens].to(dtype)
+
+
+def unembed(p, x: torch.Tensor, *, tie: bool, final_softcap: float = 0.0
+            ) -> torch.Tensor:
+    """fp32 logits over the padded vocab; the weight is cast to ``x``'s
+    dtype first, as JAX does."""
+    w = p["tok"].T if tie else p["out"]
+    logits = (x @ w.to(x.dtype)).float()
+    if final_softcap:
+        logits = final_softcap * torch.tanh(logits / final_softcap)
+    return logits

@@ -1232,3 +1232,52 @@ def test_mesh_engine_on_virtual_shards_of_the_card(cuda):
         assert np.abs(o.coef - b.coef).max() <= 1e-5 * np.abs(b.coef).max()
     eng.shutdown()
     ref.shutdown()
+
+
+@pytest.mark.parametrize("obs,nvars", [(262_144, 256), (16_384, 4_096)])
+def test_column_norms_near_fp64_on_card(cuda, obs, nvars):
+    """The squared column norms every ``inv_cn`` comes from sit within fp32
+    rounding of fp64 on the card (``tools/gram_accuracy.py`` measured
+    2.0-3.4e-7 at phases 2, 3 and 8c), not where a batched GEMM's Gram
+    diagonal sat (7.7e-5, F3)."""
+    from repro_torch.core.types import column_norms_sq, column_norms_sq_t
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn(obs, nvars, generator=gen, device=cuda)
+    n64 = (x.double() ** 2).sum(0)
+    for n in (column_norms_sq(x), column_norms_sq_t(x.T.contiguous())):
+        assert ((n.double() - n64).abs() / n64).max().item() <= 1e-6
+
+
+def test_lm_smoke_model_on_card_matches_cpu(cuda):
+    """qwen3-8b's smoke model (fp32) on the card against the same weights
+    on the CPU: prefill, three decode steps (logits and every cache entry)
+    and the probe features."""
+    from repro_torch.configs.registry import get
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models.kvcache import init_cache
+    from repro_torch.models.model import (init_model, make_smoke_batch,
+                                          probe_features)
+    from repro_torch.models.params import tree_map
+
+    cfg = get("qwen3-8b").smoke()
+    cpu = torch.device("cpu")
+    params = {cpu: init_model(cfg, seed=0, device=cpu)}
+    params[cuda] = tree_map(lambda t: t.to(cuda), params[cpu])
+    toks = make_smoke_batch(cfg, seed=1, batch=2, seq=27, device=cpu)[
+        "tokens"]
+    prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
+    out = {}
+    for dev, p in params.items():
+        cache = init_cache(cfg, 2, cfg.max_cache_len, device=dev)
+        logits, cache = prefill(p, {"tokens": toks[:, :24].to(dev)}, cache)
+        seen = [logits]
+        for i in range(24, 27):
+            logits, cache = decode(p, toks[:, i:i + 1].to(dev), cache)
+            seen.append(logits)
+        feats = probe_features(cfg, p, toks.to(dev))
+        out[dev] = [t.cpu() for t in seen + [feats, cache["k"], cache["v"],
+                                             cache["lengths"]]]
+    for a, b in zip(out[cuda][:-1], out[cpu][:-1]):
+        assert (a - b).abs().max().item() <= 1e-4 * b.abs().max().item()
+    assert torch.equal(out[cuda][-1], out[cpu][-1])
