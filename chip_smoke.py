@@ -81,7 +81,9 @@ process per source, in parallel), then:
      ``AsyncDispatcher`` over the same engine, 256 requests from 4
      submitter threads at 600 requests/s Poisson, deadline 50 ms,
      ``max_batch`` 16 (warm mean sweeps <= 0.7 x cold, promotions on the
-     dispatch thread), then the same trace on the synchronous engine;
+     dispatch thread; each warm request's start source, its tenant's
+     solves finished before its batch fired, its group, and counts by
+     source), then the same trace on the synchronous engine;
      (6e) a broken ``fused_solve`` launch through the dispatcher fails its
      tickets with ``KernelError``.  Every request is held to fp64 lstsq
      (MAPE <= 1e-4) and 6a's to a storeless engine (1e-5, same sweeps);
@@ -126,8 +128,29 @@ process per source, in parallel), then:
      (warm-started chunks until |coef - w|/|w| < 1e-2) and with
      ``bakp_stream`` on the streaming kernel at omega 1 and 1 / lambda_max
      (the latter's coef within 1e-5 of ``stream_solve_plain`` at the same
-     sweeps), each beside fp64 lstsq;
-  9. each kernel against its plain torch version on the same inputs, on the
+     sweeps), each beside fp64 lstsq; then 9e's int8 run on these
+     weights (below);
+  9. every attention and cache variant of the LM stack (after phase 8),
+     four models at full width and depth (``reduced: []``), random bf16
+     weights from the seed, each built, served (4 prompts, prefill cold
+     and warm, 32 greedy steps, one more step profiled by aten op), its
+     decode step bounded by the weights
+     and the bf16 cache read once at 3.35 TB/s, its first step held to
+     one full forward in bf16 (beside two forwards' own difference) and,
+     at JAX's bound, in fp32, then freed: (9a) h2o-danube-1.8b, prompts
+     of 4,608 tokens (the window plus 512: the prefill roll) into its
+     4,096-slot ring, fp32 check at B 2 past the window; (9b) gemma2-9b,
+     4 x 4,608 tokens so the local rings wrap, 32,768 global slots, fp32
+     check at B 2 on 8,192 slots; (9c)
+     minicpm3-4b, 4 x 512 tokens into 32,768 latent slots, beside JAX's
+     MLA compression bound (under 1/10 of a per-head cache); (9d)
+     qwen2-vl-2b, 4 x 512 tokens with JAX's arange M-RoPE streams; (9e)
+     the int8 KV cache on phase 8's qwen3-8b weights (32,768 slots, under
+     0.6x the bf16 cache's bytes) and on 9a's ring, fed the bf16 run's
+     tokens: greedy agreement and the log-softmax gap beside JAX's bound
+     of 0.15.  No kernel launches; a watchdog turns a hang into a failed
+     exit;
+ 10. each kernel against its plain torch version on the same inputs, on the
      card, and timed with CUDA events beside its roofline bound (and beside
      the nearest single PyTorch call, where there is one); for the streaming
      kernel also the per-sweep loop on the same design, as a finding.  The
@@ -149,7 +172,7 @@ process per source, in parallel), then:
      x at the shapes of their fp32 rows and at every shape phase 4 gave
      them, there on the plan phase 4 ran (x at 2 bytes in the bound), with
      their rtol stops held to the rule on the plain iterate's fp64 SSE;
- 10. a ``kernels`` summary line (the bf16 kernels as ``<name>_bf16``;
+ 11. a ``kernels`` summary line (the bf16 kernels as ``<name>_bf16``;
      launches summed over the paths), the card's name and power limit,
      and the result line
      ``{"ok": true, "device": {...}}``.
@@ -158,9 +181,10 @@ Launch counts are reset just before each path (phases 1-2, the earlier
 slices' path; phase 3, the streaming path; phase 4, the mixed-precision
 path, where each bf16 kernel must launch; phase 5, the serving path;
 phase 6, the store and dispatcher path; phase 7b, the sharded serving
-path; phase 8, the LM path, whose probes launch the streaming kernel)
-and read just after it, so they count that path only; each kernel must
-have launched on its path, and none on the sharded path.  Inputs
+path; phase 8, the LM path, whose probes launch the streaming kernel;
+phase 9, the LM variants) and read just after it, so they count that
+path only; each kernel must have launched on its path, and none on the
+sharded path or the LM variants.  Inputs
 are Gaussian designs with a planted ``a_true`` and ``y = x @ a_true`` from
 a fixed seed.  Any failed check, build or launch error exits non-zero
 without the result line; so does a host with no CUDA device, or a
@@ -201,6 +225,8 @@ PHASE6_WATCHDOG_S = 420
 PHASE7_WATCHDOG_S = 300
 # Phase 8's (qwen3-8b: build, serve, probes).
 PHASE8_WATCHDOG_S = 700
+# Phase 9's (four models at full width: build, serve, checks in fp32).
+PHASE9_WATCHDOG_S = 900
 # Phase 8c: bakp_gram runs in warm-started chunks of this many sweeps until
 # it recovers the planted readout, at most this many in all.
 GRAM_CHUNK = 2_000
@@ -1982,6 +2008,42 @@ def main() -> int:
           f"phase 6d: {len(warm6)} warm starts, mean sweeps warm "
           f"{np.mean(warm6) if warm6 else None} cold "
           f"{np.mean(cold6) if cold6 else None} (gate: warm <= 0.7 x cold)")
+    # Where each warm request's start came from (the engine's
+    # extra["a0_source"]) and how many solves of its tenant had finished
+    # before its batch fired, beside its group: the warm gate's inputs
+    # (ROADMAP S3).
+    warm_rows6, by_source6 = [], {}
+    # A tenant's second request (the drifted y) served cold: its first
+    # had not stored coefficients when its batch fired.
+    second_cold6 = sum(1 for i, o in enumerate(out6d)
+                       if i >= nd6 * nt6 and not o.warm_start)
+    # A coalesced group reports one n_sweeps for all its members: the
+    # cold members a warm request's group held (members share the design,
+    # the batch's latency and its size).
+    cold_in6 = {}
+    for i, o in enumerate(out6d):
+        g = (reqs6d[i].design_key, o.latency_s, o.group_size)
+        cold_in6[g] = cold_in6.get(g, 0) + (not o.warm_start)
+    for i, o in enumerate(out6d):
+        if not o.warm_start:
+            continue
+        tenant = reqs6d[i].tenant_id
+        taken = tickets6[i].fired_at
+        done_before = sum(
+            1 for j, tk in enumerate(tickets6) if j != i
+            and reqs6d[j].tenant_id == tenant
+            and tk.completed_at is not None and tk.completed_at <= taken)
+        src = o.extra.get("a0_source")
+        warm_rows6.append([tenant, src, done_before, o.batch_kind,
+                           o.group_size, cold_in6[(reqs6d[i].design_key,
+                                                   o.latency_s,
+                                                   o.group_size)],
+                           o.n_sweeps])
+        agg = by_source6.setdefault(src, {"count": 0, "sweeps": 0})
+        agg["count"] += 1
+        agg["sweeps"] += o.n_sweeps
+    for agg in by_source6.values():
+        agg["mean_sweeps"] = agg.pop("sweeps") / agg["count"]
     served6.append(("6d_async", reqs6d, out6d))
     dispatch_promotions = dict(promo_threads)
     read_launches("phase_6_store")
@@ -2022,6 +2084,19 @@ def main() -> int:
                     for k in ("full", "deadline", "idle", "drain")},
           "warm_starts": len(warm6), "mean_sweeps_warm": float(
               np.mean(warm6)), "mean_sweeps_cold": float(np.mean(cold6)),
+          "warm_by_source": by_source6,
+          "second_requests_cold": second_cold6,
+          "warm_finished_before_taken": {
+              str(n): sum(1 for r in warm_rows6 if r[2] == n)
+              for n in sorted({r[2] for r in warm_rows6})},
+          "warm_mean_sweeps_by_cold_in_group": {
+              str(c): float(np.mean([r[6] for r in warm_rows6 if r[5] == c]))
+              for c in sorted({r[5] for r in warm_rows6})},
+          "warm_requests": {"columns": ["tenant", "a0_source",
+                                        "tenant_solves_finished_before",
+                                        "batch_kind", "group_size",
+                                        "group_cold_members", "n_sweeps"],
+                            "rows": warm_rows6},
           "promotions_by_thread": dispatch_promotions,
           "store": st6.stats.as_dict()})
     check(dispatch_promotions.get("serve-dispatch", 0) >= 1,
@@ -2440,6 +2515,51 @@ def main() -> int:
                                           probe_features)
     from repro_torch.models.params import count_params, tree_items
 
+    def int8_against(cfg, params, prompt, ids, ref_steps, smax):
+        """The model's int8 KV cache (phase 9e) against its bf16 cache's
+        run: prefill the same prompt into an int8 cache of ``smax`` slots,
+        feed the bf16 run's tokens ``ids`` step by step (teacher forcing,
+        so every step sees the same inputs), and compare each step's
+        logits with ``ref_steps``: argmax agreement and the largest
+        log-softmax gap, beside JAX's bound of 0.15 (test_kv_quant)."""
+        cfgq = dataclasses.replace(cfg, kv_quant="int8")
+        b = prompt["tokens"].shape[0]
+        qbytes, fbytes = cache_bytes(cfgq, b, smax), cache_bytes(cfg, b, smax)
+        check(qbytes < 0.6 * fbytes,
+              f"9e {cfg.name}: int8 cache {qbytes} bytes, not under 0.6x "
+              f"the bf16 cache's {fbytes}")
+        torch.cuda.reset_peak_memory_stats()
+        cacheq = init_cache(cfgq, b, smax)
+        (_, cacheq), pre_ms = timed(
+            lambda: make_prefill_step(cfgq)(params, prompt, cacheq))
+        decq = make_decode_step(cfgq)
+        outs = []
+        sync()
+        t = time.perf_counter()
+        for tok in ids:
+            lq, cacheq = decq(params, tok, cacheq)
+            outs.append(lq)
+        sync()
+        dec_s = time.perf_counter() - t
+        peak = torch.cuda.max_memory_allocated()
+        lq, lf = torch.stack(outs), torch.stack(ref_steps)
+        agree = (lq.argmax(-1) == lf.argmax(-1)).float().mean().item()
+        gap = (torch.log_softmax(lq, -1) - torch.log_softmax(lf, -1)
+               ).abs().max().item()
+        finite = bool(torch.isfinite(lq).all())
+        check(finite, f"9e {cfg.name}: int8 decode logits not finite")
+        del cacheq, outs, lq, lf
+        torch.cuda.empty_cache()
+        return {"arch": cfg.name, "cache_slots": smax,
+                "cache_bytes_int8": qbytes, "cache_bytes_bf16": fbytes,
+                "int8_over_bf16": qbytes / fbytes, "prefill_s": pre_ms / 1e3,
+                "decode_ms_per_step": dec_s * 1e3 / len(ids),
+                "decode_tokens_per_s": len(ids) * b / dec_s,
+                "max_memory_allocated": peak,
+                "greedy_agreement_vs_bf16_cache": agree,
+                "max_log_softmax_gap_vs_bf16_cache": gap,
+                "jax_gap_bound": 0.15, "finite": finite}
+
     def hung8():
         print(f"chip_smoke: phase 8 did not finish in {PHASE8_WATCHDOG_S} s "
               f"(a hang on the LM path)", file=sys.stderr, flush=True)
@@ -2503,18 +2623,19 @@ def main() -> int:
     (logits8, cache8), prefill_warm_ms = timed(
         lambda: prefill8(params8, prompt8, cache8))
     tok8 = first_tok8 = logits8.argmax(-1)[:, None].to(torch.int32)
-    ids8, first8 = [], None
+    ids8, steps8 = [], []
     sync()
     t = time.perf_counter()
     for i in range(g8):
         ids8.append(tok8)
         logits8, cache8 = decode8(params8, tok8, cache8)
-        first8 = logits8.clone() if i == 0 else first8
+        steps8.append(logits8)
         tok8 = logits8.argmax(-1)[:, None].to(torch.int32)
     sync()
     decode_s = time.perf_counter() - t
     lengths8 = cache8["lengths"].tolist()
     check(lengths8 == [s8 + g8] * b8, f"phase 8b: lengths {lengths8}")
+    first8 = steps8[0]
     check(bool(torch.isfinite(first8).all())
           and bool(torch.isfinite(logits8).all()),
           "phase 8b: decode logits not finite")
@@ -2587,6 +2708,13 @@ def main() -> int:
           "decode_vs_forward_bf16": bf16_check,
           "forward_vs_forward_bf16": bf16_floor,
           "decode_vs_forward_fp32": fp32_check})
+
+    # 9e on qwen3-8b (phase 9's int8 KV cache, run here on phase 8's
+    # weights before 8c frees them): the same prompts into an int8 cache
+    # of the same 32,768 slots, and 8b's 32 tokens fed step by step.
+    emit({"phase": "lm_int8", "card": card, "step": "9e",
+          **int8_against(cfg8, params8, prompt8, ids8, steps8, smax8)})
+    del steps8
 
     # 8c: linear probes of the activations (4 x 4,096 tokens: a 16,384 x
     # 4,096 fp32 design, the embedding in fp32 as the JAX package's probe).
@@ -2720,6 +2848,213 @@ def main() -> int:
     watchdog.cancel()
     emit({"phase": "lm_done", "card": card,
           "seconds": time.perf_counter() - t_phase8})
+
+    # -------------------- every attention and cache variant (phase 9)
+    # Four more models at full width and depth, random bf16 weights from
+    # SEED: (9a) h2o-danube-1.8b's SWA ring, prompts past the window;
+    # (9b) gemma2-9b's local/global pairs, softcaps and post-norms, local
+    # rings wrapped; (9c) minicpm3-4b's MLA latent cache; (9d)
+    # qwen2-vl-2b's M-RoPE streams; (9e) the int8 KV cache on 9a's ring
+    # (on qwen3-8b in phase 8).  Each model's decode step is profiled and
+    # held to one full forward at JAX's bound in fp32.
+    from repro_torch.models.kvcache import cache_spec_tree
+
+    def hung9():
+        print(f"chip_smoke: phase 9 did not finish in {PHASE9_WATCHDOG_S} s "
+              f"(a hang on the LM variants)", file=sys.stderr, flush=True)
+        os._exit(3)
+
+    watchdog = threading.Timer(PHASE9_WATCHDOG_S, hung9)
+    watchdog.daemon = True
+    watchdog.start()
+    t_phase9 = time.perf_counter()
+    _build.reset_launch_counts()
+    torch.cuda.empty_cache()
+    held9 = torch.cuda.memory_allocated()
+
+    def lm_variant(step, arch, shape, n_params, cache_bytes_b4, b, s, gen,
+                   check_b, check_s, check_slots, int8_slots=None):
+        """Serve ``arch`` at full width and depth: build, prefill ``b`` x
+        ``s`` tokens (cold, then warm), ``gen`` greedy steps on a cache of
+        max(max_cache_len, s + gen) slots; decode against the full forward
+        in bf16 (beside two forwards' own difference) and, held at JAX's
+        bound, in fp32 at ``check_b`` x ``check_s`` on ``check_slots``."""
+        cfg = get_arch(arch)
+        got = (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+               cfg.resolved_head_dim, cfg.d_ff, cfg.vocab_size)
+        check(got == shape, f"phase {step}: {arch} is {got}")
+        torch.cuda.reset_peak_memory_stats()
+        params, init_ms = timed(lambda: init_model(cfg, seed=SEED))
+        n = count_params(model_defs(cfg))
+        wbytes = sum(t.numel() * t.element_size()
+                     for _, t in tree_items(params))
+        check(n == n_params and wbytes == 2 * n,
+              f"phase {step}: {n} parameters in {wbytes} bytes, want "
+              f"{n_params} in bf16")
+        smax = max(cfg.max_cache_len, s + gen)
+        check(cache_bytes(cfg, 4, 32_768) == cache_bytes_b4,
+              f"phase {step}: cache_bytes(B 4, 32,768) "
+              f"{cache_bytes(cfg, 4, 32_768)}, want {cache_bytes_b4}")
+        prompt = make_smoke_batch(cfg, seed=SEED + 90, batch=b, seq=s)
+        prompt.pop("labels")
+        cache = init_cache(cfg, b, smax)
+        cbytes = cache_bytes(cfg, b, smax)
+        layout = {k: list(shape_) for k, (shape_, _) in
+                  cache_spec_tree(cfg, b, smax).items()}
+        check(cbytes == sum(t.numel() * t.element_size()
+                            for t in cache.values()),
+              f"phase {step}: cache_bytes {cbytes} is not the cache's")
+        prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
+        (logits, cache), pre_ms = timed(
+            lambda: prefill(params, prompt, cache))
+        (logits, cache), pre_warm_ms = timed(
+            lambda: prefill(params, prompt, cache))
+        tok = first_tok = logits.argmax(-1)[:, None].to(torch.int32)
+        ids, steps = [], []
+        sync()
+        t = time.perf_counter()
+        for _ in range(gen):
+            ids.append(tok)
+            logits, cache = decode(params, tok, cache)
+            steps.append(logits)
+            tok = logits.argmax(-1)[:, None].to(torch.int32)
+        sync()
+        dec_s = time.perf_counter() - t
+        lengths = cache["lengths"].tolist()
+        check(lengths == [s + gen] * b, f"phase {step}: lengths {lengths}")
+        check(all(bool(torch.isfinite(lg).all()) for lg in steps),
+              f"phase {step}: decode logits not finite")
+        peak = torch.cuda.max_memory_allocated()
+        row = {"phase": "lm_variant", "card": card, "step": step,
+               "arch": arch, "layers": cfg.n_layers, "d_model": cfg.d_model,
+               "heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads,
+               "head_dim": cfg.resolved_head_dim, "d_ff": cfg.d_ff,
+               "vocab": cfg.vocab_size, "layer_pattern": cfg.layer_pattern,
+               "attn_type": cfg.attn_type, "window": cfg.sliding_window,
+               "dtype": cfg.dtype, "reduced": [], "params": n,
+               "weight_bytes": wbytes, "init_s": init_ms / 1e3,
+               "batch": b, "prompt": s, "gen": gen, "cache_slots": smax,
+               "cache_layout": layout, "cache_bytes": cbytes,
+               "prefill_s": pre_ms / 1e3, "prefill_warm_s": pre_warm_ms / 1e3,
+               "decode_s": dec_s, "decode_tokens_per_s": gen * b / dec_s,
+               "decode_ms_per_step": dec_s * 1e3 / gen,
+               # The step's least time: the weights and the bf16 cache
+               # read once.
+               "step_bound_ms": (wbytes + cbytes) / HBM_BYTES_PER_S * 1e3,
+               "lengths": lengths, "max_memory_allocated": peak,
+               "held_before_phase": held9,
+               "generated_ids_row0": [int(t_[0]) for t_ in ids]}
+        # One more step under torch.profiler: device time by aten op
+        # against the steps' mean wall.
+        prof = torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA])
+        with prof:
+            decode(params, tok, cache)
+            sync()
+        ops = {}
+        for ev in prof.key_averages():
+            us = getattr(ev, "self_device_time_total", None)
+            us = ev.self_cuda_time_total if us is None else us
+            if str(ev.device_type).endswith("CPU") and us > 0:
+                ops[ev.key] = us / 1e3
+        dev_ms = sum(ops.values())
+        row["profiled_step_device_ms"] = dev_ms
+        row["profiled_step_device_ms_by_op"] = dict(
+            sorted(ops.items(), key=lambda kv: -kv[1])[:10])
+        row["decode_idle_share"] = 1.0 - dev_ms / row["decode_ms_per_step"]
+        del cache
+        torch.cuda.empty_cache()
+
+        # Decode against the full forward in bf16: the first step's
+        # logits against one forward over s + 1 tokens at position s, and
+        # a forward over s + 2 tokens at s (the rounding floor).
+        full = torch.cat([prompt["tokens"], first_tok], 1)
+        with torch.no_grad():
+            ref = forward_logits(cfg, params, full, at=s)
+            floor = forward_logits(cfg, params,
+                                   torch.cat([full, first_tok], 1), at=s)
+        row["decode_vs_forward_bf16"] = against(steps[0], ref)
+        row["forward_vs_forward_bf16"] = against(floor, ref)
+        del ref, floor
+        if int8_slots is not None:
+            row["int8"] = int8_against(cfg, params, prompt, ids, steps,
+                                       int8_slots)
+        del params, steps
+        torch.cuda.empty_cache()
+
+        # The same model in fp32 (JAX's test's dtype), at full depth.
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        params32 = init_model(cfg32, seed=SEED)
+        p32 = {k: v[:check_b, :check_s] if k == "tokens"
+               else v[:, :check_b, :check_s] for k, v in prompt.items()}
+        cache32 = init_cache(cfg32, check_b, check_slots)
+        with torch.no_grad():
+            _, cache32 = make_prefill_step(cfg32)(params32, p32, cache32)
+            dec32, cache32 = make_decode_step(cfg32)(
+                params32, full[:check_b, check_s:check_s + 1], cache32)
+            ref32 = forward_logits(cfg32, params32,
+                                   full[:check_b, :check_s + 1], at=check_s)
+        row["fp32_check"] = {"batch": check_b, "prompt": check_s,
+                             "cache_slots": check_slots,
+                             "cache_bytes": cache_bytes(cfg32, check_b,
+                                                        check_slots)}
+        row["decode_vs_forward_fp32"] = res32 = against(dec32, ref32)
+        check(res32["outside_jax_bound"] == 0,
+              f"phase {step}: {arch} fp32 decode against the full forward "
+              f"{res32}")
+        row["max_memory_allocated_fp32_check"] = \
+            torch.cuda.max_memory_allocated()
+        del params32, cache32, dec32, ref32
+        torch.cuda.empty_cache()
+        emit(row)
+        return row
+
+    variants9 = [
+        # 9a: 4 prompts of the window plus 512, so the prefill roll runs;
+        # the ring of 4,096 slots; fp32 check past the window, B 2.
+        lm_variant("9a", "h2o-danube-1.8b", (24, 2560, 32, 8, 80, 6912,
+                                             32000),
+                   1_831_201_280, 1_006_632_976, 4, 4_608, 32, 2, 4_608,
+                   4_609, int8_slots=4_609),
+        # 9b: the local rings wrap; 32,768 global slots; fp32 check on
+        # 8,192 slots, B 2.
+        lm_variant("9b", "gemma2-9b", (42, 3584, 16, 8, 256, 14336, 256000),
+                   9_241_705_984, 25_367_150_608, 4, 4_608, 32, 2, 4_608,
+                   8_192),
+        # 9c: 32,768 latent slots; fp32 check as phase 8's (2,048 slots).
+        lm_variant("9c", "minicpm3-4b", (62, 2560, 40, 40, 96, 6400, 73448),
+                   4_262_025_728, 4_680_843_280, 4, 512, 32, 4, 512, 2_048),
+        # 9d: JAX's arange position streams; 32,768 slots.
+        lm_variant("9d", "qwen2-vl-2b", (28, 1536, 12, 2, 128, 8960,
+                                         151936),
+                   1_543_853_568, 3_758_096_400, 4, 512, 32, 4, 512, 2_048),
+    ]
+    mla9 = get_arch("minicpm3-4b")
+    per_head9 = (mla9.n_layers * 32_768 * mla9.n_heads
+                 * (mla9.qk_nope_dim + mla9.qk_rope_dim + mla9.v_head_dim)
+                 * 2 * 2)
+    mla_bytes9 = cache_bytes(mla9, 1, 32_768)
+    check(mla_bytes9 < per_head9 / 10,
+          f"phase 9c: MLA cache {mla_bytes9} bytes, not under 1/10 of a "
+          f"per-head cache's {per_head9}")
+    counts9 = {**_build.launch_counts(), **_build.launch_counts(2)}
+    check(not any(counts9.values()),
+          f"phase 9: the LM variants launched kernels {counts9}")
+    watchdog.cancel()
+    emit({"phase": "lm_variants_done", "card": card,
+          "seconds": time.perf_counter() - t_phase9,
+          "mla_cache_bytes_b1_32768": mla_bytes9,
+          "per_head_cache_bytes_b1_32768": per_head9,
+          "mla_over_per_head": mla_bytes9 / per_head9,
+          "kernel_launches": counts9,
+          "summary": {r["arch"]: {
+              "decode_ms_per_step": r["decode_ms_per_step"],
+              "step_bound_ms": r["step_bound_ms"],
+              "prefill_warm_s": r["prefill_warm_s"],
+              "fp32_outside_jax_bound":
+                  r["decode_vs_forward_fp32"]["outside_jax_bound"]}
+              for r in variants9}})
 
     kernel_src = "src/repro_torch/kernels/csrc/"
     src_of = {

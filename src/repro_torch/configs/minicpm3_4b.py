@@ -3,7 +3,7 @@
 [hf:openbmb/MiniCPM3-4B; hf]  62L d_model=2560 40H d_ff=6400 vocab=73448.
 MLA: q_lora=768, kv_lora=256, qk_nope=64, qk_rope=32, v_head=64 — the KV
 cache stores only the 256+32-wide latent stream (decode uses absorbed
-matmuls).  The port raises for MLA until it is ported.
+matmuls).
 """
 from repro_torch.configs.base import ModelConfig
 

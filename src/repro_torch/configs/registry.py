@@ -1,7 +1,8 @@
 """Architecture registry: ``--arch <id>`` → ModelConfig, plus the
 cell-applicability matrix.  The port's copy of the JAX package's registry;
-``repro_torch.models`` runs the dense global-attention GQA family and
-raises ``NotImplementedError`` for the others."""
+``repro_torch.models`` runs the dense and VLM families (global, SWA and
+gemma2 local/global patterns; GQA, int8 KV or MLA) and raises
+``NotImplementedError`` for MoE, SSM / hybrid and enc-dec."""
 from __future__ import annotations
 
 from typing import Dict, List, Tuple

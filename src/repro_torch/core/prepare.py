@@ -147,6 +147,9 @@ class PreparedDesign:
                                              repr=False)
     _warm: "OrderedDict[str, torch.Tensor]" = field(default_factory=OrderedDict,
                                                     repr=False)
+    # Tenants whose warm coefficients came back with a demoted design's
+    # state (restore_state), not from a solve on this handle.
+    _warm_restored: set = field(default_factory=set, repr=False)
     _sharded: Dict[object, object] = field(default_factory=dict, repr=False)
     _lock: threading.RLock = field(default_factory=threading.RLock,
                                    repr=False, compare=False)
@@ -191,13 +194,22 @@ class PreparedDesign:
     # --------------------------------------------- per-tenant warm starts
     def warm_coef(self, tenant_id: Optional[str]) -> Optional[torch.Tensor]:
         """Last stored coefficients for ``tenant_id`` (None = cold)."""
+        return self.warm_coef_source(tenant_id)[0]
+
+    def warm_coef_source(self, tenant_id: Optional[str]):
+        """(coefficients, source) for ``tenant_id``: source ``"handle"``
+        where a solve on this handle stored them, ``"restored"`` where
+        they came back with the design's state from a lower store tier;
+        (None, None) when cold."""
         if tenant_id is None:
-            return None
+            return None, None
         with self._lock:
             coef = self._warm.get(tenant_id)
-            if coef is not None:
-                self._warm.move_to_end(tenant_id)
-            return coef
+            if coef is None:
+                return None, None
+            self._warm.move_to_end(tenant_id)
+            return coef, ("restored" if tenant_id in self._warm_restored
+                          else "handle")
 
     def store_coef(self, tenant_id: Optional[str], coef) -> None:
         """Retain a copy of a tenant's solved coefficients, LRU-bounded."""
@@ -207,6 +219,7 @@ class PreparedDesign:
         with self._lock:
             self._warm[tenant_id] = coef
             self._warm.move_to_end(tenant_id)
+            self._warm_restored.discard(tenant_id)
             while len(self._warm) > self.max_tenants:
                 self._warm.popitem(last=False)
 
@@ -222,6 +235,7 @@ class PreparedDesign:
             for row, c in enumerate(cols):
                 self._warm[tenant_ids[c]] = rows[row]
                 self._warm.move_to_end(tenant_ids[c])
+                self._warm_restored.discard(tenant_ids[c])
             while len(self._warm) > self.max_tenants:
                 self._warm.popitem(last=False)
 
@@ -371,6 +385,7 @@ class PreparedDesign:
                 self.chol[k] = device_copy(v, dev)
             for t, c in dict(warm).items():
                 self._warm[t] = device_copy(c, dev)
+                self._warm_restored.add(t)
             for t, a in dict(x_t).items():
                 if t not in self._x_t:
                     self._x_t[t] = device_copy(a, dev)

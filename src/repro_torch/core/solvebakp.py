@@ -247,11 +247,11 @@ def solvebakp_batched(
         cns = torch.einsum("bov,bov->bv", x_pad, x_pad)
     inv_cn = safe_inv(cns.float()) * mask
     if mode == "gram" and chols is None:
-        xb = x_pad.reshape(bsz, obs, nblocks, thr)
-        gram = torch.einsum("bont,bons->bnts", xb, xb)
-        gram = gram + ridge * torch.eye(thr, dtype=torch.float32,
-                                        device=xs.device)
-        chols = torch.linalg.cholesky(gram)
+        # One mm a block and system (block_grams), not one batched
+        # product: F3's error on a tall block.
+        chols = torch.stack([
+            block_gram_cholesky(x_pad[i].reshape(obs, nblocks, thr), ridge)
+            for i in range(bsz)])
     a = torch.zeros((bsz, nblocks * thr, 1), dtype=torch.float32,
                     device=xs.device)
     if a0s is not None:

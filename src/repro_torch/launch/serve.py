@@ -7,8 +7,10 @@ decode tokens.
 The counterpart of the JAX package's ``launch/serve.py``, with its three
 printed lines.  Random weights and prompts from seed 0; greedy decode at
 ``--temperature 0``, else sampling from ``torch.Generator`` seeded 0.  The
-cache holds ``max(max_cache_len, prompt + gen)`` slots.  ``--device``
-defaults to ``cuda`` and raises without a GPU.
+cache holds ``max(max_cache_len, prompt + gen)`` slots (a sliding-window
+layer's ring holds the window).  A VLM prompt carries ``make_smoke_batch``'s
+M-RoPE position streams; decode continues them from the cache's length.
+``--device`` defaults to ``cuda`` and raises without a GPU.
 """
 from __future__ import annotations
 

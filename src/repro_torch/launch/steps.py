@@ -2,7 +2,10 @@
 
 The port of the JAX package's ``launch/steps.py`` for serving: each
 ``make_*_step`` closes over the config and returns the step function.  The
-steps update the cache in place and return it (``models.model``).  The
+steps update the cache in place and return it (``models.model``).  A VLM
+batch carries its M-RoPE ``positions`` (3, B, S) to prefill; decode takes
+them as an optional (3, B, 1), by default the cache's length on every
+stream, as JAX's ``forward_decode``.  The
 train step and the abstract-state builders wait for training and the
 sharded dry run (ROADMAP queue 1).
 """
@@ -19,7 +22,7 @@ def make_prefill_step(cfg):
 
 
 def make_decode_step(cfg):
-    def decode_step(params, tokens, cache):
-        return forward_decode(cfg, params, tokens, cache)
+    def decode_step(params, tokens, cache, positions=None):
+        return forward_decode(cfg, params, tokens, cache, positions)
 
     return decode_step

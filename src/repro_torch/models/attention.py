@@ -1,17 +1,22 @@
-"""GQA attention (+qk-norm, softcap, window) with flash-style chunked
-computation: an online softmax over (q_chunk x k_chunk) blocks with fp32
-statistics, so no (S x S) score tensor is ever built.
+"""Attention: GQA (+qk-norm, softcap, window, M-RoPE) and MLA, with
+flash-style chunked computation: an online softmax over (q_chunk x
+k_chunk) blocks with fp32 statistics, so no (S x S) score tensor is ever
+built.
 
-The port of the JAX package's ``models/attention.py`` for GQA, in plain
-torch ops as JAX writes it in plain XLA (there is no kernel to port).  Two
-causal schedules:
+The port of the JAX package's ``models/attention.py``, in plain torch ops
+as JAX writes it in plain XLA (there is no kernel to port).  Two causal
+schedules:
   * ``masked``      — every query chunk visits every K/V chunk and masks.
   * ``triangular``  — each query chunk visits only the K/V chunks its
                       causal / window footprint reaches.
 
-``gqa_decode`` writes the new token's K/V into the cache tensors it is
-given, in place (JAX returns updated copies).  MLA and the int8 KV cache
-wait (ROADMAP queue 1).
+The decode functions (``gqa_decode``, ``gqa_decode_quant`` on the int8
+cache, ``mla_decode`` on the latent cache) write the new token into the
+cache tensors they are given, in place (JAX returns updated copies), and
+attend over the whole cache widened to fp32 with the unwritten slots
+masked, as JAX does.  A ring buffer (a window's cache of exactly
+``window`` slots) writes slot ``(lengths - 1) % Smax``; any other cache
+``min(lengths - 1, Smax - 1)``.
 """
 from __future__ import annotations
 
@@ -19,8 +24,8 @@ from typing import Dict
 
 import torch
 
-from repro_torch.models.common import (apply_rope, matmul, rmsnorm,
-                                       rmsnorm_def)
+from repro_torch.models.common import (apply_mrope, apply_rope, matmul,
+                                       rmsnorm, rmsnorm_def)
 from repro_torch.models.params import ParamDef
 
 _NEG = -2.0e30
@@ -155,6 +160,61 @@ def decode_attention(
 
 
 # ---------------------------------------------------------------------------
+# int8 KV-cache quantization
+# ---------------------------------------------------------------------------
+
+def quantize_kv(x: torch.Tensor):
+    """Per-(token, head) symmetric int8.  x: (..., hkv, hd) → (q int8,
+    scale fp32 (..., hkv)); rounds half to even, as ``jnp.round``."""
+    xf = x.float()
+    scale = torch.clamp(xf.abs().amax(dim=-1), min=1e-6) / 127.0
+    q = torch.round(xf / scale[..., None]).to(torch.int8)
+    return q, scale
+
+
+def dequantize_kv(q: torch.Tensor, scale: torch.Tensor, dtype
+                  ) -> torch.Tensor:
+    """The codes times their scale in fp32, rounded to ``dtype`` (the
+    model's) before any attention widens them again, as JAX does."""
+    return (q.float() * scale[..., None].float()).to(dtype)
+
+
+def _cache_slot(lengths, smax, window):
+    """The slot a decode step writes: ``(lengths - 1) % Smax`` in a ring
+    buffer (a window's cache of exactly ``window`` slots), else
+    ``min(lengths - 1, Smax - 1)``."""
+    if window and smax == window:
+        return (lengths - 1) % smax
+    return torch.clamp(lengths - 1, max=smax - 1)
+
+
+def gqa_decode_quant(cfg, p, x, positions, kq8, vq8, ks, vs, lengths, *,
+                     window=0):
+    """One-token decode against an int8 ring or linear cache.
+
+    kq8/vq8: (B, Smax, Hkv, hd) int8; ks/vs: (B, Smax, Hkv) fp32, all
+    written in place at the new token's slot.  The whole cache is
+    dequantized to the model dtype for the step.  Returns (out, kq8, vq8,
+    ks, vs).
+    """
+    b = x.shape[0]
+    q, k, v = gqa_qkv(cfg, p, x, positions)        # k/v: (B,1,Hkv,hd)
+    slot = _cache_slot(lengths, kq8.shape[1], window)
+    bidx = torch.arange(b, device=x.device)
+    kq_new, ks_new = quantize_kv(k[:, 0])
+    vq_new, vs_new = quantize_kv(v[:, 0])
+    kq8[bidx, slot] = kq_new
+    vq8[bidx, slot] = vq_new
+    ks[bidx, slot] = ks_new
+    vs[bidx, slot] = vs_new
+    k4 = dequantize_kv(kq8, ks, x.dtype)
+    v4 = dequantize_kv(vq8, vs, x.dtype)
+    o = decode_attention(q, k4, v4, lengths, window=window,
+                         softcap=cfg.attn_softcap)
+    return matmul(o.reshape(b, 1, -1), p["wo"]), kq8, vq8, ks, vs
+
+
+# ---------------------------------------------------------------------------
 # GQA attention layer
 # ---------------------------------------------------------------------------
 
@@ -185,8 +245,12 @@ def gqa_qkv(cfg, p, x, positions):
     if cfg.qk_norm:
         q = rmsnorm(q, p["q_norm"])
         k = rmsnorm(k, p["k_norm"])
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if cfg.mrope_sections:              # positions: (3, B, S)
+        q = apply_mrope(q, positions, cfg.rope_theta, cfg.mrope_sections)
+        k = apply_mrope(k, positions, cfg.rope_theta, cfg.mrope_sections)
+    else:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
 
 
@@ -208,14 +272,109 @@ def gqa_decode(cfg, p, x, positions, k_cache, v_cache, lengths, *, window=0):
     Returns (out, k_cache, v_cache)."""
     b = x.shape[0]
     q, k, v = gqa_qkv(cfg, p, x, positions)     # k/v: (B,1,Hkv,hd)
-    smax = k_cache.shape[1]
-    if window and smax == window:       # ring buffer (SWA)
-        slot = (lengths - 1) % smax
-    else:
-        slot = torch.clamp(lengths - 1, max=smax - 1)
+    slot = _cache_slot(lengths, k_cache.shape[1], window)
     bidx = torch.arange(b, device=x.device)
     k_cache[bidx, slot] = k[:, 0].to(k_cache.dtype)
     v_cache[bidx, slot] = v[:, 0].to(v_cache.dtype)
     o = decode_attention(q, k_cache, v_cache, lengths,
                          window=window, softcap=cfg.attn_softcap)
     return matmul(o.reshape(b, 1, -1), p["wo"]), k_cache, v_cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (multi-head latent attention, MiniCPM3 / DeepSeek style)
+# ---------------------------------------------------------------------------
+
+def mla_defs(cfg) -> Dict[str, ParamDef]:
+    d, h = cfg.d_model, cfg.n_heads
+    qr, kvr = cfg.q_lora_rank, cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    return {
+        "q_down": ParamDef((d, qr), ("embed", None)),
+        "q_norm": rmsnorm_def(qr),
+        "q_up": ParamDef((qr, h * (dn + dr)), (None, "model")),
+        "kv_down": ParamDef((d, kvr + dr), ("embed", None)),
+        "kv_norm": rmsnorm_def(kvr),
+        "k_up": ParamDef((kvr, h * dn), (None, "model")),
+        "v_up": ParamDef((kvr, h * dv), (None, "model")),
+        "wo": ParamDef((h * dv, d), ("model", "embed")),
+    }
+
+
+def _mla_project_q(cfg, p, x, positions):
+    """(q_nope (B,S,H,dn), q_rope (B,S,H,dr) roped)."""
+    b, s, _ = x.shape
+    dn, dr = cfg.qk_nope_dim, cfg.qk_rope_dim
+    ql = rmsnorm(matmul(x, p["q_down"]), p["q_norm"])
+    q = matmul(ql, p["q_up"]).reshape(b, s, cfg.n_heads, dn + dr)
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    return q_nope, apply_rope(q_rope, positions, cfg.rope_theta)
+
+
+def _mla_latent(cfg, p, x, positions):
+    """The compressed KV stream: (c_kv (B,S,kvr) normed, k_rope (B,S,dr)
+    roped)."""
+    kv = matmul(x, p["kv_down"])
+    kvr = cfg.kv_lora_rank
+    c_kv = rmsnorm(kv[..., :kvr], p["kv_norm"])
+    k_rope = apply_rope(kv[..., kvr:][:, :, None, :], positions,
+                        cfg.rope_theta)[:, :, 0]
+    return c_kv, k_rope
+
+
+def mla_attend(cfg, p, x, positions, *, q_offset=0):
+    """Train / prefill MLA: per-head K/V expanded from the latent stream
+    through the shared flash path (Hkv == H; v zero-padded to the qk
+    width, sliced after).  Returns (out, (c_kv, k_rope)), the latent pair
+    being what the cache stores."""
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    q_nope, q_rope = _mla_project_q(cfg, p, x, positions)
+    c_kv, k_rope = _mla_latent(cfg, p, x, positions)
+    k_nope = matmul(c_kv, p["k_up"]).reshape(b, s, h, dn)
+    v = matmul(c_kv, p["v_up"]).reshape(b, s, h, dv)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, s, h, dr)],
+                  dim=-1)
+    v_pad = torch.nn.functional.pad(v, (0, dn + dr - dv))
+    o = flash_attention(q, k, v_pad, causal=True, q_chunk=cfg.q_chunk,
+                        k_chunk=cfg.k_chunk, q_offset=q_offset,
+                        causal_mode=cfg.causal_mode)[..., :dv]
+    return matmul(o.reshape(b, s, -1), p["wo"]), (c_kv, k_rope)
+
+
+def mla_decode(cfg, p, x, positions, ckv_cache, krope_cache, lengths):
+    """Absorbed-matmul MLA decode: q_nope times k_up's transpose lands in
+    the latent space, so scores and values come from the latent cache
+    without expanding it to per-head K/V (fp32 einsums, as JAX's).  The
+    caches (B, Smax, kvr) and (B, Smax, dr) are written in place at slot
+    ``min(lengths - 1, Smax - 1)``; slots at or past ``lengths`` are
+    masked.  Returns (out, ckv_cache, krope_cache)."""
+    b = x.shape[0]
+    h = cfg.n_heads
+    dn, dr, dv, kvr = (cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim,
+                       cfg.kv_lora_rank)
+    q_nope, q_rope = _mla_project_q(cfg, p, x, positions)   # (B,1,H,.)
+    c_kv, k_rope = _mla_latent(cfg, p, x, positions)        # (B,1,.)
+    smax = ckv_cache.shape[1]
+    bidx = torch.arange(b, device=x.device)
+    slot = _cache_slot(lengths, smax, 0)
+    ckv_cache[bidx, slot] = c_kv[:, 0].to(ckv_cache.dtype)
+    krope_cache[bidx, slot] = k_rope[:, 0].to(krope_cache.dtype)
+
+    ckv = ckv_cache.float()
+    k_up = p["k_up"].reshape(kvr, h, dn).float()
+    q_lat = torch.einsum("bhd,khd->bhk", q_nope[:, 0].float(), k_up)
+    s_lat = torch.einsum("bhk,bsk->bhs", q_lat, ckv)
+    s_rope = torch.einsum("bhd,bsd->bhs", q_rope[:, 0].float(),
+                          krope_cache.float())
+    s = (s_lat + s_rope) * (dn + dr) ** -0.5
+    valid = torch.arange(smax, device=x.device)[None] < lengths[:, None]
+    s = s.masked_fill(~valid[:, None], _NEG)
+    pattn = torch.softmax(s, dim=-1)
+    o_lat = torch.einsum("bhs,bsk->bhk", pattn, ckv)          # (B,H,kvr)
+    v_up = p["v_up"].reshape(kvr, h, dv).float()
+    o = torch.einsum("bhk,khd->bhd", o_lat, v_up)
+    o = o.reshape(b, 1, h * dv).to(x.dtype)
+    return matmul(o, p["wo"]), ckv_cache, krope_cache

@@ -1,14 +1,15 @@
 """Shared model components: RMSNorm, RoPE, the SwiGLU MLP, embeddings.
 
-The port of the JAX package's ``models/common.py`` for the dense GQA
-family.  Every module follows the defs/apply pattern: ``*_defs`` returns a
-tree of ``ParamDef``, the functions take a matching tree of tensors.
-Activations stay in their dtype; norms and rope compute in fp32.
+The port of the JAX package's ``models/common.py`` for the dense, SWA,
+gemma2, MLA and VLM families.  Every module follows the defs/apply
+pattern: ``*_defs`` returns a tree of ``ParamDef``, the functions take a
+matching tree of tensors.  Activations stay in their dtype; norms and rope
+(and M-RoPE) compute in fp32.
 
 Matmuls follow JAX's dtype promotion: ``x @ w`` with an fp32 ``x`` and a
 bf16 ``w`` computes in fp32 (``matmul``), where ``torch.matmul`` would
-raise on the mixed dtypes.  M-RoPE, the gated norm (Mamba2) and the
-training loss wait for their families and for training (ROADMAP queue 1).
+raise on the mixed dtypes.  The gated norm (Mamba2) and the training loss
+wait for their family and for training (ROADMAP queue 1).
 """
 from __future__ import annotations
 
@@ -48,7 +49,7 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6
 
 
 # ---------------------------------------------------------------------------
-# RoPE
+# RoPE / M-RoPE
 # ---------------------------------------------------------------------------
 
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
@@ -64,6 +65,27 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
     d = x.shape[-1]
     inv = rope_freqs(d, theta, x.device)                    # (D/2,)
     ang = positions.float()[..., None] * inv                # (B, S, D/2)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+                sections) -> torch.Tensor:
+    """Qwen2-VL multimodal RoPE: the D/2 frequency slots are split into
+    ``sections`` = (t, h, w) groups, and group g rotates by position
+    stream g.  x: (B, S, H, D); positions: (3, B, S) int."""
+    d = x.shape[-1]
+    assert sum(sections) == d // 2, (sections, d)
+    inv = rope_freqs(d, theta, x.device)                    # (D/2,)
+    pos = positions.float()
+    # Section by section (slices, no index tensor: nothing waits on the
+    # device).
+    bounds = [sum(sections[:g]) for g in range(len(sections) + 1)]
+    ang = torch.cat([pos[g][..., None] * inv[bounds[g]:bounds[g + 1]]
+                     for g in range(len(sections))], dim=-1)  # (B, S, D/2)
     cos = torch.cos(ang)[:, :, None, :]
     sin = torch.sin(ang)[:, :, None, :]
     x1, x2 = x.float().chunk(2, dim=-1)

@@ -1,11 +1,24 @@
-"""The KV cache of the dense global-GQA family.
+"""KV caches of the dense, SWA, gemma2, MLA and VLM families.
 
-The port of the JAX package's ``models/kvcache.py`` for that layout, with
-the same dict: ``lengths`` (B,) int32 and ``k`` / ``v`` of shape
-(L, B, Smax, Hkv·hd) in the model dtype, K/V stored flat on the trailing
-dim.  A cache is a plain dict of tensors that the forwards update in
-place.  The other families' layouts (ring buffers, gemma2's pairs, MLA
-latents, int8, SSM states, enc-dec) wait with their models.
+The port of the JAX package's ``models/kvcache.py`` for those layouts, with
+the same dict: ``lengths`` (B,) int32 and a leading layer (or layer-pair)
+dim that matches the layer loop.  K/V are stored flat on the trailing dim
+(Hkv·hd).  A cache is a plain dict of tensors that the forwards update in
+place.  Layouts:
+
+  global GQA    : ``k`` / ``v`` (L, B, Smax, Hkv·hd) in the model dtype.
+  SWA           : the same with Smax = min(window, max_len): a ring buffer
+                  of ``window`` slots once max_len reaches the window.
+  int8 KV       : ``k`` / ``v`` int8 and fp32 ``k_scale`` / ``v_scale``
+                  (L, B, Smax, Hkv), linear or ring as above.
+  gemma2 pairs  : ``k_local`` / ``v_local`` (L/2, B, min(window, max_len),
+                  Hkv·hd) and ``k_global`` / ``v_global`` (L/2, B, max_len,
+                  Hkv·hd).
+  MLA           : the latent ``c_kv`` (L, B, Smax, kv_lora_rank) and
+                  ``k_rope`` (L, B, Smax, qk_rope_dim), no per-head K/V.
+
+The SSM, hybrid and enc-dec layouts wait with their models
+(``transformer.check_supported``).
 """
 from __future__ import annotations
 
@@ -20,11 +33,33 @@ from repro_torch.models.transformer import check_supported
 
 
 def cache_spec_tree(cfg, batch: int, max_len: int) -> Dict[str, Any]:
-    """{name: (shape, dtype)} description of the cache."""
+    """{name: (shape, dtype)} description of the cache: JAX's names,
+    shapes and dtypes."""
     check_supported(cfg)
-    kv = ((cfg.n_layers, batch, max_len,
-           cfg.n_kv_heads * cfg.resolved_head_dim), model_dtype(cfg))
-    return {"lengths": ((batch,), torch.int32), "k": kv, "v": kv}
+    hkv_hd = cfg.n_kv_heads * cfg.resolved_head_dim
+    dt = model_dtype(cfg)
+    out: Dict[str, Any] = {"lengths": ((batch,), torch.int32)}
+    if cfg.layer_pattern == "alt_local_global":
+        npairs = cfg.n_layers // 2
+        w = min(cfg.sliding_window, max_len)
+        out["k_local"] = out["v_local"] = ((npairs, batch, w, hkv_hd), dt)
+        out["k_global"] = out["v_global"] = (
+            (npairs, batch, max_len, hkv_hd), dt)
+    elif cfg.attn_type == "mla":
+        lat = (cfg.n_layers, batch, max_len)
+        out["c_kv"] = (lat + (cfg.kv_lora_rank,), dt)
+        out["k_rope"] = (lat + (cfg.qk_rope_dim,), dt)
+    else:
+        smax = (min(cfg.sliding_window, max_len) if cfg.sliding_window
+                else max_len)
+        kv = (cfg.n_layers, batch, smax)
+        if cfg.kv_quant == "int8":
+            out["k"] = out["v"] = (kv + (hkv_hd,), torch.int8)
+            out["k_scale"] = out["v_scale"] = (kv + (cfg.n_kv_heads,),
+                                               torch.float32)
+        else:
+            out["k"] = out["v"] = (kv + (hkv_hd,), dt)
+    return out
 
 
 def init_cache(cfg, batch: int, max_len: int, device=None
@@ -43,14 +78,24 @@ def cache_bytes(cfg, batch, max_len) -> int:
                                                        max_len).values()))
 
 
+def _max_len_of(cfg, cache: Dict[str, Any]) -> int:
+    """The ``max_len`` a cache was made for, read off its slots as the JAX
+    package's ``_max_len_of`` reads it.  A ring's slots are min(window,
+    max_len): every max_len from the window up has that layout."""
+    for k in ("k_global", "c_kv", "k"):
+        if k in cache:
+            return np.shape(cache[k])[2]
+    return cfg.max_cache_len
+
+
 def cache_from_numpy(cfg, cache: Dict[str, Any], device=None
                      ) -> Dict[str, torch.Tensor]:
     """A JAX cache dict (numpy arrays) as the port's, entry by entry, on
     ``device`` (default ``"cuda"``).  Raises ``ValueError`` when its names,
     shapes or dtypes are not ``cache_spec_tree``'s."""
     dev = resolve_device(device)
-    batch, max_len = np.shape(cache["k"])[1], np.shape(cache["k"])[2]
-    spec = cache_spec_tree(cfg, batch, max_len)
+    batch = np.shape(cache["lengths"])[0]
+    spec = cache_spec_tree(cfg, batch, _max_len_of(cfg, cache))
     if set(cache) != set(spec):
         raise ValueError(f"cache entries {sorted(cache)}, want {sorted(spec)}")
     out = {k: tensor_from_numpy(cache[k], dev) for k in spec}

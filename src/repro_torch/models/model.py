@@ -1,21 +1,25 @@
-"""Top-level model API for the dense GQA family: the parameter tree, the
-prefill and decode forwards, and the linear-probe features.
+"""Top-level model API for the dense and VLM families: the parameter tree,
+the prefill and decode forwards, and the linear-probe features.
 
 The port of the JAX package's ``models/model.py`` for serving.  The batch
-layout is JAX's, ``{"tokens": (B, S) int32}`` (``make_smoke_batch`` adds
-``labels``).  The cache is updated in place (JAX returns a new one from
-each step and its serving loop donates the old): ``forward_prefill`` writes
-the produced K/V into the preallocated buffers and zeroes the slots past
-the prompt, as JAX's zero pad does; ``forward_decode`` writes the new
-token's slot and advances ``lengths``.  Both return the cache they were
-given.  ``forward_train`` waits for training (ROADMAP queue 1 item 2).
+layout is JAX's, ``{"tokens": (B, S) int32}``, and for the VLM family
+(M-RoPE) ``"positions"`` (3, B, S) int32 too: the position streams (t, h,
+w) of a prompt whose patch frontend is stubbed (``make_smoke_batch`` gives
+each stream ``arange(S)``, and adds ``labels``).  The cache is updated in
+place (JAX returns a new one from each step and its serving loop donates
+the old): ``forward_prefill`` writes the produced entries (a windowed
+layer's trimmed and rolled into ring order) into the preallocated buffers
+and zeroes the slots past them, as JAX's zero pad does; ``forward_decode``
+writes the new token's slot and advances ``lengths``.  Both return the
+cache they were given.  ``forward_train`` waits for training (ROADMAP
+queue 1 item 2).
 
 ``init_model``, ``make_smoke_batch`` (and ``kvcache.init_cache``) run on
 ``"cuda"`` unless ``device="cpu"`` is passed, and raise without a GPU.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 
@@ -37,25 +41,29 @@ def model_defs(cfg) -> Dict[str, Any]:
 
 
 def _positions(cfg, batch, start, s):
+    """(B, S) positions from ``start``; for the VLM family (M-RoPE) the
+    three streams (3, B, S), each the same."""
     ar = torch.arange(s, device=start.device, dtype=start.dtype)
-    return (start[:, None] + ar[None]).expand(batch, s)
+    pos = (start[:, None] + ar[None]).expand(batch, s)
+    if cfg.family == "vlm":
+        return pos[None].expand(3, batch, s)
+    return pos
+
+
+def _batch_positions(cfg, batch_inputs):
+    """A batch's positions: the VLM family's own ``positions`` (3, B, S),
+    JAX's layout; else 0..S-1 on every row."""
+    tokens = batch_inputs["tokens"]
+    if cfg.family == "vlm":
+        return batch_inputs["positions"]
+    b, s = tokens.shape
+    zero = torch.zeros((b,), dtype=torch.int32, device=tokens.device)
+    return _positions(cfg, b, zero, s)
 
 
 def _embed_inputs(cfg, params, batch_inputs):
     return embed_tokens(params["embed"], batch_inputs["tokens"],
                         model_dtype(cfg))
-
-
-def _pad_cache_seq(buf, entry):
-    """Write a produced prefill entry (L, B, S, F) into the cache buffer
-    (L, B, Smax, F) in place and zero the slots past S: JAX's zero pad to
-    the buffer's shape, without a second cache."""
-    s = entry.shape[2]
-    if s > buf.shape[2]:
-        raise ValueError(f"prompt of {s} tokens over the cache's "
-                         f"{buf.shape[2]} slots")
-    buf[:, :, :s].copy_(entry)
-    buf[:, :, s:].zero_()
 
 
 def _logits(cfg, params, x):
@@ -64,36 +72,40 @@ def _logits(cfg, params, x):
                    final_softcap=cfg.final_softcap)
 
 
-def _train_hidden(cfg, params, tokens, dtype):
+def _train_hidden(cfg, params, tokens, dtype, positions=None):
     """Hidden states of a train-mode pass (no cache) over ``tokens``
     embedded in ``dtype``, before the final norm."""
-    b, s = tokens.shape
     x = embed_tokens(params["embed"], tokens, dtype)
-    zero = torch.zeros((b,), dtype=torch.int32, device=x.device)
+    if positions is None:
+        b, s = tokens.shape
+        zero = torch.zeros((b,), dtype=torch.int32, device=x.device)
+        positions = _positions(cfg, b, zero, s)
     h, _, _ = run_backbone(cfg, params["backbone"], x, mode="train",
-                           positions=_positions(cfg, b, zero, s))
+                           positions=positions)
     return h
 
 
 def forward_prefill(cfg, params, batch, cache):
     """Fill the cache from a full prompt.  Returns (last_logits (B, V),
     cache), the cache written in place."""
-    b, s = batch["tokens"].shape
+    s = batch["tokens"].shape[1]
     x = _embed_inputs(cfg, params, batch)
-    zero = torch.zeros((b,), dtype=torch.int32, device=x.device)
-    x, new_entries, _ = run_backbone(cfg, params["backbone"], x,
-                                     mode="prefill",
-                                     positions=_positions(cfg, b, zero, s))
-    for k, v in new_entries.items():
-        _pad_cache_seq(cache[k], v)
+    x, _, _ = run_backbone(cfg, params["backbone"], x, mode="prefill",
+                           positions=_batch_positions(cfg, batch),
+                           cache=cache)
     cache["lengths"].fill_(s)
     return _logits(cfg, params, x[:, -1:])[:, 0], cache
 
 
-def forward_decode(cfg, params, tokens, cache):
+def forward_decode(cfg, params, tokens, cache, positions=None):
     """One decode step.  tokens: (B, 1).  Returns (logits (B, V), cache),
-    the cache written in place."""
+    the cache written in place.  Under M-RoPE ``positions`` (3, B, 1)
+    defaults, as in JAX, to the cache's length on all three streams."""
+    b = tokens.shape[0]
     pos = cache["lengths"][:, None].clone()      # 0-based new position
+    if cfg.family == "vlm":
+        pos = positions if positions is not None else pos[None].expand(
+            3, b, 1)
     lengths = cache["lengths"] + 1
     x = embed_tokens(params["embed"], tokens, model_dtype(cfg))
     x, _, _ = run_backbone(cfg, params["backbone"], x, mode="decode",
@@ -102,31 +114,42 @@ def forward_decode(cfg, params, tokens, cache):
     return _logits(cfg, params, x)[:, 0], cache
 
 
-def forward_logits(cfg, params, tokens):
-    """Logits at every position of one full forward without a cache, the
-    reference a decode step from the cache is held to.  (B, S, V) fp32."""
-    return _logits(cfg, params,
-                   _train_hidden(cfg, params, tokens, model_dtype(cfg)))
+def forward_logits(cfg, params, tokens, positions=None,
+                   at: Optional[int] = None):
+    """Logits of one full forward without a cache, the reference a decode
+    step from the cache is held to: (B, S, V) fp32 at every position, or
+    (B, V) at position ``at`` only (the others are not unembedded).
+    ``positions`` as ``forward_prefill`` reads them (default 0..S-1 on
+    every row, and on every stream under M-RoPE)."""
+    h = _train_hidden(cfg, params, tokens, model_dtype(cfg), positions)
+    if at is not None:
+        return _logits(cfg, params, h[:, at:at + 1])[:, 0]
+    return _logits(cfg, params, h)
 
 
-def probe_features(cfg, params, tokens):
+def probe_features(cfg, params, tokens, positions=None):
     """The linear-probe design (the JAX package's
     ``examples/linear_probe.py``): final-normed hidden states of a
     train-mode pass with the embedding in fp32, so every layer computes in
     fp32 against the model's weights.  (B·S, d_model) fp32."""
-    h = _train_hidden(cfg, params, tokens, torch.float32)
+    h = _train_hidden(cfg, params, tokens, torch.float32, positions)
     return rmsnorm(h, params["final_ln"]).reshape(-1, cfg.d_model)
 
 
 def make_smoke_batch(cfg, seed: int = 0, batch: int = 2, seq: int = 32,
                      device=None) -> Dict[str, torch.Tensor]:
     """Random int32 ``tokens`` and ``labels`` (B, S) over the real vocab,
-    from ``torch.Generator(device).manual_seed(seed)``."""
+    from ``torch.Generator(device).manual_seed(seed)``; for the VLM family
+    also JAX's ``positions`` (3, B, S), ``arange(S)`` on each stream."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    return {name: torch.randint(0, cfg.vocab_size, (batch, seq),
-                                generator=gen, device=dev, dtype=torch.int32)
-            for name in ("tokens", "labels")}
+    out = {name: torch.randint(0, cfg.vocab_size, (batch, seq),
+                               generator=gen, device=dev, dtype=torch.int32)
+           for name in ("tokens", "labels")}
+    if cfg.family == "vlm":
+        ar = torch.arange(seq, dtype=torch.int32, device=dev)
+        out["positions"] = ar[None, None].expand(3, batch, seq).contiguous()
+    return out
 
 
 def init_model(cfg, seed: int = 0, dtype=None, device=None):

@@ -587,15 +587,17 @@ class SolverServeEngine:
                                bucket=f"{bucket[0]}x{bucket[1]}")
 
     def _resolve_a0(self, req: SolveRequest, entry: PreparedDesign):
-        """Warm-start coefficients for a request as host numpy: explicit
-        ``a0`` wins, then the design handle's per-tenant store; None means
-        cold."""
+        """(warm-start coefficients as host numpy, their source) for a
+        request: explicit ``a0`` wins (``"request"``), then the design
+        handle's per-tenant store (``PreparedDesign.warm_coef_source``);
+        (None, None) means cold."""
         if req.a0 is not None:
-            return np.asarray(req.a0, np.float32)
+            return np.asarray(req.a0, np.float32), "request"
         if self.config.warm_cache:
-            coef = entry.warm_coef(req.tenant_id)
-            return None if coef is None else _host(coef)
-        return None
+            coef, source = entry.warm_coef_source(req.tenant_id)
+            if coef is not None:
+                return _host(coef), source
+        return None, None
 
     @staticmethod
     def _pad_a0(a0: np.ndarray, vars_p: int) -> np.ndarray:
@@ -824,10 +826,12 @@ class SolverServeEngine:
 
     def _strip(self, req: SolveRequest, coef, residual, *, bucket, kind,
                group_size, latency, hit, n_sweeps, converged,
-               warm=False, placement=None, method="", path="xla",
-               retries=0) -> ServedSolve:
+               warm=False, a0_source=None, placement=None, method="",
+               path="xla", retries=0) -> ServedSolve:
         """One request's result with the padding stripped (``coef`` /
-        ``residual`` are host arrays)."""
+        ``residual`` are host arrays).  A warm request's ``extra`` names
+        where its start came from (``a0_source``: ``"request"``,
+        ``"handle"`` or ``"restored"``)."""
         n_obs, nvars = np.shape(req.x)
         coef = np.asarray(coef)[:nvars]
         residual = np.asarray(residual)[:n_obs]
@@ -878,6 +882,7 @@ class SolverServeEngine:
             placement=placement_kind,
             retries=retries,
             telemetry=tel,
+            extra={"a0_source": a0_source} if warm else {},
         )
 
     def _solve_multi_rhs(self, requests, idxs, entry, hit, bucket, results,
@@ -900,11 +905,10 @@ class SolverServeEngine:
                 y = np.asarray(requests[idx].y, np.float32)
                 ys[: y.shape[0], c] = y
                 sse0 += float(np.dot(y, y))
-            if mentry.iterative:
-                a0s = [self._resolve_a0(requests[idx], entry)
-                       for idx in idxs]
-            else:
-                a0s = [None] * k
+            resolved = ([self._resolve_a0(requests[idx], entry)
+                         for idx in idxs] if mentry.iterative
+                        else [(None, None)] * k)
+            a0s = [a for a, _ in resolved]
             a0_mat = None
             if any(a is not None for a in a0s):
                 a0_mat = np.zeros((vars_p, k_pad), np.float32)
@@ -942,8 +946,8 @@ class SolverServeEngine:
                     kind="multi_rhs", group_size=k, latency=dt, hit=hit,
                     n_sweeps=n_sweeps, converged=converged,
                     warm=a0_used is not None and a0s[c] is not None,
-                    placement=fplace, method=fspec.method, path=path,
-                    retries=retries)
+                    a0_source=resolved[c][1], placement=fplace,
+                    method=fspec.method, path=path, retries=retries)
         with self._stats_lock:
             self.stats.solver_calls += 1
             self.stats.multi_rhs_groups += 1
@@ -997,8 +1001,9 @@ class SolverServeEngine:
         with obs.span("engine.pad", kind="vmap", b=b):
             ys_h = np.stack([pad_y(np.asarray(requests[i].y, np.float32),
                                    obs_p) for i, _, _, _ in singles])
-            a0s = [self._resolve_a0(requests[i], e)
-                   for i, e, _, _ in singles]
+            resolved = [self._resolve_a0(requests[i], e)
+                        for i, e, _, _ in singles]
+            a0s = [a for a, _ in resolved]
             warm = any(a is not None for a in a0s)
             atols = [self._padded_atol(
                 spec.atol, np.shape(requests[i].x)[0], obs_p)
@@ -1063,7 +1068,8 @@ class SolverServeEngine:
                     kind="vmap", group_size=b, latency=dt, hit=hit,
                     n_sweeps=sweeps_b[row], converged=conv_b[row],
                     warm=a0s[row] is not None,
-                    method=spec.method, path=path)
+                    a0_source=resolved[row][1], method=spec.method,
+                    path=path)
         with self._stats_lock:
             self.stats.solver_calls += 1
             self.stats.vmap_batches += 1
@@ -1076,9 +1082,9 @@ class SolverServeEngine:
         with obs.span("engine.pad", kind="single", k=1):
             y_real = np.asarray(req.y, np.float32)
             y_pad = pad_y(y_real, bucket[0])
-            a0 = None
+            a0, a0_source = None, None
             if solver_method(spec.method).iterative:
-                a0 = self._resolve_a0(req, entry)
+                a0, a0_source = self._resolve_a0(req, entry)
             a0_pad = None
             if a0 is not None:
                 a0_pad = self._pad_a0(a0, bucket[1])
@@ -1106,8 +1112,9 @@ class SolverServeEngine:
                 req, _host(res.coef), _host(res.residual), bucket=bucket,
                 kind="single", group_size=1, latency=dt, hit=hit,
                 n_sweeps=int(res.n_sweeps), converged=bool(res.converged),
-                warm=a0_used is not None, placement=fplace,
-                method=fspec.method, path=path, retries=retries)
+                warm=a0_used is not None, a0_source=a0_source,
+                placement=fplace, method=fspec.method, path=path,
+                retries=retries)
         with self._stats_lock:
             self.stats.solver_calls += 1
             self.stats.single_solves += 1

@@ -1249,6 +1249,31 @@ def test_column_norms_near_fp64_on_card(cuda, obs, nvars):
         assert ((n.double() - n64).abs() / n64).max().item() <= 1e-6
 
 
+def test_batched_gram_solve_near_fp64_on_card(cuda):
+    """``solvebakp_batched(mode="gram")`` given no factors takes each
+    block's Gram from one ``mm`` (``block_grams``): its first sweep's SSE
+    sits within fp32 rounding of the fp64 iteration at obs 262,144, where
+    the batched ``einsum`` Gram put it 1.13e-4 off (``tools/gram_accuracy.py``,
+    F3's family)."""
+    from repro_torch.core import solvebakp_batched
+
+    obs, nvars, thr = 262_144, 256, 128
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    xs = torch.randn(2, obs, nvars, generator=gen, device=cuda)
+    a = torch.randn(2, nvars, 1, generator=gen, device=cuda)
+    ys = torch.bmm(xs, a)[..., 0]
+    res = solvebakp_batched(xs, ys, thr=thr, max_iter=1, mode="gram")
+    eye = torch.eye(thr, dtype=torch.float64, device=cuda)
+    for i in range(2):
+        xd, e = xs[i].double(), ys[i].double()
+        for b in range(nvars // thr):
+            xb = xd[:, b * thr:(b + 1) * thr]
+            chol = torch.linalg.cholesky(xb.T @ xb + 1e-6 * eye)
+            e = e - xb @ torch.cholesky_solve((xb.T @ e)[:, None], chol)[:, 0]
+        h64 = float((e * e).sum())
+        assert abs(float(res.history[i, 0]) - h64) / h64 <= 1e-5
+
+
 def test_lm_smoke_model_on_card_matches_cpu(cuda):
     """qwen3-8b's smoke model (fp32) on the card against the same weights
     on the CPU: prefill, three decode steps (logits and every cache entry)
@@ -1281,3 +1306,56 @@ def test_lm_smoke_model_on_card_matches_cpu(cuda):
     for a, b in zip(out[cuda][:-1], out[cpu][:-1]):
         assert (a - b).abs().max().item() <= 1e-4 * b.abs().max().item()
     assert torch.equal(out[cuda][-1], out[cpu][-1])
+
+
+@pytest.mark.parametrize("arch,change", [
+    ("h2o-danube-1.8b", {}), ("gemma2-9b", {}), ("minicpm3-4b", {}),
+    ("qwen2-vl-2b", {}), ("qwen3-8b", {"kv_quant": "int8"}),
+    ("h2o-danube-1.8b", {"kv_quant": "int8"})])
+def test_lm_variants_on_card_match_cpu(cuda, arch, change):
+    """Each attention and cache variant's smoke model (fp32) on the card
+    against the same weights on the CPU: a prompt past the window of 32,
+    three decode steps (logits and every cache entry; int8 codes may
+    differ by 1 on at most 0.1% of the entries) and the probe features."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models.kvcache import init_cache
+    from repro_torch.models.model import (init_model, make_smoke_batch,
+                                          probe_features)
+    from repro_torch.models.params import tree_map
+
+    cfg = dataclasses.replace(get(arch).smoke(), **change)
+    cpu = torch.device("cpu")
+    params = {cpu: init_model(cfg, seed=0, device=cpu)}
+    params[cuda] = tree_map(lambda t: t.to(cuda), params[cpu])
+    batch = make_smoke_batch(cfg, seed=1, batch=2, seq=43, device=cpu)
+    prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
+    out = {}
+    for dev, p in params.items():
+        cache = init_cache(cfg, 2, cfg.max_cache_len, device=dev)
+        prompt = {k: (v[..., :40] if k == "positions" else v[:, :40]).to(dev)
+                  for k, v in batch.items() if k != "labels"}
+        logits, cache = prefill(p, prompt, cache)
+        seen = [logits]
+        for i in range(40, 43):
+            logits, cache = decode(p, batch["tokens"][:, i:i + 1].to(dev),
+                                   cache)
+            seen.append(logits)
+        seen.append(probe_features(cfg, p, batch["tokens"][:, :40].to(dev)))
+        out[dev] = ([t.cpu() for t in seen],
+                    {k: v.cpu() for k, v in cache.items()})
+    for a, b in zip(out[cuda][0], out[cpu][0]):
+        assert (a - b).abs().max().item() <= 1e-4 * b.abs().max().item()
+    for name, b in out[cpu][1].items():
+        a = out[cuda][1][name]
+        if b.dtype == torch.int8:
+            d = (a.int() - b.int()).abs()
+            assert d.max().item() <= 1 and (d > 0).sum().item() <= \
+                1e-3 * d.numel(), name
+        elif b.dtype == torch.int32:
+            assert torch.equal(a, b), name
+        else:
+            assert (a - b).abs().max().item() <= \
+                1e-4 * b.abs().max().item(), name

@@ -112,7 +112,7 @@ def test_serve_cli_needs_the_card_by_default():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tserve.main(["--arch", "qwen3-8b", "--smoke"])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tserve.main(["--arch", "gemma2-9b", "--smoke", "--device", "cpu"])
+        tserve.main(["--arch", "mamba2-370m", "--smoke", "--device", "cpu"])
 
 
 @pytest.mark.parametrize("name,want", [

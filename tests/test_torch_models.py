@@ -425,7 +425,14 @@ def test_probe_features_on_bf16_weights(cfgs):
     _close(feats, ref)
 
 
-@pytest.mark.parametrize("arch", sorted(a for a in ARCHS if a != "qwen3-8b"))
+# The families still to port (MoE, SSM / hybrid, enc-dec); the dense and
+# VLM configs run (tests/test_torch_models_attn.py).
+RAISING_ARCHS = sorted(a for a in ARCHS if a not in (
+    "qwen3-8b", "h2o-danube-1.8b", "gemma2-9b", "minicpm3-4b",
+    "qwen2-vl-2b"))
+
+
+@pytest.mark.parametrize("arch", RAISING_ARCHS)
 def test_other_families_raise(arch):
     cfg = tget(arch)
     for fn in (lambda: TM.model_defs(cfg), lambda: TK.cache_bytes(cfg, 1, 8),
@@ -434,13 +441,10 @@ def test_other_families_raise(arch):
             fn()
 
 
+# Ids kept from when the int8, MLA, SWA and post-norm variants raised too.
 @pytest.mark.parametrize("change,item", [
-    (dict(kv_quant="int8"), "1d"),
-    (dict(attn_type="mla"), "1c"),
-    (dict(layer_pattern="swa", sliding_window=32), "1a"),
-    (dict(sliding_window=32), "1a"),
-    (dict(post_norm=True), "1b"),
-    (dict(n_experts=4), "1e"),
+    pytest.param(dict(sliding_window=32), "1a", id="change3-1a"),
+    pytest.param(dict(n_experts=4), "1e", id="change5-1e"),
 ])
 def test_variants_of_the_dense_family_raise(cfgs, weights, change, item):
     cfg = dataclasses.replace(cfgs[0], **change)
@@ -458,7 +462,9 @@ def test_lm_modules_import_neither_jax_nor_repro():
     code = ("import sys\n"
             "import repro_torch.configs.registry, repro_torch.models.model\n"
             "import repro_torch.models.kvcache, repro_torch.launch.serve\n"
-            "import repro_torch.launch.steps\n"
+            "import repro_torch.launch.steps, repro_torch.models.attention\n"
+            "import repro_torch.models.common, repro_torch.models.params\n"
+            "import repro_torch.models.transformer\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib', 'repro.')) or m == 'repro')\n"
             "assert not bad, bad\n")

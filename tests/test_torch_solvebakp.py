@@ -173,3 +173,26 @@ def test_bad_arguments_raise():
         solvebakp(torch.tensor(x), torch.tensor(y), mode="nope")
     with pytest.raises(ValueError, match="y must be"):
         solvebakp(torch.tensor(x), torch.zeros(64, 2, 2))
+
+
+@pytest.mark.parametrize("nvars", [24, 20])
+def test_batched_gram_factors_from_block_grams(nvars):
+    """``solvebakp_batched(mode="gram")`` without factors builds each
+    system's from ``block_gram_cholesky`` (one ``mm`` a block), so every
+    system solves as ``solvebakp`` does alone and as JAX's vmap of it."""
+    import jax
+    from repro_torch.core import solvebakp_batched
+    systems = [_system(20 + i, 256, nvars, noise=0.05) for i in range(3)]
+    xs = np.stack([x for x, _, _ in systems])
+    ys = np.stack([y for _, y, _ in systems])
+    kw = dict(thr=8, max_iter=12, mode="gram")
+    rb = solvebakp_batched(torch.tensor(xs), torch.tensor(ys), **kw)
+    jb = jax.vmap(lambda x, y: j_solvebakp(x, y, **kw))(jnp.asarray(xs),
+                                                         jnp.asarray(ys))
+    _close(rb.coef, jb.coef)
+    _close(rb.residual, jb.residual)
+    for i, (x, y, _) in enumerate(systems):
+        r = solvebakp(torch.tensor(x), torch.tensor(y), **kw)
+        _close(rb.coef[i], r.coef)
+        np.testing.assert_allclose(_np(rb.history[i]), _np(r.history),
+                                   rtol=1e-5, atol=1e-6)

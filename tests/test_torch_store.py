@@ -374,6 +374,36 @@ class TestWarmSurvivesEviction:
             _close(t.residual, j.residual, scale=y)
 
 
+    def test_engine_names_where_a_warm_start_came_from(self, rng):
+        """A warm request's ``extra["a0_source"]``: ``"restored"`` when its
+        tenant's coefficients came back with a promoted design,
+        ``"handle"`` after a solve on the resident handle stored them,
+        ``"request"`` for an explicit ``a0``; a cold request has none."""
+        x, y, _ = make_system(rng, 96, 48)
+        eng = SolverServeEngine(
+            ServeConfig(store_device_bytes=2 * 128 * 64 * 4),
+            registry=obs.MetricsRegistry(), device="cpu")
+
+        def req(xx, yy, key, tenant=None, a0=None):
+            return SolveRequest(x=xx, y=yy, method="bakp", thr=16,
+                                max_iter=30, rtol=1e-12, design_key=key,
+                                tenant_id=tenant, a0=a0)
+
+        [r0] = eng.serve([req(x, y, "target", "t0")])
+        assert not r0.warm_start and r0.extra == {}
+        for i in range(2):
+            xi, yi, _ = make_system(np.random.default_rng(60 + i), 96, 48)
+            eng.serve([req(xi, yi, f"filler-{i}")])
+        assert eng.store.tier("target") == "host"
+        [r1] = eng.serve([req(x, y, "target", "t0")])
+        [r2] = eng.serve([req(x, y, "target", "t0")])
+        [r3] = eng.serve([req(x, y, "target", "t1", a0=r0.coef)])
+        assert [r.extra.get("a0_source") for r in (r1, r2, r3)] == [
+            "restored", "handle", "request"]
+        assert all(r.warm_start for r in (r1, r2, r3))
+        eng.shutdown()
+
+
 # ------------------------------------------------------------ solve parity
 class TestStreamParity:
     """The port's store-backed non-resident handle (the host-block loop)
