@@ -150,7 +150,25 @@ process per source, in parallel), then:
      tokens: greedy agreement and the log-softmax gap beside JAX's bound
      of 0.15.  No kernel launches; a watchdog turns a hang into a failed
      exit;
- 10. each kernel against its plain torch version on the same inputs, on the
+ 10. the MoE, SSM and hybrid families (after phase 9, its own watchdog),
+     at full width, random bf16 weights from the seed, each counted
+     against ``n_params()``, served (4 prompts, prefill cold and warm, 32
+     greedy steps, one more step profiled by aten op, the step bounded by
+     every weight, all experts', and the cache read once at 3.35 TB/s),
+     checked in fp32 and freed (``lm_family``): (10a) dbrx-132b at 6 of
+     its 40 layers and (10b) arctic-480b at 2 of its 35 (its dense
+     residual on), 4 x 512 tokens into 32,768 slots, each MoE layer's
+     prefill routing printed (the share of assignments capacity drops,
+     the load per expert), the fp32 decode step's MoE outputs (at 2 and 1
+     layers) held to the no-capacity reference within 1e-5 of their
+     magnitude; (10c) mamba2-370m and (10d) zamba2-7b at full depth, 4 x
+     4,000 tokens (16 SSD chunks, the last padded), decode of token 4,000
+     against one full forward over 4,001 tokens in bf16 (beside two
+     forwards' own difference) and at JAX's bound in fp32 (zamba2 at B 2
+     on 8,192 slots; its serving cache 32,768 slots, not its
+     max_cache_len's 524,288); mamba2's state bytes constant in the
+     length.  No kernel launches;
+ 11. each kernel against its plain torch version on the same inputs, on the
      card, and timed with CUDA events beside its roofline bound (and beside
      the nearest single PyTorch call, where there is one); for the streaming
      kernel also the per-sweep loop on the same design, as a finding.  The
@@ -172,7 +190,7 @@ process per source, in parallel), then:
      x at the shapes of their fp32 rows and at every shape phase 4 gave
      them, there on the plan phase 4 ran (x at 2 bytes in the bound), with
      their rtol stops held to the rule on the plain iterate's fp64 SSE;
- 11. a ``kernels`` summary line (the bf16 kernels as ``<name>_bf16``;
+ 12. a ``kernels`` summary line (the bf16 kernels as ``<name>_bf16``;
      launches summed over the paths), the card's name and power limit,
      and the result line
      ``{"ok": true, "device": {...}}``.
@@ -182,9 +200,10 @@ slices' path; phase 3, the streaming path; phase 4, the mixed-precision
 path, where each bf16 kernel must launch; phase 5, the serving path;
 phase 6, the store and dispatcher path; phase 7b, the sharded serving
 path; phase 8, the LM path, whose probes launch the streaming kernel;
-phase 9, the LM variants) and read just after it, so they count that
-path only; each kernel must have launched on its path, and none on the
-sharded path or the LM variants.  Inputs
+phase 9, the LM variants; phase 10, the MoE, SSM and hybrid families)
+and read just after it, so they count that path only; each kernel must
+have launched on its path, and none on the sharded path, the LM
+variants or the new families.  Inputs
 are Gaussian designs with a planted ``a_true`` and ``y = x @ a_true`` from
 a fixed seed.  Any failed check, build or launch error exits non-zero
 without the result line; so does a host with no CUDA device, or a
@@ -192,6 +211,7 @@ directory without the repository's ``src/``.
 """
 from __future__ import annotations
 
+import contextlib
 import importlib
 import json
 import re
@@ -227,6 +247,12 @@ PHASE7_WATCHDOG_S = 300
 PHASE8_WATCHDOG_S = 700
 # Phase 9's (four models at full width: build, serve, checks in fp32).
 PHASE9_WATCHDOG_S = 900
+# Phase 10's (four MoE, SSM and hybrid models: build, serve, checks in
+# fp32).
+PHASE10_WATCHDOG_S = 600
+# Phase 10's MoE decode check: each layer's output in an fp32 decode step
+# against the no-capacity reference, max error over max |reference|.
+MOE_REF_TOL = 1e-5
 # Phase 8c: bakp_gram runs in warm-started chunks of this many sweeps until
 # it recovers the planted readout, at most this many in all.
 GRAM_CHUNK = 2_000
@@ -245,6 +271,279 @@ def check(ok: bool, what: str) -> None:
     if not ok:
         _failures.append(what)
         print(f"CHECK FAILED: {what}", file=sys.stderr, flush=True)
+
+
+def _timed(fn):
+    """(fn(), its ms on the host clock between two device syncs)."""
+    import torch
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t) * 1e3
+
+
+def _step_profile(step) -> tuple:
+    """One call of ``step`` under torch.profiler: (device ms, the ten
+    aten ops with the most device self time, by name)."""
+    import torch
+    prof = torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA])
+    with prof:
+        step()
+        torch.cuda.synchronize()
+    ops = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", None)
+        us = ev.self_cuda_time_total if us is None else us
+        if str(ev.device_type).endswith("CPU") and us > 0:
+            ops[ev.key] = us / 1e3
+    return sum(ops.values()), dict(sorted(ops.items(),
+                                          key=lambda kv: -kv[1])[:10])
+
+
+@contextlib.contextmanager
+def _moe_calls(record: list):
+    """Within it, each MoE layer's call appends (its params, its input, its
+    output) to ``record``: ``models.transformer.apply_moe`` wrapped, for
+    phase 10's routing statistics and its decode check."""
+    import repro_torch.models.transformer as tt
+    real = tt.apply_moe
+
+    def recording(cfg, p, h):
+        y, aux = real(cfg, p, h)
+        record.append((p, h, y))
+        return y, aux
+
+    tt.apply_moe = recording
+    try:
+        yield record
+    finally:
+        tt.apply_moe = real
+
+
+def _routing_stats(cfg, p, h) -> dict:
+    """One MoE layer's routing of its input ``h``: its capacity, the
+    assignments it dropped and their share, and the assignments and kept
+    ones per expert."""
+    import torch
+
+    from repro_torch.models import moe as moe_lib
+    xg = h.reshape(1, -1, cfg.d_model)
+    r = moe_lib.route(cfg, moe_lib.router_logits(p, xg),
+                      moe_lib.capacity(cfg, xg.shape[1]))
+    flat = r.idx.reshape(-1)
+    return {"capacity": r.cap, "assignments": flat.numel(),
+            "dropped": int((~r.keep).sum()),
+            "dropped_share": 1.0 - r.keep.float().mean().item(),
+            "assignments_per_expert": torch.bincount(
+                flat, minlength=cfg.n_experts).tolist(),
+            "kept_per_expert": torch.bincount(
+                flat[r.keep.reshape(-1)], minlength=cfg.n_experts).tolist()}
+
+
+def _against_no_capacity(cfg, p, h, y) -> float:
+    """max |y - the no-capacity reference on h| over its max magnitude."""
+    from repro_torch.models import moe as moe_lib
+    ref = moe_lib.apply_moe_no_capacity(cfg, p, h)
+    return ((y - ref).abs().max() / ref.abs().max()).item()
+
+
+def lm_family(spec, *, dev, card, against, held, int8_against=None):
+    """Phases 9 and 10: serve one model at its full width, its depth cut
+    (``spec["depth"]``) where its bf16 weights pass one card, as
+    ``spec["reduced"]`` says: build and count, prefill 4 prompts cold and
+    warm, 32 greedy decode steps on a cache of max(max_cache_len, prompt +
+    gen) slots (or ``spec["slots"]``), one more step profiled by aten op;
+    an MoE model's prefill routing per layer (capacity drops, expert
+    loads); with ``spec["int8_slots"]``, the int8 KV cache against this
+    run (``int8_against``).  Then the decode check in fp32 on a fresh copy
+    of ``spec["check_depth"]`` layers: an MoE model's decode step, layer by
+    layer, against the no-capacity reference within MOE_REF_TOL of its
+    magnitude (capacity routes a 1-token decode unlike a long forward);
+    any other model's first step against one full forward at JAX's bound,
+    after the same comparison in bf16 beside two forwards' own
+    difference."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.registry import get as get_arch
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models.kvcache import (cache_bytes, cache_spec_tree,
+                                            init_cache)
+    from repro_torch.models.model import (forward_logits, init_model,
+                                          make_smoke_batch, model_defs)
+    from repro_torch.models.params import count_params, tree_items
+
+    step, arch = spec["step"], spec["arch"]
+    full_cfg = get_arch(arch)
+    got = (full_cfg.n_layers, full_cfg.d_model, full_cfg.n_heads,
+           full_cfg.n_kv_heads, full_cfg.resolved_head_dim, full_cfg.d_ff,
+           full_cfg.vocab_size)
+    check(got == spec["shape"], f"phase {step}: {arch} is {got}")
+    cfg = dataclasses.replace(
+        full_cfg, n_layers=spec.get("depth", full_cfg.n_layers))
+    moe = cfg.n_experts > 0
+    b, s, gen = 4, spec["prompt"], 32
+    slots = spec.get("slots", max(cfg.max_cache_len, s + gen))
+    if "cache_bytes_b4" in spec:
+        check(cache_bytes(cfg, 4, 32_768) == spec["cache_bytes_b4"],
+              f"phase {step}: cache_bytes(B 4, 32,768) "
+              f"{cache_bytes(cfg, 4, 32_768)}, want "
+              f"{spec['cache_bytes_b4']}")
+    torch.cuda.reset_peak_memory_stats()
+    params, init_ms = _timed(lambda: init_model(cfg, seed=SEED, device=dev))
+    n = count_params(model_defs(cfg))
+    wbytes = sum(t.numel() * t.element_size() for _, t in tree_items(params))
+    check(n == spec["params"] and wbytes == 2 * n,
+          f"phase {step}: {n} parameters in {wbytes} bytes, want "
+          f"{spec['params']} in bf16")
+    # n_params() leaves out the norms, the conv and LoRA weights and the
+    # padded vocab rows: under 1% of every model here.
+    check(abs(n - cfg.n_params()) < 1e-2 * cfg.n_params(),
+          f"phase {step}: count_params {n}, n_params() {cfg.n_params()}")
+    prompt = make_smoke_batch(cfg, seed=SEED + spec["seed_offset"],
+                              batch=b, seq=s, device=dev)
+    prompt.pop("labels")
+    cache = init_cache(cfg, b, slots, device=dev)
+    cbytes = cache_bytes(cfg, b, slots)
+    check(cbytes == sum(t.numel() * t.element_size()
+                        for t in cache.values()),
+          f"phase {step}: cache_bytes {cbytes} is not the cache's")
+    prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
+
+    def fresh_prefill(record=None):
+        # Into the cache zeroed again (untimed): an SSM prefill continues
+        # from the states it finds there, as JAX's does.
+        for t in cache.values():
+            t.zero_()
+        with torch.no_grad(), _moe_calls([] if record is None else record):
+            (out, _), ms = _timed(lambda: prefill(params, prompt, cache))
+        return out, ms
+
+    logits, pre_ms = fresh_prefill()
+    logits, pre_warm_ms = fresh_prefill()
+    row = {"phase": spec["row"], "card": card, "step": step, "arch": arch,
+           "family": cfg.family, "layers": cfg.n_layers,
+           "published_layers": full_cfg.n_layers, "d_model": cfg.d_model,
+           "heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads,
+           "head_dim": cfg.resolved_head_dim, "d_ff": cfg.d_ff,
+           "vocab": cfg.vocab_size, "layer_pattern": cfg.layer_pattern,
+           "attn_type": cfg.attn_type, "window": cfg.sliding_window,
+           "dtype": cfg.dtype, "reduced": spec["reduced"], "params": n,
+           "n_params_formula": cfg.n_params(), "weight_bytes": wbytes,
+           "init_s": init_ms / 1e3, "batch": b, "prompt": s, "gen": gen,
+           "cache_slots": slots,
+           "cache_layout": {k: list(v[0]) for k, v in
+                            cache_spec_tree(cfg, b, slots).items()},
+           "cache_bytes": cbytes, "prefill_s": pre_ms / 1e3,
+           "prefill_warm_s": pre_warm_ms / 1e3, "held_before_phase": held}
+    if moe:
+        row.update(n_experts=cfg.n_experts, top_k=cfg.experts_per_token,
+                   moe_d_ff=cfg.moe_d_ff,
+                   dense_residual_d_ff=cfg.dense_residual_d_ff)
+        # The prefill once more, each MoE layer's routing recorded.
+        calls = []
+        fresh_prefill(calls)
+        routing = [_routing_stats(cfg, p, h) for p, h, _ in calls]
+        calls.clear()
+        check(len(routing) == cfg.n_layers,
+              f"phase {step}: {len(routing)} MoE layers ran in prefill")
+        row["prefill_routing_by_layer"] = routing
+    tok = first_tok = logits.argmax(-1)[:, None].to(torch.int32)
+    ids, steps = [], []
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with torch.no_grad():
+        for _ in range(gen):
+            ids.append(tok)
+            logits = decode(params, tok, cache)[0]
+            steps.append(logits)
+            tok = logits.argmax(-1)[:, None].to(torch.int32)
+    torch.cuda.synchronize()
+    dec_s = time.perf_counter() - t
+    lengths = cache["lengths"].tolist()
+    check(lengths == [s + gen] * b, f"phase {step}: lengths {lengths}")
+    check(all(bool(torch.isfinite(lg).all()) for lg in steps),
+          f"phase {step}: decode logits not finite")
+    with torch.no_grad():
+        dev_ms, ops = _step_profile(lambda: decode(params, tok, cache))
+    row.update({
+        "decode_s": dec_s, "decode_tokens_per_s": gen * b / dec_s,
+        "decode_ms_per_step": dec_s * 1e3 / gen,
+        # The step's least time: every weight (every expert's: the batched
+        # product computes each expert's capacity rows) and the cache,
+        # read once.
+        "step_bound_ms": (wbytes + cbytes) / HBM_BYTES_PER_S * 1e3,
+        "profiled_step_device_ms": dev_ms,
+        "profiled_step_device_ms_by_op": ops,
+        "decode_idle_share": 1.0 - dev_ms / (dec_s * 1e3 / gen),
+        "lengths": lengths,
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "generated_ids_row0": [int(t_[0]) for t_ in ids]})
+    full = torch.cat([prompt["tokens"], first_tok], 1)
+    del cache
+    torch.cuda.empty_cache()
+    if not moe:
+        # Decode against the full forward in bf16: the first step's logits
+        # against one forward over s + 1 tokens at position s, and a
+        # forward over s + 2 tokens at s (the rounding floor).
+        with torch.no_grad():
+            ref = forward_logits(cfg, params, full, at=s)
+            floor = forward_logits(cfg, params,
+                                   torch.cat([full, first_tok], 1), at=s)
+        row["decode_vs_forward_bf16"] = against(steps[0], ref)
+        row["forward_vs_forward_bf16"] = against(floor, ref)
+        del ref, floor
+    if "int8_slots" in spec:
+        row["int8"] = int8_against(cfg, params, prompt, ids, steps,
+                                   spec["int8_slots"])
+    del params, steps, logits
+    torch.cuda.empty_cache()
+
+    # The check on the same model in fp32 (JAX's tests' dtype).
+    cb, cs, cslots = spec["check"]
+    c32 = dataclasses.replace(cfg, dtype="float32",
+                              n_layers=spec.get("check_depth", cfg.n_layers))
+    params32 = init_model(c32, seed=SEED, device=dev)
+    cache32 = init_cache(c32, cb, cslots, device=dev)
+    p32 = {k: v[:cb, :cs] if k == "tokens" else v[:, :cb, :cs]
+           for k, v in prompt.items()}
+    row["fp32_check"] = {"layers": c32.n_layers, "batch": cb, "prompt": cs,
+                         "cache_slots": cslots,
+                         "cache_bytes": cache_bytes(c32, cb, cslots)}
+    calls = []
+    with torch.no_grad():
+        make_prefill_step(c32)(params32, p32, cache32)
+        with _moe_calls(calls):
+            dec32 = make_decode_step(c32)(params32, full[:cb, cs:cs + 1],
+                                          cache32)[0]
+        if moe:
+            errs = [_against_no_capacity(c32, p, h, y) for p, h, y in calls]
+            drops = [_routing_stats(c32, p, h)["dropped"]
+                     for p, h, _ in calls]
+            calls.clear()
+            row["decode_moe_vs_no_capacity_fp32"] = {
+                "rel_err_by_layer": errs, "dropped_by_layer": drops,
+                "capacity": moe_lib.capacity(c32, cb), "tol": MOE_REF_TOL}
+            check(len(errs) == c32.n_layers and max(errs) <= MOE_REF_TOL
+                  and not any(drops),
+                  f"phase {step}: fp32 decode MoE against the no-capacity "
+                  f"reference {errs}, dropped {drops}")
+        else:
+            ref32 = forward_logits(c32, params32, full[:cb, :cs + 1], at=cs)
+            row["decode_vs_forward_fp32"] = res32 = against(dec32, ref32)
+            check(res32["outside_jax_bound"] == 0,
+                  f"phase {step}: {arch} fp32 decode against the full "
+                  f"forward {res32}")
+    row["max_memory_allocated_fp32_check"] = torch.cuda.max_memory_allocated()
+    del params32, cache32, dec32
+    torch.cuda.empty_cache()
+    emit(row)
+    return row
 
 
 def main() -> int:
@@ -2214,12 +2513,7 @@ def main() -> int:
     watchdog.start()
     t_phase7 = time.perf_counter()
 
-    def timed(fn):
-        sync()
-        t = time.perf_counter()
-        out = fn()
-        sync()
-        return out, (time.perf_counter() - t) * 1e3
+    timed = _timed
 
     # 7a: the four solvers against the single-device solver at one shape.
     virtual = {"obs": make_mesh((4,), ("data",), [dev] * 4),
@@ -2642,20 +2936,8 @@ def main() -> int:
     peak8b = torch.cuda.max_memory_allocated()
     # One more step under torch.profiler: its device time by operation
     # (self time of each aten op's kernels), against the steps' mean wall.
-    prof8 = torch.profiler.profile(activities=[
-        torch.profiler.ProfilerActivity.CPU,
-        torch.profiler.ProfilerActivity.CUDA])
-    with prof8:
-        decode8(params8, tok8, cache8)
-        sync()
-    step_ops = {}
-    for ev in prof8.key_averages():
-        us = getattr(ev, "self_device_time_total", None)
-        us = ev.self_cuda_time_total if us is None else us
-        if str(ev.device_type).endswith("CPU") and us > 0:
-            step_ops[ev.key] = us / 1e3
-    step_dev_ms = sum(step_ops.values())
-    step_ops = dict(sorted(step_ops.items(), key=lambda kv: -kv[1])[:8])
+    step_dev_ms, step_ops = _step_profile(
+        lambda: decode8(params8, tok8, cache8))
     del cache8
 
     def against(a, b):
@@ -2856,9 +3138,7 @@ def main() -> int:
     # rings wrapped; (9c) minicpm3-4b's MLA latent cache; (9d)
     # qwen2-vl-2b's M-RoPE streams; (9e) the int8 KV cache on 9a's ring
     # (on qwen3-8b in phase 8).  Each model's decode step is profiled and
-    # held to one full forward at JAX's bound in fp32.
-    from repro_torch.models.kvcache import cache_spec_tree
-
+    # held to one full forward at JAX's bound in fp32 (``lm_family``).
     def hung9():
         print(f"chip_smoke: phase 9 did not finish in {PHASE9_WATCHDOG_S} s "
               f"(a hang on the LM variants)", file=sys.stderr, flush=True)
@@ -2872,164 +3152,33 @@ def main() -> int:
     torch.cuda.empty_cache()
     held9 = torch.cuda.memory_allocated()
 
-    def lm_variant(step, arch, shape, n_params, cache_bytes_b4, b, s, gen,
-                   check_b, check_s, check_slots, int8_slots=None):
-        """Serve ``arch`` at full width and depth: build, prefill ``b`` x
-        ``s`` tokens (cold, then warm), ``gen`` greedy steps on a cache of
-        max(max_cache_len, s + gen) slots; decode against the full forward
-        in bf16 (beside two forwards' own difference) and, held at JAX's
-        bound, in fp32 at ``check_b`` x ``check_s`` on ``check_slots``."""
-        cfg = get_arch(arch)
-        got = (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
-               cfg.resolved_head_dim, cfg.d_ff, cfg.vocab_size)
-        check(got == shape, f"phase {step}: {arch} is {got}")
-        torch.cuda.reset_peak_memory_stats()
-        params, init_ms = timed(lambda: init_model(cfg, seed=SEED))
-        n = count_params(model_defs(cfg))
-        wbytes = sum(t.numel() * t.element_size()
-                     for _, t in tree_items(params))
-        check(n == n_params and wbytes == 2 * n,
-              f"phase {step}: {n} parameters in {wbytes} bytes, want "
-              f"{n_params} in bf16")
-        smax = max(cfg.max_cache_len, s + gen)
-        check(cache_bytes(cfg, 4, 32_768) == cache_bytes_b4,
-              f"phase {step}: cache_bytes(B 4, 32,768) "
-              f"{cache_bytes(cfg, 4, 32_768)}, want {cache_bytes_b4}")
-        prompt = make_smoke_batch(cfg, seed=SEED + 90, batch=b, seq=s)
-        prompt.pop("labels")
-        cache = init_cache(cfg, b, smax)
-        cbytes = cache_bytes(cfg, b, smax)
-        layout = {k: list(shape_) for k, (shape_, _) in
-                  cache_spec_tree(cfg, b, smax).items()}
-        check(cbytes == sum(t.numel() * t.element_size()
-                            for t in cache.values()),
-              f"phase {step}: cache_bytes {cbytes} is not the cache's")
-        prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
-        (logits, cache), pre_ms = timed(
-            lambda: prefill(params, prompt, cache))
-        (logits, cache), pre_warm_ms = timed(
-            lambda: prefill(params, prompt, cache))
-        tok = first_tok = logits.argmax(-1)[:, None].to(torch.int32)
-        ids, steps = [], []
-        sync()
-        t = time.perf_counter()
-        for _ in range(gen):
-            ids.append(tok)
-            logits, cache = decode(params, tok, cache)
-            steps.append(logits)
-            tok = logits.argmax(-1)[:, None].to(torch.int32)
-        sync()
-        dec_s = time.perf_counter() - t
-        lengths = cache["lengths"].tolist()
-        check(lengths == [s + gen] * b, f"phase {step}: lengths {lengths}")
-        check(all(bool(torch.isfinite(lg).all()) for lg in steps),
-              f"phase {step}: decode logits not finite")
-        peak = torch.cuda.max_memory_allocated()
-        row = {"phase": "lm_variant", "card": card, "step": step,
-               "arch": arch, "layers": cfg.n_layers, "d_model": cfg.d_model,
-               "heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads,
-               "head_dim": cfg.resolved_head_dim, "d_ff": cfg.d_ff,
-               "vocab": cfg.vocab_size, "layer_pattern": cfg.layer_pattern,
-               "attn_type": cfg.attn_type, "window": cfg.sliding_window,
-               "dtype": cfg.dtype, "reduced": [], "params": n,
-               "weight_bytes": wbytes, "init_s": init_ms / 1e3,
-               "batch": b, "prompt": s, "gen": gen, "cache_slots": smax,
-               "cache_layout": layout, "cache_bytes": cbytes,
-               "prefill_s": pre_ms / 1e3, "prefill_warm_s": pre_warm_ms / 1e3,
-               "decode_s": dec_s, "decode_tokens_per_s": gen * b / dec_s,
-               "decode_ms_per_step": dec_s * 1e3 / gen,
-               # The step's least time: the weights and the bf16 cache
-               # read once.
-               "step_bound_ms": (wbytes + cbytes) / HBM_BYTES_PER_S * 1e3,
-               "lengths": lengths, "max_memory_allocated": peak,
-               "held_before_phase": held9,
-               "generated_ids_row0": [int(t_[0]) for t_ in ids]}
-        # One more step under torch.profiler: device time by aten op
-        # against the steps' mean wall.
-        prof = torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA])
-        with prof:
-            decode(params, tok, cache)
-            sync()
-        ops = {}
-        for ev in prof.key_averages():
-            us = getattr(ev, "self_device_time_total", None)
-            us = ev.self_cuda_time_total if us is None else us
-            if str(ev.device_type).endswith("CPU") and us > 0:
-                ops[ev.key] = us / 1e3
-        dev_ms = sum(ops.values())
-        row["profiled_step_device_ms"] = dev_ms
-        row["profiled_step_device_ms_by_op"] = dict(
-            sorted(ops.items(), key=lambda kv: -kv[1])[:10])
-        row["decode_idle_share"] = 1.0 - dev_ms / row["decode_ms_per_step"]
-        del cache
-        torch.cuda.empty_cache()
-
-        # Decode against the full forward in bf16: the first step's
-        # logits against one forward over s + 1 tokens at position s, and
-        # a forward over s + 2 tokens at s (the rounding floor).
-        full = torch.cat([prompt["tokens"], first_tok], 1)
-        with torch.no_grad():
-            ref = forward_logits(cfg, params, full, at=s)
-            floor = forward_logits(cfg, params,
-                                   torch.cat([full, first_tok], 1), at=s)
-        row["decode_vs_forward_bf16"] = against(steps[0], ref)
-        row["forward_vs_forward_bf16"] = against(floor, ref)
-        del ref, floor
-        if int8_slots is not None:
-            row["int8"] = int8_against(cfg, params, prompt, ids, steps,
-                                       int8_slots)
-        del params, steps
-        torch.cuda.empty_cache()
-
-        # The same model in fp32 (JAX's test's dtype), at full depth.
-        cfg32 = dataclasses.replace(cfg, dtype="float32")
-        params32 = init_model(cfg32, seed=SEED)
-        p32 = {k: v[:check_b, :check_s] if k == "tokens"
-               else v[:, :check_b, :check_s] for k, v in prompt.items()}
-        cache32 = init_cache(cfg32, check_b, check_slots)
-        with torch.no_grad():
-            _, cache32 = make_prefill_step(cfg32)(params32, p32, cache32)
-            dec32, cache32 = make_decode_step(cfg32)(
-                params32, full[:check_b, check_s:check_s + 1], cache32)
-            ref32 = forward_logits(cfg32, params32,
-                                   full[:check_b, :check_s + 1], at=check_s)
-        row["fp32_check"] = {"batch": check_b, "prompt": check_s,
-                             "cache_slots": check_slots,
-                             "cache_bytes": cache_bytes(cfg32, check_b,
-                                                        check_slots)}
-        row["decode_vs_forward_fp32"] = res32 = against(dec32, ref32)
-        check(res32["outside_jax_bound"] == 0,
-              f"phase {step}: {arch} fp32 decode against the full forward "
-              f"{res32}")
-        row["max_memory_allocated_fp32_check"] = \
-            torch.cuda.max_memory_allocated()
-        del params32, cache32, dec32, ref32
-        torch.cuda.empty_cache()
-        emit(row)
-        return row
-
-    variants9 = [
+    variants9 = [lm_family(dict(spec, row="lm_variant", seed_offset=90,
+                                reduced=[]),
+                           dev=dev, card=card, against=against, held=held9,
+                           int8_against=int8_against) for spec in (
         # 9a: 4 prompts of the window plus 512, so the prefill roll runs;
-        # the ring of 4,096 slots; fp32 check past the window, B 2.
-        lm_variant("9a", "h2o-danube-1.8b", (24, 2560, 32, 8, 80, 6912,
-                                             32000),
-                   1_831_201_280, 1_006_632_976, 4, 4_608, 32, 2, 4_608,
-                   4_609, int8_slots=4_609),
+        # the ring of 4,096 slots; fp32 check past the window, B 2; 9e's
+        # int8 ring.
+        {"step": "9a", "arch": "h2o-danube-1.8b",
+         "shape": (24, 2560, 32, 8, 80, 6912, 32000),
+         "params": 1_831_201_280, "cache_bytes_b4": 1_006_632_976,
+         "prompt": 4_608, "check": (2, 4_608, 4_609), "int8_slots": 4_609},
         # 9b: the local rings wrap; 32,768 global slots; fp32 check on
         # 8,192 slots, B 2.
-        lm_variant("9b", "gemma2-9b", (42, 3584, 16, 8, 256, 14336, 256000),
-                   9_241_705_984, 25_367_150_608, 4, 4_608, 32, 2, 4_608,
-                   8_192),
+        {"step": "9b", "arch": "gemma2-9b",
+         "shape": (42, 3584, 16, 8, 256, 14336, 256000),
+         "params": 9_241_705_984, "cache_bytes_b4": 25_367_150_608,
+         "prompt": 4_608, "check": (2, 4_608, 8_192)},
         # 9c: 32,768 latent slots; fp32 check as phase 8's (2,048 slots).
-        lm_variant("9c", "minicpm3-4b", (62, 2560, 40, 40, 96, 6400, 73448),
-                   4_262_025_728, 4_680_843_280, 4, 512, 32, 4, 512, 2_048),
+        {"step": "9c", "arch": "minicpm3-4b",
+         "shape": (62, 2560, 40, 40, 96, 6400, 73448),
+         "params": 4_262_025_728, "cache_bytes_b4": 4_680_843_280,
+         "prompt": 512, "check": (4, 512, 2_048)},
         # 9d: JAX's arange position streams; 32,768 slots.
-        lm_variant("9d", "qwen2-vl-2b", (28, 1536, 12, 2, 128, 8960,
-                                         151936),
-                   1_543_853_568, 3_758_096_400, 4, 512, 32, 4, 512, 2_048),
-    ]
+        {"step": "9d", "arch": "qwen2-vl-2b",
+         "shape": (28, 1536, 12, 2, 128, 8960, 151936),
+         "params": 1_543_853_568, "cache_bytes_b4": 3_758_096_400,
+         "prompt": 512, "check": (4, 512, 2_048)})]
     mla9 = get_arch("minicpm3-4b")
     per_head9 = (mla9.n_layers * 32_768 * mla9.n_heads
                  * (mla9.qk_nope_dim + mla9.qk_rope_dim + mla9.v_head_dim)
@@ -3055,6 +3204,80 @@ def main() -> int:
               "fp32_outside_jax_bound":
                   r["decode_vs_forward_fp32"]["outside_jax_bound"]}
               for r in variants9}})
+
+    # ------------------- the MoE, SSM and hybrid families (phase 10)
+    # Four models at full width, random bf16 weights from SEED, each built,
+    # served through launch/steps and checked in fp32, then freed: (10a)
+    # dbrx-132b and (10b) arctic-480b (its dense residual on), depth cut to
+    # what one card holds; (10c) mamba2-370m and (10d) zamba2-7b at full
+    # depth, 4 x 4,000 tokens (16 chunks of 256, the last padded).
+    def hung10():
+        print(f"chip_smoke: phase 10 did not finish in {PHASE10_WATCHDOG_S}"
+              f" s (a hang on the MoE, SSM and hybrid families)",
+              file=sys.stderr, flush=True)
+        os._exit(3)
+
+    watchdog = threading.Timer(PHASE10_WATCHDOG_S, hung10)
+    watchdog.daemon = True
+    watchdog.start()
+    t_phase10 = time.perf_counter()
+    _build.reset_launch_counts()
+    torch.cuda.empty_cache()
+    held10 = torch.cuda.memory_allocated()
+    families10 = [lm_family(dict(spec, row="lm_family", seed_offset=100),
+                            dev=dev, card=card, against=against,
+                            held=held10) for spec in (
+        {"step": "10a", "arch": "dbrx-132b",
+         "shape": (40, 6144, 48, 8, 128, 10752, 100352), "depth": 6,
+         "params": 20_787_640_320, "prompt": 512, "check_depth": 2,
+         "check": (4, 512, 2_048),
+         "reduced": ["n_layers 40 -> 6: 40 layers are 263 GB of bf16 "
+                     "weights, 6 are 41.6 GB; fp32 check at 2 layers "
+                     "(31 GB)"]},
+        {"step": "10b", "arch": "arctic-480b",
+         "shape": (35, 7168, 56, 8, 128, 4864, 32000), "depth": 2,
+         "params": 27_681_131_520, "prompt": 512, "check_depth": 1,
+         "check": (4, 512, 2_048),
+         "reduced": ["n_layers 35 -> 2: 35 layers are 954 GB of bf16 "
+                     "weights, 2 are 55.4 GB; fp32 check at 1 layer "
+                     "(56 GB)"]},
+        # The SSM cache has no slots: its max_cache_len (524,288) sizes
+        # nothing.
+        {"step": "10c", "arch": "mamba2-370m",
+         "shape": (48, 1024, 32, 32, 64, 0, 50280),
+         "params": 368_494_080, "prompt": 4_000, "check": (4, 4_000, 4_001),
+         "reduced": []},
+        {"step": "10d", "arch": "zamba2-7b",
+         "shape": (81, 3584, 32, 32, 112, 14336, 32000),
+         "params": 5_773_198_656, "prompt": 4_000, "slots": 32_768,
+         "check": (2, 4_000, 8_192),
+         "reduced": ["max_cache_len 524,288 -> 32,768 slots of the shared "
+                     "attention's K/V: 390 GB at B 4, 24.9 GB cut"]})]
+    mamba10 = get_arch("mamba2-370m")
+    state_bytes10 = {str(n_): cache_bytes(mamba10, 4, n_)
+                     for n_ in (4_032, 32_768, mamba10.max_cache_len)}
+    check(len(set(state_bytes10.values())) == 1,
+          f"phase 10c: mamba2's state bytes vary with the length "
+          f"{state_bytes10}")
+    counts10 = {**_build.launch_counts(), **_build.launch_counts(2)}
+    check(not any(counts10.values()),
+          f"phase 10: the MoE, SSM and hybrid families launched kernels "
+          f"{counts10}")
+    watchdog.cancel()
+    emit({"phase": "lm_families_done", "card": card,
+          "seconds": time.perf_counter() - t_phase10,
+          "mamba2_state_bytes_b4_by_length": state_bytes10,
+          "kernel_launches": counts10,
+          "summary": {r["arch"]: {
+              "layers": r["layers"], "reduced": r["reduced"],
+              "decode_ms_per_step": r["decode_ms_per_step"],
+              "step_bound_ms": r["step_bound_ms"],
+              "decode_idle_share": r["decode_idle_share"],
+              "prefill_warm_s": r["prefill_warm_s"],
+              "max_memory_allocated": r["max_memory_allocated"],
+              "fp32_check": r.get("decode_moe_vs_no_capacity_fp32",
+                                  r.get("decode_vs_forward_fp32"))}
+              for r in families10}})
 
     kernel_src = "src/repro_torch/kernels/csrc/"
     src_of = {

@@ -8,8 +8,10 @@ The counterpart of the JAX package's ``launch/serve.py``, with its three
 printed lines.  Random weights and prompts from seed 0; greedy decode at
 ``--temperature 0``, else sampling from ``torch.Generator`` seeded 0.  The
 cache holds ``max(max_cache_len, prompt + gen)`` slots (a sliding-window
-layer's ring holds the window).  A VLM prompt carries ``make_smoke_batch``'s
-M-RoPE position streams; decode continues them from the cache's length.
+layer's ring holds the window; an SSM model's states have no slots).  A
+VLM prompt carries ``make_smoke_batch``'s M-RoPE position streams; decode
+continues them from the cache's length.  Every decoder-only family runs
+(dense, MoE, VLM, SSM, hybrid); enc-dec raises ``NotImplementedError``.
 ``--device`` defaults to ``cuda`` and raises without a GPU.
 """
 from __future__ import annotations

@@ -1,8 +1,10 @@
 """Prefill and decode steps of the LM serving path.
 
 The port of the JAX package's ``launch/steps.py`` for serving: each
-``make_*_step`` closes over the config and returns the step function.  The
-steps update the cache in place and return it (``models.model``).  A VLM
+``make_*_step`` closes over the config and returns the step function, for
+every decoder-only family.  The steps update the cache in place and return
+it (``models.model``); an SSM model's prefill continues from the states in
+the cache it is given, so a new prompt takes a fresh cache.  A VLM
 batch carries its M-RoPE ``positions`` (3, B, S) to prefill; decode takes
 them as an optional (3, B, 1), by default the cache's length on every
 stream, as JAX's ``forward_decode``.  The

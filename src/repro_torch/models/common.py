@@ -1,15 +1,15 @@
 """Shared model components: RMSNorm, RoPE, the SwiGLU MLP, embeddings.
 
-The port of the JAX package's ``models/common.py`` for the dense, SWA,
-gemma2, MLA and VLM families.  Every module follows the defs/apply
-pattern: ``*_defs`` returns a tree of ``ParamDef``, the functions take a
-matching tree of tensors.  Activations stay in their dtype; norms and rope
-(and M-RoPE) compute in fp32.
+The port of the JAX package's ``models/common.py`` for the decoder-only
+families.  Every module follows the defs/apply pattern: ``*_defs`` returns
+a tree of ``ParamDef``, the functions take a matching tree of tensors.
+Activations stay in their dtype; norms and rope (and M-RoPE) compute in
+fp32.
 
 Matmuls follow JAX's dtype promotion: ``x @ w`` with an fp32 ``x`` and a
 bf16 ``w`` computes in fp32 (``matmul``), where ``torch.matmul`` would
-raise on the mixed dtypes.  The gated norm (Mamba2) and the training loss
-wait for their family and for training (ROADMAP queue 1).
+raise on the mixed dtypes.  The training loss waits for training (ROADMAP
+queue 1).
 """
 from __future__ import annotations
 
@@ -46,6 +46,13 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6
     xf = x.float()
     var = (xf * xf).mean(dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * w.float()).to(x.dtype)
+
+
+def gated_rmsnorm(x: torch.Tensor, z: torch.Tensor, w: torch.Tensor,
+                  eps: float = 1e-6) -> torch.Tensor:
+    """Mamba2's out-norm, in JAX's order: RMSNorm(x) * silu(z), the gate
+    computed in fp32 and cast to x's dtype before the product."""
+    return rmsnorm(x, w, eps) * F.silu(z.float()).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

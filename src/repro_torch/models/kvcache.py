@@ -1,9 +1,9 @@
-"""KV caches of the dense, SWA, gemma2, MLA and VLM families.
+"""KV and state caches of the decoder-only families.
 
 The port of the JAX package's ``models/kvcache.py`` for those layouts, with
-the same dict: ``lengths`` (B,) int32 and a leading layer (or layer-pair)
-dim that matches the layer loop.  K/V are stored flat on the trailing dim
-(Hkv·hd).  A cache is a plain dict of tensors that the forwards update in
+the same dict: ``lengths`` (B,) int32 and a leading layer (or layer-pair,
+or unit) dim that matches the layer loop.  K/V are stored flat on the
+trailing dim (Hkv·hd).  A cache is a plain dict of tensors that the forwards update in
 place.  Layouts:
 
   global GQA    : ``k`` / ``v`` (L, B, Smax, Hkv·hd) in the model dtype.
@@ -16,9 +16,17 @@ place.  Layouts:
                   Hkv·hd).
   MLA           : the latent ``c_kv`` (L, B, Smax, kv_lora_rank) and
                   ``k_rope`` (L, B, Smax, qk_rope_dim), no per-head K/V.
+  SSM (mamba2)  : ``conv`` (L, B, K-1, conv_dim) in the model dtype and
+                  ``ssm`` (L, B, H, P, N) fp32: constant in the sequence
+                  length.
+  hybrid        : ``conv`` / ``ssm`` (U, M, B, ·) for the M Mamba2 blocks
+                  of each of U units, ``conv_tail`` / ``ssm_tail`` (T, B,
+                  ·) for the trailing blocks, and ``k`` / ``v`` (U, B,
+                  Smax, Hkv·hd) for each unit's invocation of the shared
+                  attention block (never int8).
 
-The SSM, hybrid and enc-dec layouts wait with their models
-(``transformer.check_supported``).
+MoE models have their dense pattern's layout.  The enc-dec layout waits
+with its model (``transformer.check_supported``).
 """
 from __future__ import annotations
 
@@ -29,6 +37,7 @@ import torch
 
 from repro_torch.core.prepare import resolve_device
 from repro_torch.models.params import model_dtype, tensor_from_numpy
+from repro_torch.models.ssm import ssm_dims
 from repro_torch.models.transformer import check_supported
 
 
@@ -39,6 +48,22 @@ def cache_spec_tree(cfg, batch: int, max_len: int) -> Dict[str, Any]:
     hkv_hd = cfg.n_kv_heads * cfg.resolved_head_dim
     dt = model_dtype(cfg)
     out: Dict[str, Any] = {"lengths": ((batch,), torch.int32)}
+    if cfg.family in ("ssm", "hybrid"):
+        _, nh, conv_dim = ssm_dims(cfg)
+        conv = (batch, cfg.ssm_conv - 1, conv_dim)
+        state = (batch, nh, cfg.ssm_head_dim, cfg.ssm_state)
+        if cfg.family == "ssm":
+            out["conv"] = ((cfg.n_layers,) + conv, dt)
+            out["ssm"] = ((cfg.n_layers,) + state, torch.float32)
+            return out
+        um, t = (cfg.hybrid_units, cfg.mamba_per_unit), cfg.trailing_mamba
+        out["conv"] = (um + conv, dt)
+        out["ssm"] = (um + state, torch.float32)
+        out["conv_tail"] = ((t,) + conv, dt)
+        out["ssm_tail"] = ((t,) + state, torch.float32)
+        out["k"] = out["v"] = ((cfg.hybrid_units, batch, max_len, hkv_hd),
+                               dt)
+        return out
     if cfg.layer_pattern == "alt_local_global":
         npairs = cfg.n_layers // 2
         w = min(cfg.sliding_window, max_len)
@@ -81,7 +106,9 @@ def cache_bytes(cfg, batch, max_len) -> int:
 def _max_len_of(cfg, cache: Dict[str, Any]) -> int:
     """The ``max_len`` a cache was made for, read off its slots as the JAX
     package's ``_max_len_of`` reads it.  A ring's slots are min(window,
-    max_len): every max_len from the window up has that layout."""
+    max_len): every max_len from the window up has that layout.  The SSM
+    family's cache has no slots; its layout is the same at every max_len,
+    so it falls through to ``cfg.max_cache_len``, which sizes nothing."""
     for k in ("k_global", "c_kv", "k"):
         if k in cache:
             return np.shape(cache[k])[2]

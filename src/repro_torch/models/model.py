@@ -1,5 +1,6 @@
-"""Top-level model API for the dense and VLM families: the parameter tree,
-the prefill and decode forwards, and the linear-probe features.
+"""Top-level model API for the decoder-only families (dense, MoE, VLM, SSM,
+hybrid): the parameter tree, the prefill and decode forwards, and the
+linear-probe features.
 
 The port of the JAX package's ``models/model.py`` for serving.  The batch
 layout is JAX's, ``{"tokens": (B, S) int32}``, and for the VLM family
@@ -10,9 +11,11 @@ place (JAX returns a new one from each step and its serving loop donates
 the old): ``forward_prefill`` writes the produced entries (a windowed
 layer's trimmed and rolled into ring order) into the preallocated buffers
 and zeroes the slots past them, as JAX's zero pad does; ``forward_decode``
-writes the new token's slot and advances ``lengths``.  Both return the
-cache they were given.  ``forward_train`` waits for training (ROADMAP
-queue 1 item 2).
+writes the new token's slot (and a Mamba2 block's new states) and
+advances ``lengths``.  Both return the cache they were given.  The SSM
+family's prefill starts from the states in the cache it is given, as
+JAX's does: pass a fresh (zeroed) cache for a new prompt.
+``forward_train`` waits for training (ROADMAP queue 1 item 2).
 
 ``init_model``, ``make_smoke_batch`` (and ``kvcache.init_cache``) run on
 ``"cuda"`` unless ``device="cpu"`` is passed, and raise without a GPU.

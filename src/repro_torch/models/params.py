@@ -70,6 +70,13 @@ def init_std(d: ParamDef) -> float:
     return d.scale / math.sqrt(max(fan_in, 1))
 
 
+# A tensor whose fp32 draw passes 8 GiB (a MoE model's stacked experts:
+# dbrx's w_gate at 6 layers is 25 GB in fp32) is drawn in flat chunks of
+# 1 GiB; every dense config's tensors are drawn whole.
+_DRAW_WHOLE_BYTES = 1 << 33
+_DRAW_CHUNK_BYTES = 1 << 30
+
+
 def _init_array(d: ParamDef, generator: torch.Generator, dtype):
     dev = generator.device
     if d.init == "zeros":
@@ -77,10 +84,19 @@ def _init_array(d: ParamDef, generator: torch.Generator, dtype):
     if d.init == "ones":
         return torch.ones(d.shape, dtype=dtype, device=dev)
     # Drawn in fp32 and cast, one tensor at a time: the fp32 draw of the
-    # largest tensor is the only transient.
-    t = torch.randn(d.shape, generator=generator, dtype=torch.float32,
-                    device=dev)
-    return t.mul_(init_std(d)).to(dtype)
+    # largest tensor (or of its chunk) is the only transient.
+    n = math.prod(d.shape)
+    if 4 * n <= _DRAW_WHOLE_BYTES:
+        t = torch.randn(d.shape, generator=generator, dtype=torch.float32,
+                        device=dev)
+        return t.mul_(init_std(d)).to(dtype)
+    out = torch.empty(d.shape, dtype=dtype, device=dev)
+    flat, step = out.view(-1), _DRAW_CHUNK_BYTES // 4
+    for lo in range(0, n, step):
+        t = torch.randn(min(step, n - lo), generator=generator,
+                        dtype=torch.float32, device=dev)
+        flat[lo:lo + t.numel()] = t.mul_(init_std(d))
+    return out
 
 
 def init_params(defs, generator: torch.Generator, dtype=torch.float32):

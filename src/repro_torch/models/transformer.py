@@ -1,14 +1,18 @@
-"""Decoder-only transformer assembly for the dense and VLM families: the
-global, sliding-window (SWA) and gemma2 local/global layer patterns, GQA
-(with an optional int8 KV cache) or MLA attention, optional post-norms.  A
-loop over stacked layer parameters, K/V read and written per mode.
+"""Decoder-only transformer assembly for the dense, MoE, VLM, SSM and
+hybrid families: the global, sliding-window (SWA) and gemma2 local/global
+layer patterns, GQA (with an optional int8 KV cache) or MLA attention,
+optional post-norms, a SwiGLU or MoE FFN; Mamba2 blocks (mamba2); and
+zamba2's units of Mamba2 blocks, each unit followed by one shared
+attention + MLP block specialised by the unit's LoRA deltas, then trailing
+Mamba2 blocks.  A loop over stacked layer parameters, the cache read and
+written per mode.
 
-The port of the JAX package's ``models/transformer.py`` on its
-``dense|moe|vlm`` branch without MoE.  ``run_backbone`` returns final
-hidden states, the new cache entries and the auxiliary losses; embedding,
+The port of the JAX package's ``models/transformer.py``.  ``run_backbone``
+returns final hidden states, the new cache entries and the auxiliary
+losses (the MoE losses summed over layers, zero elsewhere); embedding,
 unembedding and the cache bookkeeping live in model.py.  JAX scans over the
 stacked layers and returns a new cache from each step; this loops over the
-layer index and writes each layer's K/V into the cache it is given, in
+layer index and writes each layer's entries into the cache it is given, in
 place.
 
 Configurations this does not run raise ``NotImplementedError`` naming the
@@ -22,11 +26,13 @@ from typing import Any, Dict
 import torch
 
 from repro_torch.models import attention as attn_lib
-from repro_torch.models.common import (apply_mlp, mlp_defs, rmsnorm,
-                                       rmsnorm_def, stacked)
-from repro_torch.models.params import tree_map
+from repro_torch.models.common import (apply_mlp, matmul, mlp_defs,
+                                       rmsnorm, rmsnorm_def, stacked)
+from repro_torch.models.moe import apply_moe, moe_defs
+from repro_torch.models.params import ParamDef, tree_map
+from repro_torch.models.ssm import apply_ssm, ssm_defs
 
-# The MoE losses; zero for the families ported.
+# The MoE losses of a block without experts, and the start of their sum.
 ZERO_AUX = {"load_balance": 0.0, "router_z": 0.0}
 
 
@@ -39,9 +45,6 @@ def check_supported(cfg) -> None:
     its prefill fails once a prompt passes the window; no config uses it.
     """
     waits = [
-        (cfg.family == "moe" or cfg.n_experts > 0, "1e, MoE (dbrx, arctic)"),
-        (cfg.family in ("ssm", "hybrid"),
-         "1f, SSM and hybrid (mamba2, zamba2)"),
         (cfg.family == "encdec", "1g, enc-dec (seamless)"),
         (cfg.sliding_window > 0 and cfg.layer_pattern == "global",
          "1a, the SWA ring cache, on the swa pattern only (a window on the "
@@ -54,8 +57,8 @@ def check_supported(cfg) -> None:
                 f"layer_pattern {cfg.layer_pattern!r}, n_experts "
                 f"{cfg.n_experts}, sliding_window {cfg.sliding_window}); "
                 f"ROADMAP.md queue 1 item {item}")
-    if cfg.family not in ("dense", "vlm") or cfg.layer_pattern not in (
-            "global", "swa", "alt_local_global"):
+    if cfg.family not in ("dense", "moe", "vlm", "ssm", "hybrid") or \
+            cfg.layer_pattern not in ("global", "swa", "alt_local_global"):
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} / layer_pattern "
             f"{cfg.layer_pattern!r} is not ported (ROADMAP.md queue 1)")
@@ -65,8 +68,9 @@ def dense_block_defs(cfg) -> Dict[str, Any]:
     d = cfg.d_model
     attn = (attn_lib.mla_defs(cfg) if cfg.attn_type == "mla"
             else attn_lib.gqa_defs(cfg))
+    ffn = moe_defs(cfg) if cfg.n_experts else mlp_defs(d, cfg.d_ff)
     defs = {"ln1": rmsnorm_def(d), "attn": attn,
-            "ln2": rmsnorm_def(d), "ffn": mlp_defs(d, cfg.d_ff)}
+            "ln2": rmsnorm_def(d), "ffn": ffn}
     if cfg.post_norm:
         defs["post1"] = rmsnorm_def(d)
         defs["post2"] = rmsnorm_def(d)
@@ -96,8 +100,9 @@ def _prefill_kv(cfg, k4, v4, window):
 
 def apply_dense_block(cfg, p, x, *, positions, mode, window=0, kv=None,
                       lengths=None, q_offset=0):
-    """One pre-norm block (post-norms on the attention and MLP outputs
-    where ``cfg.post_norm``).  Returns (x', new_kv).
+    """One pre-norm block (post-norms on the attention and FFN outputs
+    where ``cfg.post_norm``; the MoE FFN where ``cfg.n_experts``).
+    Returns (x', new_kv, aux): aux the MoE losses, else ``ZERO_AUX``.
 
     ``kv``: decode mode's cache slices, each (B, Smax, ·), written in place
     and returned: (k_flat, v_flat) for GQA, (k, v, k_scale, v_scale) for
@@ -136,19 +141,73 @@ def apply_dense_block(cfg, p, x, *, positions, mode, window=0, kv=None,
     if cfg.post_norm:
         o = rmsnorm(o, p["post1"])
     x = x + o
-    f = apply_mlp(p["ffn"], rmsnorm(x, p["ln2"]))
+    h = rmsnorm(x, p["ln2"])
+    if cfg.n_experts:
+        f, aux = apply_moe(cfg, p["ffn"], h)
+    else:
+        f, aux = apply_mlp(p["ffn"], h), dict(ZERO_AUX)
     if cfg.post_norm:
         f = rmsnorm(f, p["post2"])
-    return x + f, new_kv
+    return x + f, new_kv, aux
+
+
+def ssm_block_defs(cfg) -> Dict[str, Any]:
+    return {"ln": rmsnorm_def(cfg.d_model), "ssm": ssm_defs(cfg)}
+
+
+def apply_ssm_block(cfg, p, x, *, mode, conv_state=None, ssm_state=None):
+    """One pre-norm Mamba2 block.  Returns (x', conv_state', ssm_state')."""
+    y, (conv_state, ssm_state) = apply_ssm(
+        cfg, p["ssm"], rmsnorm(x, p["ln"]), conv_state=conv_state,
+        ssm_state=ssm_state, mode=mode)
+    return x + y, conv_state, ssm_state
+
+
+def _shared_block_defs(cfg) -> Dict[str, Any]:
+    """Zamba2's shared transformer block and a unit's LoRA deltas on its
+    QKV (the ``b_*`` start at zero)."""
+    d, h, hd = cfg.d_model, cfg.n_heads, cfg.resolved_head_dim
+    r, kv = cfg.shared_lora_rank, cfg.n_kv_heads * hd
+    shared = {"ln1": rmsnorm_def(d), "attn": attn_lib.gqa_defs(cfg),
+              "ln2": rmsnorm_def(d), "ffn": mlp_defs(d, cfg.d_ff)}
+    lora = {
+        "a_q": ParamDef((d, r), ("embed", None), "small"),
+        "b_q": ParamDef((r, h * hd), (None, "model"), "zeros"),
+        "a_k": ParamDef((d, r), ("embed", None), "small"),
+        "b_k": ParamDef((r, kv), (None, "model"), "zeros"),
+        "a_v": ParamDef((d, r), ("embed", None), "small"),
+        "b_v": ParamDef((r, kv), (None, "model"), "zeros"),
+    }
+    return shared, lora
 
 
 def backbone_defs(cfg) -> Dict[str, Any]:
     check_supported(cfg)
+    if cfg.family == "ssm":
+        return {"layers": stacked(ssm_block_defs(cfg), cfg.n_layers)}
+    if cfg.family == "hybrid":
+        shared, lora = _shared_block_defs(cfg)
+        mamba = stacked(ssm_block_defs(cfg), cfg.mamba_per_unit, "layers")
+        return {"units": stacked({"mamba": mamba, "lora": lora},
+                                 cfg.hybrid_units, "units"),
+                "shared": shared,
+                "tail": stacked(ssm_block_defs(cfg), cfg.trailing_mamba)}
     if cfg.layer_pattern == "alt_local_global":
         pair = {"local": dense_block_defs(cfg),
                 "global": dense_block_defs(cfg)}
         return {"pairs": stacked(pair, cfg.n_layers // 2)}
     return {"layers": stacked(dense_block_defs(cfg), cfg.n_layers)}
+
+
+def _shared_attn_params(shared, lora):
+    """Zamba2: the shared block with one unit's LoRA deltas added to its
+    QKV weights, ``w + a @ b`` in the parameters' dtype, as JAX forms it
+    once per unit invocation."""
+    attn = dict(shared["attn"])
+    for w, a, b in (("wq", "a_q", "b_q"), ("wk", "a_k", "b_k"),
+                    ("wv", "a_v", "b_v")):
+        attn[w] = attn[w] + matmul(lora[a], lora[b])
+    return {**shared, "attn": attn}
 
 
 def _block_runs(cfg):
@@ -180,6 +239,115 @@ def _write_prefill_entry(buf, entry):
     buf[:, s:].zero_()
 
 
+class _Entries:
+    """Where a prefill's or a decode's new cache entries go: each written
+    into its slice of the cache in place (a K/V entry by
+    ``_write_prefill_entry``, a state by ``copy_``), or, in a prefill
+    without a cache, collected and stacked over the layer dims at the end
+    (``lead``: the stacked dims of an entry, when more than one)."""
+
+    def __init__(self, cache, lead=None):
+        self.cache, self.lead = cache, lead or {}
+        self.produced: Dict[str, list] = {}
+
+    def put(self, name, index, t, kv=False):
+        if self.cache is None:
+            self.produced.setdefault(name, []).append(t)
+        elif kv:
+            _write_prefill_entry(self.cache[name][index], t)
+        else:
+            self.cache[name][index].copy_(t)
+
+    def stacked(self):
+        return {name: torch.stack(ts).unflatten(0, self.lead.get(
+                    name, (len(ts),)))
+                for name, ts in self.produced.items()}
+
+
+def _ssm_layer(cfg, p, x, *, mode, entries, names, index, from_cache):
+    """One Mamba2 block at ``index`` of the cache entries ``names`` (conv
+    state, SSM state).  It starts from the cache's states where
+    ``from_cache`` (decode; the SSM family's prefill, whose scan JAX feeds
+    the cache), else from zeros (the hybrid's prefill), and writes its
+    new states to ``entries``."""
+    if mode == "train":
+        return apply_ssm_block(cfg, p, x, mode=mode)[0]
+    cache = entries.cache
+    cs = ss = None
+    if from_cache and cache is not None:
+        cs, ss = (cache[n][index] for n in names)
+    x, cs, ss = apply_ssm_block(cfg, p, x, mode=mode, conv_state=cs,
+                                ssm_state=ss)
+    for name, t in zip(names, (cs, ss)):
+        entries.put(name, index, t)
+    return x
+
+
+def _run_dense(cfg, params, x, *, mode, positions, cache, lengths, q_offset,
+               entries):
+    runs = _block_runs(cfg)
+    if len(runs) == 2:
+        stack, n = params["pairs"], cfg.n_layers // 2
+    else:
+        stack, n = params["layers"], cfg.n_layers
+    aux = dict(ZERO_AUX)
+    for i in range(n):
+        for sub, window, own in runs:
+            p = tree_map(lambda t: t[i], stack if sub is None else stack[sub])
+            kv = (tuple(cache[name][i] for name in own)
+                  if mode == "decode" else None)
+            x, new_kv, a = apply_dense_block(
+                cfg, p, x, positions=positions, mode=mode, window=window,
+                kv=kv, lengths=lengths, q_offset=q_offset)
+            aux = {k: aux[k] + a[k] for k in aux}
+            if mode == "prefill":
+                for name, t in zip(own, new_kv):
+                    entries.put(name, i, t, kv=True)
+    return x, [name for _, _, own in runs for name in own], aux
+
+
+def _run_ssm(cfg, params, x, *, mode, entries):
+    for i in range(cfg.n_layers):
+        p = tree_map(lambda t: t[i], params["layers"])
+        x = _ssm_layer(cfg, p, x, mode=mode, entries=entries,
+                       names=("conv", "ssm"), index=i, from_cache=True)
+    return x, ["conv", "ssm"]
+
+
+def _run_hybrid(cfg, params, x, *, mode, positions, cache, lengths,
+                q_offset, entries):
+    b, s, _ = x.shape
+    hkv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    decode = mode == "decode"
+    for u in range(cfg.hybrid_units):
+        up = tree_map(lambda t: t[u], params["units"])
+        for m in range(cfg.mamba_per_unit):
+            x = _ssm_layer(cfg, tree_map(lambda t: t[m], up["mamba"]), x,
+                           mode=mode, entries=entries, names=("conv", "ssm"),
+                           index=(u, m), from_cache=decode)
+        sp = _shared_attn_params(params["shared"], up["lora"])
+        h = rmsnorm(x, sp["ln1"])
+        if decode:
+            o, _, _ = attn_lib.gqa_decode(
+                cfg, sp["attn"], h, positions, cache["k"][u].view(b, -1, hkv,
+                                                                  hd),
+                cache["v"][u].view(b, -1, hkv, hd), lengths)
+        else:
+            o, (k4, v4) = attn_lib.gqa_attend(cfg, sp["attn"], h, positions,
+                                              q_offset=q_offset)
+            if mode == "prefill":
+                entries.put("k", u, k4.reshape(b, s, hkv * hd), kv=True)
+                entries.put("v", u, v4.reshape(b, s, hkv * hd), kv=True)
+        x = x + o
+        x = x + apply_mlp(sp["ffn"], rmsnorm(x, sp["ln2"]))
+    for t in range(cfg.trailing_mamba):
+        x = _ssm_layer(cfg, tree_map(lambda a: a[t], params["tail"]), x,
+                       mode=mode, entries=entries,
+                       names=("conv_tail", "ssm_tail"), index=t,
+                       from_cache=decode)
+    return x, ["conv", "ssm", "k", "v", "conv_tail", "ssm_tail"]
+
+
 def run_backbone(cfg, params, x, *, mode, positions, cache=None,
                  lengths=None, q_offset=0):
     """Run all layers.  x: (B, S, d) embedded inputs; ``mode`` "train",
@@ -187,39 +355,38 @@ def run_backbone(cfg, params, x, *, mode, positions, cache=None,
     M-RoPE.
 
     Returns (hidden, new_cache_entries, aux).  Prefill's entries are the
-    produced cache entries stacked over layers (or layer pairs), (L, B,
-    smax, ·), or, given a ``cache``, its own tensors with each layer's
-    entries written in place as it runs (``_write_prefill_entry``); decode's
-    are the cache's own tensors, each layer's new token written in place;
-    train returns none.  A gemma2 pair runs its local (windowed) layer,
-    then its global one.
+    produced cache entries stacked over layers (or layer pairs, or units
+    and their layers), (L, B, smax, ·) for K/V, or, given a ``cache``, its
+    own tensors with each layer's entries written in place as it runs
+    (``_write_prefill_entry``); decode's are the cache's own tensors, each
+    layer's new token (or new states) written in place; train returns
+    none.  A gemma2 pair runs its local (windowed) layer, then its global
+    one.  The SSM family's prefill starts from the cache's states (zero in
+    a fresh cache), as JAX's; the hybrid's from zeros.  ``aux`` sums each
+    MoE layer's losses over the layers.
     """
     check_supported(cfg)
-    runs = _block_runs(cfg)
-    names = [name for _, _, own in runs for name in own]
-    if len(runs) == 2:
-        stack, n = params["pairs"], cfg.n_layers // 2
+    lead = ({"conv": (cfg.hybrid_units, cfg.mamba_per_unit),
+             "ssm": (cfg.hybrid_units, cfg.mamba_per_unit)}
+            if cfg.family == "hybrid" else None)
+    entries = _Entries(cache if mode != "train" else None, lead)
+    aux = dict(ZERO_AUX)
+    if cfg.family == "ssm":
+        x, names = _run_ssm(cfg, params, x, mode=mode, entries=entries)
+    elif cfg.family == "hybrid":
+        x, names = _run_hybrid(cfg, params, x, mode=mode,
+                               positions=positions, cache=cache,
+                               lengths=lengths, q_offset=q_offset,
+                               entries=entries)
     else:
-        stack, n = params["layers"], cfg.n_layers
-    produced = {name: [] for name in names}
-    for i in range(n):
-        for sub, window, own in runs:
-            p = tree_map(lambda t: t[i], stack if sub is None else stack[sub])
-            kv = (tuple(cache[name][i] for name in own)
-                  if mode == "decode" else None)
-            x, new_kv = apply_dense_block(
-                cfg, p, x, positions=positions, mode=mode, window=window,
-                kv=kv, lengths=lengths, q_offset=q_offset)
-            if mode == "prefill" and cache is not None:
-                for name, t in zip(own, new_kv):
-                    _write_prefill_entry(cache[name][i], t)
-            elif mode == "prefill":
-                for name, t in zip(own, new_kv):
-                    produced[name].append(t)
+        x, names, aux = _run_dense(cfg, params, x, mode=mode,
+                                   positions=positions, cache=cache,
+                                   lengths=lengths, q_offset=q_offset,
+                                   entries=entries)
     if mode == "prefill" and cache is None:
-        new_cache = {name: torch.stack(ts) for name, ts in produced.items()}
+        new_cache = entries.stacked()
     elif mode != "train":
         new_cache = {name: cache[name] for name in names}
     else:
         new_cache = {}
-    return x, new_cache, dict(ZERO_AUX)
+    return x, new_cache, aux

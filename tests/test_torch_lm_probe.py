@@ -112,7 +112,28 @@ def test_serve_cli_needs_the_card_by_default():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tserve.main(["--arch", "qwen3-8b", "--smoke"])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tserve.main(["--arch", "mamba2-370m", "--smoke", "--device", "cpu"])
+        tserve.main(["--arch", "seamless-m4t-large-v2", "--smoke",
+                     "--device", "cpu"])
+
+
+@pytest.mark.parametrize("arch", ["mamba2-370m", "dbrx-132b", "zamba2-7b",
+                                  "arctic-480b"])
+@pytest.mark.parametrize("temperature", ["0", "0.8"])
+def test_serve_cli_serves_the_moe_ssm_and_hybrid_families(capsys, arch,
+                                                          temperature):
+    """The MoE, SSM and hybrid families through launch/serve on the CPU:
+    its three lines, ids in the vocab, seeded and repeatable."""
+    argv = ["--arch", arch, "--smoke", "--device", "cpu", "--batch", "2",
+            "--prompt-len", "20", "--gen", "4", "--temperature",
+            temperature]
+    out = tserve.main(argv)
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[0].startswith("prefill 20 tok x2: ")
+    assert lines[1].startswith("decode 4 steps: ") and "tok/s" in lines[1]
+    assert lines[2] == "generated ids:"
+    assert out.shape == (2, 4) and out.dtype == np.int32
+    assert ((out >= 0) & (out < tget(arch).smoke().padded_vocab)).all()
+    np.testing.assert_array_equal(tserve.main(argv), out)   # seeded
 
 
 @pytest.mark.parametrize("name,want", [

@@ -425,11 +425,12 @@ def test_probe_features_on_bf16_weights(cfgs):
     _close(feats, ref)
 
 
-# The families still to port (MoE, SSM / hybrid, enc-dec); the dense and
-# VLM configs run (tests/test_torch_models_attn.py).
+# The family still to port (enc-dec); the dense and VLM configs run
+# (tests/test_torch_models_attn.py), the MoE, SSM and hybrid ones too
+# (tests/test_torch_models_moe.py, test_torch_models_ssm.py).
 RAISING_ARCHS = sorted(a for a in ARCHS if a not in (
     "qwen3-8b", "h2o-danube-1.8b", "gemma2-9b", "minicpm3-4b",
-    "qwen2-vl-2b"))
+    "qwen2-vl-2b", "dbrx-132b", "arctic-480b", "mamba2-370m", "zamba2-7b"))
 
 
 @pytest.mark.parametrize("arch", RAISING_ARCHS)
@@ -441,10 +442,10 @@ def test_other_families_raise(arch):
             fn()
 
 
-# Ids kept from when the int8, MLA, SWA and post-norm variants raised too.
+# Ids kept from when the int8, MLA, SWA, post-norm and MoE variants raised
+# too.
 @pytest.mark.parametrize("change,item", [
     pytest.param(dict(sliding_window=32), "1a", id="change3-1a"),
-    pytest.param(dict(n_experts=4), "1e", id="change5-1e"),
 ])
 def test_variants_of_the_dense_family_raise(cfgs, weights, change, item):
     cfg = dataclasses.replace(cfgs[0], **change)
@@ -465,6 +466,7 @@ def test_lm_modules_import_neither_jax_nor_repro():
             "import repro_torch.launch.steps, repro_torch.models.attention\n"
             "import repro_torch.models.common, repro_torch.models.params\n"
             "import repro_torch.models.transformer\n"
+            "import repro_torch.models.moe, repro_torch.models.ssm\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib', 'repro.')) or m == 'repro')\n"
             "assert not bad, bad\n")

@@ -438,15 +438,16 @@ def test_gemma2_pair_step(mode):
         if mode == "decode":
             tkv = tuple(_t(c) for c in caches[sub])
             jkv = tuple(jnp.array(c) for c in caches[sub])
-        tx, tnew = TT.apply_dense_block(
+        tx, tnew, taux = TT.apply_dense_block(
             tcfg, tpair[sub], tx, kv=tkv,
             lengths=_t(lengths) if mode == "decode" else None,
             **dict(kw, positions=_t(pos)))
-        jx, jnew, _ = JT.apply_dense_block(
+        jx, jnew, jaux = JT.apply_dense_block(
             jcfg, jpair[sub], jx, kv=jkv,
             lengths=jnp.array(lengths) if mode == "decode" else None,
             **dict(kw, positions=jnp.array(pos)))
         _close(tx, jx)
+        assert taux == {k: float(v) for k, v in jaux.items()}
         if mode == "train":
             assert tnew is None and jnew is None
         else:
