@@ -168,7 +168,37 @@ process per source, in parallel), then:
      on 8,192 slots; its serving cache 32,768 slots, not its
      max_cache_len's 524,288); mamba2's state bytes constant in the
      length.  No kernel launches;
- 11. each kernel against its plain torch version on the same inputs, on the
+ 11. the enc-dec family (after phase 10, its own watchdog):
+     seamless-m4t-large-v2 at full width and depth (24 + 24 layers,
+     ``reduced: []``), random bf16 weights from the seed, counted against
+     ``n_params()`` (whose formula leaves out the decoder's cross-attention
+     V projections: that gap is counted exactly), 4 prompts of 512 target
+     tokens with frames (4, 4,096, 1,024) so the source fills
+     ``src_len_for_decode``, prefill cold and warm and the encoder and the
+     decoder's prefill timed apart, 32 greedy steps into 32,768
+     self-attention slots (the cache 14,495,514,640 B), one step profiled,
+     the step bounded by the weights a decode step reads (the decoder's
+     but its cross K/V projections, the unembedding) and the cache once at
+     3.35 TB/s; decode of token 512 against one forward over 513 target
+     tokens with the same frames in bf16 (beside two forwards' own
+     difference) and at JAX's bound in fp32 (B 2).  No kernel launches;
+ 12. training (after phase 11, its own watchdog; ``train_family``): (12a)
+     seamless-m4t-large-v2 at full width and depth, B 8 x 512 target
+     tokens and frames (8, 512, 1,024), microbatch 2; (12b) qwen3-8b at
+     full width and 4 of its 36 layers (its AdamW state is 131 GB in
+     full), B 8 x 1,024, microbatch 4; each with random bf16 weights, its
+     config's AdamW and ``remat="full"``, 20 steps of ``make_train_step``
+     (peak_lr 1e-3, warmup 5) on ``SyntheticLM``: step ms, tokens/s, the
+     model-FLOP share of the bf16 peak (6 x the parameters but the input
+     embedding x tokens a step; enc-dec's encoder sees the frames, here as
+     many), one step profiled, peak memory, the optimizer state's bytes;
+     every loss and grad norm finite, ce descending, a restart from a
+     ``CheckpointManager`` checkpoint of step 10 (28 GB, in a git-ignored
+     ``chip_smoke_ckpt_*`` directory of the checkout) no farther from the
+     uninterrupted run's master weights at step 12 than a second
+     uninterrupted run is, and microbatch 2 against 1 on an fp32 copy at
+     2 (+ 2) layers within JAX's bounds.  No kernel launches;
+ 13. each kernel against its plain torch version on the same inputs, on the
      card, and timed with CUDA events beside its roofline bound (and beside
      the nearest single PyTorch call, where there is one); for the streaming
      kernel also the per-sweep loop on the same design, as a finding.  The
@@ -190,7 +220,7 @@ process per source, in parallel), then:
      x at the shapes of their fp32 rows and at every shape phase 4 gave
      them, there on the plan phase 4 ran (x at 2 bytes in the bound), with
      their rtol stops held to the rule on the plain iterate's fp64 SSE;
- 12. a ``kernels`` summary line (the bf16 kernels as ``<name>_bf16``;
+ 14. a ``kernels`` summary line (the bf16 kernels as ``<name>_bf16``;
      launches summed over the paths), the card's name and power limit,
      and the result line
      ``{"ok": true, "device": {...}}``.
@@ -200,10 +230,11 @@ slices' path; phase 3, the streaming path; phase 4, the mixed-precision
 path, where each bf16 kernel must launch; phase 5, the serving path;
 phase 6, the store and dispatcher path; phase 7b, the sharded serving
 path; phase 8, the LM path, whose probes launch the streaming kernel;
-phase 9, the LM variants; phase 10, the MoE, SSM and hybrid families)
-and read just after it, so they count that path only; each kernel must
-have launched on its path, and none on the sharded path, the LM
-variants or the new families.  Inputs
+phase 9, the LM variants; phase 10, the MoE, SSM and hybrid families;
+phase 11, the enc-dec family; phase 12, training) and read just after
+it, so they count that path only; each kernel must have launched on its
+path, and none on the sharded path, the LM variants, the MoE, SSM,
+hybrid and enc-dec families or training.  Inputs
 are Gaussian designs with a planted ``a_true`` and ``y = x @ a_true`` from
 a fixed seed.  Any failed check, build or launch error exits non-zero
 without the result line; so does a host with no CUDA device, or a
@@ -236,6 +267,9 @@ BF16_KERNEL_TOL = 1e-5
 # (non-tensor-core) FLOP/s.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+# bf16 tensor-core dense peak (the same data sheet), for phase 12's
+# model-FLOP share.
+BF16_FLOP_PER_S = 989e12
 # Phase 5's watchdog: a serving path that has not finished by then is a
 # hang, and the script exits non-zero instead of waiting on it.
 PHASE5_WATCHDOG_S = 120
@@ -250,6 +284,11 @@ PHASE9_WATCHDOG_S = 900
 # Phase 10's (four MoE, SSM and hybrid models: build, serve, checks in
 # fp32).
 PHASE10_WATCHDOG_S = 600
+# Phase 11's (seamless-m4t-large-v2: build, serve, the check in fp32).
+PHASE11_WATCHDOG_S = 300
+# Phase 12's (two models trained 20 steps, a restart from a checkpoint of
+# 28-32 GB, the microbatch check in fp32).
+PHASE12_WATCHDOG_S = 900
 # Phase 10's MoE decode check: each layer's output in an fp32 decode step
 # against the no-capacity reference, max error over max |reference|.
 MOE_REF_TOL = 1e-5
@@ -297,7 +336,11 @@ def _step_profile(step) -> tuple:
     for ev in prof.key_averages():
         us = getattr(ev, "self_device_time_total", None)
         us = ev.self_cuda_time_total if us is None else us
-        if str(ev.device_type).endswith("CPU") and us > 0:
+        # "Command Buffer Full" is the host waiting for room in the launch
+        # queue (a training step launches tens of thousands of kernels),
+        # not a kernel's time.
+        if str(ev.device_type).endswith("CPU") and us > 0 and \
+                ev.key != "Command Buffer Full":
             ops[ev.key] = us / 1e3
     return sum(ops.values()), dict(sorted(ops.items(),
                                           key=lambda kv: -kv[1])[:10])
@@ -350,15 +393,24 @@ def _against_no_capacity(cfg, p, h, y) -> float:
     return ((y - ref).abs().max() / ref.abs().max()).item()
 
 
+def _tree_bytes(tree) -> int:
+    from repro_torch.models.params import tree_items
+    return sum(t.numel() * t.element_size() for _, t in tree_items(tree))
+
+
 def lm_family(spec, *, dev, card, against, held, int8_against=None):
-    """Phases 9 and 10: serve one model at its full width, its depth cut
+    """Phases 9 to 11: serve one model at its full width, its depth cut
     (``spec["depth"]``) where its bf16 weights pass one card, as
     ``spec["reduced"]`` says: build and count, prefill 4 prompts cold and
     warm, 32 greedy decode steps on a cache of max(max_cache_len, prompt +
     gen) slots (or ``spec["slots"]``), one more step profiled by aten op;
     an MoE model's prefill routing per layer (capacity drops, expert
     loads); with ``spec["int8_slots"]``, the int8 KV cache against this
-    run (``int8_against``).  Then the decode check in fp32 on a fresh copy
+    run (``int8_against``); an enc-dec model's prompts carry frames of
+    ``spec["frames"]`` source positions, its encoder and decoder prefill
+    are timed apart too, and its step bound counts the weights a decode
+    step reads (the decoder's but its cross-attention K/V projections,
+    which only prefill runs, and the unembedding).  Then the decode check in fp32 on a fresh copy
     of ``spec["check_depth"]`` layers: an MoE model's decode step, layer by
     layer, against the no-capacity reference within MOE_REF_TOL of its
     magnitude (capacity routes a 1-token decode unlike a long forward);
@@ -371,12 +423,14 @@ def lm_family(spec, *, dev, card, against, held, int8_against=None):
 
     from repro_torch.configs.registry import get as get_arch
     from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import encdec as encdec_lib
     from repro_torch.models import moe as moe_lib
+    from repro_torch.models.common import embed_tokens
     from repro_torch.models.kvcache import (cache_bytes, cache_spec_tree,
                                             init_cache)
     from repro_torch.models.model import (forward_logits, init_model,
                                           make_smoke_batch, model_defs)
-    from repro_torch.models.params import count_params, tree_items
+    from repro_torch.models.params import count_params
 
     step, arch = spec["step"], spec["arch"]
     full_cfg = get_arch(arch)
@@ -384,6 +438,12 @@ def lm_family(spec, *, dev, card, against, held, int8_against=None):
            full_cfg.n_kv_heads, full_cfg.resolved_head_dim, full_cfg.d_ff,
            full_cfg.vocab_size)
     check(got == spec["shape"], f"phase {step}: {arch} is {got}")
+    encdec = full_cfg.family == "encdec"
+    if encdec:
+        got = (full_cfg.n_enc_layers, full_cfg.n_dec_layers,
+               full_cfg.src_len_for_decode)
+        check(got == spec["encdec"],
+              f"phase {step}: {arch}'s encoder, decoder, source slots {got}")
     cfg = dataclasses.replace(
         full_cfg, n_layers=spec.get("depth", full_cfg.n_layers))
     moe = cfg.n_experts > 0
@@ -397,17 +457,26 @@ def lm_family(spec, *, dev, card, against, held, int8_against=None):
     torch.cuda.reset_peak_memory_stats()
     params, init_ms = _timed(lambda: init_model(cfg, seed=SEED, device=dev))
     n = count_params(model_defs(cfg))
-    wbytes = sum(t.numel() * t.element_size() for _, t in tree_items(params))
+    wbytes = _tree_bytes(params)
     check(n == spec["params"] and wbytes == 2 * n,
           f"phase {step}: {n} parameters in {wbytes} bytes, want "
           f"{spec['params']} in bf16")
     # n_params() leaves out the norms, the conv and LoRA weights and the
     # padded vocab rows: under 1% of every model here.
-    check(abs(n - cfg.n_params()) < 1e-2 * cfg.n_params(),
-          f"phase {step}: count_params {n}, n_params() {cfg.n_params()}")
+    # JAX's n_params() leaves out the enc-dec decoder's cross-attention V
+    # projections (``spec["n_params_gap"]``, counted exactly).
+    gap = spec.get("n_params_gap", 0)
+    check(abs(n - gap - cfg.n_params()) < 1e-2 * cfg.n_params(),
+          f"phase {step}: count_params {n} less {gap}, n_params() "
+          f"{cfg.n_params()}")
     prompt = make_smoke_batch(cfg, seed=SEED + spec["seed_offset"],
                               batch=b, seq=s, device=dev)
     prompt.pop("labels")
+    if encdec:
+        gen_f = torch.Generator(device=dev).manual_seed(
+            SEED + spec["seed_offset"] + 1)
+        prompt["frames"] = torch.randn((b, spec["frames"], cfg.d_model),
+                                       generator=gen_f, device=dev)
     cache = init_cache(cfg, b, slots, device=dev)
     cbytes = cache_bytes(cfg, b, slots)
     check(cbytes == sum(t.numel() * t.element_size()
@@ -434,13 +503,33 @@ def lm_family(spec, *, dev, card, against, held, int8_against=None):
            "vocab": cfg.vocab_size, "layer_pattern": cfg.layer_pattern,
            "attn_type": cfg.attn_type, "window": cfg.sliding_window,
            "dtype": cfg.dtype, "reduced": spec["reduced"], "params": n,
-           "n_params_formula": cfg.n_params(), "weight_bytes": wbytes,
+           "n_params_formula": cfg.n_params(), "n_params_gap": gap,
+           "weight_bytes": wbytes,
            "init_s": init_ms / 1e3, "batch": b, "prompt": s, "gen": gen,
            "cache_slots": slots,
            "cache_layout": {k: list(v[0]) for k, v in
                             cache_spec_tree(cfg, b, slots).items()},
            "cache_bytes": cbytes, "prefill_s": pre_ms / 1e3,
            "prefill_warm_s": pre_warm_ms / 1e3, "held_before_phase": held}
+    if encdec:
+        # The encoder alone, then the decoder's prefill on its output (the
+        # cross K/V written once), each warm.
+        with torch.no_grad():
+            enc_out, enc_ms = _timed(lambda: encdec_lib.run_encoder(
+                cfg, params["backbone"], prompt["frames"].to(torch.bfloat16)))
+            x = embed_tokens(params["embed"], prompt["tokens"],
+                             torch.bfloat16)
+            pos = torch.arange(s, dtype=torch.int32,
+                               device=dev)[None].expand(b, s)
+            _, dec_ms = _timed(lambda: encdec_lib.run_decoder(
+                cfg, params["backbone"], x, enc_out, mode="prefill",
+                positions=pos, cache=cache))
+        del enc_out, x
+        row.update(n_enc_layers=cfg.n_enc_layers,
+                   n_dec_layers=cfg.n_dec_layers,
+                   frames=list(prompt["frames"].shape),
+                   prefill_encoder_s=enc_ms / 1e3,
+                   prefill_decoder_s=dec_ms / 1e3)
     if moe:
         row.update(n_experts=cfg.n_experts, top_k=cfg.experts_per_token,
                    moe_d_ff=cfg.moe_d_ff,
@@ -471,13 +560,21 @@ def lm_family(spec, *, dev, card, against, held, int8_against=None):
           f"phase {step}: decode logits not finite")
     with torch.no_grad():
         dev_ms, ops = _step_profile(lambda: decode(params, tok, cache))
+    step_wbytes = wbytes
+    if encdec:
+        dec = params["backbone"]["dec"]
+        step_wbytes = (_tree_bytes(dec) - _tree_bytes(
+            {k: dec["cross_attn"][k] for k in ("wk", "wv")})
+            + _tree_bytes(params["embed"]["out"])
+            + _tree_bytes(params["final_ln"]))
+        row["decode_weight_bytes"] = step_wbytes
     row.update({
         "decode_s": dec_s, "decode_tokens_per_s": gen * b / dec_s,
         "decode_ms_per_step": dec_s * 1e3 / gen,
         # The step's least time: every weight (every expert's: the batched
-        # product computes each expert's capacity rows) and the cache,
-        # read once.
-        "step_bound_ms": (wbytes + cbytes) / HBM_BYTES_PER_S * 1e3,
+        # product computes each expert's capacity rows; enc-dec's that a
+        # step reads) and the cache, read once.
+        "step_bound_ms": (step_wbytes + cbytes) / HBM_BYTES_PER_S * 1e3,
         "profiled_step_device_ms": dev_ms,
         "profiled_step_device_ms_by_op": ops,
         "decode_idle_share": 1.0 - dev_ms / (dec_s * 1e3 / gen),
@@ -492,9 +589,11 @@ def lm_family(spec, *, dev, card, against, held, int8_against=None):
         # against one forward over s + 1 tokens at position s, and a
         # forward over s + 2 tokens at s (the rounding floor).
         with torch.no_grad():
-            ref = forward_logits(cfg, params, full, at=s)
+            ref = forward_logits(cfg, params, full, at=s,
+                                 frames=prompt.get("frames"))
             floor = forward_logits(cfg, params,
-                                   torch.cat([full, first_tok], 1), at=s)
+                                   torch.cat([full, first_tok], 1), at=s,
+                                   frames=prompt.get("frames"))
         row["decode_vs_forward_bf16"] = against(steps[0], ref)
         row["forward_vs_forward_bf16"] = against(floor, ref)
         del ref, floor
@@ -510,7 +609,9 @@ def lm_family(spec, *, dev, card, against, held, int8_against=None):
                               n_layers=spec.get("check_depth", cfg.n_layers))
     params32 = init_model(c32, seed=SEED, device=dev)
     cache32 = init_cache(c32, cb, cslots, device=dev)
-    p32 = {k: v[:cb, :cs] if k == "tokens" else v[:, :cb, :cs]
+    # tokens (B, S), frames (B, S_src, d): rows; positions (3, B, S).
+    p32 = {k: v[:cb, :cs] if k == "tokens" else
+           v[:cb] if k == "frames" else v[:, :cb, :cs]
            for k, v in prompt.items()}
     row["fp32_check"] = {"layers": c32.n_layers, "batch": cb, "prompt": cs,
                          "cache_slots": cslots,
@@ -534,7 +635,8 @@ def lm_family(spec, *, dev, card, against, held, int8_against=None):
                   f"phase {step}: fp32 decode MoE against the no-capacity "
                   f"reference {errs}, dropped {drops}")
         else:
-            ref32 = forward_logits(c32, params32, full[:cb, :cs + 1], at=cs)
+            ref32 = forward_logits(c32, params32, full[:cb, :cs + 1], at=cs,
+                                   frames=p32.get("frames"))
             row["decode_vs_forward_fp32"] = res32 = against(dec32, ref32)
             check(res32["outside_jax_bound"] == 0,
                   f"phase {step}: {arch} fp32 decode against the full "
@@ -542,6 +644,251 @@ def lm_family(spec, *, dev, card, against, held, int8_against=None):
     row["max_memory_allocated_fp32_check"] = torch.cuda.max_memory_allocated()
     del params32, cache32, dec32
     torch.cuda.empty_cache()
+    emit(row)
+    return row
+
+
+def _max_diff(a, b) -> float:
+    """max |a - b| over every leaf of two trees of tensors."""
+    from repro_torch.models.params import tree_items
+    return max((x - y).abs().max().item()
+               for (_, x), (_, y) in zip(tree_items(a), tree_items(b)))
+
+
+def train_family(spec, *, dev, card, held, ckpt_root):
+    """Phase 12: train one model at its full width (its depth cut where its
+    AdamW state passes one card, as ``spec["reduced"]`` says) with random
+    bf16 weights from the seed, its config's optimizer, ``remat`` and
+    ``spec["microbatch"]``, on ``SyntheticLM`` batches of ``spec["batch"]``
+    x ``spec["seq"]`` tokens (enc-dec: frames (B, seq, d_model) drawn from
+    a generator seeded by the step), 20 steps of ``make_train_step``
+    (peak_lr 1e-3, warmup 5).  Prints step ms (the median of the warm
+    steps, 2-19), tokens/s, the model-FLOP share of the bf16 peak, one
+    more step's device ms by aten op and the idle share, peak memory and
+    the optimizer state's bytes.  Checks: every loss and grad
+    norm finite; the mean ce of the last 5 steps below the first 5's; the
+    restart (a ``CheckpointManager`` save at step 10, restored into fresh
+    tensors, run to step 12) no farther from the uninterrupted run's fp32
+    master weights at step 12 than a second uninterrupted run is; and, on
+    an fp32 copy at full width and ``spec["mb_layers"]`` depth, one step
+    at ``microbatch`` 2 against 1 on the same batch within JAX's test's
+    bounds (ce within 2e-3, params rtol = atol = 2e-2)."""
+    import dataclasses
+    import math
+    import statistics
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs.registry import get as get_arch
+    from repro_torch.data import SyntheticLM
+    from repro_torch.distributed.fault_tolerance import CheckpointManager
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.model import init_model, model_defs
+    from repro_torch.models.params import count_params, tree_items, tree_map
+    from repro_torch.optim import make_optimizer
+
+    step_id, arch = spec["step"], spec["arch"]
+    full_cfg = get_arch(arch)
+    cfg = dataclasses.replace(
+        full_cfg, n_layers=spec.get("depth", full_cfg.n_layers),
+        microbatch=spec["microbatch"])
+    encdec = cfg.family == "encdec"
+    b, s, n_steps, seed = spec["batch"], spec["seq"], 20, SEED + spec[
+        "seed_offset"]
+    sched = dict(peak_lr=1e-3, warmup=5, total_steps=n_steps)
+    opt_init, _ = make_optimizer(cfg.optimizer)
+    check(cfg.optimizer == "adamw" and cfg.remat == "full",
+          f"phase {step_id}: {arch} trains with {cfg.optimizer}, remat "
+          f"{cfg.remat}")
+
+    def next_batch(data, c=cfg):
+        st = data.state.step
+        out = {k: torch.from_numpy(v).to(dev)
+               for k, v in data.next_batch().items()}
+        if encdec:
+            gen = torch.Generator(device=dev).manual_seed(seed + st)
+            out["frames"] = torch.randn((b, s, c.d_model), generator=gen,
+                                        device=dev)
+        return out
+
+    def run(params, opt_state, data, steps, on_step=None):
+        step_fn = make_train_step(cfg, **sched)
+        rows = []
+        for st in steps:
+            batch = next_batch(data)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            params, opt_state, m = step_fn(params, opt_state, batch, st)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t) * 1e3
+            rows.append({"step": st, "ms": ms,
+                         **{k: float(v) for k, v in m.items()}})
+            if on_step is not None:
+                on_step(st, params, opt_state, data)
+        return params, opt_state, rows
+
+    def fresh():
+        params = init_model(cfg, seed=seed, device=dev)
+        return params, opt_init(params)
+
+    torch.cuda.reset_peak_memory_stats()
+    (params, opt_state), init_ms = _timed(fresh)
+    n = count_params(model_defs(cfg))
+    wbytes, state_bytes = _tree_bytes(params), _tree_bytes(opt_state)
+    check(n == spec["params"] and wbytes == 2 * n,
+          f"phase {step_id}: {n} parameters in {wbytes} bytes, want "
+          f"{spec['params']} in bf16")
+    gap = spec.get("n_params_gap", 0)
+    check(abs(n - gap - cfg.n_params()) < 1e-2 * cfg.n_params(),
+          f"phase {step_id}: count_params {n} less {gap}, n_params() "
+          f"{cfg.n_params()}")
+
+    # A: the 20 steps, a checkpoint at step 10 and the fp32 master weights
+    # of step 12 kept.
+    ckdir = tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_",
+                                        dir=ckpt_root)
+    mgr = CheckpointManager(ckdir.name, interval_steps=10)
+    kept = {}
+
+    def on_step(st, params, opt_state, data):
+        if mgr.should_save(st):
+            path, kept["save_ms"] = _timed(lambda: mgr.save(
+                st, {"params": params, "opt": opt_state},
+                extras={"data_step": data.state.step}))
+            kept["ckpt_bytes"] = sum(f.stat().st_size
+                                     for f in Path(path).iterdir())
+        if st == 12:
+            kept["master"] = tree_map(torch.clone, opt_state["master"])
+
+    data = SyntheticLM(cfg.vocab_size, s, b)
+    params, opt_state, rows = run(params, opt_state, data, range(n_steps),
+                                  on_step)
+    peak = torch.cuda.max_memory_allocated()
+    # One more step (the 21st batch) under torch.profiler: device ms by
+    # aten op, against the warm steps' median for the idle share.
+    batch = next_batch(data)
+    step_fn = make_train_step(cfg, **sched)
+    dev_ms, ops = _step_profile(
+        lambda: step_fn(params, opt_state, batch, n_steps))
+    del params, opt_state, batch
+    torch.cuda.empty_cache()
+    ces = [r["ce_loss"] for r in rows]
+    check(all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
+              for r in rows),
+          f"phase {step_id}: a loss or grad norm is not finite {rows}")
+    check(statistics.mean(ces[-5:]) < statistics.mean(ces[:5]),
+          f"phase {step_id}: ce {ces} did not descend")
+
+    # B: a second uninterrupted run to step 12, the floor of the restart's
+    # difference (a CUDA backward may sum in another order run to run).
+    params, opt_state = fresh()
+    params, opt_state, rows_b = run(params, opt_state,
+                                    SyntheticLM(cfg.vocab_size, s, b),
+                                    range(13))
+    floor = _max_diff(opt_state["master"], kept["master"])
+    del params, opt_state
+    torch.cuda.empty_cache()
+
+    # C: the restart, from step 10's checkpoint into fresh tensors.
+    template = {"params": tree_map(
+        lambda d: torch.empty(d.shape, dtype=torch.bfloat16, device="meta"),
+        model_defs(cfg))}
+    template["opt"] = opt_init(template["params"])
+    (tree, extras, saved), restore_ms = _timed(
+        lambda: mgr.restore_latest(template, device=dev))
+    del template
+    data = SyntheticLM(cfg.vocab_size, s, b)
+    data.skip_to(extras["data_step"])
+    check(saved == 10 and extras["data_step"] == 11,
+          f"phase {step_id}: restored step {saved}, data step {extras}")
+    params, opt_state, rows_c = run(tree["params"], tree["opt"], data,
+                                    range(saved + 1, 13))
+    restart = _max_diff(opt_state["master"], kept["master"])
+    check(restart <= floor,
+          f"phase {step_id}: the restart is {restart} from the "
+          f"uninterrupted run's master weights at step 12, two "
+          f"uninterrupted runs {floor}")
+    del params, opt_state, tree, kept["master"]
+    ckdir.cleanup()
+    torch.cuda.empty_cache()
+
+    # The microbatch equivalence in fp32 at full width, reduced depth: one
+    # step at microbatch 2 against 1 on the same batch, at step 5 (the
+    # peak rate).
+    c32 = dataclasses.replace(cfg, dtype="float32", **spec["mb_layers"])
+    p0 = init_model(c32, seed=seed, device=dev)
+    batch = next_batch(SyntheticLM(cfg.vocab_size, s, b), c32)
+    outs = []
+    for k in (1, 2):
+        p = tree_map(torch.clone, p0)
+        o = opt_init(p)
+        p, o, m = make_train_step(dataclasses.replace(c32, microbatch=k),
+                                  **sched)(p, o, batch, 5)
+        outs.append((float(m["ce_loss"]), float(m["grad_norm"]),
+                     tree_map(lambda t: t.cpu(), p)))
+        del p, o, m
+        torch.cuda.empty_cache()
+    del p0
+    (ce1, g1, q1), (ce2, g2, q2) = outs
+    outside = sum(int(((x - y).abs() > 2e-2 + 2e-2 * y.abs()).sum())
+                  for (_, x), (_, y) in zip(tree_items(q2), tree_items(q1)))
+    mb = {"layers": {k: getattr(c32, k) for k in spec["mb_layers"]},
+          "batch": b, "seq": s, "step": 5, "ce_mb1": ce1, "ce_mb2": ce2,
+          "ce_diff": abs(ce1 - ce2), "grad_norm_mb1": g1,
+          "grad_norm_mb2": g2, "params_max_abs_diff": _max_diff(q2, q1),
+          "params_outside_jax_bound": outside,
+          "params": count_params(model_defs(c32))}
+    check(mb["ce_diff"] < 2e-3 and outside == 0,
+          f"phase {step_id}: microbatch 2 against 1 in fp32 {mb}")
+    del outs, q1, q2
+
+    warm = [r["ms"] for r in rows[2:]]
+    step_s = statistics.median(warm) / 1e3
+    tokens = b * s
+    # Model FLOP of a step: 6 x the parameters that multiply (all but the
+    # input embedding table, a gather) x the tokens each sees; enc-dec's
+    # encoder sees B x S_src frames, the rest B x S_tgt tokens, here both
+    # B x seq.  Attention's score products are left out.
+    n_matmul = n - (0 if cfg.tie_embeddings
+                    else cfg.padded_vocab * cfg.d_model)
+    flop = 6 * n_matmul * tokens
+    row = {"phase": "train", "card": card, "step": step_id, "arch": arch,
+           "family": cfg.family, "layers": cfg.n_layers,
+           "published_layers": full_cfg.n_layers,
+           "n_enc_layers": cfg.n_enc_layers,
+           "n_dec_layers": cfg.n_dec_layers, "d_model": cfg.d_model,
+           "reduced": spec["reduced"], "params": n,
+           "n_params_formula": cfg.n_params(), "n_params_gap": gap,
+           "dtype": cfg.dtype, "optimizer": cfg.optimizer,
+           "remat": cfg.remat, "microbatch": cfg.microbatch, "batch": b,
+           "seq": s, "frames": [b, s, cfg.d_model] if encdec else None,
+           "schedule": sched, "init_s": init_ms / 1e3,
+           "weight_bytes": wbytes, "opt_state_bytes": state_bytes,
+           "step_ms_median_warm": step_s * 1e3, "step_ms": [r["ms"]
+                                                           for r in rows],
+           "tokens_per_s": tokens / step_s,
+           "model_flop_per_step": flop, "params_matmul": n_matmul,
+           "model_flop_share_bf16_peak": flop / step_s / BF16_FLOP_PER_S,
+           "profiled_step_device_ms": dev_ms,
+           "profiled_step_device_ms_by_op": ops,
+           "step_idle_share": 1.0 - dev_ms / (step_s * 1e3),
+           "max_memory_allocated": peak, "held_before_phase": held,
+           "ce_loss": ces, "loss": [r["loss"] for r in rows],
+           "grad_norm": [r["grad_norm"] for r in rows],
+           "lr": [r["lr"] for r in rows],
+           "ce_first5_mean": statistics.mean(ces[:5]),
+           "ce_last5_mean": statistics.mean(ces[-5:]),
+           "restart": {"save_ms": kept["save_ms"],
+                       "restore_ms": restore_ms,
+                       "checkpoint_bytes": kept["ckpt_bytes"],
+                       "master_max_abs_diff_restart": restart,
+                       "master_max_abs_diff_two_runs": floor,
+                       "ce_steps_11_12": [r["ce_loss"] for r in rows_c],
+                       "ce_steps_11_12_uninterrupted": ces[11:13],
+                       "ce_steps_11_12_second_run":
+                           [r["ce_loss"] for r in rows_b[11:13]]},
+           "microbatch_equivalence_fp32": mb}
     emit(row)
     return row
 
@@ -3278,6 +3625,95 @@ def main() -> int:
               "fp32_check": r.get("decode_moe_vs_no_capacity_fp32",
                                   r.get("decode_vs_forward_fp32"))}
               for r in families10}})
+
+    # ------------------------------ the enc-dec family (phase 11)
+    # seamless-m4t-large-v2 at full width and depth (24 + 24 layers),
+    # random bf16 weights from SEED: 4 prompts of 512 target tokens with
+    # frames (4, 4,096, 1,024), so the source fills src_len_for_decode and
+    # decode equals the full forward; 32,768 self-attention slots.
+    def hung11():
+        print(f"chip_smoke: phase 11 did not finish in {PHASE11_WATCHDOG_S}"
+              f" s (a hang on the enc-dec family)", file=sys.stderr,
+              flush=True)
+        os._exit(3)
+
+    watchdog = threading.Timer(PHASE11_WATCHDOG_S, hung11)
+    watchdog.daemon = True
+    watchdog.start()
+    t_phase11 = time.perf_counter()
+    _build.reset_launch_counts()
+    torch.cuda.empty_cache()
+    held11 = torch.cuda.memory_allocated()
+    sm11 = get_arch("seamless-m4t-large-v2")
+    encdec11 = lm_family(
+        {"step": "11", "arch": "seamless-m4t-large-v2", "row": "lm_encdec",
+         "seed_offset": 110, "shape": (24, 1024, 16, 16, 64, 8192, 256206),
+         "encdec": (24, 24, 4096), "params": 2_034_886_656,
+         "n_params_gap": sm11.n_dec_layers * sm11.d_model
+         * sm11.n_kv_heads * sm11.resolved_head_dim,
+         "cache_bytes_b4": 14_495_514_640, "prompt": 512, "frames": 4_096,
+         "check": (2, 512, 2_048), "reduced": []},
+        dev=dev, card=card, against=against, held=held11)
+    counts11 = {**_build.launch_counts(), **_build.launch_counts(2)}
+    check(not any(counts11.values()),
+          f"phase 11: the enc-dec family launched kernels {counts11}")
+    watchdog.cancel()
+    emit({"phase": "lm_encdec_done", "card": card,
+          "seconds": time.perf_counter() - t_phase11,
+          "kernel_launches": counts11,
+          "summary": {k: encdec11[k] for k in (
+              "prefill_warm_s", "prefill_encoder_s", "prefill_decoder_s",
+              "decode_ms_per_step", "step_bound_ms", "decode_idle_share",
+              "max_memory_allocated", "decode_vs_forward_fp32",
+              "decode_vs_forward_bf16", "forward_vs_forward_bf16")}})
+
+    # ---------------------------------------- training (phase 12)
+    # (12a) seamless-m4t-large-v2 at full width and depth, (12b) qwen3-8b
+    # at full width and 4 of its 36 layers, each 20 steps of
+    # make_train_step with its config's AdamW, remat "full" and
+    # microbatching, a restart from a checkpoint and the microbatch
+    # equivalence in fp32 (``train_family``).
+    def hung12():
+        print(f"chip_smoke: phase 12 did not finish in {PHASE12_WATCHDOG_S}"
+              f" s (a hang in training)", file=sys.stderr, flush=True)
+        os._exit(3)
+
+    watchdog = threading.Timer(PHASE12_WATCHDOG_S, hung12)
+    watchdog.daemon = True
+    watchdog.start()
+    t_phase12 = time.perf_counter()
+    _build.reset_launch_counts()
+    torch.cuda.empty_cache()
+    held12 = torch.cuda.memory_allocated()
+    root = Path(__file__).resolve().parent
+    trained12 = [train_family(dict(spec, seed_offset=120), dev=dev,
+                              card=card, held=held12, ckpt_root=root)
+                 for spec in (
+        {"step": "12a", "arch": "seamless-m4t-large-v2", "microbatch": 2,
+         "batch": 8, "seq": 512, "params": 2_034_886_656,
+         "n_params_gap": sm11.n_dec_layers * sm11.d_model
+         * sm11.n_kv_heads * sm11.resolved_head_dim,
+         "mb_layers": {"n_enc_layers": 2, "n_dec_layers": 2},
+         "reduced": []},
+        {"step": "12b", "arch": "qwen3-8b", "depth": 4, "microbatch": 4,
+         "batch": 8, "seq": 1_024, "params": 2_017_498_112,
+         "mb_layers": {"n_layers": 2},
+         "reduced": ["n_layers 36 -> 4: AdamW state of 131 GB in full "
+                     "(16 bytes a parameter), 32 GB at 4 layers; the fp32 "
+                     "microbatch check at 2 layers"]})]
+    counts12 = {**_build.launch_counts(), **_build.launch_counts(2)}
+    check(not any(counts12.values()),
+          f"phase 12: training launched kernels {counts12}")
+    watchdog.cancel()
+    emit({"phase": "train_done", "card": card,
+          "seconds": time.perf_counter() - t_phase12,
+          "kernel_launches": counts12,
+          "summary": {r["arch"]: {k: r[k] for k in (
+              "layers", "reduced", "step_ms_median_warm", "tokens_per_s",
+              "model_flop_share_bf16_peak", "step_idle_share",
+              "max_memory_allocated",
+              "opt_state_bytes", "ce_first5_mean", "ce_last5_mean")}
+              for r in trained12}})
 
     kernel_src = "src/repro_torch/kernels/csrc/"
     src_of = {

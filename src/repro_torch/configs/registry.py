@@ -1,8 +1,7 @@
 """Architecture registry: ``--arch <id>`` → ModelConfig, plus the
 cell-applicability matrix.  The port's copy of the JAX package's registry;
-``repro_torch.models`` runs the dense and VLM families (global, SWA and
-gemma2 local/global patterns; GQA, int8 KV or MLA) and raises
-``NotImplementedError`` for MoE, SSM / hybrid and enc-dec."""
+``repro_torch.models`` runs every family it lists (dense, VLM, MoE, SSM,
+hybrid, enc-dec)."""
 from __future__ import annotations
 
 from typing import Dict, List, Tuple

@@ -10,9 +10,12 @@ printed lines.  Random weights and prompts from seed 0; greedy decode at
 cache holds ``max(max_cache_len, prompt + gen)`` slots (a sliding-window
 layer's ring holds the window; an SSM model's states have no slots).  A
 VLM prompt carries ``make_smoke_batch``'s M-RoPE position streams; decode
-continues them from the cache's length.  Every decoder-only family runs
-(dense, MoE, VLM, SSM, hybrid); enc-dec raises ``NotImplementedError``.
-``--device`` defaults to ``cuda`` and raises without a GPU.
+continues them from the cache's length.  An enc-dec prompt carries
+``make_smoke_batch``'s frames (B, prompt-len, d_model) from the seed, so
+``--prompt-len`` must not pass the config's ``src_len_for_decode`` (the
+cross-attention cache's slots).  Every family runs (dense, MoE, VLM, SSM,
+hybrid, enc-dec).  ``--device`` defaults to ``cuda`` and raises without a
+GPU.
 """
 from __future__ import annotations
 

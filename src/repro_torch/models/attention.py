@@ -10,7 +10,9 @@ schedules:
   * ``triangular``  — each query chunk visits only the K/V chunks its
                       causal / window footprint reaches.
 
-The decode functions (``gqa_decode``, ``gqa_decode_quant`` on the int8
+Enc-dec cross-attention is ``gqa_attend`` with ``kv_override``: the
+encoder's keys and values, no rope, no causal mask.  The decode functions
+(``gqa_decode``, ``gqa_decode_quant`` on the int8
 cache, ``mla_decode`` on the latent cache) write the new token into the
 cache tensors they are given, in place (JAX returns updated copies), and
 attend over the whole cache widened to fp32 with the unwritten slots
@@ -234,17 +236,28 @@ def gqa_defs(cfg) -> Dict[str, ParamDef]:
     return defs
 
 
-def gqa_qkv(cfg, p, x, positions):
-    """Project + normalise + rope.  x: (B,S,d) → q (B,S,H,hd), k/v
+def gqa_query(cfg, p, x):
+    """The queries alone, projected and normalised, unroped: (B,S,H,hd).
+    Cross-attention's side of the decoder (its keys and values come from
+    the encoder)."""
+    b, s, _ = x.shape
+    q = matmul(x, p["wq"]).reshape(b, s, cfg.n_heads, cfg.resolved_head_dim)
+    return rmsnorm(q, p["q_norm"]) if cfg.qk_norm else q
+
+
+def gqa_qkv(cfg, p, x, positions, *, rope=True):
+    """Project + normalise + rope (none where ``rope`` is False, as JAX's
+    enc-dec cross-attention asks).  x: (B,S,d) → q (B,S,H,hd), k/v
     (B,S,Hkv,hd)."""
     b, s, _ = x.shape
-    h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-    q = matmul(x, p["wq"]).reshape(b, s, h, hd)
+    hkv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    q = gqa_query(cfg, p, x)
     k = matmul(x, p["wk"]).reshape(b, s, hkv, hd)
     v = matmul(x, p["wv"]).reshape(b, s, hkv, hd)
     if cfg.qk_norm:
-        q = rmsnorm(q, p["q_norm"])
         k = rmsnorm(k, p["k_norm"])
+    if not rope:
+        return q, k, v
     if cfg.mrope_sections:              # positions: (3, B, S)
         q = apply_mrope(q, positions, cfg.rope_theta, cfg.mrope_sections)
         k = apply_mrope(k, positions, cfg.rope_theta, cfg.mrope_sections)
@@ -254,10 +267,19 @@ def gqa_qkv(cfg, p, x, positions):
     return q, k, v
 
 
-def gqa_attend(cfg, p, x, positions, *, window=0, causal=True, q_offset=0):
-    """Full-sequence attention (train / prefill).  Returns (out, (k, v))."""
+def gqa_attend(cfg, p, x, positions, *, window=0, causal=True, q_offset=0,
+               kv_override=None):
+    """Full-sequence attention (train / prefill).  Returns (out, (k, v)).
+
+    ``kv_override`` (k, v), each (B, S_kv, Hkv, hd), is enc-dec
+    cross-attention: the queries (``gqa_query``; JAX projects K/V of ``x``
+    too and XLA drops them) attend those keys and values with no rope on
+    either side and no causal mask, and (k, v) are returned."""
     b, s, _ = x.shape
-    q, k, v = gqa_qkv(cfg, p, x, positions)
+    if kv_override is not None:
+        q, (k, v), causal = gqa_query(cfg, p, x), kv_override, False
+    else:
+        q, k, v = gqa_qkv(cfg, p, x, positions)
     o = flash_attention(
         q, k, v, causal=causal, window=window, softcap=cfg.attn_softcap,
         q_chunk=cfg.q_chunk, k_chunk=cfg.k_chunk, q_offset=q_offset,

@@ -8,12 +8,11 @@ fp32.
 
 Matmuls follow JAX's dtype promotion: ``x @ w`` with an fp32 ``x`` and a
 bf16 ``w`` computes in fp32 (``matmul``), where ``torch.matmul`` would
-raise on the mixed dtypes.  The training loss waits for training (ROADMAP
-queue 1).
+raise on the mixed dtypes.  ``softmax_xent`` is the training loss.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -142,3 +141,22 @@ def unembed(p, x: torch.Tensor, *, tie: bool, final_softcap: float = 0.0
     if final_softcap:
         logits = final_softcap * torch.tanh(logits / final_softcap)
     return logits
+
+
+# ---------------------------------------------------------------------------
+# Losses
+# ---------------------------------------------------------------------------
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
+                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Token-mean cross entropy in fp32 (the log-sum-exp too).  logits
+    (..., V), labels (...) int; with ``mask`` (...) the mean over the
+    masked-in tokens (at least one counted)."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = logits.gather(-1, labels[..., None].long())[..., 0]
+    nll = lse - ll
+    if mask is not None:
+        maskf = mask.float()
+        return (nll * maskf).sum() / torch.clamp(maskf.sum(), min=1.0)
+    return nll.mean()

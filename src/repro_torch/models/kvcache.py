@@ -24,9 +24,12 @@ place.  Layouts:
                   ·) for the trailing blocks, and ``k`` / ``v`` (U, B,
                   Smax, Hkv·hd) for each unit's invocation of the shared
                   attention block (never int8).
+  enc-dec       : the decoder's self-attention ``k`` / ``v`` (L_dec, B,
+                  Smax, Hkv·hd) and its cross-attention ``k_cross`` /
+                  ``v_cross`` (L_dec, B, src_len_for_decode, Hkv·hd),
+                  written once by prefill from the encoder output.
 
-MoE models have their dense pattern's layout.  The enc-dec layout waits
-with its model (``transformer.check_supported``).
+MoE models have their dense pattern's layout.
 """
 from __future__ import annotations
 
@@ -48,6 +51,12 @@ def cache_spec_tree(cfg, batch: int, max_len: int) -> Dict[str, Any]:
     hkv_hd = cfg.n_kv_heads * cfg.resolved_head_dim
     dt = model_dtype(cfg)
     out: Dict[str, Any] = {"lengths": ((batch,), torch.int32)}
+    if cfg.family == "encdec":
+        lb = (cfg.n_dec_layers, batch)
+        out["k"] = out["v"] = (lb + (max_len, hkv_hd), dt)
+        out["k_cross"] = out["v_cross"] = (
+            lb + (cfg.src_len_for_decode, hkv_hd), dt)
+        return out
     if cfg.family in ("ssm", "hybrid"):
         _, nh, conv_dim = ssm_dims(cfg)
         conv = (batch, cfg.ssm_conv - 1, conv_dim)

@@ -47,6 +47,14 @@ def tree_map(fn: Callable, tree):
     return fn(tree)
 
 
+def unstack(tree, n: int):
+    """The ``n`` layer trees of a tree stacked on a leading dim of ``n``:
+    views of its leaves (``unbind``), so the layers' grads go back into
+    each stacked leaf in one ``stack`` in backward."""
+    parts = tree_map(lambda t: t.unbind(0), tree)
+    return [tree_map(lambda ts: ts[i], parts) for i in range(n)]
+
+
 def tree_items(tree, prefix: str = "") -> Iterator[Tuple[str, Any]]:
     """(dotted path, leaf) pairs of a tree of nested dicts, in JAX's
     flattening order (sorted keys)."""

@@ -13,14 +13,16 @@ losses (the MoE losses summed over layers, zero elsewhere); embedding,
 unembedding and the cache bookkeeping live in model.py.  JAX scans over the
 stacked layers and returns a new cache from each step; this loops over the
 layer index and writes each layer's entries into the cache it is given, in
-place.
+place.  In train mode each loop body (a layer, a gemma2 pair, a hybrid
+unit) runs under ``remat`` as ``cfg.remat`` says; the enc-dec stacks
+(``models/encdec.py``) share it.
 
-Configurations this does not run raise ``NotImplementedError`` naming the
-ROADMAP item that ports them (``check_supported``), so nothing silently
-runs a different model.
+A window on the ``global`` layer pattern raises ``NotImplementedError``
+(``check_supported``), so nothing silently runs a different model.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict
 
 import torch
@@ -29,7 +31,7 @@ from repro_torch.models import attention as attn_lib
 from repro_torch.models.common import (apply_mlp, matmul, mlp_defs,
                                        rmsnorm, rmsnorm_def, stacked)
 from repro_torch.models.moe import apply_moe, moe_defs
-from repro_torch.models.params import ParamDef, tree_map
+from repro_torch.models.params import ParamDef, tree_map, unstack
 from repro_torch.models.ssm import apply_ssm, ssm_defs
 
 # The MoE losses of a block without experts, and the start of their sum.
@@ -38,30 +40,58 @@ ZERO_AUX = {"load_balance": 0.0, "router_z": 0.0}
 
 def check_supported(cfg) -> None:
     """Raise ``NotImplementedError`` for a configuration this port does not
-    run, naming the item of ROADMAP.md's queue 1 that ports it.
+    run.
 
-    A sliding window on the ``global`` layer pattern raises too: the JAX
+    A sliding window on the ``global`` layer pattern raises: the JAX
     package sizes a ring cache for it but attends without the window, and
     its prefill fails once a prompt passes the window; no config uses it.
     """
-    waits = [
-        (cfg.family == "encdec", "1g, enc-dec (seamless)"),
-        (cfg.sliding_window > 0 and cfg.layer_pattern == "global",
-         "1a, the SWA ring cache, on the swa pattern only (a window on the "
-         "global pattern is not run by the JAX package either)"),
-    ]
-    for hit, item in waits:
-        if hit:
-            raise NotImplementedError(
-                f"{cfg.name}: not ported (family {cfg.family!r}, "
-                f"layer_pattern {cfg.layer_pattern!r}, n_experts "
-                f"{cfg.n_experts}, sliding_window {cfg.sliding_window}); "
-                f"ROADMAP.md queue 1 item {item}")
-    if cfg.family not in ("dense", "moe", "vlm", "ssm", "hybrid") or \
+    if cfg.sliding_window > 0 and cfg.layer_pattern == "global":
+        raise NotImplementedError(
+            f"{cfg.name}: not ported (family {cfg.family!r}, layer_pattern "
+            f"{cfg.layer_pattern!r}, sliding_window {cfg.sliding_window}); "
+            f"ROADMAP.md queue 1 item 1a, the SWA ring cache, on the swa "
+            f"pattern only (a window on the global pattern is not run by "
+            f"the JAX package either)")
+    if cfg.family not in ("dense", "moe", "vlm", "ssm", "hybrid",
+                          "encdec") or \
             cfg.layer_pattern not in ("global", "swa", "alt_local_global"):
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} / layer_pattern "
             f"{cfg.layer_pattern!r} is not ported (ROADMAP.md queue 1)")
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """``remat="dots"``: keep the outputs of the matrix products without
+    batch dims (``x @ w``: aten ``mm`` / ``addmm``; JAX's
+    ``checkpoint_dots_with_no_batch_dims``) and recompute the rest."""
+    from torch.utils.checkpoint import CheckpointPolicy
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat(cfg, fn, *args):
+    """``fn(*args)`` under ``cfg.remat`` where autograd records it, as JAX
+    wraps each layer loop's body (``_remat``): ``full`` keeps only the
+    body's inputs and recomputes the rest in backward
+    (``torch.utils.checkpoint``), ``dots`` keeps the matrix products'
+    outputs too (selective checkpointing), ``none`` runs it plainly.  The
+    numbers do not change with the setting.  JAX's
+    ``optimization_barrier`` (it stops XLA saving fp32 copies of the
+    carried activations) has no counterpart: torch saves what it is
+    given.  ``fn`` is called again in backward, so it must take
+    everything it reads from the loop as ``args``."""
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn(*args)
+    from torch.utils.checkpoint import (checkpoint,
+                                        create_selective_checkpoint_contexts)
+    if cfg.remat == "dots":
+        return checkpoint(fn, *args, use_reentrant=False,
+                          context_fn=functools.partial(
+                              create_selective_checkpoint_contexts,
+                              _dots_policy))
+    return checkpoint(fn, *args, use_reentrant=False)
 
 
 def dense_block_defs(cfg) -> Dict[str, Any]:
@@ -290,25 +320,41 @@ def _run_dense(cfg, params, x, *, mode, positions, cache, lengths, q_offset,
         stack, n = params["pairs"], cfg.n_layers // 2
     else:
         stack, n = params["layers"], cfg.n_layers
-    aux = dict(ZERO_AUX)
-    for i in range(n):
+
+    def index(x, p, i):
+        """The blocks of layer index ``i`` (a gemma2 pair's two)."""
+        aux, new = dict(ZERO_AUX), []
         for sub, window, own in runs:
-            p = tree_map(lambda t: t[i], stack if sub is None else stack[sub])
             kv = (tuple(cache[name][i] for name in own)
                   if mode == "decode" else None)
             x, new_kv, a = apply_dense_block(
-                cfg, p, x, positions=positions, mode=mode, window=window,
-                kv=kv, lengths=lengths, q_offset=q_offset)
+                cfg, p if sub is None else p[sub], x, positions=positions,
+                mode=mode, window=window, kv=kv, lengths=lengths,
+                q_offset=q_offset)
             aux = {k: aux[k] + a[k] for k in aux}
-            if mode == "prefill":
+            new.append((own, new_kv))
+        return x, aux, new
+
+    aux = dict(ZERO_AUX)
+    for i, p in enumerate(unstack(stack, n)):
+        if mode == "train":
+            x, a = remat(cfg, lambda x, p, i: index(x, p, i)[:2], x, p, i)
+        else:
+            x, a, new = index(x, p, i)
+        aux = {k: aux[k] + a[k] for k in aux}
+        if mode == "prefill":
+            for own, new_kv in new:
                 for name, t in zip(own, new_kv):
                     entries.put(name, i, t, kv=True)
     return x, [name for _, _, own in runs for name in own], aux
 
 
 def _run_ssm(cfg, params, x, *, mode, entries):
-    for i in range(cfg.n_layers):
-        p = tree_map(lambda t: t[i], params["layers"])
+    for i, p in enumerate(unstack(params["layers"], cfg.n_layers)):
+        if mode == "train":
+            x = remat(cfg, lambda x, p: apply_ssm_block(
+                cfg, p, x, mode=mode)[0], x, p)
+            continue
         x = _ssm_layer(cfg, p, x, mode=mode, entries=entries,
                        names=("conv", "ssm"), index=i, from_cache=True)
     return x, ["conv", "ssm"]
@@ -319,13 +365,14 @@ def _run_hybrid(cfg, params, x, *, mode, positions, cache, lengths,
     b, s, _ = x.shape
     hkv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
     decode = mode == "decode"
-    for u in range(cfg.hybrid_units):
-        up = tree_map(lambda t: t[u], params["units"])
-        for m in range(cfg.mamba_per_unit):
-            x = _ssm_layer(cfg, tree_map(lambda t: t[m], up["mamba"]), x,
-                           mode=mode, entries=entries, names=("conv", "ssm"),
-                           index=(u, m), from_cache=decode)
-        sp = _shared_attn_params(params["shared"], up["lora"])
+
+    def unit(x, up, shared, u):
+        """Unit ``u``: its Mamba2 blocks, then the shared block."""
+        for m, mp in enumerate(unstack(up["mamba"], cfg.mamba_per_unit)):
+            x = _ssm_layer(cfg, mp, x, mode=mode, entries=entries,
+                           names=("conv", "ssm"), index=(u, m),
+                           from_cache=decode)
+        sp = _shared_attn_params(shared, up["lora"])
         h = rmsnorm(x, sp["ln1"])
         if decode:
             o, _, _ = attn_lib.gqa_decode(
@@ -339,10 +386,17 @@ def _run_hybrid(cfg, params, x, *, mode, positions, cache, lengths,
                 entries.put("k", u, k4.reshape(b, s, hkv * hd), kv=True)
                 entries.put("v", u, v4.reshape(b, s, hkv * hd), kv=True)
         x = x + o
-        x = x + apply_mlp(sp["ffn"], rmsnorm(x, sp["ln2"]))
-    for t in range(cfg.trailing_mamba):
-        x = _ssm_layer(cfg, tree_map(lambda a: a[t], params["tail"]), x,
-                       mode=mode, entries=entries,
+        return x + apply_mlp(sp["ffn"], rmsnorm(x, sp["ln2"]))
+
+    for u, up in enumerate(unstack(params["units"], cfg.hybrid_units)):
+        x = (remat(cfg, unit, x, up, params["shared"], u) if mode == "train"
+             else unit(x, up, params["shared"], u))
+    for t, tp in enumerate(unstack(params["tail"], cfg.trailing_mamba)):
+        if mode == "train":
+            x = remat(cfg, lambda x, p: apply_ssm_block(
+                cfg, p, x, mode=mode)[0], x, tp)
+            continue
+        x = _ssm_layer(cfg, tp, x, mode=mode, entries=entries,
                        names=("conv_tail", "ssm_tail"), index=t,
                        from_cache=decode)
     return x, ["conv", "ssm", "k", "v", "conv_tail", "ssm_tail"]

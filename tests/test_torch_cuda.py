@@ -1455,3 +1455,100 @@ def test_lm_moe_decode_step_matches_no_capacity_reference(cuda, arch):
         r = moe.route(cfg, moe.router_logits(p, h.reshape(1, 4, -1)),
                       moe.capacity(cfg, 4))
         assert bool(r.keep.all())
+
+
+@pytest.mark.parametrize("arch,microbatch", [("qwen3-8b", 1),
+                                             ("seamless-m4t-large-v2", 2),
+                                             ("arctic-480b", 1)])
+def test_train_step_on_card_matches_cpu(cuda, arch, microbatch):
+    """One ``make_train_step`` on the card against the CPU from the same
+    fp32 smoke state (AdamW; arctic's Adafactor): the metrics within 1e-4
+    relative, the optimizer's statistics within 1e-4 of each leaf's
+    largest, and the params within what an AdamW first step can turn
+    grads agreeing within 1e-4 into (lr·δ·eps/(|g| - δ + eps)², at most
+    2·lr, as tests/test_torch_train.py bounds it against JAX)."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.model import init_model, make_smoke_batch
+    from repro_torch.models.params import tree_items, tree_map
+    from repro_torch.optim import make_optimizer
+
+    cfg = dataclasses.replace(get(arch).smoke(), microbatch=microbatch)
+    cpu = torch.device("cpu")
+    p_cpu = init_model(cfg, seed=4, device=cpu)
+    batch = make_smoke_batch(cfg, seed=5, batch=4, seq=32, device=cpu)
+    sched = dict(peak_lr=1e-3, warmup=2, total_steps=10)
+    out = {}
+    for dev in (cpu, cuda):
+        p = tree_map(lambda t: t.to(dev, copy=True), p_cpu)
+        o = make_optimizer(cfg.optimizer)[0](p)
+        p, o, m = make_train_step(cfg, **sched)(
+            p, o, {k: v.to(dev) for k, v in batch.items()}, 3)
+        out[dev] = (tree_map(lambda t: t.cpu(), p),
+                    tree_map(lambda t: t.cpu(), o),
+                    {k: float(v) for k, v in m.items()})
+    (pc, oc, mc), (pg, og, mg) = out[cpu], out[cuda]
+    for k, v in mc.items():
+        assert abs(mg[k] - v) <= 1e-4 * max(abs(v), 1e-6), k
+    lr = mc["lr"]
+    if cfg.optimizer == "adafactor":
+        for (name, a), (_, b) in zip(tree_items(og["stats"]),
+                                     tree_items(oc["stats"])):
+            assert _within(a, b), name
+        for (name, a), (_, b) in zip(tree_items(pg), tree_items(pc)):
+            assert (a - b).abs().max().item() <= \
+                1e-5 * b.abs().max().item(), name
+        return
+    for part in ("m", "v"):
+        for (name, a), (_, b) in zip(tree_items(og[part]),
+                                     tree_items(oc[part])):
+            assert (a - b).abs().max().item() <= \
+                2 * TOL * b.abs().max().item(), (part, name)
+    moments = dict(tree_items(oc["m"]))
+    for name, b in tree_items(pc):
+        a = dict(tree_items(pg))[name]
+        g = moments[name] / 0.1                     # the clipped grad
+        delta = TOL * g.abs().max().item()
+        lo = (g.abs() - delta).clamp(min=0)
+        bound = lr * torch.clamp(delta * 1e-8 / (lo + 1e-8) ** 2, max=2.0)
+        assert bool(((a - b).abs() <= bound
+                     + 1e-5 * b.abs().max()).all()), name
+
+
+def test_checkpoint_round_trip_on_card(cuda, tmp_path):
+    """A tree of card tensors (bf16, fp32, a 0-d int32 count, a leaf past
+    the 64 MiB read chunk) saved, restored onto the card and onto the CPU
+    bit for bit through the pinned staging buffer; keep-k and a
+    ``CheckpointManager`` restore as the train driver does it."""
+    from repro_torch.checkpoint import (latest_step, restore_checkpoint,
+                                        save_checkpoint)
+    from repro_torch.distributed.fault_tolerance import CheckpointManager
+    from repro_torch.models.params import tree_items
+
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    tree = {"params": {"w": torch.randn(3, 5, generator=gen, device=cuda),
+                       "big": torch.randn(5, 1 << 22, generator=gen,
+                                          device=cuda).bfloat16()},
+            "opt": {"count": torch.tensor(7, dtype=torch.int32,
+                                          device=cuda)}}
+    for step in (1, 2, 3):
+        save_checkpoint(str(tmp_path), step, tree, {"data_step": step},
+                        keep=2)
+    assert sorted(p.name for p in tmp_path.iterdir()) == [
+        "step_00000002", "step_00000003"]
+    assert latest_step(str(tmp_path)) == 3
+    template = {k: {n: torch.empty(t.shape, dtype=t.dtype, device="meta")
+                    for n, t in v.items()} for k, v in tree.items()}
+    for dev in (cuda, torch.device("cpu")):
+        got, extras, step = restore_checkpoint(str(tmp_path), template,
+                                               device=dev)
+        assert step == 3 and extras == {"data_step": 3}
+        for (name, a), (_, b) in zip(tree_items(got), tree_items(tree)):
+            assert a.device.type == dev.type and a.dtype == b.dtype
+            assert torch.equal(a.cpu(), b.cpu()), name
+    got, _, step = CheckpointManager(str(tmp_path)).restore_latest(
+        template, device=cuda)
+    assert step == 3 and torch.equal(got["params"]["big"],
+                                     tree["params"]["big"])

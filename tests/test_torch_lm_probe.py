@@ -111,9 +111,6 @@ def test_serve_cli_needs_the_card_by_default():
         pytest.skip("the default device is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tserve.main(["--arch", "qwen3-8b", "--smoke"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tserve.main(["--arch", "seamless-m4t-large-v2", "--smoke",
-                     "--device", "cpu"])
 
 
 @pytest.mark.parametrize("arch", ["mamba2-370m", "dbrx-132b", "zamba2-7b",

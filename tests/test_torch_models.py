@@ -31,7 +31,6 @@ import repro_torch.models.kvcache as TK
 import repro_torch.models.model as TM
 import repro_torch.models.params as TP
 import repro_torch.models.transformer as TT
-from repro_torch.configs.registry import ARCHS
 from repro_torch.configs.registry import get as tget
 from repro_torch.launch import steps as tsteps
 
@@ -425,23 +424,6 @@ def test_probe_features_on_bf16_weights(cfgs):
     _close(feats, ref)
 
 
-# The family still to port (enc-dec); the dense and VLM configs run
-# (tests/test_torch_models_attn.py), the MoE, SSM and hybrid ones too
-# (tests/test_torch_models_moe.py, test_torch_models_ssm.py).
-RAISING_ARCHS = sorted(a for a in ARCHS if a not in (
-    "qwen3-8b", "h2o-danube-1.8b", "gemma2-9b", "minicpm3-4b",
-    "qwen2-vl-2b", "dbrx-132b", "arctic-480b", "mamba2-370m", "zamba2-7b"))
-
-
-@pytest.mark.parametrize("arch", RAISING_ARCHS)
-def test_other_families_raise(arch):
-    cfg = tget(arch)
-    for fn in (lambda: TM.model_defs(cfg), lambda: TK.cache_bytes(cfg, 1, 8),
-               lambda: TM.model_defs(cfg.smoke())):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-            fn()
-
-
 # Ids kept from when the int8, MLA, SWA, post-norm and MoE variants raised
 # too.
 @pytest.mark.parametrize("change,item", [
@@ -467,6 +449,10 @@ def test_lm_modules_import_neither_jax_nor_repro():
             "import repro_torch.models.common, repro_torch.models.params\n"
             "import repro_torch.models.transformer\n"
             "import repro_torch.models.moe, repro_torch.models.ssm\n"
+            "import repro_torch.models.encdec, repro_torch.optim\n"
+            "import repro_torch.data, repro_torch.checkpoint\n"
+            "import repro_torch.distributed.fault_tolerance\n"
+            "import repro_torch.launch.train\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib', 'repro.')) or m == 'repro')\n"
             "assert not bad, bad\n")
