@@ -198,7 +198,41 @@ process per source, in parallel), then:
      uninterrupted run's master weights at step 12 than a second
      uninterrupted run is, and microbatch 2 against 1 on an fp32 copy at
      2 (+ 2) layers within JAX's bounds.  No kernel launches;
- 13. each kernel against its plain torch version on the same inputs, on the
+ 13. the dry runs (after phase 12, its own watchdog; ``dryrun_phase``):
+     (13a) ``python -m repro_torch.launch.dryrun --arch qwen3-8b --cell
+     train_4k --multi-pod`` and ``--cell decode_32k`` on the single pod,
+     each a process of its own started, with the solver dry run, after
+     phase 7 (they need no card: DTensors over a fake process group,
+     ``meta`` shards; run at the lowest CPU priority beside phases 8-12,
+     each exits when this script does), read here: argument and peak
+     bytes a device, FLOPs, HBM bytes, collectives by kind and axis, the
+     roofline terms, the fallbacks (ops this torch's DTensor could not
+     shard, views that gathered, writes into them: none allowed);
+     per-device argument bytes held to JAX's
+     (``tests/test_torch_sharding.py``).
+     (13b) the dry run's counting (``launch.dryrun.count_step``, no mesh:
+     ``meta`` tensors) of phase 12b's train step (qwen3-8b at 4 layers, B
+     8 x 1,024, microbatch 4) and phase 8b's decode step (B 4, 32,768
+     slots) beside the same count of the real step on the card: argument
+     bytes equal, FLOPs within 1%, and the dry run's product FLOPs within
+     1% of torch's own ``FlopCounterMode`` on the real step (an
+     independent count), beside 6·N·tokens (train) or 2·N·tokens
+     (decode); the predicted peak and roofline time beside
+     ``max_memory_allocated`` and the measured step (findings).
+     (13c) the solver dry run at JAX's defaults (16,777,216 x 16,384 bf16,
+     gram, 8 sweeps, single pod), then a ``CollectiveRecorder`` on phase
+     7a's obs-sharded solve (262,144 x 1,024, k 8, four virtual shards of
+     cuda:0): its all-reduce bytes equal the count from the solver's group
+     sums; a bf16 design's shards half an fp32 one's, coef the
+     fp32-widened solve's.  (13d) ``compressed_tree`` on the card over a
+     bf16 tree shaped like qwen3-8b's 4-layer parameters (q and scale
+     bit-equal to the CPU's on three leaves, deq + err == g + err_prev
+     exactly, GB/s), and dbrx-132b at 2 of its 40 layers in fp32 at full
+     width: a prefill of B 4 under ``ShardCtx`` on ``make_debug_mesh((4,
+     1), devices=[cuda:0] * 4)`` routes each row as its own group: each
+     MoE layer's output within 1e-5 of max |y| of four ctx-less runs of
+     one row each, the same drops per group.  No kernel launches;
+ 14. each kernel against its plain torch version on the same inputs, on the
      card, and timed with CUDA events beside its roofline bound (and beside
      the nearest single PyTorch call, where there is one); for the streaming
      kernel also the per-sweep loop on the same design, as a finding.  The
@@ -220,7 +254,7 @@ process per source, in parallel), then:
      x at the shapes of their fp32 rows and at every shape phase 4 gave
      them, there on the plan phase 4 ran (x at 2 bytes in the bound), with
      their rtol stops held to the rule on the plain iterate's fp64 SSE;
- 14. a ``kernels`` summary line (the bf16 kernels as ``<name>_bf16``;
+ 15. a ``kernels`` summary line (the bf16 kernels as ``<name>_bf16``;
      launches summed over the paths), the card's name and power limit,
      and the result line
      ``{"ok": true, "device": {...}}``.
@@ -231,10 +265,11 @@ path, where each bf16 kernel must launch; phase 5, the serving path;
 phase 6, the store and dispatcher path; phase 7b, the sharded serving
 path; phase 8, the LM path, whose probes launch the streaming kernel;
 phase 9, the LM variants; phase 10, the MoE, SSM and hybrid families;
-phase 11, the enc-dec family; phase 12, training) and read just after
-it, so they count that path only; each kernel must have launched on its
-path, and none on the sharded path, the LM variants, the MoE, SSM,
-hybrid and enc-dec families or training.  Inputs
+phase 11, the enc-dec family; phase 12, training; phase 13, the dry
+runs) and read just after it, so they count that path only; each kernel
+must have launched on its path, and none on the sharded path, the LM
+variants, the MoE, SSM, hybrid and enc-dec families, training or the dry
+runs.  Inputs
 are Gaussian designs with a planted ``a_true`` and ``y = x @ a_true`` from
 a fixed seed.  Any failed check, build or launch error exits non-zero
 without the result line; so does a host with no CUDA device, or a
@@ -245,6 +280,7 @@ from __future__ import annotations
 import contextlib
 import importlib
 import json
+import os
 import re
 import subprocess
 import sys
@@ -289,6 +325,17 @@ PHASE11_WATCHDOG_S = 300
 # Phase 12's (two models trained 20 steps, a restart from a checkpoint of
 # 28-32 GB, the microbatch check in fp32).
 PHASE12_WATCHDOG_S = 900
+# Phase 13's (the card's part of the dry runs, and the wait for the
+# dry-run processes started at the beginning of the script).
+PHASE13_WATCHDOG_S = 600
+# The per-device argument bytes of JAX's dry run of qwen3-8b
+# (tests/test_torch_sharding.py pins them from JAX): train_4k on the
+# multi-pod mesh (its 4-byte step scalar included: the port's step is a host
+# int) and decode_32k on the single pod.
+JAX_QWEN3_TRAIN_MP_BYTES = 228_562_952
+JAX_QWEN3_DECODE_SP_BYTES = 2_480_531_520
+# Phase 13b: the dry run's FLOPs against the same count of the real step.
+DRY_FLOP_TOL = 0.01
 # Phase 10's MoE decode check: each layer's output in an fp32 decode step
 # against the no-capacity reference, max error over max |reference|.
 MOE_REF_TOL = 1e-5
@@ -354,8 +401,8 @@ def _moe_calls(record: list):
     import repro_torch.models.transformer as tt
     real = tt.apply_moe
 
-    def recording(cfg, p, h):
-        y, aux = real(cfg, p, h)
+    def recording(cfg, p, h, *ctx):
+        y, aux = real(cfg, p, h, *ctx)
         record.append((p, h, y))
         return y, aux
 
@@ -893,13 +940,360 @@ def train_family(spec, *, dev, card, held, ckpt_root):
     return row
 
 
+# A dry run's process: at the lowest CPU priority, and gone when the
+# script is (it polls its parent).
+_DRY_CHILD = """
+import os, runpy, sys, threading, time
+os.nice(19)
+parent = os.getppid()
+def watch():
+    while os.getppid() == parent:
+        time.sleep(1)
+    os._exit(3)
+threading.Thread(target=watch, daemon=True).start()
+sys.argv = [sys.argv[1]] + sys.argv[2:]
+runpy.run_module(sys.argv[0], run_name="__main__", alter_sys=True)
+"""
+
+
+def start_dry_runs(root: Path) -> dict:
+    """Phase 13's three dry runs (no card: a fake process group and
+    ``meta`` shards), started after phase 7 so their CPU time overlaps
+    phases 8-12:
+    name → (process, its JSON path, its log path, start time)."""
+    import tempfile
+    d = tempfile.mkdtemp(prefix="chip_smoke_dryrun_", dir=root)
+    runs = {
+        "qwen3_train_4k_mp": ["repro_torch.launch.dryrun", "--arch",
+                              "qwen3-8b", "--cell", "train_4k",
+                              "--multi-pod"],
+        "qwen3_decode_32k_sp": ["repro_torch.launch.dryrun", "--arch",
+                                "qwen3-8b", "--cell", "decode_32k"],
+        "solver_obs_sp": ["repro_torch.launch.solver_dryrun"]}
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    out = {}
+    for name, args in runs.items():
+        path, log = Path(d) / f"{name}.json", Path(d) / f"{name}.log"
+        with open(log, "w") as f:
+            proc = subprocess.Popen(
+                [sys.executable, "-c", _DRY_CHILD] + args
+                + ["--out", str(path)], env=env, cwd=root, stdout=f,
+                stderr=subprocess.STDOUT)
+        out[name] = (proc, path, log, time.perf_counter())
+    out["_dir"] = d
+    return out
+
+
+def _dry_result(runs, name, timeout_s) -> dict:
+    """A background dry run's JSON (and its wall seconds), waiting at most
+    ``timeout_s``; a failed or late run fails its check."""
+    proc, path, log, t0 = runs[name]
+    try:
+        rc = proc.wait(timeout=timeout_s)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        rc = "timeout"
+    seconds = time.perf_counter() - t0
+    check(rc == 0, f"phase 13: dry run {name} exited {rc}: "
+                   f"{Path(log).read_text()[-2000:]}")
+    if rc != 0:
+        return {"seconds": seconds}
+    return dict(json.loads(Path(path).read_text()), wall_s=seconds)
+
+
+def dryrun_phase(runs, *, dev, card, seed):
+    """Phase 13 (module doc): 13a reads the background LM dry runs, 13b
+    holds the dry run's counting against the real steps on the card, 13c
+    the solver dry run and the collective recorder, 13d compression and the
+    ``ShardCtx`` MoE grouping on the card."""
+    import dataclasses
+    import shutil
+    import statistics
+
+    import torch
+
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.configs.registry import get as get_arch
+    from repro_torch.core import solvebakp_obs_sharded
+    from repro_torch.core.distributed import CollectiveRecorder, shard_x
+    from repro_torch.distributed import compression as comp
+    from repro_torch.distributed.sharding import make_rules
+    from repro_torch.launch.dryrun import HBM_BW, PEAK_FLOPS, count_step
+    from repro_torch.launch.mesh import make_debug_mesh, make_mesh
+    from repro_torch.launch.steps import (abstract_cell_args,
+                                          make_prefill_step)
+    from repro_torch.models import moe
+    from repro_torch.models.common import ShardCtx
+    from repro_torch.models.kvcache import init_cache
+    from repro_torch.models.model import init_model, make_smoke_batch
+    from repro_torch.optim import make_optimizer
+
+    # 13a: the LM dry runs at full size (started at the beginning).
+    lm = {}
+    for name, want in (("qwen3_train_4k_mp", JAX_QWEN3_TRAIN_MP_BYTES - 4),
+                       ("qwen3_decode_32k_sp", JAX_QWEN3_DECODE_SP_BYTES)):
+        r = _dry_result(runs, name, PHASE13_WATCHDOG_S / 2)
+        if "memory_analysis" not in r:
+            continue
+        mem = r["memory_analysis"]
+        lm[name] = r
+        emit({"phase": "dryrun_lm", "run": name, "card": card,
+              "device": r["device"], "mesh": r["mesh"], "chips": r["chips"],
+              "argument_bytes": mem["argument_bytes"],
+              "peak_bytes_per_device": mem["peak_bytes_per_device"],
+              "fits_80gb": mem["fits_80gb"],
+              "flops_per_device": r["hlo_cost"]["flops_per_device"],
+              "hbm_bytes_per_device": r["hlo_cost"]["hbm_bytes_per_device"],
+              "collectives": r["collectives"],
+              "collectives_by_axis": r["collectives_by_axis"],
+              "replicated_ops": r["replicated_ops"],
+              "gathered_views": r["gathered_views"],
+              "gathered_view_writes": r["gathered_view_writes"],
+              "roofline": r["roofline"],
+              "useful_flops_ratio": r["useful_flops_ratio"],
+              "run_s": r["run_s"], "wall_s": r["wall_s"],
+              "jax_argument_bytes": want})
+        check(r["device"] == "meta" and mem["argument_bytes"] == want,
+              f"phase 13a {name}: {mem['argument_bytes']} argument bytes a "
+              f"device, JAX's {want}")
+        check(not r["gathered_view_writes"],
+              f"phase 13a {name}: writes into gathered views "
+              f"{r['gathered_view_writes']} would miss the shards")
+
+    # 13b: the dry run's counting of phase 12b's and phase 8b's steps
+    # beside the same count of the real steps on the card.
+    def beside(name, fn, dry_args, real_args, timed_step, model_flops):
+        _, dry, _ = count_step(fn, dry_args)
+        d = dry.summary()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        _, real, fc_real = count_step(fn, real_args)
+        torch.cuda.synchronize()
+        r = real.summary()
+        ms = [timed_step() for _ in range(3)]
+        peak = torch.cuda.max_memory_allocated() - base
+        pred_s = max(d["flops"] / PEAK_FLOPS, d["hbm_bytes"] / HBM_BW)
+        row = {"phase": "dryrun_vs_card", "step": name, "card": card,
+               "argument_bytes_dry": d["argument_bytes"],
+               "argument_bytes_card": r["argument_bytes"],
+               "flops_dry": d["flops"], "flops_card": r["flops"],
+               "matmul_flops_dry": d["matmul_flops"],
+               "flop_counter_mode_card": fc_real,
+               "model_flops": model_flops,
+               "matmul_flops_over_model_flops":
+                   d["matmul_flops"] / model_flops,
+               "ops_dry": d["ops"], "ops_card": r["ops"],
+               "hbm_bytes_dry": d["hbm_bytes"],
+               "predicted_temp_bytes": d["peak_live_bytes"],
+               "measured_temp_bytes": peak,
+               "peak_ratio_predicted_over_measured":
+                   d["peak_live_bytes"] / max(peak, 1),
+               "predicted_roofline_ms": pred_s * 1e3,
+               "measured_step_ms": statistics.median(ms),
+               "roofline_over_measured": pred_s * 1e3 / statistics.median(
+                   ms)}
+        emit(row)
+        check(d["argument_bytes"] == r["argument_bytes"],
+              f"phase 13b {name}: argument bytes {d['argument_bytes']} dry, "
+              f"{r['argument_bytes']} on the card")
+        check(abs(d["flops"] - r["flops"]) <= DRY_FLOP_TOL * r["flops"],
+              f"phase 13b {name}: FLOPs {d['flops']} dry, {r['flops']} on "
+              f"the card")
+        # An independent reading: torch's own FlopCounterMode on the real
+        # step counts the same products.
+        check(abs(d["matmul_flops"] - fc_real) <= DRY_FLOP_TOL * fc_real,
+              f"phase 13b {name}: product FLOPs {d['matmul_flops']} dry, "
+              f"FlopCounterMode {fc_real} on the card")
+        return row
+
+    cfg12 = dataclasses.replace(get_arch("qwen3-8b"), n_layers=4,
+                                microbatch=4)
+    cell12 = ShapeCell("phase_12b", 1_024, 8, "train")
+    step12, dry12 = abstract_cell_args(cfg12, cell12)
+    params = init_model(cfg12, seed=seed, device=dev)
+    opt = make_optimizer(cfg12.optimizer)[0](params)
+    batch = make_smoke_batch(cfg12, seed=seed, batch=8, seq=1_024,
+                             device=dev)
+    real12 = (params, opt, batch, 0)
+    rows13b = [beside("train_12b", step12, dry12, real12,
+                      lambda: _timed(lambda: step12(*real12))[1],
+                      6.0 * cfg12.n_params() * 8 * 1_024)]
+    del params, opt, batch, real12, dry12
+    torch.cuda.empty_cache()
+
+    cfg8 = get_arch("qwen3-8b")
+    cell8 = ShapeCell("phase_8b", 32_768, 4, "decode")
+    step8, dry8 = abstract_cell_args(cfg8, cell8)
+    params = init_model(cfg8, seed=seed, device=dev)
+    cache = init_cache(cfg8, 4, 32_768, device=dev)
+    cache["lengths"].fill_(512)
+    toks = torch.zeros((4, 1), dtype=torch.int32, device=dev)
+
+    def decode_once():
+        cache["lengths"].fill_(512)
+        return _timed(lambda: step8(params, toks, cache))[1]
+
+    rows13b.append(beside("decode_8b", step8, dry8,
+                          (params, toks, cache), decode_once,
+                          2.0 * cfg8.n_active_params() * 4))
+    del params, cache, toks, dry8
+    torch.cuda.empty_cache()
+
+    # 13c: the solver dry run (JAX's defaults), then the recorder on phase
+    # 7a's obs-sharded solve, and a bf16 design's shards.
+    sol = _dry_result(runs, "solver_obs_sp", PHASE13_WATCHDOG_S / 4)
+    if "per_sweep" in sol:
+        emit({"phase": "dryrun_solver", "card": card, **{k: sol[k] for k in (
+            "workload", "mesh", "chips", "device", "memory_analysis",
+            "per_sweep", "collectives", "collectives_by_axis",
+            "ideal_per_sweep", "roofline_fraction", "run_s", "wall_s")}})
+        check(sol["memory_analysis"]["shard_x_bytes"] == 16_777_216
+              * 16_384 * 2 // 256,
+              f"phase 13c: {sol['memory_analysis']['shard_x_bytes']} bytes "
+              f"of bf16 x a device")
+    gen = torch.Generator(device=dev).manual_seed(seed + 130)
+    x7 = torch.randn(262_144, 1_024, generator=gen, device=dev)
+    a7 = torch.randn(1_024, 8, generator=gen, device=dev)
+    y7 = x7 @ a7
+    mesh4 = make_mesh((4,), ("data",), [dev] * 4)
+    knobs = dict(thr=128, mode="gram", max_iter=20)
+    solvebakp_obs_sharded(x7, y7, mesh4, **dict(knobs, max_iter=1))
+    with CollectiveRecorder() as rec:
+        res, ms = _timed(lambda: solvebakp_obs_sharded(x7, y7, mesh4,
+                                                       **knobs))
+    n = int(res.n_sweeps)
+    nblocks = 1_024 // 128
+    setup = nblocks * 128 * 128 * 4 + 4          # block Grams, SSE0
+    per_sweep = nblocks * 128 * 8 * 4 + 4        # (thr, k) a block, SSE
+    got = rec.bytes_by("all-reduce")
+    emit({"phase": "dryrun_recorder", "card": card, "sweeps": n,
+          "all_reduce_bytes": got, "all_reduce_bytes_per_sweep":
+              (got - setup) / n, "count_per_sweep": per_sweep,
+          "records": len(rec.records), "ms_per_sweep": ms / n,
+          "groups": sorted({(k, g, ",".join(a)) for k, _, g, a in
+                            rec.records})})
+    check(got == setup + n * per_sweep,
+          f"phase 13c: recorded {got} all-reduce bytes, the group sums "
+          f"give {setup + n * per_sweep}")
+    x16 = x7.to(torch.bfloat16)
+    del x7
+    lay16 = shard_x(x16, mesh4, "obs")
+    lay32 = shard_x(x16.float(), mesh4, "obs")
+    c16 = solvebakp_obs_sharded(lay16, y7, mesh4, **knobs).coef
+    c32 = solvebakp_obs_sharded(lay32, y7, mesh4, **knobs).coef
+    err16 = (c16 - c32).abs().max().item() / c32.abs().max().item()
+    emit({"phase": "dryrun_bf16_shards", "card": card,
+          "bf16_shard_bytes": lay16.nbytes, "fp32_shard_bytes": lay32.nbytes,
+          "coef_max_rel_diff": err16})
+    check(lay16.nbytes * 2 == lay32.nbytes and all(
+        p.dtype == torch.bfloat16 for p in lay16.parts),
+          f"phase 13c: bf16 shards {lay16.nbytes} bytes, fp32 "
+          f"{lay32.nbytes}")
+    check(err16 <= 1e-6, f"phase 13c: a bf16 design's coef {err16} from "
+                         f"the fp32-widened solve's")
+    del x16, lay16, lay32, y7, c16, c32
+    torch.cuda.empty_cache()
+
+    # 13d: compression on the card against the CPU, and the MoE grouping.
+    cfg4 = dataclasses.replace(get_arch("qwen3-8b"), n_layers=4)
+    g = init_model(cfg4, seed=seed + 131, device=dev)
+    err0 = comp.init_error_tree(g)
+    torch.cuda.synchronize()
+    (q, scale, err1), c_ms = _timed(lambda: comp.compressed_tree(g, err0))
+    gbytes = _tree_bytes(g)
+    (q2, scale2, err2), c2_ms = _timed(lambda: comp.compressed_tree(g,
+                                                                    err1))
+    from repro_torch.models.params import tree_items
+    names = [n_ for n_, _ in tree_items(g)]
+    sampled = [names[0], names[len(names) // 2], names[-1]]
+    flat = {k: dict(tree_items(t)) for k, t in (
+        ("g", g), ("e1", err1), ("q2", q2), ("s2", scale2), ("e2", err2))}
+    bit_equal, exact = True, True
+    for name in sampled:
+        qc, sc, ec = comp.compress(flat["g"][name].cpu(),
+                                   flat["e1"][name].cpu())
+        bit_equal &= torch.equal(qc, flat["q2"][name].cpu()) and \
+            torch.equal(sc.view(torch.int32),
+                        flat["s2"][name].cpu().view(torch.int32)) and \
+            torch.equal(ec.view(torch.int32),
+                        flat["e2"][name].cpu().view(torch.int32))
+    for name in names:
+        deq = comp.decompress(flat["q2"][name], flat["s2"][name])
+        exact &= torch.equal(deq + flat["e2"][name],
+                             flat["g"][name].float() + flat["e1"][name])
+    emit({"phase": "dryrun_compression", "card": card, "leaves": len(names),
+          "grad_bytes": gbytes, "sampled": sampled,
+          "q_scale_err_bit_equal_cpu": bool(bit_equal),
+          "deq_plus_err_exact": bool(exact), "first_ms": c_ms,
+          "warm_ms": c2_ms, "grad_gb_per_s": gbytes / (c2_ms / 1e3) / 1e9})
+    check(bit_equal, f"phase 13d: compression on the card differs from the "
+                     f"CPU on {sampled}")
+    check(exact, "phase 13d: deq + err differs from g + err_prev")
+    del g, err0, q, scale, err1, q2, scale2, err2, flat
+    torch.cuda.empty_cache()
+
+    cfg2 = dataclasses.replace(get_arch("dbrx-132b"), n_layers=2,
+                               dtype="float32")
+    params = init_model(cfg2, seed=seed + 132, device=dev)
+    mesh41 = make_debug_mesh((4, 1), devices=[dev] * 4)
+    ctx = ShardCtx(mesh41, make_rules(mesh41))
+    prompt = make_smoke_batch(cfg2, seed=seed + 133, batch=4, seq=512,
+                              device=dev)
+    prompt.pop("labels")
+    cache = init_cache(cfg2, 4, 512, device=dev)
+    record = []
+    with torch.no_grad(), _moe_calls(record):
+        make_prefill_step(cfg2, ctx)(params, prompt, cache)
+    layers = []
+    for p, h, y in record:
+        b, s, d = h.shape
+        n_loc = s
+        grouped = moe.route(cfg2, moe.router_logits(p, h.reshape(b, s, d)),
+                            moe.capacity(cfg2, n_loc))
+        errs, same_drops = [], True
+        with torch.no_grad():
+            for i in range(b):
+                yi, _ = moe.apply_moe(cfg2, p, h[i:i + 1])
+                errs.append((yi[0] - y[i]).abs().max().item())
+                one = moe.route(cfg2, moe.router_logits(p, h[i:i + 1]
+                                                        .reshape(1, s, d)),
+                                moe.capacity(cfg2, n_loc))
+                same_drops &= int((~one.keep).sum()) == int(
+                    (~grouped.keep[i]).sum())
+        scale_ = y.abs().max().item()
+        layers.append({"max_err_over_max_y": max(errs) / scale_,
+                       "drops_per_group": (~grouped.keep).sum(1).tolist(),
+                       "same_drops": bool(same_drops),
+                       "cap_per_group": grouped.cap})
+    emit({"phase": "dryrun_shardctx_moe", "card": card, "arch": cfg2.name,
+          "layers": cfg2.n_layers, "dtype": "float32", "batch": 4,
+          "seq": 512, "data_shards": ctx.data_shards,
+          "reduced": ["n_layers 40 -> 2: fp32 at full width (the check's "
+                      "dtype) is 31 GB at 2 layers"],
+          "moe_layers": layers})
+    check(len(layers) == 2 and all(
+        L["max_err_over_max_y"] <= MOE_REF_TOL and L["same_drops"]
+        for L in layers),
+          f"phase 13d: the grouped MoE is not four runs of one row: "
+          f"{layers}")
+    del params, cache, record
+    torch.cuda.empty_cache()
+    shutil.rmtree(runs["_dir"], ignore_errors=True)
+    return {"lm": {k: {"argument_bytes": v["memory_analysis"][
+        "argument_bytes"], "roofline": v["roofline"], "wall_s": v["wall_s"]}
+        for k, v in lm.items()}, "beside_card": rows13b}
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
-    src = Path(__file__).resolve().parent / "src"
+    root = Path(__file__).resolve().parent
+    src = root / "src"
     if not (src / "repro_torch").is_dir():
         print(f"chip_smoke: {src}/repro_torch not found; run from a checkout "
               f"of the repository", file=sys.stderr)
@@ -3139,6 +3533,10 @@ def main() -> int:
     watchdog.cancel()
     emit({"phase": "sharded_done", "card": card,
           "seconds": time.perf_counter() - t_phase7})
+    # Phase 13's dry runs need no card: started now, after the phases
+    # whose host side is timed (serving, the store, the sharded path), and
+    # read in phase 13.
+    dry_runs = start_dry_runs(root)
 
     # ------------------------------------ the LM serving path (phase 8)
     # qwen3-8b at full width and depth, random bf16 weights from SEED:
@@ -3685,7 +4083,6 @@ def main() -> int:
     _build.reset_launch_counts()
     torch.cuda.empty_cache()
     held12 = torch.cuda.memory_allocated()
-    root = Path(__file__).resolve().parent
     trained12 = [train_family(dict(spec, seed_offset=120), dev=dev,
                               card=card, held=held12, ckpt_root=root)
                  for spec in (
@@ -3714,6 +4111,27 @@ def main() -> int:
               "max_memory_allocated",
               "opt_state_bytes", "ce_first5_mean", "ce_last5_mean")}
               for r in trained12}})
+
+    # ---------------------------------------- the dry runs (phase 13)
+    def hung13():
+        print(f"chip_smoke: phase 13 did not finish in {PHASE13_WATCHDOG_S}"
+              f" s (a hang in the dry runs)", file=sys.stderr, flush=True)
+        os._exit(3)
+
+    watchdog = threading.Timer(PHASE13_WATCHDOG_S, hung13)
+    watchdog.daemon = True
+    watchdog.start()
+    t_phase13 = time.perf_counter()
+    _build.reset_launch_counts()
+    torch.cuda.empty_cache()
+    dry13 = dryrun_phase(dry_runs, dev=dev, card=card, seed=SEED + 130)
+    counts13 = {**_build.launch_counts(), **_build.launch_counts(2)}
+    check(not any(counts13.values()),
+          f"phase 13: the dry runs launched kernels {counts13}")
+    watchdog.cancel()
+    emit({"phase": "dryrun_done", "card": card,
+          "seconds": time.perf_counter() - t_phase13,
+          "kernel_launches": counts13, "summary": dry13})
 
     kernel_src = "src/repro_torch/kernels/csrc/"
     src_of = {

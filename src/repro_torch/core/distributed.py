@@ -35,15 +35,28 @@ compiled, so there is no program cache.
 ``_KINDS`` states how x, y and a0 split: contiguous row and column blocks
 in the mesh's device order, as ``NamedSharding`` lays them out.  A design
 is laid out once by ``shard_x`` (a ``ShardedDesign``: a fresh copy of each
-block on its shard's device, positions holding one block on one device
-sharing it); the solvers take it or a plain tensor, which they lay out
-themselves.  Results: ``coef`` whole (what JAX returns replicated) and the
-``residual`` gathered, both on the device of the mesh's first shard.
+block on its shard's device in x's dtype, positions holding one block on
+one device sharing it); the solvers take it or a plain tensor, which they
+lay out themselves.  As in JAX, a shard keeps x's dtype and each block is
+widened to fp32 where it is read (a bf16 design holds half an fp32 one's
+bytes; the widening is exact, so the values are the same).  Results:
+``coef`` whole (what JAX returns replicated) and the ``residual``
+gathered, both on the device of the mesh's first shard.
+
+A ``CollectiveRecorder`` in a ``with`` block sees every collective written
+out here: each group sum (``_psum``, an all-reduce) and the gathers of
+the result, as (kind, bytes a member sends, group size, mesh axes).  With
+none active they record nothing.  ``host_stop=False`` (on the obs and
+2-D solvers, the two the solver dry run drives) runs every one of
+``max_iter`` sweeps without reading the stop flag to the host: the dry
+run's ``meta`` shards (``launch/solver_dryrun.py``) hold no values, and
+JAX's compiled while loop is sized by its trip count the same way.
 """
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+import threading
+from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -83,16 +96,72 @@ _KINDS = {
 }
 
 
+class CollectiveRecorder:
+    """Records the collectives written out in this module while active
+    (``with recorder:``), on the thread that entered it: ``records`` holds
+    (kind, bytes a member sends, group size, mesh axes) per collective;
+    ``busy`` is positive while a collective's own arithmetic runs (a cost
+    counter leaves it out of the compute it counts)."""
+
+    _active = threading.local()
+
+    def __init__(self):
+        self.records: List[Tuple[str, int, int, Tuple[str, ...]]] = []
+        self.busy = 0
+
+    def __enter__(self):
+        self._prev = getattr(CollectiveRecorder._active, "rec", None)
+        CollectiveRecorder._active.rec = self
+        return self
+
+    def __exit__(self, *exc):
+        CollectiveRecorder._active.rec = self._prev
+
+    @classmethod
+    def current(cls) -> Optional["CollectiveRecorder"]:
+        return getattr(cls._active, "rec", None)
+
+    def bytes_by(self, kind: Optional[str] = None) -> int:
+        """Bytes sent by one member, summed over the recorded
+        collectives (of ``kind``)."""
+        return sum(b for k, b, _, _ in self.records
+                   if kind is None or k == kind)
+
+
+class _Collective:
+    """Reports one collective to the active recorder and marks its
+    arithmetic as the collective's own."""
+
+    def __init__(self, kind: str, t: torch.Tensor, group: int,
+                 axes: Tuple[str, ...]):
+        self.rec = CollectiveRecorder.current() if group > 1 else None
+        if self.rec is not None:
+            self.rec.records.append(
+                (kind, t.numel() * t.element_size(), group, axes))
+
+    def __enter__(self):
+        if self.rec is not None:
+            self.rec.busy += 1
+
+    def __exit__(self, *exc):
+        if self.rec is not None:
+            self.rec.busy -= 1
+
+
 @dataclass(frozen=True)
 class ShardGrid:
     """The compute positions of one sharding: ``d`` data positions by ``m``
     model positions, position (i, j) on ``devices[i * m + j]``.  Mesh axes
     a sharding does not split (the model axis of an obs-sharded solve)
-    replicate; their positions compute nothing the first one does not."""
+    replicate; their positions compute nothing the first one does not.
+    ``data_axes`` / ``model_axis`` name the mesh axes the positions span
+    (what a collective over them is reported under)."""
 
     devices: Tuple[torch.device, ...]
     d: int
     m: int
+    data_axes: Tuple[str, ...] = field(default=(), compare=False)
+    model_axis: Tuple[str, ...] = field(default=(), compare=False)
 
     def dev(self, i: int, j: int) -> torch.device:
         return self.devices[i * self.m + j]
@@ -119,7 +188,9 @@ def shard_grid(mesh, kind: str, data_axes: Sequence[str] = ("data",),
             if k.uses("m"):
                 idx = dict(idx, **{model_axis: j})
             devs.append(mesh.device_at(idx))
-    return ShardGrid(tuple(devs), d, m)
+    return ShardGrid(tuple(devs), d, m,
+                     data_axes if k.uses("d") else (),
+                     (model_axis,) if k.uses("m") else ())
 
 
 def _part(t: torch.Tensor, split, i: int, j: int, grid: ShardGrid):
@@ -137,7 +208,7 @@ def _part(t: torch.Tensor, split, i: int, j: int, grid: ShardGrid):
 @dataclass(frozen=True)
 class ShardedDesign:
     """``x`` laid out for one sharding: ``parts[i * m + j]`` is position
-    (i, j)'s block, a contiguous fp32 copy on its device.  Positions that
+    (i, j)'s block, a contiguous copy in x's dtype on its device.  Positions that
     hold the same block on the same device share one tensor (the replicas
     of an rhs-sharded design on a virtual mesh)."""
 
@@ -189,26 +260,38 @@ def shard_x(x: torch.Tensor, mesh, kind: str, *,
         key = (i if split[0] else None, j if split[1] else None, str(dev))
         if key not in made:
             blk = _part(x, split, i, j, grid)
-            made[key] = torch.empty(tuple(blk.shape), dtype=torch.float32,
+            made[key] = torch.empty(tuple(blk.shape), dtype=x.dtype,
                                     device=dev).copy_(blk)
         parts.append(made[key])
     return ShardedDesign(kind, (obs, nvars), grid, tuple(parts))
 
 
-def _psum(parts: Sequence[torch.Tensor], to: Sequence[torch.device]):
+def _psum(parts: Sequence[torch.Tensor], to: Sequence[torch.device],
+          axes: Tuple[str, ...] = ()):
     """A group's sum: ``parts`` (rank order) added in order on the first
     member's device, then copied to each device of ``to`` (a no-op where
-    the sum already lives there)."""
-    acc = parts[0]
-    for t in parts[1:]:
-        acc = acc + t.to(acc.device)
-    return [acc.to(d) for d in to]
+    the sum already lives there).  An all-reduce over ``axes`` to the
+    active ``CollectiveRecorder``."""
+    with _Collective("all-reduce", parts[0], len(parts), axes):
+        acc = parts[0]
+        for t in parts[1:]:
+            acc = acc + t.to(acc.device)
+        return [acc.to(d) for d in to]
+
+
+def _gather(parts: Sequence[torch.Tensor], dim: int, to: torch.device,
+            axes: Tuple[str, ...]):
+    """The members' blocks concatenated along ``dim`` on ``to``: an
+    all-gather over ``axes`` to the active ``CollectiveRecorder``."""
+    with _Collective("all-gather", parts[0], len(parts), axes):
+        return torch.cat([t.to(to) for t in parts], dim)
 
 
 def _bakp_local(xs: ShardedDesign, ys: Dict[int, torch.Tensor],
                 a0s: Optional[Dict[tuple, torch.Tensor]], atol_sse: float,
                 rtol: float, *, nvars_loc: int, thr: int, max_iter: int,
-                omega: float, mode: str, ridge: float):
+                omega: float, mode: str, ridge: float,
+                host_stop: bool = True):
     """SolveBakP sweeps over every shard of ``xs``: the body of the JAX
     ``_bakp_local``, run once per position with its collectives written out.
 
@@ -216,12 +299,14 @@ def _bakp_local(xs: ShardedDesign, ys: Dict[int, torch.Tensor],
     ``dev(i, 0)``; ``a0s[(i, j)]`` position (i, j)'s warm start (nvars_loc,
     k_loc), or None (cold).  Each column shard pads its own columns to a
     multiple of ``thr`` with a mask, so with several model positions the
-    local block order is not the single-device one.  Returns (coef,
-    residual, sse, n, converged, history), coef (vars, k) and residual
-    (obs, k) on the first shard's device.
+    local block order is not the single-device one.  Each block of x is
+    widened to fp32 where it is read.  Returns (coef, residual, sse, n,
+    converged, history), coef (vars, k) and residual (obs, k) on the first
+    shard's device.
     """
     kind = _KINDS[xs.kind]
     grid = xs.grid
+    daxes, maxes = grid.data_axes, grid.model_axis
     dev = grid.dev
     dev0 = dev(0, 0)
     pos = grid.positions()
@@ -253,13 +338,13 @@ def _bakp_local(xs: ShardedDesign, ys: Dict[int, torch.Tensor],
         d0 = dev(0, j)
         if mode == "gram":
             gram = _psum([block_grams(xp[p].reshape(-1, nblocks, thr))
-                          for p in group((0, j))], [d0])[0]
+                          for p in group((0, j))], [d0], daxes)[0]
             gram = gram + ridge * torch.eye(thr, dtype=torch.float32,
                                             device=d0)[None]
             f = torch.linalg.cholesky(gram)
         else:
             cn = _psum([column_norms_sq(xp[p]) for p in group((0, j))],
-                       [d0])[0]
+                       [d0], daxes)[0]
             f = safe_inv(cn) * masks[d0]
         for p in heads:
             if p[1] == j:
@@ -273,8 +358,8 @@ def _bakp_local(xs: ShardedDesign, ys: Dict[int, torch.Tensor],
         e_i = ys[i]
         if a0s is not None:
             # Warm residual: column shards each contribute x_loc @ a0_loc.
-            corr = _psum([xp[i, j] @ a0s[i, j] for j in range(grid.m)],
-                         [dev(i, 0)])[0]
+            corr = _psum([xp[i, j].float() @ a0s[i, j]
+                          for j in range(grid.m)], [dev(i, 0)], maxes)[0]
             e_i = e_i - corr
         for j in range(grid.m):
             e[i, j] = e_i.to(dev(i, j))
@@ -284,7 +369,7 @@ def _bakp_local(xs: ShardedDesign, ys: Dict[int, torch.Tensor],
 
     def sse_of():
         return _psum([torch.dot(e[i, 0].reshape(-1), e[i, 0].reshape(-1))
-                      for i in range(grid.d)], [dev0])[0]
+                      for i in range(grid.d)], [dev0], daxes)[0]
 
     sse0 = sse_of()
     history = torch.full((max_iter,), math.nan, dtype=torch.float32,
@@ -295,8 +380,8 @@ def _bakp_local(xs: ShardedDesign, ys: Dict[int, torch.Tensor],
             cols = slice(b * thr, (b + 1) * thr)
             da = {}
             for h in heads:
-                g = _psum([xp[p][:, cols].T @ e[p] for p in group(h)],
-                          [dev(*h)])[0]
+                g = _psum([xp[p][:, cols].float().T @ e[p]
+                           for p in group(h)], [dev(*h)], daxes)[0]
                 f = factor[h]
                 if mode == "jacobi":
                     d_h = g * f[cols][:, None]
@@ -309,8 +394,9 @@ def _bakp_local(xs: ShardedDesign, ys: Dict[int, torch.Tensor],
                     da[p] = d_h.to(dev(*p))
             # Residual correction: Jacobi across the model positions.
             for i in range(grid.d):
-                corr = _psum([xp[i, j][:, cols] @ da[i, j]
-                              for j in range(grid.m)], [dev(i, 0)])[0]
+                corr = _psum([xp[i, j][:, cols].float() @ da[i, j]
+                              for j in range(grid.m)], [dev(i, 0)],
+                             maxes)[0]
                 e_i = e[i, 0] - corr
                 for j in range(grid.m):
                     e[i, j] = e_i.to(dev(i, j))
@@ -318,19 +404,21 @@ def _bakp_local(xs: ShardedDesign, ys: Dict[int, torch.Tensor],
         history[n] = sse_new
         converged, stop = sweep_stop_flags(sse_new, sse, sse0, atol_sse, rtol)
         sse, n = sse_new, n + 1
-        if bool(stop):                          # one host read per sweep
+        if host_stop and bool(stop):            # one host read per sweep
             break
     # coef: model positions stack vars, data heads (rhs) stack columns.
-    coef = torch.cat(
-        [torch.cat([a[i, j][:nvars_loc].to(dev0) for j in range(grid.m)], 0)
-         for i in sorted({h[0] for h in heads})], 1)
+    coef = _gather(
+        [_gather([a[i, j][:nvars_loc] for j in range(grid.m)], 0, dev0,
+                 maxes)
+         for i in sorted({h[0] for h in heads})], 1, dev0, daxes)
     resid_dim = 0 if kind.y[0] == "d" else 1
-    resid = torch.cat([e[i, 0].to(dev0) for i in range(grid.d)], resid_dim)
+    resid = _gather([e[i, 0] for i in range(grid.d)], resid_dim, dev0,
+                    daxes)
     return coef, resid, sse, n, converged, history
 
 
 def _solve_sharded(kind, x, y, mesh, *, data_axes, model_axis, thr,
-                   max_iter, atol, rtol, omega, mode, ridge, a0):
+                   max_iter, atol, rtol, omega, mode, ridge, a0, host_stop):
     """Shared driver: normalise y / a0, lay out and run the shards, reshape
     back (the JAX driver's checks and messages)."""
     if not isinstance(x, (ShardedDesign, torch.Tensor)):
@@ -380,7 +468,8 @@ def _solve_sharded(kind, x, y, mesh, *, data_axes, model_axis, thr,
     coef, e, sse, n, converged, history = _bakp_local(
         xs, ys, a0s, atol_to_sse(obs, nrhs, atol), rtol,
         nvars_loc=nvars_loc, thr=int(thr), max_iter=int(max_iter),
-        omega=float(omega), mode=mode, ridge=float(ridge))
+        omega=float(omega), mode=mode, ridge=float(ridge),
+        host_stop=host_stop)
     if not multi:
         coef, e = coef[:, 0], e[:, 0]
     return SolveResult(coef, e, sse, torch.tensor(n, dtype=torch.int32),
@@ -401,6 +490,7 @@ def solvebakp_obs_sharded(
     mode: str = "gram",
     ridge: float = 1e-6,
     a0=None,
+    host_stop: bool = True,
 ) -> SolveResult:
     """SolveBakP with rows sharded over ``data_axes`` of ``mesh``.
 
@@ -415,7 +505,7 @@ def solvebakp_obs_sharded(
     return _solve_sharded(
         "obs", x, y, mesh, data_axes=data_axes, model_axis=None, thr=thr,
         max_iter=max_iter, atol=atol, rtol=rtol, omega=omega, mode=mode,
-        ridge=ridge, a0=a0)
+        ridge=ridge, a0=a0, host_stop=host_stop)
 
 
 def solvebakp_vars_sharded(
@@ -443,7 +533,7 @@ def solvebakp_vars_sharded(
     return _solve_sharded(
         "vars", x, y, mesh, data_axes=(), model_axis=model_axis, thr=thr,
         max_iter=max_iter, atol=atol, rtol=rtol, omega=omega, mode=mode,
-        ridge=ridge, a0=a0)
+        ridge=ridge, a0=a0, host_stop=True)
 
 
 def solvebakp_2d(
@@ -461,6 +551,7 @@ def solvebakp_2d(
     mode: str = "gram",
     ridge: float = 1e-6,
     a0=None,
+    host_stop: bool = True,
 ) -> SolveResult:
     """2-D sharded SolveBakP: obs over the data axes, vars over the model
     axis.  ⟨x_k, e⟩ partials sum over data; residual corrections over
@@ -469,7 +560,7 @@ def solvebakp_2d(
     return _solve_sharded(
         "2d", x, y, mesh, data_axes=data_axes, model_axis=model_axis,
         thr=thr, max_iter=max_iter, atol=atol, rtol=rtol, omega=omega,
-        mode=mode, ridge=ridge, a0=a0)
+        mode=mode, ridge=ridge, a0=a0, host_stop=host_stop)
 
 
 def solvebakp_rhs_sharded(
@@ -500,4 +591,4 @@ def solvebakp_rhs_sharded(
     return _solve_sharded(
         "rhs", x, y, mesh, data_axes=data_axes, model_axis=None, thr=thr,
         max_iter=max_iter, atol=atol, rtol=rtol, omega=omega, mode=mode,
-        ridge=ridge, a0=a0)
+        ridge=ridge, a0=a0, host_stop=True)

@@ -1,3 +1,4 @@
-"""repro_torch.distributed — the fault-tolerance substrate (the sharding
-and compression modules of the JAX package's ``distributed`` are still to
-port: ROADMAP.md queue 1 item 3)."""
+"""repro_torch.distributed — the logical-axis sharding rules
+(``sharding``), int8 gradient compression with error feedback
+(``compression``) and the fault-tolerance substrate
+(``fault_tolerance``)."""

@@ -13,8 +13,10 @@ one card, as the JAX tests force virtual host devices on the CPU.  A
 repeat is only ever asked for: ``devices=None`` takes distinct cards
 ``cuda:0..n-1`` and raises when the process sees fewer.
 
-``make_production_mesh`` waits for ``launch/solver_dryrun.py``, its only
-caller.
+``make_production_mesh`` builds the JAX package's production shapes:
+(16, 16) with axes (data, model), 256 cards, or (2, 16, 16) with (pod,
+data, model), 512.  The dry runs pass ``devices=["meta"] * n``: a mesh of
+shards that hold shapes and no data.
 """
 from __future__ import annotations
 
@@ -102,6 +104,16 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str],
     for i, d in enumerate(devs):
         grid[i] = d
     return Mesh(devices=grid.reshape(shape), axis_names=axes)
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         devices: Optional[Sequence] = None) -> Mesh:
+    """The single-pod (16, 16) ``(data, model)`` mesh, or the multi-pod
+    (2, 16, 16) ``(pod, data, model)`` one (``make_mesh``'s ``devices``
+    rules)."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(shape, axes, devices)
 
 
 def make_debug_mesh(shape=(2, 2), axes=("data", "model"),

@@ -190,27 +190,41 @@ def _cache_slot(lengths, smax, window):
     return torch.clamp(lengths - 1, max=smax - 1)
 
 
+def _write_slot(cache, slot, new):
+    """``cache[b, slot[b]] = new[b]`` for every row b, in place: cache (B,
+    Smax, ...), new (B, ...) with as many elements a row as the cache's
+    trailing dims (reshaped to them).  A scatter along the slot dim, so a
+    cache sharded on its batch or its trailing dim (a DTensor) is written
+    shard by shard.  The caller passes the cache itself, never a view
+    that splits its trailing dim: on a DTensor whose shards do not divide
+    the split, the view is a gathered copy, and a write there would miss
+    the shards."""
+    new = new.reshape((new.shape[0],) + tuple(cache.shape[2:]))
+    idx = slot.long().view((-1, 1) + (1,) * (new.dim() - 1)).expand(
+        (new.shape[0], 1) + tuple(new.shape[1:]))
+    cache.scatter_(1, idx, new.unsqueeze(1))
+
+
 def gqa_decode_quant(cfg, p, x, positions, kq8, vq8, ks, vs, lengths, *,
                      window=0):
     """One-token decode against an int8 ring or linear cache.
 
-    kq8/vq8: (B, Smax, Hkv, hd) int8; ks/vs: (B, Smax, Hkv) fp32, all
-    written in place at the new token's slot.  The whole cache is
-    dequantized to the model dtype for the step.  Returns (out, kq8, vq8,
-    ks, vs).
+    kq8/vq8: (B, Smax, Hkv, hd) or the cache's own (B, Smax, Hkv·hd) int8;
+    ks/vs: (B, Smax, Hkv) fp32, all written in place at the new token's
+    slot (``_write_slot``).  The whole cache is dequantized to the model
+    dtype for the step.  Returns (out, kq8, vq8, ks, vs) as given.
     """
     b = x.shape[0]
+    hkv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
     q, k, v = gqa_qkv(cfg, p, x, positions)        # k/v: (B,1,Hkv,hd)
     slot = _cache_slot(lengths, kq8.shape[1], window)
-    bidx = torch.arange(b, device=x.device)
     kq_new, ks_new = quantize_kv(k[:, 0])
     vq_new, vs_new = quantize_kv(v[:, 0])
-    kq8[bidx, slot] = kq_new
-    vq8[bidx, slot] = vq_new
-    ks[bidx, slot] = ks_new
-    vs[bidx, slot] = vs_new
-    k4 = dequantize_kv(kq8, ks, x.dtype)
-    v4 = dequantize_kv(vq8, vs, x.dtype)
+    for buf, new in ((kq8, kq_new), (vq8, vq_new), (ks, ks_new),
+                     (vs, vs_new)):
+        _write_slot(buf, slot, new)
+    k4 = dequantize_kv(kq8.view(b, -1, hkv, hd), ks, x.dtype)
+    v4 = dequantize_kv(vq8.view(b, -1, hkv, hd), vs, x.dtype)
     o = decode_attention(q, k4, v4, lengths, window=window,
                          softcap=cfg.attn_softcap)
     return matmul(o.reshape(b, 1, -1), p["wo"]), kq8, vq8, ks, vs
@@ -288,17 +302,19 @@ def gqa_attend(cfg, p, x, positions, *, window=0, causal=True, q_offset=0,
 
 
 def gqa_decode(cfg, p, x, positions, k_cache, v_cache, lengths, *, window=0):
-    """One-token decode.  x: (B,1,d); caches (B,Smax,Hkv,hd), written in
-    place at slot ``min(lengths - 1, Smax - 1)`` (``lengths`` already counts
-    the new token; a ring buffer's slot is ``(lengths - 1) % Smax``).
-    Returns (out, k_cache, v_cache)."""
+    """One-token decode.  x: (B,1,d); caches (B,Smax,Hkv,hd) or the
+    cache's own (B,Smax,Hkv·hd), written in place at slot ``min(lengths -
+    1, Smax - 1)`` (``lengths`` already counts the new token; a ring
+    buffer's slot is ``(lengths - 1) % Smax``; ``_write_slot``), then read
+    as (B,Smax,Hkv,hd).  Returns (out, k_cache, v_cache) as given."""
     b = x.shape[0]
+    hkv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
     q, k, v = gqa_qkv(cfg, p, x, positions)     # k/v: (B,1,Hkv,hd)
     slot = _cache_slot(lengths, k_cache.shape[1], window)
-    bidx = torch.arange(b, device=x.device)
-    k_cache[bidx, slot] = k[:, 0].to(k_cache.dtype)
-    v_cache[bidx, slot] = v[:, 0].to(v_cache.dtype)
-    o = decode_attention(q, k_cache, v_cache, lengths,
+    _write_slot(k_cache, slot, k[:, 0].to(k_cache.dtype))
+    _write_slot(v_cache, slot, v[:, 0].to(v_cache.dtype))
+    o = decode_attention(q, k_cache.view(b, -1, hkv, hd),
+                         v_cache.view(b, -1, hkv, hd), lengths,
                          window=window, softcap=cfg.attn_softcap)
     return matmul(o.reshape(b, 1, -1), p["wo"]), k_cache, v_cache
 
@@ -380,10 +396,9 @@ def mla_decode(cfg, p, x, positions, ckv_cache, krope_cache, lengths):
     q_nope, q_rope = _mla_project_q(cfg, p, x, positions)   # (B,1,H,.)
     c_kv, k_rope = _mla_latent(cfg, p, x, positions)        # (B,1,.)
     smax = ckv_cache.shape[1]
-    bidx = torch.arange(b, device=x.device)
     slot = _cache_slot(lengths, smax, 0)
-    ckv_cache[bidx, slot] = c_kv[:, 0].to(ckv_cache.dtype)
-    krope_cache[bidx, slot] = k_rope[:, 0].to(krope_cache.dtype)
+    _write_slot(ckv_cache, slot, c_kv[:, 0].to(ckv_cache.dtype))
+    _write_slot(krope_cache, slot, k_rope[:, 0].to(krope_cache.dtype))
 
     ckv = ckv_cache.float()
     k_up = p["k_up"].reshape(kvr, h, dn).float()

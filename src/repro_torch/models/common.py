@@ -9,6 +9,8 @@ fp32.
 Matmuls follow JAX's dtype promotion: ``x @ w`` with an fp32 ``x`` and a
 bf16 ``w`` computes in fp32 (``matmul``), where ``torch.matmul`` would
 raise on the mixed dtypes.  ``softmax_xent`` is the training loss.
+``ShardCtx`` is the sharding context the forwards take (``NULL_CTX``: no
+mesh).
 """
 from __future__ import annotations
 
@@ -17,6 +19,8 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import (divisible_spec, mesh_axes,
+                                              placements)
 from repro_torch.models.params import ParamDef, tree_map
 
 
@@ -154,9 +158,55 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
     masked-in tokens (at least one counted)."""
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
-    ll = logits.gather(-1, labels[..., None].long())[..., 0]
-    nll = lse - ll
+    # The label's logit is subtracted before its trailing dim is dropped:
+    # on vocab-sharded DTensor logits the gather is a masked partial sum,
+    # which DTensor can reduce only at the gather's own shape.
+    nll = (lse[..., None] - logits.gather(-1, labels[..., None].long()))[
+        ..., 0]
     if mask is not None:
         maskf = mask.float()
         return (nll * maskf).sum() / torch.clamp(maskf.sum(), min=1.0)
     return nll.mean()
+
+
+class ShardCtx:
+    """Optional sharding context threaded through the forward pass.
+
+    Holds the mesh (a port ``Mesh`` or a torch ``DeviceMesh``) and the
+    logical-axis rules (``distributed.sharding.make_rules``).
+    ``data_shards`` is the product of the mesh's non-``model`` axes: the
+    MoE routes each data shard's tokens as a group of its own
+    (``moe.apply_moe``), as JAX's does under a mesh.
+
+    ``constrain(x, *axes)`` is the counterpart of JAX's
+    ``with_sharding_constraint``: a ``DTensor`` is redistributed to the
+    placements of ``divisible_spec`` for those logical axes; a plain
+    tensor, or any tensor without a mesh, is returned as it is (one
+    controller holds the whole tensor, as on the port's virtual shards).
+    """
+
+    def __init__(self, mesh=None, rules=None):
+        self.mesh = mesh
+        self.rules = rules or {}
+        self.data_shards = 1
+        if mesh is not None:
+            for name, size in mesh_axes(mesh).items():
+                if name != "model":
+                    self.data_shards *= size
+
+    def constrain(self, x, *axes):
+        if self.mesh is None:
+            return x
+        from torch.distributed.tensor import DTensor
+        if not isinstance(x, DTensor):
+            return x
+        spec = divisible_spec(
+            self.mesh, x.shape,
+            [self.rules.get(a) if a is not None else None for a in axes])
+        want = placements(self.mesh, spec)
+        if tuple(x.placements) == want:
+            return x
+        return x.redistribute(x.device_mesh, want)
+
+
+NULL_CTX = ShardCtx()

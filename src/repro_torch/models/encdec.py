@@ -28,8 +28,9 @@ from typing import Any, Dict
 import torch
 
 from repro_torch.models import attention as attn_lib
-from repro_torch.models.common import (apply_mlp, matmul, mlp_defs, rmsnorm,
-                                       rmsnorm_def, stacked)
+from repro_torch.models.common import (NULL_CTX, apply_mlp, matmul,
+                                       mlp_defs, rmsnorm, rmsnorm_def,
+                                       stacked)
 from repro_torch.models.params import unstack
 from repro_torch.models.transformer import _Entries, remat
 
@@ -53,7 +54,7 @@ def encdec_defs(cfg) -> Dict[str, Any]:
             "dec": stacked(dec_block_defs(cfg), cfg.n_dec_layers)}
 
 
-def run_encoder(cfg, params, frames):
+def run_encoder(cfg, params, frames, ctx=NULL_CTX):
     """frames: (B, S_src, d) stub-frontend embeddings → (B, S_src, d)."""
     b, s, _ = frames.shape
     positions = torch.arange(s, dtype=torch.int32,
@@ -63,8 +64,9 @@ def run_encoder(cfg, params, frames):
         h = rmsnorm(x, p["ln1"])
         o, _ = attn_lib.gqa_attend(cfg, p["attn"], h, positions,
                                    causal=False)
-        x = x + o
-        return x + apply_mlp(p["ffn"], rmsnorm(x, p["ln2"]))
+        x = ctx.constrain(x + o, "batch", None, None)
+        x = x + apply_mlp(p["ffn"], rmsnorm(x, p["ln2"]))
+        return ctx.constrain(x, "batch", None, None)
 
     x = frames
     for p in unstack(params["enc"], cfg.n_enc_layers):
@@ -73,7 +75,7 @@ def run_encoder(cfg, params, frames):
 
 
 def run_decoder(cfg, params, x, enc_out, *, mode, positions, cache=None,
-                lengths=None):
+                lengths=None, ctx=NULL_CTX):
     """The decoder stack.  x: (B, S_tgt, d) embedded target tokens.
 
     Returns (hidden, new_cache_entries).  ``mode`` "train" / "prefill":
@@ -91,15 +93,14 @@ def run_decoder(cfg, params, x, enc_out, *, mode, positions, cache=None,
         if mode == "decode":
             o, _, _ = attn_lib.gqa_decode(
                 cfg, p["self_attn"], h, positions,
-                cache["k"][i].view(b, -1, hkv, hd),
-                cache["v"][i].view(b, -1, hkv, hd), lengths)
+                cache["k"][i], cache["v"][i], lengths)
         else:
             o, (k4, v4) = attn_lib.gqa_attend(cfg, p["self_attn"], h,
                                               positions)
             if mode == "prefill":
                 entries.put("k", i, k4.reshape(b, s, hkv * hd), kv=True)
                 entries.put("v", i, v4.reshape(b, s, hkv * hd), kv=True)
-        x = x + o
+        x = ctx.constrain(x + o, "batch", None, None)
 
         h = rmsnorm(x, p["ln_x"])
         if mode == "decode":
@@ -124,8 +125,9 @@ def run_decoder(cfg, params, x, enc_out, *, mode, positions, cache=None,
                             kv=True)
                 entries.put("v_cross", i, vc.reshape(b, s_src, hkv * hd),
                             kv=True)
-        x = x + o
-        return x + apply_mlp(p["ffn"], rmsnorm(x, p["ln2"]))
+        x = ctx.constrain(x + o, "batch", None, None)
+        x = x + apply_mlp(p["ffn"], rmsnorm(x, p["ln2"]))
+        return ctx.constrain(x, "batch", None, None)
 
     for i, p in enumerate(unstack(params["dec"], cfg.n_dec_layers)):
         x = (remat(cfg, layer, x, enc_out, p, i) if mode == "train"

@@ -30,6 +30,12 @@ place.  Layouts:
                   written once by prefill from the encoder output.
 
 MoE models have their dense pattern's layout.
+
+``cache_axes`` gives each entry's logical axes (JAX's): K/V and latents
+shard their batch over the data axes and their flat trailing dim over
+the model axis (unless ``replicate_kv``); ``abstract_cache`` and
+``cache_shardings`` apply the rules through ``divisible_spec``, so a dim
+that does not divide (B 1 at long_500k) stays whole.
 """
 from __future__ import annotations
 
@@ -39,6 +45,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.prepare import resolve_device
+from repro_torch.distributed.sharding import (NamedSharding, abstract_tensor,
+                                              divisible_spec)
 from repro_torch.models.params import model_dtype, tensor_from_numpy
 from repro_torch.models.ssm import ssm_dims
 from repro_torch.models.transformer import check_supported
@@ -94,6 +102,49 @@ def cache_spec_tree(cfg, batch: int, max_len: int) -> Dict[str, Any]:
         else:
             out["k"] = out["v"] = (kv + (hkv_hd,), dt)
     return out
+
+
+def cache_axes(cfg) -> Dict[str, tuple]:
+    """{name: logical axes} of the cache's entries, JAX's ``cache_spec_tree``
+    axes."""
+    kv = (None, "batch", None, None if cfg.replicate_kv else "model")
+    per_token = (None, "batch", None, None)
+    conv, state = (None, "batch", None, "act_mlp"), (
+        None, "batch", "act_heads", None, None)
+    out = {"lengths": ("batch",)}
+    for name in ("k", "v", "k_local", "v_local", "k_global", "v_global",
+                 "k_cross", "v_cross"):
+        out[name] = kv
+    out.update(c_kv=(None, "batch", None, "model"), k_rope=per_token,
+               k_scale=per_token, v_scale=per_token, conv_tail=conv,
+               ssm_tail=state)
+    if cfg.family == "hybrid":
+        out.update(conv=(None,) + conv, ssm=(None,) + state)
+    else:
+        out.update(conv=conv, ssm=state)
+    return {k: out[k] for k in cache_spec_tree(cfg, 1, 1)}
+
+
+def _cache_spec(mesh, shape, axes, rules):
+    return divisible_spec(mesh, shape, [rules.get(a) if a is not None
+                                        else None for a in axes])
+
+
+def abstract_cache(cfg, batch: int, max_len: int, mesh=None, rules=None):
+    """Stand-ins for the cache, no allocation: ``meta`` tensors, or on a
+    ``DeviceMesh`` DTensors of each entry's spec with ``meta`` shards."""
+    axes = cache_axes(cfg)
+    return {k: abstract_tensor(shape, dtype, mesh, None if mesh is None else
+                               _cache_spec(mesh, shape, axes[k], rules or {}))
+            for k, (shape, dtype) in cache_spec_tree(cfg, batch,
+                                                     max_len).items()}
+
+
+def cache_shardings(cfg, batch, max_len, mesh, rules):
+    axes = cache_axes(cfg)
+    return {k: NamedSharding(mesh, _cache_spec(mesh, shape, axes[k], rules))
+            for k, (shape, _) in cache_spec_tree(cfg, batch,
+                                                 max_len).items()}
 
 
 def init_cache(cfg, batch: int, max_len: int, device=None

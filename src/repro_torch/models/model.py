@@ -23,6 +23,11 @@ JAX's does: pass a fresh (zeroed) cache for a new prompt.
 
 ``init_model``, ``make_smoke_batch`` (and ``kvcache.init_cache``) run on
 ``"cuda"`` unless ``device="cpu"`` is passed, and raise without a GPU.
+
+``input_specs``, ``abstract_model`` and ``abstract_decode_cache`` build a
+cell's inputs as stand-ins that allocate nothing (``meta`` tensors, or on
+a ``DeviceMesh`` DTensors with ``meta`` shards under the rules): what the
+dry run (``launch/dryrun.py``) runs the steps on.
 """
 from __future__ import annotations
 
@@ -32,9 +37,14 @@ import torch
 
 from repro_torch.core.prepare import resolve_device
 from repro_torch.models import encdec as encdec_lib
-from repro_torch.models.common import (embed_tokens, embedding_defs, rmsnorm,
-                                       rmsnorm_def, softmax_xent, unembed)
-from repro_torch.models.params import init_params, model_dtype
+from repro_torch.models.common import (NULL_CTX, embed_tokens,
+                                       embedding_defs, rmsnorm, rmsnorm_def,
+                                       softmax_xent, unembed)
+from repro_torch.distributed.sharding import (PartitionSpec,
+                                              abstract_tensor, divisible_spec)
+from repro_torch.models.kvcache import abstract_cache
+from repro_torch.models.params import (abstract_params, init_params,
+                                       model_dtype)
 from repro_torch.models.transformer import backbone_defs, run_backbone
 
 
@@ -70,9 +80,10 @@ def _batch_positions(cfg, batch_inputs):
     return _positions(cfg, b, zero, s)
 
 
-def _embed_inputs(cfg, params, batch_inputs):
-    return embed_tokens(params["embed"], batch_inputs["tokens"],
-                        model_dtype(cfg))
+def _embed_inputs(cfg, params, batch_inputs, ctx):
+    x = embed_tokens(params["embed"], batch_inputs["tokens"],
+                     model_dtype(cfg))
+    return ctx.constrain(x, "batch", None, None)
 
 
 def _logits(cfg, params, x):
@@ -81,34 +92,40 @@ def _logits(cfg, params, x):
                    final_softcap=cfg.final_softcap)
 
 
-def _train_hidden(cfg, params, tokens, dtype, positions=None, frames=None):
+def _train_hidden(cfg, params, tokens, dtype, positions=None, frames=None,
+                  ctx=NULL_CTX):
     """Hidden states of a train-mode pass (no cache) over ``tokens``
     embedded in ``dtype``, before the final norm, and the aux losses (none
     for enc-dec, whose decoder attends the encoded ``frames``)."""
-    x = embed_tokens(params["embed"], tokens, dtype)
+    x = ctx.constrain(embed_tokens(params["embed"], tokens, dtype), "batch",
+                      None, None)
     if positions is None:
         b, s = tokens.shape
         zero = torch.zeros((b,), dtype=torch.int32, device=x.device)
         positions = _positions(cfg, b, zero, s)
     if cfg.family == "encdec":
         enc_out = encdec_lib.run_encoder(cfg, params["backbone"],
-                                         frames.to(dtype))
+                                         frames.to(dtype), ctx)
         h, _ = encdec_lib.run_decoder(cfg, params["backbone"], x, enc_out,
-                                      mode="train", positions=positions)
+                                      mode="train", positions=positions,
+                                      ctx=ctx)
         return h, {}
     h, _, aux = run_backbone(cfg, params["backbone"], x, mode="train",
-                             positions=positions)
+                             positions=positions, ctx=ctx)
     return h, aux
 
 
-def forward_train(cfg, params, batch):
+def forward_train(cfg, params, batch, ctx=NULL_CTX):
     """The training loss of a batch.  Returns (loss, metrics): the fp32
     token-mean cross entropy of the logits against ``labels`` plus the aux
     losses, and ``ce_loss``, each aux loss under its own key, and
-    ``loss``, all 0-d fp32 tensors."""
+    ``loss``, all 0-d fp32 tensors.  ``ctx`` constrains the activations
+    and the logits (batch, vocab) where JAX's does."""
     h, aux = _train_hidden(cfg, params, batch["tokens"], model_dtype(cfg),
-                           batch.get("positions"), batch.get("frames"))
-    loss = softmax_xent(_logits(cfg, params, h), batch["labels"])
+                           batch.get("positions"), batch.get("frames"), ctx)
+    logits = ctx.constrain(_logits(cfg, params, h), "batch", None,
+                           "act_vocab")
+    loss = softmax_xent(logits, batch["labels"])
     metrics = {"ce_loss": loss}
     for k, v in aux.items():
         v = torch.as_tensor(v, dtype=torch.float32, device=loss.device)
@@ -118,27 +135,29 @@ def forward_train(cfg, params, batch):
     return loss, metrics
 
 
-def forward_prefill(cfg, params, batch, cache):
+def forward_prefill(cfg, params, batch, cache, ctx=NULL_CTX):
     """Fill the cache from a full prompt (and, for enc-dec, its
     ``frames``).  Returns (last_logits (B, V), cache), the cache written in
     place."""
     s = batch["tokens"].shape[1]
-    x = _embed_inputs(cfg, params, batch)
+    x = _embed_inputs(cfg, params, batch, ctx)
     pos = _batch_positions(cfg, batch)
     if cfg.family == "encdec":
         enc_out = encdec_lib.run_encoder(
-            cfg, params["backbone"], batch["frames"].to(model_dtype(cfg)))
+            cfg, params["backbone"], batch["frames"].to(model_dtype(cfg)),
+            ctx)
         x, _ = encdec_lib.run_decoder(cfg, params["backbone"], x, enc_out,
                                       mode="prefill", positions=pos,
-                                      cache=cache)
+                                      cache=cache, ctx=ctx)
     else:
         x, _, _ = run_backbone(cfg, params["backbone"], x, mode="prefill",
-                               positions=pos, cache=cache)
+                               positions=pos, cache=cache, ctx=ctx)
     cache["lengths"].fill_(s)
     return _logits(cfg, params, x[:, -1:])[:, 0], cache
 
 
-def forward_decode(cfg, params, tokens, cache, positions=None):
+def forward_decode(cfg, params, tokens, cache, ctx=NULL_CTX,
+                   positions=None):
     """One decode step.  tokens: (B, 1).  Returns (logits (B, V), cache),
     the cache written in place.  Under M-RoPE ``positions`` (3, B, 1)
     defaults, as in JAX, to the cache's length on all three streams."""
@@ -152,10 +171,11 @@ def forward_decode(cfg, params, tokens, cache, positions=None):
     if cfg.family == "encdec":
         x, _ = encdec_lib.run_decoder(cfg, params["backbone"], x, None,
                                       mode="decode", positions=pos,
-                                      cache=cache, lengths=lengths)
+                                      cache=cache, lengths=lengths, ctx=ctx)
     else:
         x, _, _ = run_backbone(cfg, params["backbone"], x, mode="decode",
-                               positions=pos, cache=cache, lengths=lengths)
+                               positions=pos, cache=cache, lengths=lengths,
+                               ctx=ctx)
     cache["lengths"].copy_(lengths)
     return _logits(cfg, params, x)[:, 0], cache
 
@@ -182,6 +202,51 @@ def probe_features(cfg, params, tokens, positions=None):
     fp32 against the model's weights.  (B·S, d_model) fp32."""
     h, _ = _train_hidden(cfg, params, tokens, torch.float32, positions)
     return rmsnorm(h, params["final_ln"]).reshape(-1, cfg.d_model)
+
+
+def _tok_sds(shape, mesh, rules, dtype=torch.int32):
+    """A batch input's stand-in: its batch dim over ``rules["batch"]``
+    where it divides."""
+    spec = None
+    if mesh is not None:
+        spec = divisible_spec(mesh, shape,
+                              [rules["batch"]] + [None] * (len(shape) - 1))
+    return abstract_tensor(shape, dtype, mesh, spec)
+
+
+def input_specs(cfg, cell, mesh=None, rules=None) -> Dict[str, Any]:
+    """Stand-ins for every model input of this cell (JAX's
+    ``input_specs``): train and prefill ``tokens`` (and train's
+    ``labels``) (B, S), the VLM's ``positions`` (3, B, S) (batch on axis
+    1), enc-dec ``frames`` (B, S_src, d) (S_src = S in training, else
+    ``src_len_for_decode``); decode one token (B, 1)."""
+    rules = rules or {}
+    b, s = cell.global_batch, cell.seq_len
+    if cell.kind in ("train", "prefill"):
+        batch = {"tokens": _tok_sds((b, s), mesh, rules),
+                 "labels": _tok_sds((b, s), mesh, rules)}
+        if cfg.family == "vlm":
+            batch["positions"] = abstract_tensor(
+                (3, b, s), torch.int32, mesh,
+                None if mesh is None else PartitionSpec(
+                    None, rules["batch"], None))
+        if cfg.family == "encdec":
+            src = s if cell.kind == "train" else cfg.src_len_for_decode
+            batch["frames"] = _tok_sds((b, src, cfg.d_model), mesh, rules,
+                                       model_dtype(cfg))
+        if cell.kind == "prefill":
+            batch.pop("labels")
+        return batch
+    return {"tokens": _tok_sds((b, 1), mesh, rules)}
+
+
+def abstract_decode_cache(cfg, cell, mesh=None, rules=None):
+    return abstract_cache(cfg, cell.global_batch, cell.seq_len, mesh, rules)
+
+
+def abstract_model(cfg, mesh=None, rules=None, dtype=None):
+    return abstract_params(model_defs(cfg), dtype or model_dtype(cfg), mesh,
+                           rules)
 
 
 def make_smoke_batch(cfg, seed: int = 0, batch: int = 2, seq: int = 32,

@@ -2,11 +2,13 @@
 dispatch (MaxText's "dropping" style, with a scatter and a gather in place
 of the O(N·E·C) dispatch einsum).
 
-The port of the JAX package's ``models/moe.py``.  JAX splits the tokens
-into G groups, one per data shard of its ``ShardCtx``, and routes each
-group on its own; the port has no sharding context, so G = 1: every token
-of the batch is in one group.  The (G, N, ·) shapes are kept so that a
-sharded slice finds its counterpart.  Routing is JAX's exactly:
+The port of the JAX package's ``models/moe.py``.  The tokens are split
+into G = gcd(B, ``ctx.data_shards``) groups of whole batch rows, one per
+data shard of the ``ShardCtx`` (G = 1 without a mesh), and each group is
+routed on its own with its own capacity, as JAX's standard
+expert-parallel semantics: the routing cumsum, the capacity scatter and
+the combine gather are batched over G.  The aux losses are means over
+(G, N).  Routing is JAX's exactly:
 
   * the router logits are ``x @ router`` in the promoted dtype, widened to
     fp32; softmax, ``torch.topk`` (sorted descending, as ``lax.top_k``),
@@ -19,18 +21,21 @@ sharded slice finds its counterpart.  Routing is JAX's exactly:
 
 The expert FFN (SwiGLU) is one batched product over the experts, as JAX's
 ``einsum`` is: every expert computes its ``cap`` rows, filled or not.
+Where G is the mesh's data shards, the expert buffers are constrained to
+(batch, experts) as JAX constrains them.
 Arctic's ``dense_residual_d_ff`` MLP runs beside the experts on every
 token.  The aux losses (Switch's load balance and the router z-loss) are
 computed in every mode, as in JAX.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import apply_mlp, matmul, mlp_defs
+from repro_torch.models.common import NULL_CTX, apply_mlp, matmul, mlp_defs
 from repro_torch.models.params import ParamDef
 
 
@@ -92,15 +97,16 @@ def _einsum(eq: str, a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.einsum(eq, a.to(dt), w.to(dt))
 
 
-def apply_moe(cfg, p, x: torch.Tensor
+def apply_moe(cfg, p, x: torch.Tensor, ctx=NULL_CTX
               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x: (B, S, d) → (B, S, d), and the aux-loss dict."""
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.experts_per_token
-    g, n = 1, b * s
-    xg = x.reshape(g, n, d)
+    g = math.gcd(b, ctx.data_shards if ctx is not None else 1)
+    n_loc = b * s // g
+    xg = x.reshape(g, n_loc, d)
     logits = router_logits(p, xg)
-    r = route(cfg, logits, capacity(cfg, n))
+    r = route(cfg, logits, capacity(cfg, n_loc))
     cap = r.cap
 
     # Switch's load-balance loss (mean router prob times the share of
@@ -111,24 +117,30 @@ def apply_moe(cfg, p, x: torch.Tensor
            "router_z": (torch.logsumexp(logits, dim=-1) ** 2).mean()
            * cfg.router_z_loss}
 
-    # Scatter each kept assignment's token row to its slot; the dropped
-    # ones all land on the overflow row e·cap, which is cut off.
+    # Scatter each kept assignment's token row to its slot of its group's
+    # buffer; the dropped ones all land on the overflow row e·cap, which is
+    # cut off.  A kept slot receives one row, so the sum is a copy.  Out of
+    # place: DTensor then keeps G on the data axes.
     rows = e * cap + 1
     x_rep = xg.repeat_interleave(k, dim=1)                  # (G, Nk, d)
-    base = torch.arange(g, device=x.device)[:, None] * rows
-    buf = x.new_zeros((g * rows, d)).index_add_(
-        0, (r.dest + base).reshape(-1), x_rep.reshape(-1, d))
-    h = buf.view(g, rows, d)[:, :e * cap].reshape(g, e, cap, d)
+    buf = x.new_zeros((g, rows, d)).scatter_add(
+        1, r.dest[..., None].expand(g, n_loc * k, d), x_rep)
+    h = buf[:, :e * cap].reshape(g, e, cap, d)
+    sharded = ctx is not None and g == ctx.data_shards
+    if sharded:
+        h = ctx.constrain(h, "batch", "act_experts", None, None)
 
     hg = _einsum("gecd,edf->gecf", h, p["w_gate"])
     hu = _einsum("gecd,edf->gecf", h, p["w_up"])
     ho = _einsum("gecf,efd->gecd", F.silu(hg) * hu, p["w_down"])
+    if sharded:
+        ho = ctx.constrain(ho, "batch", "act_experts", None, None)
 
     out_buf = torch.cat([ho.reshape(g, e * cap, d),
                          ho.new_zeros((g, 1, d))], dim=1)
-    y = out_buf.gather(1, r.dest[..., None].expand(g, n * k, d))
+    y = out_buf.gather(1, r.dest[..., None].expand(g, n_loc * k, d))
     y = y * (r.gate.reshape(g, -1, 1) * r.keep[..., None]).to(y.dtype)
-    y = y.reshape(g, n, k, d).sum(dim=2).reshape(b, s, d)
+    y = y.reshape(g, n_loc, k, d).sum(dim=2).reshape(b, s, d)
 
     if cfg.dense_residual_d_ff:
         y = y + apply_mlp(p["dense"], x)

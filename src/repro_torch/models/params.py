@@ -4,13 +4,23 @@ Models declare their parameters as a tree (nested dicts) of ``ParamDef``
 (shape + logical axes + init law), as the JAX package does.  From one
 definition tree come ``init_params`` (tensors drawn from a
 ``torch.Generator``), ``count_params``, and ``params_from_numpy``, which
-carries the JAX package's parameter tree across as it is.
+carries the JAX package's parameter tree across as it is; and, from the
+logical axes and the rules of ``distributed.sharding``, ``spec_for``,
+``param_shardings`` and ``abstract_params`` (stand-ins on the ``meta``
+device, DTensors on a ``DeviceMesh``: a dry run of a 480B-parameter model
+allocates nothing).
 
 Parameters are plain tensors in nested dicts whose keys are JAX's tree
 paths (``params["backbone"]["layers"]["attn"]["wq"]``), in JAX's layout:
 a weight is (..., d_in, d_out) and is applied as ``x @ w``, and the layers
 are stacked on a leading dim.  Nothing is transposed on the way across.
-The logical axes are kept for the sharded slice that will read them.
+
+Logical axis names used by the zoo:
+  layers/units  — stacked layer dimension (never sharded)
+  embed         — weight input dim → FSDP axes ("pod","data")
+  model         — tensor-parallel output dim (heads, mlp, vocab rows…)
+  experts       — MoE expert dim → "model" (expert parallelism)
+  none          — replicated
 """
 from __future__ import annotations
 
@@ -22,6 +32,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.prepare import resolve_device
+from repro_torch.distributed.sharding import (NamedSharding, PartitionSpec,
+                                              abstract_tensor)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,11 +52,13 @@ def model_dtype(cfg) -> torch.dtype:
     return {"bfloat16": torch.bfloat16, "float32": torch.float32}[cfg.dtype]
 
 
-def tree_map(fn: Callable, tree):
-    """``fn`` on every leaf of a tree of nested dicts (JAX's key order)."""
+def tree_map(fn: Callable, tree, *rest):
+    """``fn`` on every leaf of a tree of nested dicts (JAX's key order),
+    with the matching leaves of the ``rest`` trees as further arguments."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, tree[k]) for k in sorted(tree)}
-    return fn(tree)
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
+                for k in sorted(tree)}
+    return fn(tree, *rest)
 
 
 def unstack(tree, n: int):
@@ -113,6 +127,23 @@ def init_params(defs, generator: torch.Generator, dtype=torch.float32):
     reproduced), so carry JAX's weights with ``params_from_numpy`` where
     values must match."""
     return tree_map(lambda d: _init_array(d, generator, dtype), defs)
+
+
+def spec_for(d: ParamDef, rules: Dict[str, Any]) -> PartitionSpec:
+    return PartitionSpec(*(rules.get(a) if a is not None else None
+                           for a in d.axes))
+
+
+def param_shardings(defs, mesh, rules) -> Any:
+    return tree_map(lambda d: NamedSharding(mesh, spec_for(d, rules)), defs)
+
+
+def abstract_params(defs, dtype, mesh=None, rules=None):
+    """Stand-ins for the parameters, no allocation: ``meta`` tensors, or
+    on a ``DeviceMesh`` DTensors of ``spec_for`` with ``meta`` shards."""
+    return tree_map(lambda d: abstract_tensor(
+        d.shape, dtype, mesh,
+        spec_for(d, rules or {}) if mesh is not None else None), defs)
 
 
 def count_params(defs) -> int:

@@ -28,8 +28,9 @@ from typing import Any, Dict
 import torch
 
 from repro_torch.models import attention as attn_lib
-from repro_torch.models.common import (apply_mlp, matmul, mlp_defs,
-                                       rmsnorm, rmsnorm_def, stacked)
+from repro_torch.models.common import (NULL_CTX, apply_mlp, matmul,
+                                       mlp_defs, rmsnorm, rmsnorm_def,
+                                       stacked)
 from repro_torch.models.moe import apply_moe, moe_defs
 from repro_torch.models.params import ParamDef, tree_map, unstack
 from repro_torch.models.ssm import apply_ssm, ssm_defs
@@ -129,7 +130,7 @@ def _prefill_kv(cfg, k4, v4, window):
 
 
 def apply_dense_block(cfg, p, x, *, positions, mode, window=0, kv=None,
-                      lengths=None, q_offset=0):
+                      lengths=None, ctx=NULL_CTX, q_offset=0):
     """One pre-norm block (post-norms on the attention and FFN outputs
     where ``cfg.post_norm``; the MoE FFN where ``cfg.n_experts``).
     Returns (x', new_kv, aux): aux the MoE losses, else ``ZERO_AUX``.
@@ -140,8 +141,6 @@ def apply_dense_block(cfg, p, x, *, positions, mode, window=0, kv=None,
     the layer's cache entries as ``_prefill_kv`` (or MLA's latent pair)
     makes them; in train mode it is None.
     """
-    b, s, _ = x.shape
-    hkv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
     h = rmsnorm(x, p["ln1"])
     if cfg.attn_type == "mla":
         if mode == "decode":
@@ -153,15 +152,16 @@ def apply_dense_block(cfg, p, x, *, positions, mode, window=0, kv=None,
                                             q_offset=q_offset)
             new_kv = None if mode == "train" else latent
     elif mode == "decode":
-        k4 = kv[0].view(b, -1, hkv, hd)
-        v4 = kv[1].view(b, -1, hkv, hd)
+        # The cache itself, (B, Smax, Hkv·hd): the decode writes it before
+        # it views it by head (``attention._write_slot``).
         if cfg.kv_quant == "int8":
             o, *_ = attn_lib.gqa_decode_quant(
-                cfg, p["attn"], h, positions, k4, v4, kv[2], kv[3], lengths,
-                window=window)
+                cfg, p["attn"], h, positions, kv[0], kv[1], kv[2], kv[3],
+                lengths, window=window)
         else:
-            o, _, _ = attn_lib.gqa_decode(cfg, p["attn"], h, positions, k4,
-                                          v4, lengths, window=window)
+            o, _, _ = attn_lib.gqa_decode(cfg, p["attn"], h, positions,
+                                          kv[0], kv[1], lengths,
+                                          window=window)
         new_kv = kv
     else:
         o, (k4, v4) = attn_lib.gqa_attend(cfg, p["attn"], h, positions,
@@ -170,27 +170,29 @@ def apply_dense_block(cfg, p, x, *, positions, mode, window=0, kv=None,
                                                           window)
     if cfg.post_norm:
         o = rmsnorm(o, p["post1"])
-    x = x + o
+    x = ctx.constrain(x + o, "batch", None, None)
     h = rmsnorm(x, p["ln2"])
     if cfg.n_experts:
-        f, aux = apply_moe(cfg, p["ffn"], h)
+        f, aux = apply_moe(cfg, p["ffn"], h, ctx)
     else:
         f, aux = apply_mlp(p["ffn"], h), dict(ZERO_AUX)
     if cfg.post_norm:
         f = rmsnorm(f, p["post2"])
-    return x + f, new_kv, aux
+    return ctx.constrain(x + f, "batch", None, None), new_kv, aux
 
 
 def ssm_block_defs(cfg) -> Dict[str, Any]:
     return {"ln": rmsnorm_def(cfg.d_model), "ssm": ssm_defs(cfg)}
 
 
-def apply_ssm_block(cfg, p, x, *, mode, conv_state=None, ssm_state=None):
+def apply_ssm_block(cfg, p, x, *, mode, conv_state=None, ssm_state=None,
+                    ctx=NULL_CTX):
     """One pre-norm Mamba2 block.  Returns (x', conv_state', ssm_state')."""
     y, (conv_state, ssm_state) = apply_ssm(
         cfg, p["ssm"], rmsnorm(x, p["ln"]), conv_state=conv_state,
         ssm_state=ssm_state, mode=mode)
-    return x + y, conv_state, ssm_state
+    return (ctx.constrain(x + y, "batch", None, None), conv_state,
+            ssm_state)
 
 
 def _shared_block_defs(cfg) -> Dict[str, Any]:
@@ -294,27 +296,28 @@ class _Entries:
                 for name, ts in self.produced.items()}
 
 
-def _ssm_layer(cfg, p, x, *, mode, entries, names, index, from_cache):
+def _ssm_layer(cfg, p, x, *, mode, entries, names, index, from_cache,
+               ctx):
     """One Mamba2 block at ``index`` of the cache entries ``names`` (conv
     state, SSM state).  It starts from the cache's states where
     ``from_cache`` (decode; the SSM family's prefill, whose scan JAX feeds
     the cache), else from zeros (the hybrid's prefill), and writes its
     new states to ``entries``."""
     if mode == "train":
-        return apply_ssm_block(cfg, p, x, mode=mode)[0]
+        return apply_ssm_block(cfg, p, x, mode=mode, ctx=ctx)[0]
     cache = entries.cache
     cs = ss = None
     if from_cache and cache is not None:
         cs, ss = (cache[n][index] for n in names)
     x, cs, ss = apply_ssm_block(cfg, p, x, mode=mode, conv_state=cs,
-                                ssm_state=ss)
+                                ssm_state=ss, ctx=ctx)
     for name, t in zip(names, (cs, ss)):
         entries.put(name, index, t)
     return x
 
 
 def _run_dense(cfg, params, x, *, mode, positions, cache, lengths, q_offset,
-               entries):
+               entries, ctx):
     runs = _block_runs(cfg)
     if len(runs) == 2:
         stack, n = params["pairs"], cfg.n_layers // 2
@@ -329,7 +332,7 @@ def _run_dense(cfg, params, x, *, mode, positions, cache, lengths, q_offset,
                   if mode == "decode" else None)
             x, new_kv, a = apply_dense_block(
                 cfg, p if sub is None else p[sub], x, positions=positions,
-                mode=mode, window=window, kv=kv, lengths=lengths,
+                mode=mode, window=window, kv=kv, lengths=lengths, ctx=ctx,
                 q_offset=q_offset)
             aux = {k: aux[k] + a[k] for k in aux}
             new.append((own, new_kv))
@@ -349,19 +352,20 @@ def _run_dense(cfg, params, x, *, mode, positions, cache, lengths, q_offset,
     return x, [name for _, _, own in runs for name in own], aux
 
 
-def _run_ssm(cfg, params, x, *, mode, entries):
+def _run_ssm(cfg, params, x, *, mode, entries, ctx):
     for i, p in enumerate(unstack(params["layers"], cfg.n_layers)):
         if mode == "train":
             x = remat(cfg, lambda x, p: apply_ssm_block(
-                cfg, p, x, mode=mode)[0], x, p)
+                cfg, p, x, mode=mode, ctx=ctx)[0], x, p)
             continue
         x = _ssm_layer(cfg, p, x, mode=mode, entries=entries,
-                       names=("conv", "ssm"), index=i, from_cache=True)
+                       names=("conv", "ssm"), index=i, from_cache=True,
+                       ctx=ctx)
     return x, ["conv", "ssm"]
 
 
 def _run_hybrid(cfg, params, x, *, mode, positions, cache, lengths,
-                q_offset, entries):
+                q_offset, entries, ctx):
     b, s, _ = x.shape
     hkv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
     decode = mode == "decode"
@@ -371,22 +375,22 @@ def _run_hybrid(cfg, params, x, *, mode, positions, cache, lengths,
         for m, mp in enumerate(unstack(up["mamba"], cfg.mamba_per_unit)):
             x = _ssm_layer(cfg, mp, x, mode=mode, entries=entries,
                            names=("conv", "ssm"), index=(u, m),
-                           from_cache=decode)
+                           from_cache=decode, ctx=ctx)
         sp = _shared_attn_params(shared, up["lora"])
         h = rmsnorm(x, sp["ln1"])
         if decode:
             o, _, _ = attn_lib.gqa_decode(
-                cfg, sp["attn"], h, positions, cache["k"][u].view(b, -1, hkv,
-                                                                  hd),
-                cache["v"][u].view(b, -1, hkv, hd), lengths)
+                cfg, sp["attn"], h, positions, cache["k"][u],
+                cache["v"][u], lengths)
         else:
             o, (k4, v4) = attn_lib.gqa_attend(cfg, sp["attn"], h, positions,
                                               q_offset=q_offset)
             if mode == "prefill":
                 entries.put("k", u, k4.reshape(b, s, hkv * hd), kv=True)
                 entries.put("v", u, v4.reshape(b, s, hkv * hd), kv=True)
-        x = x + o
-        return x + apply_mlp(sp["ffn"], rmsnorm(x, sp["ln2"]))
+        x = ctx.constrain(x + o, "batch", None, None)
+        x = x + apply_mlp(sp["ffn"], rmsnorm(x, sp["ln2"]))
+        return ctx.constrain(x, "batch", None, None)
 
     for u, up in enumerate(unstack(params["units"], cfg.hybrid_units)):
         x = (remat(cfg, unit, x, up, params["shared"], u) if mode == "train"
@@ -394,16 +398,16 @@ def _run_hybrid(cfg, params, x, *, mode, positions, cache, lengths,
     for t, tp in enumerate(unstack(params["tail"], cfg.trailing_mamba)):
         if mode == "train":
             x = remat(cfg, lambda x, p: apply_ssm_block(
-                cfg, p, x, mode=mode)[0], x, tp)
+                cfg, p, x, mode=mode, ctx=ctx)[0], x, tp)
             continue
         x = _ssm_layer(cfg, tp, x, mode=mode, entries=entries,
                        names=("conv_tail", "ssm_tail"), index=t,
-                       from_cache=decode)
+                       from_cache=decode, ctx=ctx)
     return x, ["conv", "ssm", "k", "v", "conv_tail", "ssm_tail"]
 
 
 def run_backbone(cfg, params, x, *, mode, positions, cache=None,
-                 lengths=None, q_offset=0):
+                 lengths=None, ctx=NULL_CTX, q_offset=0):
     """Run all layers.  x: (B, S, d) embedded inputs; ``mode`` "train",
     "prefill" or "decode"; ``positions`` (B, S), or (3, B, S) under
     M-RoPE.
@@ -417,7 +421,9 @@ def run_backbone(cfg, params, x, *, mode, positions, cache=None,
     none.  A gemma2 pair runs its local (windowed) layer, then its global
     one.  The SSM family's prefill starts from the cache's states (zero in
     a fresh cache), as JAX's; the hybrid's from zeros.  ``aux`` sums each
-    MoE layer's losses over the layers.
+    MoE layer's losses over the layers.  ``ctx`` constrains the residual
+    stream after each block, where JAX's does, and groups the MoE's
+    tokens by data shard.
     """
     check_supported(cfg)
     lead = ({"conv": (cfg.hybrid_units, cfg.mamba_per_unit),
@@ -426,17 +432,18 @@ def run_backbone(cfg, params, x, *, mode, positions, cache=None,
     entries = _Entries(cache if mode != "train" else None, lead)
     aux = dict(ZERO_AUX)
     if cfg.family == "ssm":
-        x, names = _run_ssm(cfg, params, x, mode=mode, entries=entries)
+        x, names = _run_ssm(cfg, params, x, mode=mode, entries=entries,
+                            ctx=ctx)
     elif cfg.family == "hybrid":
         x, names = _run_hybrid(cfg, params, x, mode=mode,
                                positions=positions, cache=cache,
                                lengths=lengths, q_offset=q_offset,
-                               entries=entries)
+                               entries=entries, ctx=ctx)
     else:
         x, names, aux = _run_dense(cfg, params, x, mode=mode,
                                    positions=positions, cache=cache,
                                    lengths=lengths, q_offset=q_offset,
-                                   entries=entries)
+                                   entries=entries, ctx=ctx)
     if mode == "prefill" and cache is None:
         new_cache = entries.stacked()
     elif mode != "train":

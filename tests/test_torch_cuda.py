@@ -1438,8 +1438,8 @@ def test_lm_moe_decode_step_matches_no_capacity_reference(cuda, arch):
     make_prefill_step(cfg)(params, {"tokens": toks[:, :32]}, cache)
     seen, real = [], tt.apply_moe
 
-    def recording(c, p, h):
-        y, aux = real(c, p, h)
+    def recording(c, p, h, *ctx):
+        y, aux = real(c, p, h, *ctx)
         seen.append((p, h, y))
         return y, aux
 
@@ -1552,3 +1552,97 @@ def test_checkpoint_round_trip_on_card(cuda, tmp_path):
         template, device=cuda)
     assert step == 3 and torch.equal(got["params"]["big"],
                                      tree["params"]["big"])
+
+
+# --------------------------------------- the distributed substrate
+def test_compression_on_card_bit_equal_to_cpu(cuda):
+    """int8 compression with error feedback on the card: q, the scale and
+    the error bit-equal to the CPU's, and deq + err == g + err_prev."""
+    from repro_torch.distributed import compression as comp
+    gen = torch.Generator(device=cuda).manual_seed(25)
+    g = {"w": torch.randn(256, 1024, generator=gen, device=cuda).bfloat16(),
+         "b": torch.randn(1024, generator=gen, device=cuda) * 1e-3,
+         "zero": torch.zeros(7, 3, device=cuda)}
+    err = comp.init_error_tree(g)
+    for _ in range(3):
+        q, s, new = comp.compressed_tree(g, err)
+        for k in g:
+            qc, sc, ec = comp.compress(g[k].cpu(), err[k].cpu())
+            assert torch.equal(q[k].cpu(), qc), k
+            assert torch.equal(s[k].cpu().view(torch.int32),
+                               sc.view(torch.int32)), k
+            assert torch.equal(new[k].cpu().view(torch.int32),
+                               ec.view(torch.int32)), k
+            assert torch.equal(comp.decompress(q[k], s[k]) + new[k],
+                               g[k].float() + err[k]), k
+        err = new
+
+
+def test_shardctx_moe_groups_rows_on_card(cuda):
+    """dbrx-132b's smoke config in fp32 on the card: a prefill of B 4 under
+    ``ShardCtx`` on four virtual shards of cuda:0 routes each row as its
+    own group: each MoE layer's output equals four ctx-less runs of one
+    row each (within 1e-5 of max |y|), with the same drops."""
+    import repro_torch.models.transformer as tt
+    from repro_torch.configs.registry import get
+    from repro_torch.distributed.sharding import make_rules
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import moe
+    from repro_torch.models.common import ShardCtx
+    from repro_torch.models.kvcache import init_cache
+    from repro_torch.models.model import init_model, make_smoke_batch
+
+    cfg = get("dbrx-132b").smoke()
+    params = init_model(cfg, seed=3, device=cuda)
+    mesh = make_debug_mesh((4, 1), devices=[cuda] * 4)
+    ctx = ShardCtx(mesh, make_rules(mesh))
+    batch = make_smoke_batch(cfg, seed=4, batch=4, seq=48, device=cuda)
+    batch.pop("labels")
+    seen, real = [], tt.apply_moe
+
+    def recording(c, p, h, *rest):
+        y, aux = real(c, p, h, *rest)
+        seen.append((p, h, y))
+        return y, aux
+
+    tt.apply_moe = recording
+    try:
+        with torch.no_grad():
+            make_prefill_step(cfg, ctx)(params, batch,
+                                        init_cache(cfg, 4, 48, device=cuda))
+    finally:
+        tt.apply_moe = real
+    assert ctx.data_shards == 4 and len(seen) == cfg.n_layers
+    with torch.no_grad():
+        for p, h, y in seen:
+            grouped = moe.route(cfg, moe.router_logits(p, h),
+                                moe.capacity(cfg, h.shape[1]))
+            for i in range(4):
+                yi, _ = moe.apply_moe(cfg, p, h[i:i + 1])
+                assert (yi[0] - y[i]).abs().max() <= 1e-5 * y.abs().max()
+                one = moe.route(cfg, moe.router_logits(p, h[i:i + 1]),
+                                moe.capacity(cfg, h.shape[1]))
+                assert int((~one.keep).sum()) == int(
+                    (~grouped.keep[i]).sum())
+
+
+def test_collective_recorder_on_virtual_shards(cuda):
+    """The recorder on an obs-sharded solve over four virtual shards of
+    cuda:0: its all-reduce bytes are the solver's group sums (block Grams
+    and the first SSE once; a (thr, k) inner product a block and the SSE
+    a sweep), each over the four shards of the data axis."""
+    from repro_torch.core import solvebakp_obs_sharded
+    from repro_torch.core.distributed import CollectiveRecorder
+    from repro_torch.launch.mesh import make_mesh
+    gen = torch.Generator(device=cuda).manual_seed(26)
+    x = torch.randn(16_384, 512, generator=gen, device=cuda)
+    y = x @ torch.randn(512, 4, generator=gen, device=cuda)
+    mesh = make_mesh((4,), ("data",), [cuda] * 4)
+    with CollectiveRecorder() as rec:
+        res = solvebakp_obs_sharded(x, y, mesh, thr=128, max_iter=6)
+    n, nb = int(res.n_sweeps), 512 // 128
+    assert rec.bytes_by("all-reduce") == (nb * 128 * 128 * 4 + 4
+                                         + n * (nb * 128 * 4 * 4 + 4))
+    assert {(k, g, a) for k, _, g, a in rec.records} == {
+        ("all-reduce", 4, ("data",)), ("all-gather", 4, ("data",))}

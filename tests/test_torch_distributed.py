@@ -349,3 +349,27 @@ class TestEightShardsAgainstOneDevice:
             .coef.numpy())
         with pytest.raises(ValueError, match="laid out for 'obs'"):
             solvebakp_rhs_sharded(obs, _t(x @ system[2]), mesh8, thr=16)
+
+
+@pytest.mark.parametrize("kind", ["obs", "vars", "2d", "rhs"])
+def test_bf16_design_keeps_bf16_shards(mesh8, system, kind):
+    """A bf16 x stays bf16 in its shards (half the fp32 layout's bytes) and
+    each block is widened where it is read, as JAX's shards do: coef is
+    the solve of the fp32-widened design, bit for bit."""
+    x, a, A = system
+    x16 = _t(x).to(torch.bfloat16)
+    kw = {"model_axis": "model"} if kind in ("vars", "2d") else {}
+    lay16, lay32 = shard_x(x16, mesh8, kind, **kw), shard_x(
+        x16.float(), mesh8, kind, **kw)
+    assert {p.dtype for p in lay16.parts} == {torch.bfloat16}
+    assert lay16.nbytes * 2 == lay32.nbytes
+    fn = {"obs": solvebakp_obs_sharded, "vars": solvebakp_vars_sharded,
+          "2d": solvebakp_2d, "rhs": solvebakp_rhs_sharded}[kind]
+    y = _t(x @ A) if kind == "rhs" else _t(x @ a)
+    opts = dict(thr=16, max_iter=6, a0=_t(A[:, 0]) if kind == "rhs" else
+                None, **({"omega": 0.5} if kind in ("vars", "2d") else {}))
+    r16 = fn(lay16, y, mesh8, **opts)
+    r32 = fn(lay32, y, mesh8, **opts)
+    np.testing.assert_array_equal(r16.coef.numpy(), r32.coef.numpy())
+    np.testing.assert_array_equal(r16.residual.numpy(),
+                                  r32.residual.numpy())

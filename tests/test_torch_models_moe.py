@@ -361,8 +361,8 @@ def test_aux_sums_each_layers_losses():
     seen = []
     real = TT.apply_moe
 
-    def recording(cfg, p, h):
-        y, aux = real(cfg, p, h)
+    def recording(cfg, p, h, *ctx):
+        y, aux = real(cfg, p, h, *ctx)
         seen.append(aux)
         return y, aux
 
@@ -458,8 +458,8 @@ def test_decode_step_moe_has_no_drops(case):
     seen = []
     real = TT.apply_moe
 
-    def recording(cfg, p, h):
-        y, aux = real(cfg, p, h)
+    def recording(cfg, p, h, *ctx):
+        y, aux = real(cfg, p, h, *ctx)
         seen.append((p, h, y))
         return y, aux
 
