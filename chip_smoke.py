@@ -35,7 +35,10 @@ process per source, in parallel), then:
      fp32 one streams from the L2; a 16,384 x 1,024 design on the fused
      kernels at bf16 only; phase 3's design on the bf16 per-sweep loop
      (both algorithms), the bf16 streaming kernel and the non-resident
-     handle (fp32 blocks whatever the precision); then the gates of
+     handle (fp32 blocks whatever the precision); phase 2's bf16 copy
+     through ``score_features_kernel`` and ``block_update_kernel`` (4f:
+     each held to its plain version, the score entry's peak allocation
+     under a quarter of an fp32 copy of x); then the gates of
      ``benchmarks/solver_precision.py`` on its well-conditioned designs
      (post-refine MAPE against fp64 lstsq, analytic x bytes, a bf16-only
      fused dispatch) beside the JAX figures in ``BENCH_precision.json``.
@@ -250,7 +253,7 @@ process per source, in parallel), then:
      256 with k 64 (right-hand sides in groups), each in one launch.  Then
      the Algorithm-1 kernels at each cluster size of 2, 4, 8 and 16, and
      the Algorithm-2 cluster kernels at 4, 8 and 16, each launch held to its
-     plain version.  The five x-reading kernels also run on bf16 copies of
+     plain version.  All seven kernels also run on bf16 copies of
      x at the shapes of their fp32 rows and at every shape phase 4 gave
      them, there on the plan phase 4 ran (x at 2 bytes in the bound), with
      their rtol stops held to the rule on the plain iterate's fp64 SSE;
@@ -1511,7 +1514,7 @@ def main() -> int:
                        "score_features", "block_update"),
         "phase_3_stream": ("stream_solve",),
         "phase_4_precision": tuple(_build.launch_key(n, 2)
-                                   for n in _build.X_KERNELS),
+                                   for n in _build.SIGNATURES),
         "phase_5_serving": ("fused_solve", "fused_solve_bf16", "bak_fused",
                             "stream_solve"),
         "phase_6_store": ("fused_solve",),
@@ -1819,6 +1822,49 @@ def main() -> int:
               f"fp32 solve {err_h}")
     emit({"phase": "precision_plans",
           **{f"{n} {case}": pl for (n, case), pl in path_plans.items()}})
+
+    # Phase 4f: the streamed-obs entries on phase 2's bf16 copy (512 MiB):
+    # the SolveBakF scores of all 1,024 features and a rank-256 correction
+    # of k 8 residuals, each held to its plain version on the same bf16
+    # tensor.  The score entry's norms widen x a chunk of rows at a time:
+    # its peak allocation must stay under a quarter of an fp32 copy of x.
+    x2b = p2.x_bf16_for(thr2)
+    x2b_blk = x2b[:thr2]
+    sync()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    scores_b = score_features_kernel(x2b, e_sc)
+    sync()
+    score_b_ms = (time.perf_counter() - t) * 1e3
+    score_b_peak = torch.cuda.max_memory_allocated() - held
+    t = time.perf_counter()
+    e8_b = block_update_kernel(x2b_blk, e8, da_bu)
+    sync()
+    bu_b_ms = (time.perf_counter() - t) * 1e3
+    inv2b = safe_inv(column_norms_sq_t(x2b))
+    err_scb = rel(scores_b, score_features_plain(x2b, e_sc, inv2b))
+    err_bub = rel(e8_b, block_update_plain(x2b_blk, e8, da_bu))
+    x2b_f = x2b.float()
+    err_norms = rel(column_norms_sq_t(x2b),
+                    torch.einsum("vo,vo->v", x2b_f, x2b_f))
+    del x2b_f
+    emit({"phase": "entries_bf16", "score_features_rel_err": err_scb,
+          "block_update_rel_err": err_bub,
+          "norms_rel_err_vs_whole_einsum": err_norms,
+          "score_features_ms": score_b_ms, "block_update_ms": bu_b_ms,
+          "score_features_peak_bytes": score_b_peak,
+          "fp32_copy_bytes": 4 * x2b.numel()})
+    check(err_scb <= BF16_KERNEL_TOL,
+          f"score_features_kernel on bf16 x: rel err {err_scb}")
+    check(err_bub <= BF16_KERNEL_TOL,
+          f"block_update_kernel on bf16 x: rel err {err_bub}")
+    check(score_b_peak <= x2b.numel(),
+          f"score_features_kernel on bf16 x: peak {score_b_peak} bytes, "
+          f"over a quarter of an fp32 copy of x")
+    check(bool(torch.isfinite(scores_b).all() and torch.isfinite(e8_b).all()
+               and scores_b.shape == (vars2,) and e8_b.shape == e8.shape),
+          "phase 4f: non-finite or misshapen entries")
     read_launches("phase_4_precision")
 
     # Phase 4e: benchmarks/solver_precision.py's gates, on the card, at
@@ -2061,16 +2107,18 @@ def main() -> int:
         return row
 
     def entry_case(name, kernel, plain_fn, library, library_label, nbytes,
-                   flops, iters, shape):
-        """A streamed-obs kernel against its plain version and the nearest
-        single PyTorch call (timed only; the port never calls it)."""
+                   flops, iters, shape, tol=KERNEL_TOL):
+        """A streamed-obs kernel against its plain version and the single
+        PyTorch call that computes the same function (timed only; the port
+        never calls it), where there is one (``library`` None: none, and
+        ``library_label`` says why)."""
         out_k, out_p = kernel(), plain_fn()
         sync()
         err = rel(out_k, out_p)
-        check(err <= KERNEL_TOL, f"{name}: rel err {err}")
+        check(err <= tol, f"{name}: rel err {err}")
         ms = cuda_ms(kernel, iters)
         plain = cuda_ms(plain_fn, iters)
-        lib = cuda_ms(library, iters)
+        lib = None if library is None else cuda_ms(library, iters)
         b_ms, b_by = bound(nbytes, flops)
         row = {"shape": shape, "max_abs_err": (out_k - out_p).abs().max()
                .item(), "rel_err": err, "ms": ms, "plain_ms": plain,
@@ -2292,7 +2340,7 @@ def main() -> int:
               "persweep_loop_ms": persweep_ms,
               "stream_solve_ms": stream_rows[nrhs]["ms"]})
 
-    # bf16 x (precision "bf16"): kernels 1, 2, 3, 4 and 7 at the shapes of
+    # bf16 x (precision "bf16"): every kernel at the shapes of
     # their fp32 rows and at every shape the precision path gave them, on
     # the handles' bf16 copies, each held to its plain version on the same
     # bf16 tensor and, at a precision-path shape, to the plan that path
@@ -2304,6 +2352,26 @@ def main() -> int:
     x4wb, inv4w = p4w.x_bf16_for(thr1), p4w.inv_cn_for(thr1)
     x4b, inv4 = p4.x_bf16_for(thr1), p4.inv_cn_for(thr1)
     rows["bakp_sweep_bf16"] = sweep_case("phase2_k8", x2b, inv2, k, thr2, 10)
+    # The streamed-obs kernels on phase 4f's inputs.  No single PyTorch
+    # call computes either from a bf16 x without rounding e or da to bf16
+    # (a bf16 torch.mv / addmm is another function), so no library time.
+    x2b_blk = x2b[:thr2]
+    rows["score_features_bf16"] = entry_case(
+        "score_features_bf16",
+        lambda: _score_features_cuda(x2b, e_sc, inv2b),
+        lambda: score_features_plain(x2b, e_sc, inv2b), None,
+        "none: torch.mv takes x and e in one dtype, so a bf16 x rounds e",
+        2 * vars2 * obs2 + 4 * (obs2 + 2 * vars2),
+        2 * vars2 * obs2 + 2 * vars2, 20, [vars2, obs2],
+        tol=BF16_KERNEL_TOL)
+    rows["block_update_bf16"] = entry_case(
+        "block_update_bf16",
+        lambda: _block_update_cuda(x2b_blk, e8, da_bu),
+        lambda: block_update_plain(x2b_blk, e8, da_bu), None,
+        "none: torch.addmm takes x and da in one dtype, so a bf16 x rounds "
+        "da and e",
+        2 * thr2 * obs2 + 4 * (2 * k * obs2 + thr2 * k),
+        2 * thr2 * obs2 * k, 20, [thr2, obs2, k], tol=BF16_KERNEL_TOL)
     for ktag, nrhs in (("k1", 1), ("k8", k)):
         sweep_case(f"phase3_{ktag}", x3b, inv3, nrhs, thr3, 10,
                    plain_iters=3, path_case=f"phase3_{ktag}")
@@ -4148,7 +4216,7 @@ def main() -> int:
         "stream_solve": ("stream_solve.cu",
                          "src/repro/kernels/stream_solve.py:87")}
     src_of.update({_build.launch_key(n, 2): src_of[n]
-                   for n in _build.X_KERNELS})
+                   for n in _build.SIGNATURES})
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": kernel_src + src_of[name][0],
          "replaces": src_of[name][1], "launches": launches[name],

@@ -188,6 +188,11 @@ def is_registered(name: str) -> bool:
     return name in _REGISTRY
 
 
+def batchable_methods() -> Tuple[str, ...]:
+    """Methods the serving engine may batch across designs."""
+    return tuple(n for n, e in _REGISTRY.items() if e.batchable)
+
+
 def shardable_methods() -> Tuple[str, ...]:
     """Methods with a mesh-sharded backend (serving placement eligibility)."""
     return tuple(n for n, e in _REGISTRY.items() if e.shardable)
@@ -201,6 +206,13 @@ def streaming_methods() -> Tuple[str, ...]:
 def methods_for_precision(precision: str) -> Tuple[str, ...]:
     """Methods whose entry supports ``precision``."""
     return tuple(n for n, e in _REGISTRY.items() if precision in e.precisions)
+
+
+def describe_methods() -> str:
+    """The registry, one ``name  summary`` line a method (CLI help text)."""
+    width = max((len(n) for n in _REGISTRY), default=0)
+    return "\n".join(f"{e.name:<{width}}  {e.summary}"
+                     for e in _REGISTRY.values())
 
 
 def ensure_precision_supported(spec: SolverSpec) -> MethodEntry:

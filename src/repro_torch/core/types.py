@@ -63,11 +63,24 @@ def column_norms_sq(x: torch.Tensor) -> torch.Tensor:
     return torch.einsum("ij,ij->j", xf, xf)
 
 
+# fp32 elements of a bf16 x_t that ``column_norms_sq_t`` widens at a time.
+_NORM_CHUNK_ELEMS = 1 << 24
+
+
 def column_norms_sq_t(x_t: torch.Tensor) -> torch.Tensor:
     """``column_norms_sq`` on the transposed (vars, obs) kernel layout: a
-    paper-"column" is a contiguous row, so the norms reduce over obs."""
-    xf = x_t.float()
-    return torch.einsum("vo,vo->v", xf, xf)
+    paper-"column" is a contiguous row, so the norms reduce over obs.  A
+    bf16 x_t is widened a chunk of rows (64 MiB of fp32) at a time, not
+    whole, as JAX's ``preferred_element_type`` einsum makes no fp32 copy."""
+    if x_t.dtype != torch.bfloat16:
+        xf = x_t.float()
+        return torch.einsum("vo,vo->v", xf, xf)
+    rows = max(1, _NORM_CHUNK_ELEMS // max(x_t.shape[1], 1))
+    out = torch.empty(x_t.shape[0], dtype=torch.float32, device=x_t.device)
+    for i in range(0, x_t.shape[0], rows):
+        xf = x_t[i:i + rows].float()
+        out[i:i + rows] = torch.einsum("vo,vo->v", xf, xf)
+    return out
 
 
 def safe_inv(cn: torch.Tensor) -> torch.Tensor:

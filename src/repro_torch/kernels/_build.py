@@ -11,8 +11,8 @@ exactly the libraries that compile it and the rest load as they are.
 
 Launch counts also live here: every wrapper adds one to
 ``LAUNCHES[launch_key(name, itemsize)]`` through ``count_launch`` once its
-kernel launched, and nowhere else; the five kernels that read x count
-their launches on a bf16 x apart (``"<name>_bf16"``).  A kernel whose
+kernel launched, and nowhere else; every kernel reads x and counts its
+launches on a bf16 x apart (``"<name>_bf16"``).  A kernel whose
 launch plan varies with the shape (the cluster kernels' regimes) records
 the plan of its last launch under the same key in ``PLANS``.  The serving
 engine's lanes launch from several threads at once, so the count is taken
@@ -51,8 +51,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _U = ctypes.c_uint
-# C signatures of every entry point, by library.  The kernels that read x
-# take it untyped, followed by its element size in bytes (4 fp32, 2 bf16).
+# C signatures of every entry point, by library.  Each kernel's launch takes
+# x untyped, followed by its element size in bytes (4 fp32, 2 bf16).
 SIGNATURES: Dict[str, Dict[str, list]] = {
     "bakp_sweep": {
         "bakp_sweep_clusters": [_I, _I, _I, _P],
@@ -74,10 +74,10 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         + [_I] * 3 + [_P],
     },
     "score_features": {
-        "score_features_launch": [_P] * 5 + [_I] * 4 + [_P],
+        "score_features_launch": [_P, _I] + [_P] * 4 + [_I] * 4 + [_P],
     },
     "block_update": {
-        "block_update_launch": [_P] * 4 + [_I] * 3 + [_P],
+        "block_update_launch": [_P, _I] + [_P] * 3 + [_I] * 3 + [_P],
     },
     "stream_solve": {
         "stream_solve_clusters": [_I, _I, _I, _P],
@@ -85,9 +85,7 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         + [_F] * 3 + [_I] * 4 + [_P],
     },
 }
-# The kernels that read x, in fp32 or bf16.
-X_KERNELS = ("bakp_sweep", "fused_solve", "bak_sweep", "bak_fused",
-             "stream_solve")
+
 
 class KernelError(RuntimeError):
     """A CUDA kernel failed to build, load or launch."""
@@ -118,11 +116,10 @@ def launch_key(name: str, itemsize: int = 4) -> str:
 
 def launch_counts(itemsize: int = 4) -> Dict[str, int]:
     """Launches per kernel on an x of ``itemsize`` bytes an element, by
-    ``launch_key``: every kernel for fp32, the x-reading ones for bf16."""
-    names = SIGNATURES if itemsize == 4 else X_KERNELS
+    ``launch_key``."""
     with _count_lock:
         return {launch_key(n, itemsize): LAUNCHES[launch_key(n, itemsize)]
-                for n in names}
+                for n in SIGNATURES}
 
 
 def reset_launch_counts() -> None:

@@ -10,20 +10,24 @@ and obs; those are TPU constraints, and the CUDA kernels mask their ragged
 edges themselves, so the port takes any vars and obs.
 
 Both wrappers follow the device of their tensors: CPU tensors run the
-plain version, CUDA tensors launch the kernel, anything else raises.
+plain version, CUDA tensors launch the kernel, anything else raises.  x is
+fp32 or bf16 (``cd_sweep.X_DTYPES``), as the Pallas kernels widen x as
+they load it; the kernels widen a bf16 x the same way and count its
+launches under ``"<name>_bf16"``.  The other operands are fp32.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.cd_sweep import SMEM_DA_LIMIT_BYTES
+from repro_torch.kernels.cd_sweep import SMEM_DA_LIMIT_BYTES, X_DTYPES
 
 # Warps the score kernel aims to keep in flight (32 per SM on 132 SMs);
 # with fewer feature rows than this, obs is split into chunks.
 _SCORE_TARGET_WARPS = 132 * 32
-# Obs per score chunk are a multiple of this (32 lanes x float4).
-_SCORE_CHUNK_ALIGN = 128
+# Bytes of x a warp loads in one step (32 lanes x 16 bytes): obs per score
+# chunk are a multiple of this over x's itemsize (128 fp32, 256 bf16).
+_SCORE_CHUNK_BYTES = 32 * 16
 
 
 def _on(name: str, x: torch.Tensor, *tensors) -> str:
@@ -44,11 +48,15 @@ def block_update_plain(x_t_blk, e2, da2):
     return e2.float() - da2.float().T @ x_t_blk.float()
 
 
+def _check_x(name: str, x: torch.Tensor) -> None:
+    if x.dtype not in X_DTYPES:
+        raise TypeError(f"{name} takes fp32 or bf16 x, got {x.dtype}")
+
+
 def _block_update_cuda(x_t_blk, e2, da2):
     cb, obs = x_t_blk.shape
     nrhs = e2.shape[0]
-    if x_t_blk.dtype != torch.float32:
-        raise TypeError(f"block_update takes fp32 x_t_blk, got {x_t_blk.dtype}")
+    _check_x("block_update", x_t_blk)
     if cb * nrhs * 4 > SMEM_DA_LIMIT_BYTES:
         raise ValueError(
             f"CB·k = {cb}·{nrhs} increments exceed the kernel's "
@@ -62,9 +70,10 @@ def _block_update_cuda(x_t_blk, e2, da2):
         e_out = torch.empty_like(e_in)
         stream = torch.cuda.current_stream(dev).cuda_stream
         _build.check(lib.block_update_launch(
-            x.data_ptr(), da.data_ptr(), e_in.data_ptr(), e_out.data_ptr(),
-            cb, obs, nrhs, stream), "block_update_launch")
-        _build.count_launch("block_update")
+            x.data_ptr(), x.element_size(), da.data_ptr(), e_in.data_ptr(),
+            e_out.data_ptr(), cb, obs, nrhs, stream), "block_update_launch")
+        _build.count_launch(_build.launch_key("block_update",
+                                              x.element_size()))
     return e_out
 
 
@@ -101,24 +110,24 @@ def score_features_plain(x_t, e, inv_cn):
     return g * g * inv_cn.float()
 
 
-def score_chunks(nvars: int, obs: int):
-    """``(chunk, nchunks)``: obs per chunk (a multiple of 128) and their
-    count, enough (row, chunk) warps to fill the card where vars alone is
-    too few."""
+def score_chunks(nvars: int, obs: int, itemsize: int = 4):
+    """``(chunk, nchunks)``: obs per chunk (a multiple of 128 for an fp32
+    x, 256 for a bf16 one of ``itemsize`` 2) and their count, enough (row,
+    chunk) warps to fill the card where vars alone is too few."""
+    align = _SCORE_CHUNK_BYTES // itemsize
     want = max(1, -(-_SCORE_TARGET_WARPS // max(nvars, 1)))
-    nchunks = max(1, min(want, -(-obs // _SCORE_CHUNK_ALIGN)))
+    nchunks = max(1, min(want, -(-obs // align)))
     chunk = -(-obs // nchunks)
-    chunk = -(-chunk // _SCORE_CHUNK_ALIGN) * _SCORE_CHUNK_ALIGN
+    chunk = -(-chunk // align) * align
     return chunk, -(-obs // chunk)
 
 
 def _score_features_cuda(x_t, e, inv_cn):
     nvars, obs = x_t.shape
-    if x_t.dtype != torch.float32:
-        raise TypeError(f"score_features takes fp32 x_t, got {x_t.dtype}")
+    _check_x("score_features", x_t)
     lib = _build.load("score_features")
     dev = x_t.device
-    chunk, nchunks = score_chunks(nvars, obs)
+    chunk, nchunks = score_chunks(nvars, obs, x_t.element_size())
     with torch.cuda.device(dev):
         x = x_t.contiguous()
         ev = e.float().contiguous()
@@ -128,10 +137,11 @@ def _score_features_cuda(x_t, e, inv_cn):
                            dtype=torch.float32, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         _build.check(lib.score_features_launch(
-            x.data_ptr(), ev.data_ptr(), inv.data_ptr(), out.data_ptr(),
-            part.data_ptr(), nvars, obs, chunk, nchunks, stream),
-            "score_features_launch")
-        _build.count_launch("score_features")
+            x.data_ptr(), x.element_size(), ev.data_ptr(), inv.data_ptr(),
+            out.data_ptr(), part.data_ptr(), nvars, obs, chunk, nchunks,
+            stream), "score_features_launch")
+        _build.count_launch(_build.launch_key("score_features",
+                                              x.element_size()))
     return out
 
 

@@ -254,6 +254,22 @@ def test_spec_and_registry_match_jax():
         T.SolverSpec(method="bakp_unregistered")
 
 
+def test_registry_listings_match_jax():
+    """``batchable_methods`` names JAX's methods in JAX's order, and
+    ``describe_methods`` lists every registered method on a line of its
+    own, in registration order, its name padded as JAX pads it."""
+    assert tspec.batchable_methods() == J.spec.batchable_methods()
+    assert tspec.batchable_methods() == tuple(
+        m for m in T.method_names() if T.solver_method(m).batchable)
+    lines = tspec.describe_methods().splitlines()
+    jlines = J.spec.describe_methods().splitlines()
+    assert len(lines) == len(T.method_names()) == len(jlines)
+    width = max(map(len, T.method_names()))
+    for line, jline, m in zip(lines, jlines, T.method_names()):
+        assert line == f"{m:<{width}}  {T.solver_method(m).summary}"
+        assert line[:width] == jline[:width]
+
+
 def test_every_fallback_resolves():
     """Each registered fallback names a registered method, and the
     degradation chains end at a direct method, as in the JAX registry."""

@@ -38,9 +38,9 @@ def cuda():
     return torch.device("cuda")
 
 
-def _within(a, b, scale=None):
+def _within(a, b, scale=None, tol=TOL):
     ref = (b if scale is None else scale).abs().max().item() or 1.0
-    return (a - b).abs().max().item() <= TOL * ref
+    return (a - b).abs().max().item() <= tol * ref
 
 
 def _system(seed, obs, nvars, k, device):
@@ -722,6 +722,93 @@ def test_bf16_stream_kernel_matches_plain(cuda, monkeypatch, k, obs, nvars,
     res = r.residual.T if multi else r.residual[None]
     assert _within(coef, pc) and _within(res, pe, scale=e0)
     assert _within(r.history, ph)
+
+
+def _bf16_rows(rng, rows, obs, cuda, offset=0):
+    """A (rows, obs) bf16 tensor on the card; ``offset`` > 0 starts it that
+    many elements into its storage, so its rows are not 16-byte aligned."""
+    x = torch.tensor(rng.normal(size=rows * obs + offset).astype(np.float32),
+                     device=cuda).to(torch.bfloat16)
+    return x[offset:].view(rows, obs)
+
+
+@pytest.mark.parametrize("nvars,obs,offset,vec,nchunks", [
+    (1024, 65536, 0, True, 5),      # 16-byte loads, chunks of 256-multiples
+    (8448, 4096, 0, True, 1),       # vars alone fills the card: one chunk
+    (300, 4100, 0, False, 9),       # obs % 8 == 4: no 16-byte loads
+    (7, 1001, 0, False, 4),         # odd obs
+    (300, 4096, 1, False, 8),       # rows 2 bytes off 16-byte alignment
+])
+def test_bf16_score_features_kernel_matches_plain(cuda, nvars, obs, offset,
+                                                  vec, nchunks):
+    """The score kernel on a bf16 x against its plain version on the same
+    bf16 tensor at 1e-5 (both widen it exactly), counted apart, and the
+    same bits from two launches."""
+    from repro_torch.kernels.block_update import score_chunks
+    rng = np.random.default_rng(68)
+    x_t = _bf16_rows(rng, nvars, obs, cuda, offset)
+    assert (x_t.data_ptr() % 16 == 0 and obs % 8 == 0) == vec
+    assert score_chunks(nvars, obs, 2)[1] == nchunks
+    e = torch.tensor(rng.normal(size=obs).astype(np.float32), device=cuda)
+    inv = 1.0 / (x_t.float() ** 2).sum(1)
+    n0, n32 = (_build.launch_counts(2)["score_features_bf16"],
+               _build.launch_counts()["score_features"])
+    s = score_features(x_t, e, inv)
+    assert _build.launch_counts(2)["score_features_bf16"] == n0 + 1
+    assert _build.launch_counts()["score_features"] == n32
+    assert s.dtype == torch.float32 and s.shape == (nvars,)
+    assert _within(s, score_features_plain(x_t, e, inv), tol=1e-5)
+    assert torch.equal(s, score_features(x_t, e, inv))
+    assert _within(score_features_kernel(x_t, e),
+                   score_features_plain(x_t, e, inv), tol=1e-5)
+
+
+@pytest.mark.parametrize("cb,k,obs,offset", [
+    (64, None, 65536, 0),   # 8-byte loads of 4 bf16 values
+    (64, 2, 65536, 0),
+    (64, 4, 4100, 0),       # obs % 8 == 4 still takes 8-byte loads
+    (64, 5, 65536, 0),      # KC 8 carrying 5 right-hand sides
+    (256, 8, 262144, 0),    # phase 2's block
+    (13, 3, 4100, 0),       # 13 rows: the unrolled row loop's remainder
+    (64, 8, 1001, 0),       # odd obs: the scalar path
+    (64, 8, 65536, 1),      # rows 2 bytes off 8-byte alignment
+    (6400, 8, 4096, 0),     # CB·k·4 at the shared-memory limit
+])
+def test_bf16_block_update_kernel_matches_plain(cuda, cb, k, obs, offset):
+    from repro_torch.kernels.cd_sweep import SMEM_DA_LIMIT_BYTES
+    rng = np.random.default_rng(69)
+    x_blk = _bf16_rows(rng, cb, obs, cuda, offset)
+    nrhs = 1 if k is None else k
+    assert cb * nrhs * 4 <= SMEM_DA_LIMIT_BYTES
+    shape_e = (obs,) if k is None else (k, obs)
+    e = torch.tensor(rng.normal(size=shape_e).astype(np.float32),
+                     device=cuda)
+    da = torch.tensor(rng.normal(size=(cb,) if k is None else (cb, k))
+                      .astype(np.float32), device=cuda)
+    n0, n32 = (_build.launch_counts(2)["block_update_bf16"],
+               _build.launch_counts()["block_update"])
+    out = block_update(x_blk, e, da)
+    assert _build.launch_counts(2)["block_update_bf16"] == n0 + 1
+    assert _build.launch_counts()["block_update"] == n32
+    want = block_update_plain(x_blk, e.reshape(-1, obs), da.reshape(cb, -1))
+    assert out.shape == e.shape and out.dtype == torch.float32
+    assert _within(out.reshape(-1, obs), want, scale=want, tol=1e-5)
+    assert torch.equal(out, block_update(x_blk, e, da))
+
+
+def test_bf16_streamed_obs_kernels_refuse_fp16_and_big_blocks(cuda):
+    from repro_torch.kernels.cd_sweep import SMEM_DA_LIMIT_BYTES
+    x = torch.zeros((64, 4096), dtype=torch.float16, device=cuda)
+    e = torch.zeros(4096, device=cuda)
+    with pytest.raises(TypeError, match="fp32 or bf16"):
+        score_features(x, e, torch.ones(64, device=cuda))
+    with pytest.raises(TypeError, match="fp32 or bf16"):
+        block_update(x, e, torch.zeros(64, device=cuda))
+    cb = SMEM_DA_LIMIT_BYTES // (4 * 8) + 1
+    with pytest.raises(ValueError, match="shared memory"):
+        block_update(torch.zeros((cb, 64), dtype=torch.bfloat16, device=cuda),
+                     torch.zeros((8, 64), device=cuda),
+                     torch.zeros((cb, 8), device=cuda))
 
 
 @pytest.mark.parametrize("kernel", ["fused_solve", "bak_fused",

@@ -502,22 +502,41 @@ def test_persweep_bak_matches_jax_solvebak(k):
 
 
 # ------------------------------------------------------ feature scores
-@pytest.mark.parametrize("nvars,obs", [(16, 256), (24, 1000)])
-def test_score_features_matches_jax(nvars, obs):
+# x is fp32 or bf16 in both packages: the bf16 x is rounded from the same
+# numpy fp32 values by each (``jnp.bfloat16``, ``torch.bfloat16``), and
+# both widen it exactly, so only the order of the fp32 sums differs.
+_X_DTYPES = {"fp32": (np.float32, torch.float32),
+             "bf16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def _x_pair(x, dtype):
+    """The same values as JAX's and the port's x of ``dtype``."""
+    jd, td = _X_DTYPES[dtype]
+    return jnp.asarray(x).astype(jd), torch.tensor(x).to(td)
+
+
+@pytest.mark.parametrize("nvars,obs,dtype", [
+    pytest.param(16, 256, "fp32", id="16-256"),
+    pytest.param(24, 1000, "fp32", id="24-1000"),
+    pytest.param(16, 256, "bf16", id="16-256-bf16"),
+    pytest.param(24, 1000, "bf16", id="24-1000-bf16")])
+def test_score_features_matches_jax(nvars, obs, dtype):
     rng = np.random.default_rng(38)
     x_t = rng.normal(size=(nvars, obs)).astype(np.float32)
     e = rng.normal(size=obs).astype(np.float32)
     inv = (1.0 / np.einsum("vo,vo->v", x_t, x_t)).astype(np.float32)
-    js = j_score_features(jnp.asarray(x_t), jnp.asarray(e), jnp.asarray(inv))
-    args = (torch.tensor(x_t), torch.tensor(e), torch.tensor(inv))
+    jx, tx = _x_pair(x_t, dtype)
+    js = j_score_features(jx, jnp.asarray(e), jnp.asarray(inv))
+    args = (tx, torch.tensor(e), torch.tensor(inv))
     scale = float(np.abs(np.asarray(js)).max())
     for s in (score_features(*args), score_features_plain(*args),
               ref_score_features(*args)):
+        assert s.dtype == torch.float32
         _close(s, js, rtol=1e-5, atol=1e-5 * scale)
     _close(ref_score_features(*args),
-           j_ref_score_features(*map(jnp.asarray, (x_t, e, inv))),
+           j_ref_score_features(jx, jnp.asarray(e), jnp.asarray(inv)),
            rtol=1e-5, atol=1e-5 * scale)
-    jk = j_score_features_kernel(jnp.asarray(x_t), jnp.asarray(e))
+    jk = j_score_features_kernel(jx, jnp.asarray(e))
     _close(score_features_kernel(args[0], args[1]), jk, rtol=1e-5,
            atol=1e-5 * scale)
 
@@ -537,27 +556,62 @@ def test_score_features_validation_and_chunks():
     assert score_chunks(5000, 300)[1] == 1
 
 
+@pytest.mark.parametrize("nvars,obs", [(1024, 262144), (7, 1001),
+                                       (5000, 300), (1, 5), (300, 4099)])
+def test_score_chunks_bf16_align_to_256(nvars, obs):
+    """A bf16 lane loads 8 values a step, a warp 256: a bf16 x's chunks
+    are 256-multiples, and they tile obs as the fp32 ones do."""
+    chunk, n = score_chunks(nvars, obs, 2)
+    assert chunk % 256 == 0 and (n - 1) * chunk < obs <= n * chunk
+    if (nvars, obs) == (1024, 262144):       # phase 2's design
+        assert (chunk, n) == score_chunks(nvars, obs) == (52480, 5)
+
+
+def test_column_norms_of_bf16_widen_by_row_chunks(monkeypatch):
+    """A bf16 x_t's norms are reduced a chunk of rows at a time (no fp32
+    copy of the whole x); one chunk or many, they sit within the fp32
+    rounding of 1,000 squares of the whole einsum and of JAX's
+    fp32-accumulated norms."""
+    import repro_torch.core.types as ttypes
+    from repro.core.types import column_norms_sq_t as j_norms_t
+    x = np.random.default_rng(44).normal(size=(37, 1000)).astype(np.float32)
+    jx, tx = _x_pair(x, "bf16")
+    whole = torch.einsum("vo,vo->v", tx.float(), tx.float())
+    one = ttypes.column_norms_sq_t(tx)
+    assert torch.equal(one, whole)
+    monkeypatch.setattr(ttypes, "_NORM_CHUNK_ELEMS", 5 * 1000)
+    many = ttypes.column_norms_sq_t(tx)
+    assert many.dtype == torch.float32 and many.shape == (37,)
+    _close(many, whole, rtol=1e-5, atol=0.0)
+    _close(many, j_norms_t(jx), rtol=1e-5, atol=0.0)
+
+
 # ---------------------------------------------------------- block update
-@pytest.mark.parametrize("k", [None, 1, 3])
-def test_block_update_matches_jax(k):
+@pytest.mark.parametrize("k,dtype", [
+    pytest.param(None, "fp32", id="None"), pytest.param(1, "fp32", id="1"),
+    pytest.param(3, "fp32", id="3"),
+    pytest.param(None, "bf16", id="None-bf16"),
+    pytest.param(1, "bf16", id="1-bf16"), pytest.param(3, "bf16", id="3-bf16")])
+def test_block_update_matches_jax(k, dtype):
     rng = np.random.default_rng(39)
     x_blk = rng.normal(size=(8, 512)).astype(np.float32)
     e = rng.normal(size=(512,) if k is None else (k, 512)).astype(np.float32)
     da = rng.normal(size=(8,) if k is None else (8, k)).astype(np.float32)
-    jb = j_block_update_k(jnp.asarray(x_blk), jnp.asarray(e),
-                          jnp.asarray(da))
-    args = (torch.tensor(x_blk), torch.tensor(e), torch.tensor(da))
+    jx, tx = _x_pair(x_blk, dtype)
+    tol = dict(rtol=1e-6, atol=1e-6) if dtype == "bf16" else TOL
+    jb = j_block_update_k(jx, jnp.asarray(e), jnp.asarray(da))
+    args = (tx, torch.tensor(e), torch.tensor(da))
     for out in (block_update(*args), block_update_kernel(*args),
                 ref_block_update(*args)):
-        assert tuple(out.shape) == jb.shape
-        _close(out, jb)
+        assert tuple(out.shape) == jb.shape and out.dtype == torch.float32
+        _close(out, jb, **tol)
     _close(ref_block_update(*args),
-           j_ref_block_update(*map(jnp.asarray, (x_blk, e, da))))
+           j_ref_block_update(jx, jnp.asarray(e), jnp.asarray(da)), **tol)
     _close(block_update_kernel(*args),
-           j_block_update_kernel(*map(jnp.asarray, (x_blk, e, da))))
+           j_block_update_kernel(jx, jnp.asarray(e), jnp.asarray(da)), **tol)
     e2 = args[1].reshape(-1, 512)
     _close(block_update_plain(args[0], e2, args[2].reshape(8, -1)),
-           np.asarray(jb).reshape(-1, 512))
+           np.asarray(jb).reshape(-1, 512), **tol)
 
 
 def test_block_update_validation():

@@ -468,9 +468,9 @@ class TestPlans:
         assert _build.launch_key("fused_solve", 4) == "fused_solve"
         assert _build.launch_key("fused_solve", 2) == "fused_solve_bf16"
         assert set(_build.launch_counts(2)) == {
-            n + "_bf16" for n in _build.X_KERNELS}
+            n + "_bf16" for n in _build.SIGNATURES}
         # One C entry a kernel: x untyped, then its element size.
-        for n in _build.X_KERNELS:
+        for n in _build.SIGNATURES:
             launch = [fn for fn in _build.SIGNATURES[n]
                       if fn.endswith("_launch")]
             assert len(launch) == 1
