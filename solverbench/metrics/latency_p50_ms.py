@@ -1,0 +1,8 @@
+"""Median submit-to-result time, on the harness's clock, of every request
+sent in the window and answered."""
+import numpy as np
+
+
+def read(run):
+    lat = [r.latency_s for r in run.requests if r.ok]
+    return float(np.percentile(lat, 50)) * 1e3 if lat else None
