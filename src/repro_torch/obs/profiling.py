@@ -1,24 +1,20 @@
-"""Profiler hooks — named regions in ``torch.profiler`` traces.
+"""Profiler hooks — a ``torch.profiler`` trace of the serving process.
 
 Counterpart of ``repro.obs.profiling``, where ``jax.profiler`` sat:
 ``start_profiling(trace_dir)`` opens a ``torch.profiler`` trace (CPU
 activity, plus CUDA activity where a card is present) that writes a
-TensorBoard / Perfetto-loadable trace into ``trace_dir`` on stop, and
-``profile_region(name)`` names a region on it with
-``torch.profiler.record_function`` and, on a card, an NVTX range
-(``torch.cuda.nvtx.range``), so engine flushes and solver calls show up
-named on the timeline.
+TensorBoard / Perfetto-loadable trace into ``trace_dir`` on stop.  It
+records every thread (``profile_all_threads``, where the torch build has
+it), so the spans the lanes and the dispatch thread open
+(``obs.span``, which opens a ``record_function`` and an NVTX range of its
+own while this trace records) show up named on the timeline.
 
-Inert when idle: ``profile_region`` is a bare ``yield`` unless a trace was
-started (or ``force=True``), and nothing at all under
-``REPRO_OBS_DISABLED=1``.  Without a card the NVTX half is skipped, so on
-the CPU a forced region only names the profiler's CPU events.  ``torch``
-is imported inside the functions.
+Nothing starts under ``REPRO_OBS_DISABLED=1``.  ``torch`` is imported
+inside the functions.
 """
 from __future__ import annotations
 
 import threading
-from contextlib import contextmanager
 from typing import Optional
 
 from repro_torch.obs import metrics as _metrics
@@ -31,6 +27,18 @@ _profiler = None
 def profiling_active() -> bool:
     """True between ``start_profiling`` and ``stop_profiling``."""
     return _trace_dir is not None
+
+
+def all_threads_config():
+    """The profiler's ``_ExperimentalConfig`` that records every thread, or
+    None where this torch build lacks ``profile_all_threads`` (there only
+    the starting thread's ranges are recorded)."""
+    try:
+        from torch._C._profiler import _ExperimentalConfig
+
+        return _ExperimentalConfig(profile_all_threads=True)
+    except (ImportError, TypeError):
+        return None
 
 
 def start_profiling(trace_dir: str) -> bool:
@@ -51,8 +59,11 @@ def start_profiling(trace_dir: str) -> bool:
         acts = [ProfilerActivity.CPU]
         if torch.cuda.is_available():
             acts.append(ProfilerActivity.CUDA)
+        config = all_threads_config()
         prof = profile(activities=acts,
-                       on_trace_ready=tensorboard_trace_handler(trace_dir))
+                       on_trace_ready=tensorboard_trace_handler(trace_dir),
+                       **({} if config is None
+                          else {"experimental_config": config}))
         prof.start()
         _profiler, _trace_dir = prof, trace_dir
     return True
@@ -68,19 +79,3 @@ def stop_profiling() -> Optional[str]:
         _profiler.stop()
         out, _trace_dir, _profiler = _trace_dir, None, None
     return out
-
-
-@contextmanager
-def profile_region(name: str, force: bool = False):
-    """Name a region on the trace timeline (see module doc)."""
-    if not _metrics.enabled() or (_trace_dir is None and not force):
-        yield
-        return
-    import torch
-
-    with torch.profiler.record_function(name):
-        if torch.cuda.is_available():
-            with torch.cuda.nvtx.range(name):
-                yield
-        else:
-            yield

@@ -10,11 +10,25 @@ engine synchronises the lane's CUDA stream (``sync_device``) before it
 reads the clock again.
 
 **Spans.** ``Tracer.span("engine.flush", bucket=..., method=...)`` is a
-context manager recording wall time, nesting (per-thread stack → parent
-name + depth) and free-form tags into an in-memory ring buffer, with an
-optional JSONL sink for offline analysis.  Spans are for *structure* (what
-called what, where the time went inside one flush); the aggregate story
-lives in the metrics registry.
+context manager recording wall time on ``now()``, nesting (per-thread
+stack → ``parent_id`` and depth; every span gets a ``span_id``) and
+free-form tags into an in-memory ring buffer.  A span inherits the link
+tags ``batch`` (the dispatcher's sequence number of the fired batch it
+serves) and ``request_id`` from its parent, so the dispatch thread's and a
+lane's spans of one batch or request can be joined.  ``Tracer.dropped``
+counts spans the ring pushed out; its default room holds a few minutes
+of a busy server's spans, and ``Tracer.reserve`` gives it more.  While the
+program's own trace records (``obs.start_profiling``, which records every
+thread), each span also opens a ``record_function`` range of its name,
+and an NVTX range on a card; under a profiler someone else started, which
+records only its own thread, a span opens nothing.
+
+**The clock map.** The profiler stamps host events in Unix-epoch
+nanoseconds, not on ``now()``.  The tracer keeps an anchor, a
+``(time.perf_counter_ns(), time.time_ns())`` pair read back to back
+(the tightest of a few tries), taken when it is built or cleared;
+``Tracer.unix_ns`` maps a span's times onto the profiler's timeline
+through it.
 
 **SolveTelemetry.** One record per served request — who (tenant), where
 (bucket, kernel path, lane), how (warm/cold, batch kind/size), and outcome
@@ -32,7 +46,8 @@ serving engine pops with ``consume_dispatch``.
 """
 from __future__ import annotations
 
-import json
+import contextlib
+import itertools
 import threading
 import time
 from collections import Counter, deque
@@ -41,10 +56,14 @@ from dataclasses import asdict, dataclass, field
 from typing import Any, Dict, List, Optional, Tuple
 
 from repro_torch.obs import metrics as _metrics
+from repro_torch.obs import profiling as _profiling
 
 #: The single serving clock (seconds, monotonic, highest resolution
 #: available).  Compare/subtract only against other ``now()`` readings.
 now = time.perf_counter
+
+#: Tags a span takes from its parent unless it sets them itself.
+LINK_TAGS = ("batch", "request_id")
 
 
 def sync_device(device) -> None:
@@ -57,15 +76,30 @@ def sync_device(device) -> None:
         torch.cuda.current_stream(device).synchronize()
 
 
+def clock_anchor(tries: int = 16) -> Tuple[int, int]:
+    """A ``(perf_counter_ns, time_ns)`` pair read at one instant: of
+    ``tries`` back-to-back brackets ``perf, unix, perf``, the tightest,
+    with the two perf readings averaged."""
+    best = None
+    for _ in range(tries):
+        p0 = time.perf_counter_ns()
+        unix = time.time_ns()
+        p1 = time.perf_counter_ns()
+        if best is None or p1 - p0 < best[0]:
+            best = (p1 - p0, (p0 + p1) // 2, unix)
+    return best[1], best[2]
+
+
 @dataclass
 class SpanRecord:
-    """One completed (or still-open) span."""
+    """One completed (or still-open) span; times are ``now()`` readings."""
 
     name: str
     t_start: float
     t_end: Optional[float] = None
     tags: Dict[str, Any] = field(default_factory=dict)
-    parent: Optional[str] = None
+    span_id: int = 0
+    parent_id: Optional[int] = None
     depth: int = 0
     thread: str = ""
 
@@ -89,37 +123,52 @@ def _jsonable(v):
     return str(v)
 
 
+def _profiler_range(name: str):
+    """A ``record_function`` (plus, on a card, an NVTX) range of ``name``
+    while ``obs.start_profiling``'s trace records; None otherwise."""
+    if not _profiling.profiling_active():
+        return None
+    import torch
+
+    ctx = contextlib.ExitStack()
+    ctx.enter_context(torch.profiler.record_function(name))
+    if torch.cuda.is_available():
+        ctx.enter_context(torch.cuda.nvtx.range(name))
+    return ctx
+
+
 class Tracer:
     """Ring-buffered span recorder with per-thread nesting.
 
-    ``capacity`` bounds memory (old spans are dropped, newest kept);
-    ``jsonl_path`` (or a later ``set_sink``) additionally appends one JSON
-    object per completed span.  Thread-safe: the ring and sink share one
-    lock; the nesting stack is thread-local, so spans on different threads
-    never see each other as parents.
+    ``capacity`` bounds memory: the oldest spans are pushed out (counted
+    in ``dropped``), the newest kept; ``reserve`` grows it.  The default,
+    2^16 spans (about 28 MB), holds about four minutes of a server that
+    records 280 spans a second (~27 single solves a second).  Thread-safe:
+    the ring shares one lock; the nesting stack is thread-local, so spans
+    on different threads never see each other as parents (the link tags
+    join them).
     """
 
-    def __init__(self, capacity: int = 2048,
-                 jsonl_path: Optional[str] = None):
+    def __init__(self, capacity: int = 1 << 16):
         self._lock = threading.Lock()
         self._ring: deque = deque(maxlen=capacity)
         self._local = threading.local()
-        self._sink = None
-        if jsonl_path:
-            self.set_sink(jsonl_path)
+        self._ids = itertools.count(1)
+        self.dropped = 0
+        self.anchor = clock_anchor()
 
-    # ------------------------------------------------------------- sink
-    def set_sink(self, path: Optional[str]) -> None:
-        """Point the JSONL sink at ``path`` (None closes it)."""
+    def reserve(self, capacity: int) -> None:
+        """Let the ring hold at least ``capacity`` spans (what it holds
+        stays): room for every span of a measured window."""
         with self._lock:
-            if self._sink is not None:
-                self._sink.close()
-                self._sink = None
-            if path:
-                self._sink = open(path, "a", encoding="utf-8")
+            if capacity > self._ring.maxlen:
+                self._ring = deque(self._ring, maxlen=capacity)
 
-    def close(self) -> None:
-        self.set_sink(None)
+    def unix_ns(self, t: float) -> int:
+        """A ``now()`` reading on the profiler's Unix-epoch ns timeline,
+        through the anchor."""
+        perf_ns, unix_ns = self.anchor
+        return unix_ns + round(t * 1e9) - perf_ns
 
     # ------------------------------------------------------------ record
     @contextmanager
@@ -132,23 +181,31 @@ class Tracer:
         stack: List[SpanRecord] = getattr(self._local, "stack", None)
         if stack is None:
             stack = self._local.stack = []
+        tags = {k: _jsonable(v) for k, v in tags.items()}
+        parent = stack[-1] if stack else None
+        if parent is not None:
+            for k in LINK_TAGS:
+                if k in parent.tags and k not in tags:
+                    tags[k] = parent.tags[k]
         rec = SpanRecord(
-            name=name, t_start=now(),
-            tags={k: _jsonable(v) for k, v in tags.items()},
-            parent=stack[-1].name if stack else None,
+            name=name, t_start=now(), tags=tags, span_id=next(self._ids),
+            parent_id=parent.span_id if parent is not None else None,
             depth=len(stack), thread=threading.current_thread().name)
+        ranges = _profiler_range(name)
         stack.append(rec)
         try:
-            yield rec
+            if ranges is None:
+                yield rec
+            else:
+                with ranges:
+                    yield rec
         finally:
             rec.t_end = now()
             stack.pop()
             with self._lock:
+                if len(self._ring) == self._ring.maxlen:
+                    self.dropped += 1
                 self._ring.append(rec)
-                if self._sink is not None:
-                    json.dump(rec.as_dict(), self._sink)
-                    self._sink.write("\n")
-                    self._sink.flush()
 
     # ------------------------------------------------------------- reads
     def spans(self, name: Optional[str] = None) -> List[SpanRecord]:
@@ -160,20 +217,33 @@ class Tracer:
         return out
 
     def clear(self) -> None:
+        """Empty the ring, zero ``dropped`` and take a fresh clock anchor."""
         with self._lock:
             self._ring.clear()
+            self.dropped = 0
+        self.anchor = clock_anchor()
+
+
+def self_seconds(spans: List[SpanRecord]) -> Dict[int, float]:
+    """Each completed span's own time: its duration less its children's
+    (by ``parent_id``, among ``spans``), keyed by ``span_id``."""
+    own = {s.span_id: s.duration_s for s in spans if s.t_end is not None}
+    for s in spans:
+        if s.parent_id in own and s.t_end is not None:
+            own[s.parent_id] -= s.duration_s
+    return own
 
 
 _tracer = Tracer()
 
 
 def get_tracer() -> Tracer:
-    """The process-global tracer (ring buffer + optional JSONL sink)."""
+    """The process-global tracer (ring buffer)."""
     return _tracer
 
 
 def span(name: str, **tags):
-    """``get_tracer().span(...)`` — the standard instrumentation call."""
+    """``get_tracer().span(...)`` — the port's one instrumentation call."""
     return _tracer.span(name, **tags)
 
 
@@ -242,8 +312,9 @@ class SolveTelemetry:
     outgrew the on-chip budget reports ``xla``), which ``method`` alone
     cannot show.
 
-    ``queue_wait_s`` and ``deadline_margin_s`` belong to the async
-    dispatcher, which the port does not have yet; they stay None.
+    ``queue_wait_s`` (submit → fire) and ``deadline_margin_s`` are set by
+    the async dispatcher (``serve.dispatch.SolveTicket``) when the ticket
+    completes; a request served by the engine alone leaves them None.
     ``solve_s`` ends after the lane's stream was synchronised.
     ``retries`` counts the retry-ladder steps the request's solve took.
     """

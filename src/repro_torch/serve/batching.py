@@ -22,6 +22,7 @@ same buckets, the same groups and the same intra-group ordering.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -30,6 +31,7 @@ import torch
 import repro_torch.core.methods  # noqa: F401  (populates the registry)
 from repro_torch.core.prepare import design_fingerprint as _core_fingerprint
 from repro_torch.core.spec import SolverSpec, method_names, solver_method
+from repro_torch.obs import span
 from repro_torch.serve.types import SolveRequest
 
 Bucket = Tuple[int, int]
@@ -61,6 +63,7 @@ def prepare_request(req: SolveRequest, *,
     tensor ``x`` stays where it is: a design already on the card is not
     copied to the host, and the design cache builds from it on a miss
     (only a missing ``design_key`` makes the fingerprint read its bytes).
+    A ``y`` on a card is copied to the host in a ``serve.y_to_host`` span.
     With ``fingerprint=True`` the design is hashed here too.  Idempotent:
     a prepared request passes through unchanged.
 
@@ -73,7 +76,11 @@ def prepare_request(req: SolveRequest, *,
     x = req.x
     if x.ndim != 2:
         raise ValueError(f"request x must be 2D (obs, vars), got {x.shape}")
-    y = req.y = _host(req.y)
+    y = req.y
+    on_card = isinstance(y, torch.Tensor) and y.device.type != "cpu"
+    with (span("serve.y_to_host", bytes=y.numel() * y.element_size())
+          if on_card else contextlib.nullcontext()):
+        y = req.y = _host(y)
     if y.ndim != 1 or y.shape[0] != x.shape[0]:
         raise ValueError(
             f"request y must be (obs,) matching x rows, got {y.shape} "

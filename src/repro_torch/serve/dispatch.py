@@ -165,9 +165,13 @@ class SolveTicket:
 
     ``result()`` blocks until the solve lands (or raises on timeout /
     dispatcher failure).  Timing fields are filled in as the request moves
-    through the pipeline: ``submitted_at`` → ``fired_at`` → ``completed_at``
-    (``repro_torch.obs.now()`` values — the single serving clock, so queue wait
-    and engine solve time compose); ``deadline`` is absolute or None.
+    through the pipeline: ``submitted_at`` → ``fired_at`` → ``started_at``
+    (its lane began the batch) → ``completed_at`` (``repro_torch.obs.now()``
+    values — the single serving clock, so queue wait, lane wait and engine
+    solve time compose); ``deadline`` is absolute or None.  At the fire
+    the ticket also gets ``fire_reason`` (``full`` / ``idle`` /
+    ``deadline`` / ``drain``) and ``batch``, the dispatcher's sequence
+    number of the fire, which every span of the batch carries.
     """
 
     def __init__(self, request: SolveRequest, deadline: Optional[float],
@@ -176,6 +180,9 @@ class SolveTicket:
         self.deadline = deadline
         self.submitted_at = obs.now()
         self.fired_at: Optional[float] = None
+        self.started_at: Optional[float] = None
+        self.fire_reason: Optional[str] = None
+        self.batch: Optional[int] = None
         self.completed_at: Optional[float] = None
         self.deadline_met: Optional[bool] = None
         self._event = threading.Event()
@@ -244,6 +251,13 @@ class SolveTicket:
         if self.fired_at is None:
             return None
         return self.fired_at - self.submitted_at
+
+    @property
+    def lane_wait_s(self) -> Optional[float]:
+        """Fire → the lane began the batch (None until it began)."""
+        if self.started_at is None or self.fired_at is None:
+            return None
+        return self.started_at - self.fired_at
 
     @property
     def telemetry(self):
@@ -342,6 +356,7 @@ class AsyncDispatcher:
         self._abandon = False       # stop(drain=False): fail, don't serve
         self._started = False
         self._seq = 0
+        self._batch_seq = 0         # fires so far (dispatch-thread only)
         # Dispatch-thread-only state.
         self._pending: "Dict[Tuple, _PendingBatch]" = {}
         # Fired batches live on the engine's execution lanes; this maps each
@@ -573,7 +588,8 @@ class AsyncDispatcher:
                 return
 
     def _admit(self, ticket: SolveTicket) -> None:
-        """Normalise + fingerprint one request and join it to its batch.
+        """Normalise + fingerprint one request and join it to its batch,
+        in a ``dispatch.admit`` span.
 
         This is the host-side work that overlaps in-flight device solves:
         validation, design hashing and (optionally) design-cache pre-warm
@@ -583,6 +599,10 @@ class AsyncDispatcher:
         """
         if ticket._cancelled:
             return  # cancel() already settled and accounted the ticket
+        with obs.span("dispatch.admit", request_id=ticket.request.request_id):
+            self._admit_traced(ticket)
+
+    def _admit_traced(self, ticket: SolveTicket) -> None:
         req = ticket.request
         try:
             prepare_request(req, fingerprint=True)
@@ -666,8 +686,11 @@ class AsyncDispatcher:
                     live = [t for t in chunk if not t._cancelled]
                     for t in live:
                         t.fired_at = now
+                        t.fire_reason = why
+                        t.batch = self._batch_seq
                 if not live:
                     continue
+                self._batch_seq += 1
                 setattr(self.stats, f"fired_{why}",
                         getattr(self.stats, f"fired_{why}") + 1)
                 self._m_fired.inc(1, reason=why)
@@ -699,29 +722,44 @@ class AsyncDispatcher:
                 claimed[0] = True
                 return True
 
+        head = tickets[0]
+
         def run() -> None:
             if not try_claim():
                 return
+            started = obs.now()
+            for t in tickets:
+                t.started_at = started
+            served = None
             if self._abandon:
                 for t in tickets:
                     t._fail(DispatcherStopped("dispatcher stopped"))
             else:
                 try:
                     with obs.span("dispatch.solve_batch", size=len(tickets),
-                                  lane=lane.label):
+                                  lane=lane.label, batch=head.batch,
+                                  fire_reason=head.fire_reason,
+                                  lane_wait_s=head.lane_wait_s):
                         served = self.engine.serve(
                             [t.request for t in tickets])
-                    for ticket, result in zip(tickets, served):
-                        # A broken kernel fails the ticket with its error.
-                        kerr = result.extra.get("kernel_error")
-                        if kerr is not None:
-                            ticket._fail(kerr)
-                        else:
-                            ticket._complete(result)
                 except Exception as exc:  # engine failure: fail the batch
                     for ticket in tickets:
                         ticket._fail(exc)
-            self._on_complete(tickets)
+            with obs.span("dispatch.complete", batch=head.batch):
+                if served is not None:
+                    try:
+                        for ticket, result in zip(tickets, served):
+                            # A broken kernel fails the ticket with its
+                            # error.
+                            kerr = result.extra.get("kernel_error")
+                            if kerr is not None:
+                                ticket._fail(kerr)
+                            else:
+                                ticket._complete(result)
+                    except Exception as exc:
+                        for ticket in tickets:
+                            ticket._fail(exc)
+                self._on_complete(tickets)
             with self._works_lock:
                 self._works.pop(work, None)
 

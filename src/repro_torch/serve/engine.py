@@ -83,7 +83,7 @@ import numpy as np
 import torch
 
 from repro_torch import obs
-from repro_torch.core.prepare import PreparedDesign, resolve_device
+from repro_torch.core.prepare import PreparedDesign, as_f32, resolve_device
 from repro_torch.core.spec import SolverSpec, solver_method
 from repro_torch.kernels._build import KernelError
 from repro_torch.kernels.fused_solve import fused_fits
@@ -196,6 +196,12 @@ def _host(v) -> np.ndarray:
     if isinstance(v, torch.Tensor):
         return v.detach().cpu().numpy()
     return np.asarray(v)
+
+
+def _nbytes(v) -> int:
+    if isinstance(v, torch.Tensor):
+        return v.numel() * v.element_size()
+    return np.asarray(v).nbytes
 
 
 class SolverServeEngine:
@@ -412,8 +418,7 @@ class SolverServeEngine:
         with self._stats_lock:
             self.stats.requests += len(requests)
         self._m_requests.inc(len(requests))
-        with obs.span("engine.flush", requests=len(requests)), \
-                obs.profile_region("engine.flush"):
+        with obs.span("engine.flush", requests=len(requests)):
             return self._flush(requests)
 
     def _flush(self, requests: List[SolveRequest]) -> List[ServedSolve]:
@@ -624,14 +629,24 @@ class SolverServeEngine:
         """One (possibly multi-RHS) solve on the prepared design, with the
         padding-corrected ``atol`` (``spec.atol`` itself must not be used)
         and, on a 2-D mesh placement, the engine's ``omega_2d``.  ``y`` /
-        ``a0`` are host arrays; the handle copies them to the device on the
-        lane's stream."""
+        ``a0`` are host arrays; ``y`` is copied to the device on the lane's
+        stream (``design.y_to_device``) before the ``engine.call`` span,
+        the handle copies ``a0`` inside it."""
         eff = spec.replace(atol=atol)
         if placement is not None and placement.kind == "mesh_2d":
             eff = eff.replace(omega=self.config.omega_2d)
-        with obs.profile_region(f"solve/{eff.method}"):
-            return entry.solve(y, a0, spec=eff, placement=placement,
+        with obs.span("design.y_to_device", bytes=np.size(y) * 4):
+            y_dev = as_f32(y, entry.device)
+        with obs.span("engine.call", method=eff.method):
+            return entry.solve(y_dev, a0, spec=eff, placement=placement,
                                mesh=self.mesh)
+
+    def _to_host(self, *outs) -> List[np.ndarray]:
+        """Solve outputs as host arrays, in one ``engine.result_to_host``
+        span."""
+        with obs.span("engine.result_to_host",
+                      bytes=sum(_nbytes(v) for v in outs)):
+            return [_host(v) for v in outs]
 
     def _sync(self, entry: PreparedDesign, placement) -> None:
         """Wait for a solve's device work: the entry's device, or every
@@ -723,7 +738,8 @@ class SolverServeEngine:
                 faults.maybe_raise("solver.raise", cur.method)
                 res = self._call_solver(cur, cur_entry, y, atol, a0=cur_a0,
                                         placement=cur_place)
-                self._sync(cur_entry, cur_place)
+                with obs.span("engine.sync"):
+                    self._sync(cur_entry, cur_place)
             except KernelError:
                 raise  # a broken kernel is a fault, not a rung to step past
             except Exception as e:
@@ -935,8 +951,7 @@ class SolverServeEngine:
             dt = obs.now() - t0
         path = self._record_solve(fspec, fplace, "multi_rhs", k, dt)
         with obs.span("engine.strip", kind="multi_rhs", k=k):
-            coef = _host(res.coef)
-            resid = _host(res.residual)
+            coef, resid = self._to_host(res.coef, res.residual)
             n_sweeps, converged = int(res.n_sweeps), bool(res.converged)
             if not diverged:
                 self._retain(fentry, [requests[i] for i in idxs], res.coef)
@@ -1020,7 +1035,12 @@ class SolverServeEngine:
                       lane=lane.label if lane is not None else "inline"):
             t0 = obs.now()
             faults.maybe_raise("solver.raise", f"vmap:{spec.method}")
-            with obs.profile_region(f"solve/vmap/{spec.method}"):
+            h2d = ys_h.nbytes + (0 if a0_mat is None else a0_mat.nbytes)
+            with obs.span("design.y_to_device", bytes=h2d):
+                ys = torch.from_numpy(ys_h).to(dev)
+                a0_dev = (None if a0_mat is None
+                          else torch.from_numpy(a0_mat).to(dev))
+            with obs.span("engine.call", method=spec.method):
                 xs = torch.stack([e.x_pad for _, e, _, _ in singles])
                 if mentry.blocked:
                     cns = torch.stack(
@@ -1032,11 +1052,8 @@ class SolverServeEngine:
                     chols = torch.stack(
                         [e.chol_for(spec.thr, spec.ridge)
                          for _, e, _, _ in singles])
-                res = solver(
-                    xs, torch.from_numpy(ys_h).to(dev), cns, atols,
-                    chols=chols,
-                    a0s=None if a0_mat is None
-                    else torch.from_numpy(a0_mat).to(dev))
+                res = solver(xs, ys, cns, atols, chols=chols, a0s=a0_dev)
+            with obs.span("engine.sync"):
                 obs.sync_device(dev)
             dt = obs.now() - t0
         forced = faults.hit("solver.diverge", f"vmap:{spec.method}")
@@ -1045,8 +1062,7 @@ class SolverServeEngine:
         obs.consume_dispatch()
         path = self._record_solve(spec, None, "vmap", b, dt, path="vmap")
         with obs.span("engine.strip", kind="vmap", b=b):
-            coef = _host(res.coef)
-            resid = _host(res.residual)
+            coef, resid = self._to_host(res.coef, res.residual)
             conv_b = _host(res.converged)
             hist_b = _host(res.history).astype(np.float32)
             sweeps_b = _host(res.n_sweeps)
@@ -1108,8 +1124,9 @@ class SolverServeEngine:
         with obs.span("engine.strip", kind="single", k=1):
             if not diverged:
                 self._retain(fentry, [req], res.coef[:, None])
+            coef, resid = self._to_host(res.coef, res.residual)
             results[idx] = self._strip(
-                req, _host(res.coef), _host(res.residual), bucket=bucket,
+                req, coef, resid, bucket=bucket,
                 kind="single", group_size=1, latency=dt, hit=hit,
                 n_sweeps=int(res.n_sweeps), converged=bool(res.converged),
                 warm=a0_used is not None, a0_source=a0_source,

@@ -637,3 +637,116 @@ class TestFlushExceptionSafety:
             outs.append(good_r)
             eng.shutdown()
         _agree(outs[0], outs[1], y)
+
+
+# ------------------------------------------------------------------ spans
+class TestSpans:
+    """The port's own spans and ticket stamps (the JAX dispatcher has
+    none to compare): ``batch`` and ``request_id`` join the dispatch
+    thread's intake to the lane's engine spans of the same fire."""
+
+    @pytest.fixture(autouse=True)
+    def _tracer(self):
+        prev = obs.set_enabled(True)
+        tr = obs.get_tracer()
+        tr.reserve(8192)
+        tr.clear()
+        yield tr
+        obs.set_enabled(prev)
+
+    def test_spans_link_intake_to_the_engine(self, rng, _tracer):
+        import torch
+
+        xd, _, _ = make_system(rng, 64, 8)
+        xe, _, _ = make_system(rng, 64, 8)
+        ys = [torch.from_numpy(np.asarray(y, np.float32)) for y in
+              (xd @ rng.normal(size=8), xd @ rng.normal(size=8),
+               xe @ rng.normal(size=8), xe @ rng.normal(size=8))]
+        eng = _engine()
+        with AsyncDispatcher(eng, DispatchConfig(
+                max_batch=4, idle_timeout_s=1e9)) as disp:
+            tickets = [disp.submit(_req(x, y, design_key=k))
+                       for x, y, k in zip((xd, xd, xe, xe), ys,
+                                          ("d", "d", "e", "e"))]
+            served = [t.result(timeout=120) for t in tickets]
+        eng.shutdown()
+        assert all(r.ok for r in served)
+        batch = tickets[0].batch
+        assert {t.batch for t in tickets} == {batch}
+        for t, r in zip(tickets, served):
+            assert t.fire_reason == "full"
+            assert t.submitted_at <= t.fired_at <= t.started_at
+            assert t.started_at <= t.completed_at
+            assert t.lane_wait_s >= 0
+        spans = _tracer.spans()
+        by_id = {s.span_id: s for s in spans}
+        # Intake: one admit a request on the dispatch thread; y is in host
+        # memory already, so no copy to the host opens inside it.
+        for t in tickets:
+            rid = t.request.request_id
+            admit = [s for s in spans if s.name == "dispatch.admit"
+                     and s.tags["request_id"] == rid]
+            assert len(admit) == 1
+            assert admit[0].thread == "serve-dispatch"
+        assert not _tracer.spans("serve.y_to_host")
+        # The fire: every span of the batch carries its number, and all
+        # but the fan-out descend from the lane's solve_batch span.
+        mine = [s for s in spans if s.tags.get("batch") == batch]
+        names = [s.name for s in mine]
+        for name, n in (("dispatch.solve_batch", 1), ("engine.flush", 1),
+                        ("engine.fingerprint", 1), ("engine.group", 1),
+                        ("engine.design", 2), ("engine.pad", 2),
+                        ("engine.solve", 2), ("design.y_to_device", 2),
+                        ("engine.call", 2), ("engine.sync", 2),
+                        ("engine.strip", 2), ("engine.result_to_host", 2),
+                        ("dispatch.complete", 1)):
+            assert names.count(name) == n, (name, names)
+        root = next(s for s in mine if s.name == "dispatch.solve_batch")
+        assert root.tags["fire_reason"] == "full"
+        assert root.tags["size"] == 4
+        assert root.tags["lane_wait_s"] == pytest.approx(
+            tickets[0].lane_wait_s)
+        for s in mine:
+            if s.name in ("dispatch.solve_batch", "dispatch.complete"):
+                continue
+            up = s
+            while up.parent_id is not None:
+                up = by_id[up.parent_id]
+            assert up is root, s.name
+        for s in mine:
+            if s.name == "engine.call":
+                assert by_id[s.parent_id].name == "engine.solve"
+                assert s.tags["method"] == "bakp_gram"
+            if s.name == "engine.result_to_host":
+                assert by_id[s.parent_id].name == "engine.strip"
+        # The copy spans carry their bytes: two (64, 2) fp32 y in, each
+        # group's (8, 2) coefficients and (64, 2) residuals out.
+        def tagged(name):
+            return sum(s.tags["bytes"] for s in mine if s.name == name)
+
+        assert tagged("design.y_to_device") == 2 * 64 * 2 * 4
+        assert tagged("engine.result_to_host") == 2 * (8 * 2 + 64 * 2) * 4
+        assert _tracer.dropped == 0
+
+    def test_fire_reason_and_batch_numbers(self, rng, _tracer):
+        x, y, _ = make_system(rng, 40, 4)
+        eng = _engine()
+        with AsyncDispatcher(eng, DispatchConfig(
+                max_batch=8, idle_timeout_s=0.005)) as disp:
+            idle = disp.submit(_req(x, y, design_key="d"))
+            idle.result(timeout=120)
+            disp.config.idle_timeout_s = 1e9
+            late = [disp.submit(_req(x, y, design_key="d"))
+                    for _ in range(2)]
+            disp.drain()
+            [t.result(timeout=120) for t in late]
+        eng.shutdown()
+        assert idle.fire_reason == "idle"
+        assert [t.fire_reason for t in late] == ["drain", "drain"]
+        assert late[0].batch == late[1].batch == idle.batch + 1
+        assert disp.stats.fired_idle == 1 and disp.stats.fired_drain == 1
+        for t in [idle] + late:
+            assert t.lane_wait_s is not None and t.lane_wait_s >= 0
+        reasons = {s.tags["batch"]: s.tags["fire_reason"]
+                   for s in _tracer.spans("dispatch.solve_batch")}
+        assert reasons == {idle.batch: "idle", late[0].batch: "drain"}

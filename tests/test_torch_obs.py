@@ -14,6 +14,7 @@ import json
 import math
 import re
 import threading
+import time
 import urllib.error
 import urllib.request
 
@@ -208,13 +209,59 @@ class TestTracing:
         tr = obs.Tracer(capacity=16)
         with tr.span("outer", bucket="64x8"):
             with tr.span("inner", step=1):
+                with tr.span("leaf"):
+                    pass
+            with tr.span("sibling"):
                 pass
         spans = {s.name: s for s in tr.spans()}
-        assert spans["inner"].parent == "outer"
-        assert spans["inner"].depth == 1
-        assert spans["outer"].parent is None
+        ids = [s.span_id for s in spans.values()]
+        assert len(set(ids)) == 4 and all(i > 0 for i in ids)
+        assert spans["inner"].parent_id == spans["outer"].span_id
+        assert spans["leaf"].parent_id == spans["inner"].span_id
+        assert spans["sibling"].parent_id == spans["outer"].span_id
+        assert [spans[n].depth for n in ("outer", "inner", "leaf")] == [
+            0, 1, 2]
+        assert spans["outer"].parent_id is None
         assert spans["outer"].tags == {"bucket": "64x8"}
         assert spans["outer"].duration_s >= spans["inner"].duration_s >= 0
+
+    def test_link_tags_inherited_within_a_thread(self):
+        tr = obs.Tracer(capacity=16)
+        seen = {}
+
+        def other():
+            with tr.span("other") as sp:
+                seen["other"] = sp
+
+        with tr.span("batch", batch=7, size=2):
+            with tr.span("req", request_id="r1"):
+                with tr.span("copy", bytes=8):
+                    pass
+            with tr.span("own", batch=8):
+                pass
+            t = threading.Thread(target=other)
+            t.start()
+            t.join()
+        spans = {s.name: s for s in tr.spans()}
+        assert spans["copy"].tags == {"bytes": 8, "batch": 7,
+                                      "request_id": "r1"}
+        assert spans["req"].tags == {"request_id": "r1", "batch": 7}
+        assert spans["own"].tags == {"batch": 8}
+        assert "size" not in spans["req"].tags  # only the link tags
+        # Another thread's stack is its own: no parent, no inherited tags.
+        assert seen["other"].parent_id is None and seen["other"].tags == {}
+
+    def test_self_seconds(self):
+        mk = obs.SpanRecord
+        spans = [mk("a", 0.0, 1.0, span_id=1),
+                 mk("b", 0.1, 0.4, span_id=2, parent_id=1),
+                 mk("c", 0.5, 0.7, span_id=3, parent_id=1),
+                 mk("d", 0.2, 0.3, span_id=4, parent_id=2)]
+        own = obs.self_seconds(spans)
+        assert own[1] == pytest.approx(0.5)
+        assert own[2] == pytest.approx(0.2)
+        assert own[3] == pytest.approx(0.2)
+        assert own[4] == pytest.approx(0.1)
 
     def test_ring_buffer_bounded(self):
         tr = obs.Tracer(capacity=4)
@@ -223,15 +270,60 @@ class TestTracing:
                 pass
         assert [s.name for s in tr.spans()] == ["s6", "s7", "s8", "s9"]
 
-    def test_jsonl_sink(self, tmp_path):
-        path = tmp_path / "trace.jsonl"
-        tr = obs.Tracer(capacity=8, jsonl_path=str(path))
-        with tr.span("solve", bucket=(64, 8)):
+    def test_dropped_counts_pushed_out_spans(self):
+        tr = obs.Tracer(capacity=4)
+        for i in range(10):
+            with tr.span(f"s{i}", bucket=(64, 8)):
+                pass
+        assert tr.dropped == 6
+        assert tr.spans("s9")[0].tags["bucket"] == [64, 8]
+        tr.reserve(8)
+        tr.reserve(2)  # never shrinks
+        assert [s.name for s in tr.spans()] == ["s6", "s7", "s8", "s9"]
+        for i in range(10, 14):
+            with tr.span(f"s{i}"):
+                pass
+        assert tr.dropped == 6 and len(tr.spans()) == 8
+        with tr.span("s14"):
             pass
-        tr.close()
-        rows = [json.loads(line) for line in path.read_text().splitlines()]
-        assert rows and rows[0]["name"] == "solve"
-        assert rows[0]["tags"]["bucket"] == [64, 8]
+        assert tr.dropped == 7 and tr.spans()[0].name == "s7"
+        tr.clear()
+        assert tr.dropped == 0 and tr.spans() == []
+
+    def test_ring_under_many_threads(self):
+        """More recording threads than cores, switching often: every span
+        is kept or counted as dropped, and no id is handed out twice."""
+        import sys
+
+        tr = obs.Tracer(capacity=500)
+        n_threads, per_thread = 16, 200
+        old = sys.getswitchinterval()
+        sys.setswitchinterval(1e-6)
+        try:
+            def work(slot):
+                for i in range(per_thread):
+                    with tr.span("outer", batch=slot):
+                        with tr.span("inner"):
+                            pass
+
+            threads = [threading.Thread(target=work, args=(i,))
+                       for i in range(n_threads)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=60.0)
+            assert not any(t.is_alive() for t in threads)
+        finally:
+            sys.setswitchinterval(old)
+        held = tr.spans()
+        assert len(held) + tr.dropped == 2 * n_threads * per_thread
+        assert len({s.span_id for s in held}) == len(held) == 500
+        by_id = {s.span_id: s for s in held}
+        for s in held:
+            if s.name == "inner" and s.parent_id in by_id:
+                parent = by_id[s.parent_id]
+                assert parent.thread == s.thread
+                assert parent.tags["batch"] == s.tags["batch"]
 
     def test_dispatch_relay_feeds_counters_and_registry(self):
         reg = obs.default_registry()
@@ -266,17 +358,91 @@ class TestTracing:
         assert obs.now() >= a
 
     def test_profile_region_inert_and_traced(self, tmp_path):
-        with obs.profile_region("idle"):
+        """``span`` opens no profiler range while nothing records, nor
+        under a profiler someone else started (it records only its own
+        thread, and sees the program as without spans), and names one on a
+        ``start_profiling`` trace."""
+        import torch
+
+        from repro_torch.obs.trace import _profiler_range
+
+        assert _profiler_range("idle") is None
+        with obs.span("idle"):
             pass
         assert not obs.profiling_active()
+        foreign = torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU])
+        foreign.start()
+        try:
+            assert _profiler_range("foreign") is None
+            with obs.span("foreign"):
+                sum(range(100))
+        finally:
+            foreign.stop()
+        assert "foreign" not in {e.name for e in foreign.events()}
         assert obs.start_profiling(str(tmp_path))
         with pytest.raises(RuntimeError, match="already active"):
             obs.start_profiling(str(tmp_path))
-        with obs.profile_region("engine.flush"):
+        with obs.span("engine.flush"):
             sum(range(100))
         assert obs.stop_profiling() == str(tmp_path)
         assert obs.stop_profiling() is None
-        assert any(tmp_path.iterdir()), "the trace must be written"
+        assert _profiler_range("idle") is None
+        names = _trace_names(tmp_path)
+        assert "engine.flush" in names and "idle" not in names
+
+    def test_span_on_a_second_thread_in_the_trace(self, tmp_path):
+        if obs.all_threads_config() is None:
+            pytest.skip("this torch build's profiler has no "
+                        "profile_all_threads: only the starting thread's "
+                        "ranges are recorded")
+        assert obs.start_profiling(str(tmp_path))
+
+        def lane():
+            with obs.span("engine.call", method="bakp"):
+                sum(range(1000))
+
+        t = threading.Thread(target=lane, name="lane-test")
+        t.start()
+        t.join()
+        obs.stop_profiling()
+        assert "engine.call" in _trace_names(tmp_path)
+
+    def test_clock_map_places_span_on_the_profiler_clock(self):
+        import torch
+
+        tr = obs.Tracer(capacity=8)
+        prof = torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU])
+        prof.start()
+        tr.clear()  # a fresh anchor, as a window's reader takes it
+        with torch.profiler.record_function("test.window"):
+            time.sleep(0.002)
+            with tr.span("test.inner"):
+                time.sleep(0.003)
+            time.sleep(0.002)
+        prof.stop()
+        win = [(e.start_ns(), e.start_ns() + e.duration_ns())
+               for e in prof.profiler.kineto_results.events()
+               if e.name() == "test.window"]
+        assert len(win) == 1
+        w0, w1 = win[0]
+        sp = tr.spans("test.inner")[0]
+        s0, s1 = tr.unix_ns(sp.t_start), tr.unix_ns(sp.t_end)
+        assert s1 - s0 == pytest.approx(sp.duration_s * 1e9, abs=1e3)
+        assert w0 - 1_000_000 <= s0 and s1 <= w1 + 1_000_000
+        # The span sits between the window's two 2 ms sleeps.
+        assert s0 - w0 >= 1_000_000 and w1 - s1 >= 1_000_000
+
+
+def _trace_names(trace_dir):
+    """Every event name in the Chrome traces written under ``trace_dir``."""
+    names = set()
+    for path in trace_dir.rglob("*.json"):
+        for ev in json.loads(path.read_text()).get("traceEvents", []):
+            names.add(ev.get("name"))
+    assert names, "the trace must be written"
+    return names
 
 
 # ------------------------------------------------------------- kill switch
@@ -369,7 +535,8 @@ class TestEngineTelemetry:
         names = {s.name for s in tr.spans()}
         assert {"engine.flush", "engine.fingerprint", "engine.group",
                 "engine.design", "engine.pad", "engine.solve",
-                "engine.strip"} <= names
+                "design.y_to_device", "engine.call", "engine.sync",
+                "engine.strip", "engine.result_to_host"} <= names
         solve = tr.spans("engine.solve")[-1]
         assert solve.tags["lane"] == "single:xla"
         assert solve.tags["kind"] == "multi_rhs"

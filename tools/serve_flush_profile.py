@@ -10,7 +10,9 @@ Serves ``chip_smoke.py``'s phase-5 flush 3 (16 designs of 4,096 x 256 as
 128, rtol 1e-7, max_iter 100) through a fresh ``SolverServeEngine`` per
 flush, in the order ``--order`` gives (``lanes`` or ``serial``, the
 latter ``lane_execution=False``), and prints per flush its wall time and
-the split of its spans (``engine.*``, the solve span per lane).
+the split of its spans' own time (``engine.*`` and ``design.*``, each
+span's duration less its children's, so nested spans count once; the
+solve span per lane).
 
 Before the flushes the process runs the handle path the earlier phases of
 ``chip_smoke.py`` run on these shapes (a ``bakp_gram`` and a ``bak_fused``
@@ -118,11 +120,13 @@ def main() -> int:
             prof.__exit__(None, None, None)
         eng.shutdown()
         split = {}
-        for sp in tracer.spans():
+        held = tracer.spans()
+        own = tobs.self_seconds(held)
+        for sp in held:
             name = sp.name.split(".", 1)[1]
             if name == "solve":
                 name = f"solve[{sp.tags.get('lane')}:{sp.tags.get('kind')}]"
-            split[name] = split.get(name, 0.0) + sp.duration_s * 1e3
+            split[name] = split.get(name, 0.0) + own[sp.span_id] * 1e3
         coef = np.stack([r.coef for r in out])
         errors = [r.error for r in out if r.error is not None]
         same = ref is None or np.array_equal(coef, ref)
