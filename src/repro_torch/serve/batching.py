@@ -23,7 +23,7 @@ same buckets, the same groups and the same intra-group ordering.
 from __future__ import annotations
 
 import contextlib
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -148,6 +148,41 @@ def pad_y(y: np.ndarray, obs_p: int) -> np.ndarray:
     y_pad = np.zeros((obs_p,) + y.shape[1:], np.float32)
     y_pad[: y.shape[0]] = y
     return y_pad
+
+
+def stage_rhs(rows: Sequence[np.ndarray], obs_p: int, k_pad: int, *,
+              pin: bool) -> Tuple[torch.Tensor, float]:
+    """A coalesced group's right-hand sides, RHS-major, and Σ y·y.
+
+    Returns a (k_pad, obs_p) fp32 host tensor whose row ``c`` is
+    ``rows[c]`` zero-padded to ``obs_p`` and whose rows past ``len(rows)``
+    are zero, and the sum of each row's ``np.dot(y, y)`` (the SSE of the
+    zero solution), taken on the staged row while it is in cache.  Each
+    row is one contiguous copy on the calling thread and only the padding
+    is written besides, so the buffer may come from an allocator's cache
+    with old contents.  ``pin`` takes it from pinned memory: torch's
+    caching host allocator reuses the block, and waits for a non-blocking
+    copy out of it before handing it out again.  ``rhs_to_device`` makes
+    it the block the multi-RHS solvers take."""
+    staged = torch.empty((k_pad, obs_p), dtype=torch.float32, pin_memory=pin)
+    host = staged.numpy()
+    sse = 0.0
+    for c, y in enumerate(rows):
+        n = y.shape[0]
+        host[c, :n] = y
+        host[c, n:] = 0.0
+        sse += float(np.dot(host[c, :n], host[c, :n]))
+    host[len(rows):] = 0.0
+    return staged, sse
+
+
+def rhs_to_device(staged: torch.Tensor, device) -> torch.Tensor:
+    """``stage_rhs``'s rows as a contiguous (obs_p, k_pad) fp32 tensor on
+    ``device``: one copy there (non-blocking out of pinned memory, on the
+    calling thread's stream) and one transpose-copy on the device.  Bit
+    for bit the zero-padded ``ys[:obs, c] = y`` block."""
+    moved = staged.to(device, non_blocking=staged.is_pinned())
+    return moved.t().contiguous()
 
 
 def design_fingerprint(x, *, _prefix: str = "d") -> str:

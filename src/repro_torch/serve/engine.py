@@ -90,7 +90,8 @@ from repro_torch.kernels.fused_solve import fused_fits
 from repro_torch.resilience import faults, ladder
 from repro_torch.serve.batching import (design_fingerprint, group_requests,
                                         next_pow2, pad_x, pad_y,
-                                        prepare_request, request_bucket)
+                                        prepare_request, request_bucket,
+                                        rhs_to_device, stage_rhs)
 from repro_torch.serve.cache import DesignCache
 from repro_torch.launch.mesh import Mesh
 from repro_torch.serve.lanes import LaneKey, LanePool, LaneWork, current_lane
@@ -628,15 +629,19 @@ class SolverServeEngine:
                      atol: float, a0=None, placement=None):
         """One (possibly multi-RHS) solve on the prepared design, with the
         padding-corrected ``atol`` (``spec.atol`` itself must not be used)
-        and, on a 2-D mesh placement, the engine's ``omega_2d``.  ``y`` /
-        ``a0`` are host arrays; ``y`` is copied to the device on the lane's
-        stream (``design.y_to_device``) before the ``engine.call`` span,
-        the handle copies ``a0`` inside it."""
+        and, on a 2-D mesh placement, the engine's ``omega_2d``.  ``a0``
+        is a host array, copied by the handle inside ``engine.call``.  A
+        host ``y`` is copied to the device on the lane's stream
+        (``design.y_to_device``) before that span; a tensor ``y`` was
+        staged there by the caller and is used as it is."""
         eff = spec.replace(atol=atol)
         if placement is not None and placement.kind == "mesh_2d":
             eff = eff.replace(omega=self.config.omega_2d)
-        with obs.span("design.y_to_device", bytes=np.size(y) * 4):
+        if isinstance(y, torch.Tensor):
             y_dev = as_f32(y, entry.device)
+        else:
+            with obs.span("design.y_to_device", bytes=np.size(y) * 4):
+                y_dev = as_f32(y, entry.device)
         with obs.span("engine.call", method=eff.method):
             return entry.solve(y_dev, a0, spec=eff, placement=placement,
                                mesh=self.mesh)
@@ -914,13 +919,15 @@ class SolverServeEngine:
         req0 = requests[idxs[0]]
         spec = self.spec_for(req0)
         mentry = solver_method(spec.method)
-        with obs.span("engine.pad", kind="multi_rhs", k=k):
-            ys = np.zeros((obs_p, k_pad), np.float32)
-            sse0 = 0.0
-            for c, idx in enumerate(idxs):
-                y = np.asarray(requests[idx].y, np.float32)
-                ys[: y.shape[0], c] = y
-                sse0 += float(np.dot(y, y))
+        # The right-hand sides go to the card RHS-major and are transposed
+        # there: a strided column write a request into a row-major
+        # (obs_p, k_pad) host array touches every cache line of it.
+        pin = entry.device.type == "cuda"
+        with obs.span("engine.pad", kind="multi_rhs", k=k,
+                      staging="pinned" if pin else "pageable"):
+            ys_h, sse0 = stage_rhs(
+                [np.asarray(requests[idx].y, np.float32) for idx in idxs],
+                obs_p, k_pad, pin=pin)
             resolved = ([self._resolve_a0(requests[idx], entry)
                          for idx in idxs] if mentry.iterative
                         else [(None, None)] * k)
@@ -943,6 +950,8 @@ class SolverServeEngine:
         with obs.span("engine.solve", kind="multi_rhs", method=spec.method,
                       lane=lane.label if lane is not None else "inline"):
             t0 = obs.now()
+            with obs.span("design.y_to_device", bytes=ys_h.numel() * 4):
+                ys = rhs_to_device(ys_h, entry.device)
             res, fspec, fentry, fplace, retries, diverged, a0_used = \
                 self._attempt_solve(
                     spec, entry, ys, atol, a0_mat, placement,

@@ -963,6 +963,56 @@ def test_engine_on_card_matches_cpu_engine(cuda):
         assert float(np.abs(c.coef - h.coef).max()) <= 1e-5 * scale
 
 
+def test_stage_rhs_pinned_on_card(cuda):
+    """A coalesced group's rows staged in pinned memory, copied without
+    blocking and transposed on the card: bit for bit the column layout,
+    also for a second group staged at once into the freed buffer while
+    the first group's copy may still be in flight."""
+    from repro_torch import obs as tobs
+    from repro_torch.serve import ServeConfig, SolveRequest, SolverServeEngine
+    from repro_torch.serve.batching import rhs_to_device, stage_rhs
+
+    rng = np.random.default_rng(12)
+    groups = [[rng.normal(size=1_000_000).astype(np.float32)
+               for _ in range(k)] for k in (16, 13)]
+    on_card = []
+    for rows in groups:
+        staged, sse = stage_rhs(rows, 1 << 20, 16, pin=True)
+        assert staged.is_pinned()
+        assert sse == sum(float(np.dot(y, y)) for y in rows)
+        on_card.append(rhs_to_device(staged, cuda))
+        del staged
+    for rows, ys in zip(groups, on_card):
+        want = np.zeros((1 << 20, 16), np.float32)
+        for c, y in enumerate(rows):
+            want[: y.shape[0], c] = y
+        assert ys.is_contiguous() and ys.device.type == "cuda"
+        assert np.array_equal(ys.cpu().numpy(), want)
+
+    prev = tobs.set_enabled(True)
+    tracer = tobs.get_tracer()
+    tracer.clear()
+    try:
+        x = rng.normal(size=(3000, 64)).astype(np.float32)
+        eng = SolverServeEngine(ServeConfig(), registry=tobs.MetricsRegistry(),
+                                device=cuda)
+        out = eng.serve([SolveRequest(
+            x=x, y=x @ rng.normal(size=64).astype(np.float32),
+            method="bakp", design_key="d", thr=32, max_iter=12)
+            for _ in range(3)])
+        eng.shutdown()
+        spans = tracer.spans()
+    finally:
+        tobs.set_enabled(prev)
+    assert all(r.error is None and r.batch_kind == "multi_rhs" for r in out)
+    by_id = {s.span_id: s for s in spans}
+    pads = [s for s in spans if s.name == "engine.pad"]
+    copies = [s for s in spans if s.name == "design.y_to_device"]
+    assert [s.tags["staging"] for s in pads] == ["pinned"]
+    assert [s.tags["bytes"] for s in copies] == [4096 * 4 * 4]
+    assert by_id[copies[0].parent_id].name == "engine.solve"
+
+
 def test_engine_lanes_bitwise_match_serial_on_card(cuda):
     """Flush 3 of phase 5 at a small size: a plain-torch batch on one
     lane's stream beside the fused kernels on another's, against the same

@@ -719,6 +719,15 @@ class TestSpans:
                 assert s.tags["method"] == "bakp_gram"
             if s.name == "engine.result_to_host":
                 assert by_id[s.parent_id].name == "engine.strip"
+            # Each coalesced group stages its rows RHS-major (pageable
+            # host memory off CUDA) and copies them in under its solve:
+            # one (obs_p, k_pad) = (64, 2) fp32 block.
+            if s.name == "engine.pad":
+                assert s.tags["kind"] == "multi_rhs"
+                assert s.tags["staging"] == "pageable"
+            if s.name == "design.y_to_device":
+                assert by_id[s.parent_id].name == "engine.solve"
+                assert s.tags["bytes"] == 64 * 2 * 4
         # The copy spans carry their bytes: two (64, 2) fp32 y in, each
         # group's (8, 2) coefficients and (64, 2) residuals out.
         def tagged(name):

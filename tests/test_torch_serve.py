@@ -31,6 +31,8 @@ from repro_torch.core import solve, solvebak, solvebakp
 from repro_torch.serve import (ServeConfig, ServedSolve, SolveRequest,
                                SolverServeEngine, bucket_shape,
                                design_fingerprint, group_requests, next_pow2)
+from repro_torch.serve import engine as engine_mod
+from repro_torch.serve.batching import rhs_to_device, stage_rhs
 
 TOL = 1e-5
 
@@ -233,6 +235,54 @@ class TestBucketing:
             return [(outer[0], outer[1], list(inner.items()))
                     for outer, inner in g.items()]
         assert shape(g1) == shape(ref)
+
+
+def _column_block(rows, obs_p, k_pad):
+    """The multi-RHS block as the engine laid it out before RHS-major
+    staging: one strided column write a request into a zeroed array."""
+    ys = np.zeros((obs_p, k_pad), np.float32)
+    for c, y in enumerate(rows):
+        ys[: y.shape[0], c] = y
+    return ys
+
+
+class TestStageRhs:
+    """``stage_rhs`` + ``rhs_to_device``: RHS-major rows on the host, one
+    copy and a transpose on the device, bit for bit the column layout."""
+
+    def test_matches_the_column_layout(self, rng):
+        rows = [rng.normal(size=1000).astype(np.float32) for _ in range(3)]
+        staged, sse = stage_rhs(rows, 1024, 4, pin=False)
+        assert staged.shape == (4, 1024) and not staged.is_pinned()
+        assert sse == sum(float(np.dot(y, y)) for y in rows)
+        ys = rhs_to_device(staged, "cpu")
+        assert ys.shape == (1024, 4) and ys.is_contiguous()
+        assert ys.dtype == torch.float32
+        want = _column_block(rows, 1024, 4)
+        np.testing.assert_array_equal(ys.numpy().view(np.uint32),
+                                      want.view(np.uint32))
+        assert not ys[1000:].any() and not ys[:, 3].any()
+
+    def test_no_column_leaks_from_an_earlier_group(self, rng, monkeypatch):
+        """A k=4 group and then a k=3 group of the same bucket: the
+        second's fourth column is zero, also where the allocator hands
+        the buffer out with the earlier contents (stood in for by NaN)."""
+        first = [rng.normal(size=1000).astype(np.float32) for _ in range(4)]
+        second = [rng.normal(size=1000).astype(np.float32) for _ in range(3)]
+        for stale in (False, True):
+            if stale:
+                empty = torch.empty
+                monkeypatch.setattr(torch, "empty", lambda *a, **kw: empty(
+                    *a, **kw).fill_(float("nan")))
+            ys4 = rhs_to_device(stage_rhs(first, 1024, 4, pin=False)[0],
+                                "cpu")
+            np.testing.assert_array_equal(ys4.numpy(),
+                                          _column_block(first, 1024, 4))
+            ys3 = rhs_to_device(stage_rhs(second, 1024, 4, pin=False)[0],
+                                "cpu")
+            np.testing.assert_array_equal(ys3.numpy(),
+                                          _column_block(second, 1024, 4))
+            assert not ys3[:, 3].any()
 
 
 # ------------------------------------------------------------------- engine
@@ -473,6 +523,31 @@ class TestEngine:
         assert len(eng.cache) == 2
         assert eng.cache.stats.evictions == 2
         eng.shutdown()
+
+    def test_coalesced_group_served_as_from_the_column_layout(
+            self, monkeypatch):
+        """A coalesced group with obs < obs_p (300 in 512, k 3 in 4):
+        every request's coef, residual and n_sweeps are bitwise those of
+        the same engine fed the column-layout block."""
+        make, _ = _mixed_workload(5, rtol=1e-10, max_iter=60, noise=0.1)
+        runs = []
+        for column_layout in (False, True):
+            if column_layout:
+                monkeypatch.setattr(
+                    engine_mod, "stage_rhs",
+                    lambda rows, obs_p, k_pad, pin: (torch.from_numpy(
+                        _column_block(rows, obs_p, k_pad)),
+                        sum(float(np.dot(y, y)) for y in rows)))
+                monkeypatch.setattr(engine_mod, "rhs_to_device",
+                                    lambda ys, device: ys)
+            eng = SolverServeEngine(device="cpu")
+            runs.append(eng.serve(make(SolveRequest)))
+            eng.shutdown()
+        assert [r.batch_kind for r in runs[0]][:3] == ["multi_rhs"] * 3
+        for new, old in zip(*runs):
+            np.testing.assert_array_equal(new.coef, old.coef)
+            np.testing.assert_array_equal(new.residual, old.residual)
+            assert new.n_sweeps == old.n_sweeps
 
     def test_coalescing_off_falls_back(self, rng):
         eng = SolverServeEngine(ServeConfig(coalesce=False,
