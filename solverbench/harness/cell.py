@@ -1,13 +1,15 @@
 """One run of one cell: set-up, warm-up, the measured window, the check.
 
-Set-up draws the designs and their right-hand sides on the device from the
-seed, starts the program (``repro_torch.serve.AsyncDispatcher`` over a
-``SolverServeEngine``, both with their default configurations) and
-warms up every shape the mix uses by driving its clients for a few
-rounds.  The window then drives them for ``seconds``; with a trace, a
-``torch.profiler`` trace covers it.  Once every reply is in, the peak of
-device memory is read, the program is stopped and freed, and the plain
-reference judges every coefficient vector a request got back.
+Set-up draws the designs (through the configuration's design module) and
+their right-hand sides on the device from the seed, starts the program
+(``repro_torch.serve.AsyncDispatcher`` over a ``SolverServeEngine``, both
+with their default configurations) and warms up every shape the mix uses
+by driving its clients for a few rounds.  The window then drives them for
+``seconds``; with a trace, a ``torch.profiler`` trace covers it.  Once
+every reply is in, the peak of device memory is read, the program is
+stopped and freed, the plain reference judges every coefficient vector a
+request got back, and the design module checks what it made, where it has
+a check.
 """
 from __future__ import annotations
 
@@ -22,7 +24,7 @@ import numpy as np
 import torch
 
 from harness import devtrace, spec
-from harness.inputs import make_designs
+from harness.inputs import design_checks, make_designs
 from harness.load import ClosedLoop, Done
 
 ITEMSIZE = {"fp32": 4, "bf16": 2}
@@ -130,7 +132,8 @@ def reference_control(cell: spec.Cell, *, seed: int, device) -> dict:
     """The control the correctness limit has to fail: the plain reference
     put in the program's place, in TF32 (the nearest precision below the
     fp32 the configuration states), over every right-hand side of every
-    design the cell draws from ``seed``, judged as a run's answers are."""
+    design the cell draws from ``seed`` (through its design module, as a
+    run draws them), judged as a run's answers are."""
     ref = spec.reference(cell.config["reference"])
     designs = make_designs(cell.config, cell.traffic, seed, device)
     worst = 0.0
@@ -150,7 +153,6 @@ def run_cell(cell: spec.Cell, *, seed: int, seconds: float, trace: bool,
     ``t_start`` is the clock at process start, which ``setup_s`` counts
     from."""
     from repro_torch import obs as rt_obs
-    from repro_torch.core.spec import SolverSpec
     from repro_torch.kernels import _build
     from repro_torch.serve import SolveRequest
 
@@ -162,10 +164,7 @@ def run_cell(cell: spec.Cell, *, seed: int, seconds: float, trace: bool,
     torch.backends.cudnn.allow_tf32 = False
 
     designs = make_designs(config, traffic, seed, device)
-    solver = SolverSpec(method=traffic["method"],
-                        max_iter=int(traffic["max_iter"]),
-                        rtol=float(traffic["rtol"]), thr=int(traffic["thr"]),
-                        precision=precision)
+    solver = spec.solver_spec(traffic, precision)
 
     def make_request(d: int, idx: int):
         return SolveRequest(x=designs[d].x, y=designs[d].y_pool[idx],
@@ -248,8 +247,12 @@ def run_cell(cell: spec.Cell, *, seed: int, seconds: float, trace: bool,
     limit = config["check"]["coef_err"]
     checks = {"coef_err": {"value": coef_err, "limit": limit},
               "failed": {"value": failed, "limit": 0}}
-    correct = (failed == 0 and answered.size > 0 and limit is not None
-               and coef_err <= limit)
+    extra = design_checks(config, designs, device)
+    checks.update({name: {"value": value, "limit": config["check"][name]}
+                   for name, value in extra.items()})
+    correct = answered.size > 0 and all(
+        c["limit"] is not None and c["value"] <= c["limit"]
+        for c in checks.values())
     device_info = {"platform": "gpu" if on_card else "cpu", "kind": kind,
                    "count": 1, "memory_peak_bytes": peak}
     result = {"correct": bool(correct), "attempted": len(done),
@@ -267,5 +270,6 @@ def run_cell(cell: spec.Cell, *, seed: int, seconds: float, trace: bool,
                  f"median coef_err {statistics.median(answered.tolist()) if answered.size else float('nan')!r})")
     del designs
     return Outcome(result=result, info=info, checks=lines,
-                   readings={"coef_err": coef_err, "failed": failed})
+                   readings={"coef_err": coef_err, "failed": failed,
+                             **extra})
 

@@ -9,9 +9,24 @@ gives it:
   metrics/<metric>.py                                 ``read(run)``
   work/<method>.py                                    ``solve_work(...)``
   reference/<reference>.py                            the plain reference
+  designs/<design>.py                                 ``draw``, ``check``
 
 so a later change adds a cell, a mix or a metric as new files and
 entries, and edits none that is there.
+
+A configuration names its design module under ``"design"`` (without it,
+``planted_normal``, the paper's x ~ N(0, 1)).  The module's
+``draw(config, generator, device)`` returns one design's x, (obs, vars)
+fp32 on ``device``, drawn from ``generator`` alone.  Its optional
+``check(config, designs, device)`` runs after the window with the
+program freed and returns one number for each name in its ``CHECKS``;
+each ``inputs.Design`` carries its ``x`` and ``state``, the generator's
+state where its draw began, so the check can draw the same weights and
+tokens again.  The
+configuration's ``"check"`` gives a limit for each of those names and for
+the harness's own ``coef_err``, and a run is correct only where every
+number is within its limit.  A traffic mix may add ``"spec"``: solver
+settings from ``SPEC_KEYS`` that every request carries.
 """
 from __future__ import annotations
 
@@ -24,6 +39,18 @@ from typing import Dict, List, Optional
 
 BENCH_DIR = Path(__file__).resolve().parent.parent
 ROOT = BENCH_DIR.parent
+TRAFFIC_DIR = BENCH_DIR / "traffic"
+DESIGN_DIR = BENCH_DIR / "designs"
+
+DEFAULT_DESIGN = "planted_normal"
+#: The numbers the harness itself compares, each with a limit in the
+#: configuration's "check" (``failed`` has the limit 0 and none there).
+HARNESS_CHECKS = ("coef_err",)
+#: ``SolverSpec`` fields a traffic's "spec" may set: those that leave the
+#: least-squares problem the reference solves unchanged (not ``ridge``)
+#: and that a cell needs.  Block updates on features that share a
+#: direction overshoot at omega 1.
+SPEC_KEYS = ("omega",)
 
 NAME_RE = re.compile(r"[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}")
 UNIT_RE = re.compile(r"[A-Za-z0-9_/%.-]{1,16}")
@@ -76,7 +103,8 @@ class Cell:
 
 def _load_module(path: Path, prefix: str):
     if not path.is_file():
-        raise SpecError(f"missing {path.relative_to(ROOT)}")
+        shown = path.relative_to(ROOT) if path.is_relative_to(ROOT) else path
+        raise SpecError(f"missing {shown}")
     mod_name = prefix + re.sub(r"\W", "_", path.stem)
     spec = importlib.util.spec_from_file_location(mod_name, path)
     mod = importlib.util.module_from_spec(spec)
@@ -101,6 +129,54 @@ def reference(name: str):
     """The plain reference module ``reference/<name>.py``."""
     return _load_module(BENCH_DIR / "reference" / f"{check_name(name, 'reference')}.py",
                         "sb_ref_")
+
+
+def design(name: str):
+    """The design module ``designs/<name>.py`` (under ``DESIGN_DIR``)."""
+    mod = _load_module(DESIGN_DIR / f"{check_name(name, 'design')}.py",
+                       "sb_design_")
+    if not callable(getattr(mod, "draw", None)):
+        raise SpecError(f"design {name}: has no draw(config, generator, "
+                        f"device)")
+    if callable(getattr(mod, "check", None)) != hasattr(mod, "CHECKS"):
+        raise SpecError(f"design {name}: a check(...) and its CHECKS come "
+                        f"together")
+    return mod
+
+
+def design_of(config: dict):
+    """The design module a configuration names."""
+    return design(config.get("design", DEFAULT_DESIGN))
+
+
+def check_limits(config: dict) -> None:
+    """The configuration's "check" holds a limit for each number the
+    harness and its design compute, and for nothing else."""
+    want = set(HARNESS_CHECKS) | set(getattr(design_of(config), "CHECKS", ()))
+    have = set(config.get("check", {}))
+    if have != want:
+        raise SpecError(f"config {config.get('name')!r}: check has "
+                        f"{sorted(have)}; the harness and its design compute "
+                        f"{sorted(want)} (unknown {sorted(have - want)}, "
+                        f"no limit {sorted(want - have)})")
+
+
+def solver_spec(traffic: dict, precision: str):
+    """The ``SolverSpec`` every request of the mix carries: its ``method``,
+    ``max_iter``, ``rtol`` and ``thr``, the configuration's precision, and
+    the mix's "spec" settings."""
+    from repro_torch.core import SolverSpec
+    extra = traffic.get("spec", {})
+    if not isinstance(extra, dict) or set(extra) - set(SPEC_KEYS):
+        raise SpecError(f"traffic spec {extra!r}: an object with keys from "
+                        f"{list(SPEC_KEYS)}")
+    try:
+        return SolverSpec(method=traffic["method"],
+                          max_iter=int(traffic["max_iter"]),
+                          rtol=float(traffic["rtol"]), thr=int(traffic["thr"]),
+                          precision=precision, **extra)
+    except (TypeError, ValueError) as exc:
+        raise SpecError(f"traffic spec {extra!r}: {exc}") from exc
 
 
 def peaks(kind: str) -> Optional[dict]:
@@ -164,7 +240,7 @@ def resolve_cell(name: str, bench: Optional[dict] = None) -> Cell:
     if not cfg_path.is_file():
         raise SpecError(f"config file {cfg_entry['file']} is missing")
     config = json.loads(cfg_path.read_text())
-    traffic_path = BENCH_DIR / "traffic" / f"{check_name(w.get('traffic'), 'traffic')}.json"
+    traffic_path = TRAFFIC_DIR / f"{check_name(w.get('traffic'), 'traffic')}.json"
     if not traffic_path.is_file():
         raise SpecError(f"traffic file {traffic_path.relative_to(ROOT)} is missing")
     traffic = json.loads(traffic_path.read_text())
@@ -179,8 +255,9 @@ def resolve_cell(name: str, bench: Optional[dict] = None) -> Cell:
 
 
 def check_all(bench: Optional[dict] = None) -> Dict[str, Cell]:
-    """Resolve every cell, and load every reader and work counter the
-    cells need: what a run would fail on, found without a run."""
+    """Resolve every cell, and load every reader, work counter, reference
+    and design the cells need, with the limits and solver settings they
+    state: what a run would fail on, found without a run."""
     bench = bench if bench is not None else load_benchmark()
     for key in ("configs", "workloads"):
         for entry in bench.get(key, []):
@@ -199,5 +276,7 @@ def check_all(bench: Optional[dict] = None) -> Dict[str, Cell]:
             metric_reader(m.name)
         work_counter(cell.traffic["method"])
         reference(cell.config["reference"])
+        check_limits(cell.config)
+        solver_spec(cell.traffic, cell.config["precision"])
         out[cell.name] = cell
     return out
