@@ -253,7 +253,10 @@ process per source, in parallel), then:
      256 with k 64 (right-hand sides in groups), each in one launch.  Then
      the Algorithm-1 kernels at each cluster size of 2, 4, 8 and 16, and
      the Algorithm-2 cluster kernels at 4, 8 and 16, each launch held to its
-     plain version.  All seven kernels also run on bf16 copies of
+     plain version, and ``bakp_sweep`` on the tall cells' padded design
+     (1,024 x 2^20 at thr 128; k 16 and 12 in fp32, k 16 in bf16), where
+     the residual slice is in device memory, each compared call one
+     launch.  All seven kernels also run on bf16 copies of
      x at the shapes of their fp32 rows and at every shape phase 4 gave
      them, there on the plan phase 4 ran (x at 2 bytes in the bound), with
      their rtol stops held to the rule on the plain iterate's fp64 SSE;
@@ -1986,7 +1989,11 @@ def main() -> int:
               f"{want} ({path_case})")
 
     def sweep_case(label, x_t, inv, nrhs, block, iters, alg=2,
-                   plain_iters=None, path_case=None):
+                   plain_iters=None, path_case=None, e_in=None):
+        """A per-sweep kernel against its plain version.  ``e_in``: the
+        plan must keep the residual slice there, and the compared call
+        must be one launch of the kernel and nothing else (the launch
+        counts are reset before it)."""
         nv, no = x_t.shape
         e = randn(nrhs, no)
         name = _build.launch_key("bak_sweep" if alg == 1 else "bakp_sweep",
@@ -2002,7 +2009,18 @@ def main() -> int:
                 return cd_sweep_plain(x_t, e, inv)
             return bakp_sweep_plain(x_t, e, inv, block=block)
 
+        if e_in is not None:
+            _build.reset_launch_counts()
         da, e_k = kernel()
+        if e_in is not None:
+            sync()
+            launched = {n: c for n, c in {**_build.launch_counts(),
+                                          **_build.launch_counts(2)}.items()
+                        if c}
+            check(launched == {name: 1},
+                  f"{name} {label}: launches {launched}")
+            check(_build.PLANS[name].e_in == e_in,
+                  f"{name} {label}: e_in {_build.PLANS[name].e_in}")
         da_p, e_p = plain_fn()
         sync()
         err_da, err_e = rel(da, da_p), rel(e_k, e_p, scale=e)
@@ -2332,6 +2350,18 @@ def main() -> int:
                   "cluster": csize, "plan": _build.PLANS[name]._asdict(),
                   "rel_err": err, "ms": ms, "us_per_step": ms * 1e3 / steps})
     cd_mod.BAKP_CLUSTER.update(rule2)
+    # The tall cells' padded design (1,024 x 2^20, thr 128), at the k of a
+    # coalesced group of 16 and at 12 (a ragged KC chunk): the residual
+    # slice is in device memory, staged through the ring beside x.
+    x_tall = randn(1024, 1 << 20)
+    inv_tall = safe_inv(column_norms_sq_t(x_tall))
+    for nrhs in (16, 12):
+        sweep_case(f"tall_k{nrhs}", x_tall, inv_tall, nrhs, 128, 10,
+                   plain_iters=3, e_in="device")
+    x_tall = x_tall.to(torch.bfloat16)
+    sweep_case("tall_k16", x_tall, inv_tall, 16, 128, 10, plain_iters=3,
+               e_in="device")
+    del x_tall, inv_tall
     for label, yy in (("phase3_k1_fixed20", y3n), ("phase3_k8_fixed20", y3kn)):
         nrhs = yy.shape[1] if yy.dim() == 2 else 1
         persweep_ms = cuda_ms(lambda: solvebakp_persweep_kernel(

@@ -93,9 +93,11 @@ BAKP_X_IN = ("shared", "ring", "direct")
 
 # Floats of a CTA's dynamic shared memory besides the exchange arrays
 # (BAKP_HDR_FIXED), and the per-sweep kernel's ring: 3 to 8 stages of 32
-# rows x at most 256 positions (SWEEP_* in csrc/bakp_sweep.cu).
+# rows x at most 256 positions (SWEEP_* in csrc/bakp_sweep.cu); with e in
+# device memory a stage also carries up to 8 rows of e (the partials' KC,
+# ``sweep_ke``).
 _HDR_FIXED = 60
-_SWEEP_ROWS, _SWEEP_POS, _SWEEP_STAGES = 32, 256, (3, 8)
+_SWEEP_ROWS, _SWEEP_POS, _SWEEP_STAGES, _SWEEP_KE = 32, 256, (3, 8), 8
 _SLICE_ALIGN = 32
 
 # x's element types the kernels take (the other operands are fp32).
@@ -317,7 +319,9 @@ def bakp_plan(kind: str, obs: int, k: int, block: int, *, nvars: int = 0,
     arrays, then for "stream" the two-stage tile ring and the residual
     slice; for "sweep" the residual slice when it fits
     ``SMEM_PER_CTA_BYTES`` beside a ring of three chunks, and a ring of as
-    many chunks as then fit, three to eight; for "fused" (a design of
+    many chunks as then fit, three to eight (with the slice in device
+    memory, each chunk also carries its rows of e, and the update's k x P
+    tile comes first: ``sweep_smem_floats``); for "fused" (a design of
     ``nvars`` rows) as ``_fused_plan`` picks."""
     layout.setdefault("cluster", BAKP_CLUSTER[kind])
     if kind == "fused":
@@ -330,12 +334,17 @@ def bakp_plan(kind: str, obs: int, k: int, block: int, *, nvars: int = 0,
         e_in, stages = "shared", 2
     else:
         lo, hi = _SWEEP_STAGES
-        stage = itemsize * _SWEEP_ROWS * min(length, _SWEEP_POS)
+        pos = min(length, _SWEEP_POS)
+        stage = itemsize * _SWEEP_ROWS * pos
         room = SMEM_PER_CTA_BYTES - smem
         e_in = "shared" if room - e_bytes >= lo * stage else "device"
         if e_in == "shared":
-            room -= e_bytes
-            smem += e_bytes
+            fixed = e_bytes
+        else:      # each chunk's rows of e beside its x; the update's tile
+            fixed = 4 * k * pos
+            stage += 4 * min(k, _SWEEP_KE) * pos
+        room -= fixed
+        smem += fixed
         stages = max(lo, min(hi, room // stage))
         smem += stages * stage
     # Two parities x clusters x (C·S step words + 2 SSE words), 64 bits each.

@@ -26,12 +26,24 @@
 // order: the partials pass (for each KC chunk of the right-hand sides, each
 // row group, each position chunk; warp w carries rows 4w..4w+3 of the
 // group, its accumulators kept across the group's position chunks), then
-// the update pass (each row group, each position chunk).  A chunk's stage
+// the update pass (each position chunk, each row group).  A chunk's stage
 // is refilled only after the __syncthreads at the top of the next chunk,
-// which every reader of the stage has passed.  The residual slice lives in
-// shared memory for the whole sweep when it fits beside the ring (read once
-// from e_in, written once to e_out), else in e_out in device memory.
+// which every reader of the stage has passed.
 //
+// Where the residual slice lives.  In shared memory for the whole sweep
+// when it fits beside the ring (read once from e_in, written once to
+// e_out), each row group's update applied to it in place.  Else (E_SMEM
+// false) in e_out in device memory, and then the ring carries it too: a
+// partials chunk's stage holds, beside its x, the chunk's KC rows of e
+// (sweep_ke), copied in the same commit group, so the partials read e
+// from shared memory, once from the L2 or HBM a chunk and not once a
+// warp; and the update carries the increments' sum over the block's rows
+// across the row groups in a shared tile of k × P (each thread keeps its
+// own units), so e is read and written in device memory once a block, not
+// once a row group.  A partials chunk whose e the ring would copy before
+// the update of the block before has written it (few position chunks, a
+// deep ring) copies it at its turn instead (sweep_e_late).
+
 // C interface (loaded with ctypes; every pointer and the stream are
 // void*-sized; each entry returns a cudaError_t, 0 on success):
 //   bakp_sweep_clusters(k, cluster, smem, &n)  clusters the card holds
@@ -57,18 +69,145 @@ struct SweepParams {
   int nvars, obs, k, block;
   float omega;
   int xw;               // bytes of one copy of x (cp_bytes: 16, 4 or 2)
+  int ew;               // bytes of one copy of e (16 or 4; device-e path)
   int stages;           // ring depth NS
 };
 
+// Rows of e a ring stage carries: none when the slice is in shared memory,
+// else min(k, KC).
+static inline int sweep_ke(int k, bool e_smem) {
+  const int kc = bakp_pick_kc(k);
+  return e_smem ? 0 : k < kc ? k : kc;
+}
+
 // Floats of a CTA's dynamic shared memory: the exchange arrays, the ring
 // of `stages` chunks of x (xsize bytes an element; P is a multiple of 32)
-// and, when e_smem, the residual slice.
+// and, when e_smem, the residual slice; else each chunk's rows of e beside
+// its x and the update's k × P tile.
 static inline size_t sweep_smem_floats(int obs, int ctas, int cluster, int k, int CB,
                                        bool e_smem, int stages, int xsize) {
   const int L = bakp_slice_len(obs, ctas);
   const int P = L < SWEEP_POS ? L : SWEEP_POS;
   return (size_t)bakp_hdr_floats(CB, k, cluster) +
-         (size_t)stages * SWEEP_ROWS * P * xsize / 4 + (e_smem ? (size_t)k * L : 0);
+         (size_t)stages * (SWEEP_ROWS * P * xsize / 4 + sweep_ke(k, e_smem) * P) +
+         (size_t)k * (e_smem ? L : P);
+}
+
+// PB consecutive values at p as fp32: one load of PB elements of x (TX),
+// or of PB floats (p aligned to them).
+template <int PB, typename TX>
+__device__ __forceinline__ void sweep_ldx(const TX* p, float (&v)[PB]) {
+  if constexpr (PB == 4) {
+    const float4 w = bakp_ld4<true>(p);
+    v[0] = w.x, v[1] = w.y, v[2] = w.z, v[3] = w.w;
+  } else if constexpr (PB == 2 && sizeof(TX) == 4) {
+    const float2 w = *reinterpret_cast<const float2*>(p);
+    v[0] = w.x, v[1] = w.y;
+  } else if constexpr (PB == 2) {
+    const unsigned w = *reinterpret_cast<const unsigned*>(p);
+    v[0] = __uint_as_float(w << 16), v[1] = __uint_as_float(w & 0xffff0000u);
+  } else {
+    v[0] = bakp_f(p[0]);
+  }
+}
+
+template <int PB>
+__device__ __forceinline__ void sweep_stf(float* p, const float (&v)[PB]) {
+  if constexpr (PB == 4) *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  else if constexpr (PB == 2) *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  else p[0] = v[0];
+}
+
+// The update of one position chunk by one row group of the block:
+// e[r][o] -= Σ_c da[c·kp + r]·xs[c·x_ld + o], as bakp_update, but a unit
+// is PB consecutive positions × KG right-hand sides, so each load of da
+// and of x feeds PB·KG FMAs (PB 4, 2 or 1 as there are at least 4, 2 or
+// 1 groups of KG, so that the units still fill the CTA).  first / last:
+// the sums start from zero, else from the tile s (k rows of stride P in
+// shared memory), where the earlier groups left them; the last group
+// takes them from e once (in shared or device memory), its loads of e
+// issued before the rows' FMAs (PB-wide where e16: e's rows 16-byte
+// aligned), and the others leave them in s.  With the slice in shared
+// memory every group is first and last, and s is unused.  Each sum is one
+// FMA chain over its rows in order, as bakp_update's over a group's.  A
+// thread's units are the same in every group of a chunk (np and k fixed),
+// so each thread reads back only what it wrote.  Positions past np read
+// stale x from the stage (P is a multiple of 32) and are never written to
+// e.
+template <int KG, int PB, typename TX>
+__device__ __forceinline__ void sweep_update_dev(const TX* __restrict__ xs, int x_ld,
+                                                 int rows, float* __restrict__ s, int P,
+                                                 float* __restrict__ e, int e_ld, bool e16,
+                                                 const float* __restrict__ da, int kp,
+                                                 int k, int np, bool first, bool last) {
+  constexpr int CU = 4 / KG;             // columns a 16-byte load of da covers
+  const int H = (k + KG - 1) / KG;
+  const int nq = (np + PB - 1) / PB;     // groups of PB positions
+  const int units = nq * H;
+  const int rows4 = rows / CU * CU;
+  for (int u = threadIdx.x; u < units; u += blockDim.x) {
+    const int h = u / nq, o = PB * (u - h * nq);
+    const int r0 = h * KG;
+    const bool whole = e16 && np - o >= PB;
+    float ev[KG][PB], eo[KG][PB];
+#pragma unroll
+    for (int j = 0; j < KG; ++j) {
+      const bool real = r0 + j < k;
+      float* er = e + (size_t)(r0 + j) * e_ld + o;
+      if (real && !first) sweep_ldx<PB>(s + (size_t)(r0 + j) * P + o, ev[j]);
+      else
+#pragma unroll
+        for (int i = 0; i < PB; ++i) ev[j][i] = 0.f;
+      if (real && last && whole) sweep_ldx<PB>(static_cast<const float*>(er), eo[j]);
+      else
+#pragma unroll
+        for (int i = 0; i < PB; ++i) eo[j][i] = real && last && o + i < np ? er[i] : 0.f;
+    }
+    const float* dp = da + r0;
+    const TX* xo = xs + o;
+    // Eight loads of da (8·CU rows of x) issued ahead of their FMAs at PB
+    // 1, where a unit has only KG FMAs a load of x; four where it has more.
+#pragma unroll(PB == 1 ? 8 : 4)
+    for (int col = 0; col < rows4; col += CU) {
+      const float4 d = *reinterpret_cast<const float4*>(dp + (size_t)col * kp);
+      const float dv[4] = {d.x, d.y, d.z, d.w};
+#pragma unroll
+      for (int cu = 0; cu < CU; ++cu) {
+        float xv[PB];
+        sweep_ldx<PB>(xo + (size_t)(col + cu) * x_ld, xv);
+#pragma unroll
+        for (int j = 0; j < KG; ++j)
+#pragma unroll
+          for (int i = 0; i < PB; ++i) ev[j][i] = fmaf(dv[cu * KG + j], xv[i], ev[j][i]);
+      }
+    }
+    for (int col = rows4; col < rows; ++col) {
+      float xv[PB];
+      sweep_ldx<PB>(xo + (size_t)col * x_ld, xv);
+#pragma unroll
+      for (int j = 0; j < KG; ++j) {
+        const float dj = dp[(size_t)col * kp + j];
+#pragma unroll
+        for (int i = 0; i < PB; ++i) ev[j][i] = fmaf(dj, xv[i], ev[j][i]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < KG; ++j) {
+      if (r0 + j >= k) continue;
+      if (!last) {
+        sweep_stf<PB>(s + (size_t)(r0 + j) * P + o, ev[j]);
+        continue;
+      }
+#pragma unroll
+      for (int i = 0; i < PB; ++i) eo[j][i] -= ev[j][i];
+      float* er = e + (size_t)(r0 + j) * e_ld + o;
+      if (whole) sweep_stf<PB>(er, eo[j]);
+      else
+#pragma unroll
+        for (int i = 0; i < PB; ++i)
+          if (o + i < np) er[i] = eo[j][i];
+    }
+  }
 }
 
 template <int KC, bool E_SMEM, typename TX>
@@ -81,14 +220,23 @@ __global__ void BAKP_BOUNDS(TX) bakp_sweep_kernel(SweepParams p) {
   const int NS = p.stages;
   const TX* x_t = static_cast<const TX*>(p.x_t);
   TX* ring = reinterpret_cast<TX*>(c.rest);
+  // A stage is SWEEP_ROWS × P of x, then (device-e path) KE × P of e (as
+  // TX elements: SX in all).
+  const int KE = E_SMEM ? 0 : (k < KC ? k : KC);
+  const size_t SX = (size_t)SWEEP_ROWS * P + (size_t)KE * P * (sizeof(float) / sizeof(TX));
+  auto stage_e = [&](long long q) {
+    return reinterpret_cast<float*>(ring + (size_t)(q % NS) * SX + (size_t)SWEEP_ROWS * P);
+  };
   float* eb;                           // the residual slice, row stride es
   int es;
+  float* et = nullptr;                 // device-e path: the update's k × P tile
   if constexpr (E_SMEM) {
-    eb = reinterpret_cast<float*>(ring + (size_t)NS * SWEEP_ROWS * P);
+    eb = reinterpret_cast<float*>(ring + (size_t)NS * SX);
     es = L;
   } else {
     eb = p.e_out + c.o0;
     es = obs;
+    et = reinterpret_cast<float*>(ring + (size_t)NS * SX);
   }
   for (int r = 0; r < k; ++r)
     for (int i = threadIdx.x; i < n; i += blockDim.x)
@@ -102,20 +250,56 @@ __global__ void BAKP_BOUNDS(TX) bakp_sweep_kernel(SweepParams p) {
   const int Q = (nrc + 1) * per;       // chunks of a block
   const long long total = (long long)nblocks * Q;
 
+  // Chunk q is block b, KC chunk rc of the partials (-1 in the update
+  // pass, position chunk outermost), row group g, position chunk pc.
+  struct Chunk {
+    int b, rc, g, pc;
+  };
+  auto chunk = [&](long long q) -> Chunk {
+    Chunk h;
+    h.b = (int)(q / Q);
+    int w = (int)(q - (long long)h.b * Q);
+    if (w < nrc * per) {
+      h.rc = w / per;
+      w -= h.rc * per;
+      h.g = w / NPC;
+      h.pc = w - h.g * NPC;
+    } else {
+      h.rc = -1;
+      w -= nrc * per;
+      h.pc = w / NG;
+      h.g = w - h.pc * NG;
+    }
+    return h;
+  };
+  // Device-e path: whether partials chunk h (q) would be copied (at take
+  // q - NS + 1, or before the first take) before the update of block b - 1
+  // has written its positions (in chunk W, the last row group of position
+  // chunk pc); block 0 reads e_in, which nothing writes.
+  auto sweep_e_late = [&](long long q, const Chunk& h) {
+    if (h.rc < 0 || h.b == 0) return false;
+    const long long W = (long long)(h.b - 1) * Q + nrc * per + (long long)h.pc * NG + NG - 1;
+    return q - NS + 1 <= W;
+  };
+  // The partials' e rows of chunk h: e_in for block 0, else e_out.
+  auto e_src = [&](const Chunk& h) {
+    return (h.b == 0 ? p.e_in : p.e_out) + (size_t)h.rc * KC * obs + c.o0 + h.pc * P;
+  };
+
   // Issue the copies of chunk q into its stage, as one commit group (an
   // empty one past the last chunk).
   auto fetch = [&](long long q) {
     if (q < total) {
-      const int b = (int)(q / Q);
-      int w = (int)(q - (long long)b * Q);
-      w = w < nrc * per ? w % per : w - nrc * per;
-      const int g = w / NPC, pc = w - g * NPC;
-      const int rows = CB - g * SWEEP_ROWS < SWEEP_ROWS ? CB - g * SWEEP_ROWS : SWEEP_ROWS;
-      const int p0 = pc * P;
+      const Chunk h = chunk(q);
+      const int rows = CB - h.g * SWEEP_ROWS < SWEEP_ROWS ? CB - h.g * SWEEP_ROWS : SWEEP_ROWS;
+      const int p0 = h.pc * P;
       const int np = n - p0 < P ? n - p0 : P;
-      TX* stage = ring + (size_t)(q % NS) * SWEEP_ROWS * P;
-      const TX* src = x_t + (size_t)(b * CB + g * SWEEP_ROWS) * obs + c.o0 + p0;
-      cp_async_rows_b(stage, P, src, obs, rows, np, p.xw);
+      const TX* src = x_t + (size_t)(h.b * CB + h.g * SWEEP_ROWS) * obs + c.o0 + p0;
+      cp_async_rows_b(ring + (size_t)(q % NS) * SX, P, src, obs, rows, np, p.xw);
+      if (!E_SMEM && h.rc >= 0 && !sweep_e_late(q, h)) {
+        const int kc = k - h.rc * KC < KC ? k - h.rc * KC : KC;
+        cp_async_rows_b(stage_e(q), P, e_src(h), obs, kc, np, p.ew);
+      }
     }
     cp_async_commit();
   };
@@ -124,8 +308,22 @@ __global__ void BAKP_BOUNDS(TX) bakp_sweep_kernel(SweepParams p) {
   auto take = [&](long long q) -> const TX* {
     cp_async_wait_n(NS - 2);
     __syncthreads();
+    if constexpr (!E_SMEM) {
+      const Chunk h = chunk(q);
+      if (sweep_e_late(q, h)) {        // its e, written before this barrier
+        const int kc = k - h.rc * KC < KC ? k - h.rc * KC : KC;
+        const int np = n - h.pc * P < P ? n - h.pc * P : P;
+        const float* src = e_src(h);
+        float* dst = stage_e(q);
+        for (int i = threadIdx.x; i < kc * np; i += blockDim.x) {
+          const int r = i / np, o = i - r * np;
+          dst[(size_t)r * P + o] = src[(size_t)r * obs + o];
+        }
+        __syncthreads();
+      }
+    }
     fetch(q + NS - 1);
-    return ring + (size_t)(q % NS) * SWEEP_ROWS * P;
+    return ring + (size_t)(q % NS) * SX;
   };
 
   for (int s = 0; s < NS - 1; ++s) fetch(s);
@@ -154,9 +352,18 @@ __global__ void BAKP_BOUNDS(TX) bakp_sweep_kernel(SweepParams p) {
 #endif
           const int p0 = pc * P;
           const int np = n - p0 < P ? n - p0 : P;
+          const float* ep;             // the chunk's e rows r0.., row stride eld
+          int eld;
+          if constexpr (E_SMEM) {
+            ep = eb + (size_t)r0 * es + p0;
+            eld = es;
+          } else {
+            ep = stage_e(q);
+            eld = P;
+          }
           if (rows > 0)
-            bakp_acc<KC, E_SMEM>(stage + (size_t)warp * BAKP_CT * P, P, rows,
-                                 eb + (size_t)r0 * es + p0, es, np, kc, acc);
+            bakp_acc<KC, true>(stage + (size_t)warp * BAKP_CT * P, P, rows, ep, eld, np, kc,
+                               acc);
 #ifdef BAKP_PHASE_CLOCKS
           fma_ += clock64() - f0_;
 #endif
@@ -178,14 +385,29 @@ __global__ void BAKP_BOUNDS(TX) bakp_sweep_kernel(SweepParams p) {
 #ifdef BAKP_PHASE_CLOCKS
     bakp_t0_ = clock64();
 #endif
-    for (int g = 0; g < NG; ++g) {
-      const int rows = CB - g * SWEEP_ROWS < SWEEP_ROWS ? CB - g * SWEEP_ROWS : SWEEP_ROWS;
-      for (int pc = 0; pc < NPC; ++pc, ++q) {
-        const TX* stage = take(q);
+    {
+      constexpr int KG = BAKP_KG(KC);
+      const int HG = (k + KG - 1) / KG;  // the update's groups of KG right-hand sides
+      const bool e16 = E_SMEM || p.ew == 16;
+      for (int pc = 0; pc < NPC; ++pc) {
         const int p0 = pc * P;
         const int np = n - p0 < P ? n - p0 : P;
-        bakp_update<BAKP_KG(KC)>(stage, P, rows, eb + p0, es,
-                                 c.da + (size_t)g * SWEEP_ROWS * c.kp, c.kp, k, np);
+        for (int g = 0; g < NG; ++g, ++q) {
+          const int rows = CB - g * SWEEP_ROWS < SWEEP_ROWS ? CB - g * SWEEP_ROWS : SWEEP_ROWS;
+          const TX* stage = take(q);
+          const float* dag = c.da + (size_t)g * SWEEP_ROWS * c.kp;
+          // With the slice in shared memory each group updates it in place.
+          const bool first = E_SMEM || g == 0, last = E_SMEM || g == NG - 1;
+          if (HG >= 4)
+            sweep_update_dev<KG, 4>(stage, P, rows, et, P, eb + p0, es, e16, dag, c.kp, k, np,
+                                    first, last);
+          else if (HG >= 2)
+            sweep_update_dev<KG, 2>(stage, P, rows, et, P, eb + p0, es, e16, dag, c.kp, k, np,
+                                    first, last);
+          else
+            sweep_update_dev<KG, 1>(stage, P, rows, et, P, eb + p0, es, e16, dag, c.kp, k, np,
+                                    first, last);
+        }
       }
     }
     BAKP_CLOCK(6);
@@ -240,7 +462,10 @@ static int sweep_launch(const TX* x_t, const float* inv_cn, const float* e_in, f
   SweepParams p{x_t, inv_cn, e_in, e_out, da,
                 regime == BAKP_SINGLE_CLUSTER ? nullptr : xchg, tag0,
                 nvars, obs, k, block, omega,
-                cp_bytes(x_t, (long long)obs * sizeof(TX), 16), stages};
+                cp_bytes(x_t, (long long)obs * sizeof(TX), 16),
+                cp_bytes(e_in, (long long)obs * 4, 16) == 16 &&
+                        cp_bytes(e_out, (long long)obs * 4, 16) == 16 ? 16 : 4,
+                stages};
   return (int)cl_launch((void (*)(SweepParams))sweep_pick<TX>(k, e_smem != 0), p, ctas,
                         cluster, regime != BAKP_SINGLE_CLUSTER, s, stream);
 }

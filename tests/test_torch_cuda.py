@@ -72,7 +72,12 @@ def _want_plan(obs, cluster):
     (8, 32, 200000, 64, 16, "shared"),
     (9, 16, 200000, 32, 16, "shared"),      # two KC chunks
     (8, 32, 1000003, 32, 16, "device"),     # e in device memory; odd obs
-])
+    # e in device memory, staged with x: two KC chunks, 4-byte copies
+    (16, 128, 1000003, 256, 8, "device"),
+    (12, 128, 1000003, 256, 8, "device"),   # a ragged KC chunk
+    (16, 128, 1048576, 256, 8, "device"),   # the tall cells' obs: 16 bytes
+    (50, 8, 80000, 64, 8, "device"),        # 3 position chunks, 4 stages:
+])                                          # e copied at its turn
 def test_sweep_kernel_matches_plain(cuda, monkeypatch, k, block, obs, nvars,
                                     cluster, e_in):
     import importlib
@@ -90,6 +95,10 @@ def test_sweep_kernel_matches_plain(cuda, monkeypatch, k, block, obs, nvars,
     plan = _build.PLANS["bakp_sweep"]
     assert (plan.regime, plan.clusters) == _want_plan(obs, cluster)
     assert plan.ctas == plan.cluster * plan.clusters and plan.e_in == e_in
+    if (k, obs) == (50, 80000):
+        # More ring stages than position chunks: a partials chunk's e is
+        # copied at its turn (sweep_e_late in csrc/bakp_sweep.cu).
+        assert plan.stages > -(-plan.L // min(plan.L, 256))
     pda, pe2 = bakp_sweep_plain(x_t, e, inv, block=block)
     assert _within(da, pda) and _within(e2, pe2, scale=e)
 
@@ -298,6 +307,8 @@ def test_handle_on_card(cuda):
     (9, 5003, "single_cluster", "shared"),   # two KC chunks, a ragged slice
     (8, 200000, "multi_cluster", "registers"),
     (8, 1000003, "e_device", "device"),
+    (16, 1000003, "e_device", "device"),
+    (12, 1000003, "e_device", "device"),    # a ragged KC chunk
     (8, 3600003, "x_device", "device")])
 def test_cd_sweep_kernel_matches_plain(cuda, k, obs, regime, e_in):
     """The plan's regime at each shape: one cluster holding the residual
@@ -529,6 +540,27 @@ def test_stream_entry_dispatch_on_card(cuda, monkeypatch, smem, path):
     assert _within(r.coef, a)
 
 
+def test_stream_k16_e_device_matches_plain_solve(cuda):
+    """A coalesced group of 16 on a design too tall for the streaming
+    kernel: ``bakp_stream`` runs the per-sweep kernel with e in device
+    memory (staged through the ring with x) and matches the plain
+    Algorithm 2 sweep for sweep."""
+    from repro_torch.core.solvebakp import solvebakp
+    x, a, y = _system(58, 1000003, 256, 16, cuda)
+    spec = SolverSpec(method="bakp_stream", thr=128, rtol=0.0, max_iter=8)
+    p = prepare(x, spec)
+    _build.reset_launch_counts()
+    consume_dispatch()
+    r = p.solve(y)
+    assert consume_dispatch() == "persweep"
+    assert _build.launch_counts()["bakp_sweep"] == 8
+    assert _build.PLANS["bakp_sweep"].e_in == "device"
+    ref = solvebakp(x, y, thr=128, rtol=0.0, max_iter=8, mode="jacobi")
+    assert int(r.n_sweeps) == int(ref.n_sweeps) == 8
+    assert _within(r.coef, ref.coef, tol=1e-5)
+    assert _within(r.history, ref.history, tol=1e-5)
+
+
 def test_stream_handles_on_card(cuda):
     from repro_torch.core import UnsupportedSpecError, prepared_from_arrays
     x, a, y = _system(54, 8192, 200, None, cuda)   # 200 % 64: padded
@@ -607,6 +639,8 @@ def test_bf16_fused_kernel_regimes_match_plain(cuda, k, obs, nvars, block,
     (8, 32, 200000, 64, 16, "shared"),
     (9, 16, 200000, 32, 16, "shared"),      # two KC chunks
     (8, 32, 1000003, 32, 16, "device"),     # e in device memory; odd obs
+    (16, 128, 1000003, 256, 8, "device"),   # e staged with x, two KC chunks
+    (12, 128, 1000003, 256, 8, "device"),   # a ragged KC chunk
 ])
 def test_bf16_sweep_kernel_matches_plain(cuda, monkeypatch, k, block, obs,
                                          nvars, cluster, e_in):
@@ -635,6 +669,8 @@ def test_bf16_sweep_kernel_matches_plain(cuda, monkeypatch, k, block, obs,
     (9, 5003, "single_cluster", "shared"),      # odd obs: 2-byte copies
     (8, 200000, "multi_cluster", "registers"),
     (8, 1000003, "e_device", "device"),
+    (16, 1000003, "e_device", "device"),
+    (12, 1000003, "e_device", "device"),
     (8, 7200003, "x_device", "device")])        # a bf16 ring fits at 3.6M
 def test_bf16_cd_sweep_kernel_matches_plain(cuda, k, obs, regime, e_in):
     rng = np.random.default_rng(63)

@@ -314,6 +314,53 @@ def test_fused_plan_reads_large_blocks_in_place():
         _CD.bakp_plan("fused", 256, 1, 32_768, nvars=32_768)
 
 
+# ------------------------------------------------- the per-sweep kernel's plan
+def _sweep_smem_floats(obs, ctas, cluster, k, block, e_smem, stages, xsize):
+    """csrc/bakp_sweep.cu::sweep_smem_floats (with sweep_ke and
+    bakp_pick_kc), line for line."""
+    length = _CD.slice_len(obs, ctas)
+    pos = min(length, 256)
+    kc = 1 if k == 1 else 2 if k == 2 else 4 if k <= 4 else 8
+    ke = 0 if e_smem else min(k, kc)
+    own = _CD.bakp_own(block, k, cluster)
+    hdr = 60 + 3 * cluster * own + own
+    return (hdr + stages * (32 * pos * xsize // 4 + ke * pos)
+            + k * (length if e_smem else pos))
+
+
+@pytest.mark.parametrize("cell,obs,k,e_in,stages,smem", [
+    ("tall.shared", 1 << 20, 16, "device", 4, 206_064),
+    ("tall.solo", 1 << 20, 1, "shared", 5, 200_752),
+    ("tall1e4.shared", 1 << 17, 16, "shared", 4, 228_592)])
+def test_sweep_plan_smem_is_the_kernels_formula(cell, obs, k, e_in, stages,
+                                                smem):
+    """The benchmark cells' per-sweep plans (padded obs, thr 128, fp32, the
+    H100's 132 SMs): the shared memory ``bakp_plan`` asks for is what the
+    kernel carves (its launch refuses less).  tall.shared's residual slice
+    (16 x 8,768 floats) is in device memory, and each of its 4 stages
+    carries 8 rows of e beside 32 rows of x, plus the update's 16 x 256
+    tile; the other two keep the slice in shared memory."""
+    plan = _CD.bakp_plan("sweep", obs, k, 128, max_ctas=132)
+    assert (plan.e_in, plan.stages, plan.smem) == (e_in, stages, smem)
+    assert (plan.ctas, plan.cluster) == (120, 8)
+    assert 4 * _sweep_smem_floats(obs, plan.ctas, plan.cluster, k, 128,
+                                  e_in == "shared", stages, 4) == smem
+    assert smem <= _CD.SMEM_PER_CTA_BYTES
+
+
+@pytest.mark.parametrize("obs,k,block,itemsize", [
+    (1_000_003, 12, 128, 4), (1_000_003, 16, 128, 2), (80_000, 50, 8, 4),
+    (262_144, 8, 256, 4), (200_000, 9, 16, 2)])
+def test_sweep_plan_smem_matches_the_kernel_elsewhere(obs, k, block,
+                                                      itemsize):
+    """The card tests' shapes (both places of e, fp32 and bf16 x)."""
+    plan = _CD.bakp_plan("sweep", obs, k, block, itemsize=itemsize,
+                         cluster=8)
+    assert 4 * _sweep_smem_floats(obs, plan.ctas, plan.cluster, k, block,
+                                  plan.e_in == "shared", plan.stages,
+                                  itemsize) == plan.smem
+
+
 # ------------------------------------------------------------- dispatch
 @pytest.mark.parametrize("budget,max_iter,path,reason", [
     (None, 30, "fused", None),

@@ -3,8 +3,10 @@
 
     python3 tools/bakp_phase_split.py                      # the cluster design
     mkdir -p old && git archive 4d81b73 src/repro_torch/kernels/csrc | tar -x -C old
-    python3 tools/bakp_phase_split.py --design grid \
-        --csrc old/src/repro_torch/kernels/csrc            # the design before
+    python3 tools/bakp_phase_split.py --design grid --src old/src  # the design before
+    python3 tools/bakp_phase_split.py --cases tall         # the tall sweeps
+    mkdir -p new && git archive <commit> src | tar -x -C new
+    python3 tools/bakp_phase_split.py --cases tall --src new/src
 
 Times the phases of one column-block step of ``stream_solve``,
 ``bakp_sweep`` and ``fused_solve`` with ``clock64`` stamps of thread 0 of
@@ -20,7 +22,8 @@ partials), so the split is a share of a stamped step; ``--no-clocks``
 gives the times without them.
 
 ``--design grid`` copies the grid-barrier design's ``csrc`` (commit
-4d81b73), adds the stamps to its ``bakp_block.cuh`` and ``stream_solve.cu``
+4d81b73; ``repro_torch/kernels/csrc`` under ``--src``), adds the stamps
+to its ``bakp_block.cuh`` and ``stream_solve.cu``
 by text edits and calls the C entries through ``ctypes`` (the streaming
 solve and the sweep; ``tools/stop_witness.py`` also builds that design's
 whole-solve kernel, unstamped).  Phases: ring
@@ -41,6 +44,16 @@ per-sweep SSE exchange spread over the sweep's steps.
 ``--no-clocks`` builds either design as it is (no stamps) and prints only
 the times, so that the two designs can be compared unstamped in one run
 on one card (parent, this tree, this tree, parent).
+
+``--cases tall`` times ``bakp_sweep`` alone on the padded designs of the
+benchmark's two configurations at thr 128, fp32: ``tall_1000000x1000``'s
+(1,024 x 2^20, 4.3 GB) at k 1, 2, 4, 8 and 16, the right-hand sides one
+coalesced group of the serving path carries, and ``tall_100000x10000``'s
+(16,384 x 2^17, 8.6 GB) at k 16; each row's plan (where e lives, the
+ring's depth, the shared memory) is printed before it.  ``--src`` takes
+the ``repro_torch`` package (launch plans and kernel sources both) from
+another ``src`` directory, e.g. a ``git archive`` of the parent commit,
+so that two trees are timed on their own plans in one call.
 """
 from __future__ import annotations
 
@@ -69,6 +82,9 @@ CASES = [("bakp_sweep", 256, 16384, 128, 1),
          ("fused_solve", 256, 16384, 128, 1),
          ("fused_solve", 256, 16384, 128, 8),
          ("fused_solve", 512, 16384, 128, 8)]
+# The tall configurations' padded designs, at each coalesced group's k.
+TALL_CASES = [*(("bakp_sweep", 1024, 1 << 20, 128, k) for k in (1, 2, 4, 8, 16)),
+              ("bakp_sweep", 16384, 1 << 17, 128, 16)]
 # Kernels the grid-barrier design is stamped in.
 GRID_KERNELS = ("bakp_sweep", "stream_solve")
 SWEEPS = 20
@@ -298,9 +314,11 @@ def cluster_launcher(name, x_t, inv, e, nv, no, block, k, torch,
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--design", choices=("cluster", "grid"), default="cluster")
-    ap.add_argument("--csrc", type=Path,
-                    default=ROOT / "src/repro_torch/kernels/csrc",
-                    help="csrc directory of the grid-barrier design")
+    ap.add_argument("--src", type=Path, default=ROOT / "src",
+                    help="the src directory whose repro_torch package is "
+                    "timed (cluster: plans and kernels; grid: its csrc)")
+    ap.add_argument("--cases", choices=("default", "tall"), default="default",
+                    help="the shapes: chip_smoke.py's, or the tall sweeps")
     ap.add_argument("--work", type=Path,
                     default=ROOT / "src/repro_torch/kernels/build/bakp_phase_split",
                     help="build and output directory (git-ignored by default)")
@@ -325,18 +343,20 @@ def main() -> int:
     args.work.mkdir(parents=True, exist_ok=True)
     design = args.design
     if design == "grid":
-        src = instrument(args.csrc, args.work) if args.clocks else args.csrc
+        csrc = args.src / "repro_torch/kernels/csrc"
+        src = instrument(csrc, args.work) if args.clocks else csrc
         libs = {n: build_grid(src, args.work, n, args.clocks)
                 for n in GRID_KERNELS}
     else:
-        sys.path.insert(0, str(ROOT / "src"))
+        sys.path.insert(0, str(args.src.resolve()))
         from repro_torch.kernels import _build
         if args.clocks:
             _build.NVCC_FLAGS.append("-DBAKP_PHASE_CLOCKS")
         _build.build_all(["bakp_sweep", "stream_solve", "fused_solve"])
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     rows = []
-    for name, nv, no, block, k in CASES:
+    for name, nv, no, block, k in (TALL_CASES if args.cases == "tall"
+                                   else CASES):
         if ((design == "grid" and name not in GRID_KERNELS)
                 or (args.kernels is not None and name not in args.kernels)):
             continue
@@ -354,6 +374,9 @@ def main() -> int:
             if args.clocks:
                 lib.bakp_phase_clocks.argtypes = [_P, _I]
                 lib.bakp_phase_clocks.restype = _I
+            print(f"plan {name} {nv}x{no} k {k}: e_in {plan['e_in']} stages "
+                  f"{plan['stages']} smem {plan['smem']} ctas {plan['ctas']} "
+                  f"L {plan['L']}", flush=True)
         for _ in range(2):
             if launch():
                 raise RuntimeError(f"{name} launch failed")
@@ -376,7 +399,7 @@ def main() -> int:
         torch.cuda.synchronize()
         ms = start.elapsed_time(end) / iters
         if clocks is None:
-            row = {"design": design, "clocks": False,
+            row = {"design": design, "src": str(args.src), "clocks": False,
                    "zeroed": args.zero_exchange, "kernel": name,
                    "vars": nv, "obs": no, "block": block, "k": k,
                    "plan": plan, "ms": ms}
@@ -390,7 +413,8 @@ def main() -> int:
         steps = buf[8] / iters
         cyc = [buf[i] / buf[8] for i in range(nph)]
         us_step = ms * 1e3 / steps
-        row = {"design": design, "kernel": name, "vars": nv, "obs": no,
+        row = {"design": design, "src": str(args.src), "kernel": name,
+               "vars": nv, "obs": no,
                "block": block, "k": k, "plan": plan, "ms": ms,
                "steps_per_launch": steps, "us_per_step": us_step,
                "cycles_per_step": sum(cyc),
@@ -400,6 +424,10 @@ def main() -> int:
         rows.append(row)
         del x_t, e
     tag = design if args.clocks else f"{design}-noclocks"
+    if args.cases != "default":
+        tag += f"-{args.cases}"
+    if args.src.resolve() != (ROOT / "src").resolve():
+        tag += "-" + args.src.resolve().parent.name
     if args.zero_exchange:
         tag += "-zeroed"
     (args.work / f"split-{tag}.json").write_text(json.dumps(
